@@ -1,0 +1,625 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port of the XLB serving datapath on one
+NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
+
+Phases (each prints one line; any failure exits non-zero):
+
+1. the card's name and power limit (nvidia-smi) and the kernel build;
+2. each kernel, called through its public wrapper in ``kernels/ops.py``,
+   against its plain PyTorch version on the same card tensors, bit-exact
+   on every integer output and both f32 EWMAs: ``admit_commit`` and ``admit``
+   over all six policies, drains, held rows and a ragged batch, at the
+   serving shape and a small pool; ``complete`` with warm EWMAs; plus the
+   decode model on the card against the CPU within rtol = atol = 1e-4;
+3. the main path: ``ServeLoop`` over the port's ``Engine`` at the full
+   width of ``xlb-service-model`` with 64 instance lanes x 16 slots (1024
+   concurrent connections), admit batches of 256, ``max_len`` 32, one
+   cluster per policy plus a 50-endpoint cluster, several thousand
+   requests drained to completion and timed with CUDA events; then a
+   separate pass under torch.profiler for the device's busy share;
+4. the kernel launch counts of the main path.
+
+Then one JSON line of per-kernel numbers, and as the last line
+``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
+without one, or without the port's sources beside this file.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+# H100 SXM data-sheet peaks: HBM3 bytes/s, non-tensor f32 operations/s
+MEM_BPS = 3.35e12
+OPS_PS = 67e12
+
+I_LANES, SLOTS, ADMIT_R, MAX_LEN = 64, 16, 256, 32
+N_REQUESTS, N_UNROUTABLE, ARRIVALS_PER_TICK = 4096, 64, 34
+PROFILE_FROM, PROFILE_TICKS = 60, 20    # the separate profiled pass
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+# --------------------------------------------------------------------------- #
+# helpers
+# --------------------------------------------------------------------------- #
+
+
+def gpu_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int = 50, warm: int = 5) -> float:
+    """Mean device-timeline ms per call over ``reps`` back-to-back calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def device_events(torch, fn):
+    """Run ``fn`` under torch.profiler (CUDA activity only) and return
+    (wall us, {device event name: total us})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e6
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us()
+    return wall, by_name
+
+
+def kernel_ms(torch, fn, key: str, reps: int = 20):
+    """Device ms per call of the kernels whose name contains ``key``
+    (profiler), or None where the profiler sees none."""
+    fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    _, by_name = device_events(torch, run)
+    us = sum(t for n, t in by_name.items() if key in n)
+    return us / 1e3 / reps if us else None
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def max_abs_err(torch, pairs) -> float:
+    """Fail unless every (name, got, want) pair is equal in dtype, shape
+    and value; the largest absolute difference (0.0 when they agree)."""
+    err = 0.0
+    for n, a, b in pairs:
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"field {n}: {a.dtype}{tuple(a.shape)} vs "
+                 f"{b.dtype}{tuple(b.shape)}")
+        if not torch.equal(a, b):
+            fail(f"field {n} differs from the plain version")
+        err = max(err, float((a.double() - b.double()).abs().max())
+                  if a.numel() else 0.0)
+    return err
+
+
+def launch_floor(torch, lib, n: int = 2000):
+    """The least device time of one launch on this card: (ms of one empty
+    kernel as the profiler times it, the same clock as each kernel's
+    ``ms``; ms between n back-to-back empty launches from one C loop,
+    events-timed: the rate at which the host can issue them)."""
+    st = torch.cuda.current_stream().cuda_stream
+
+    def launch(k):
+        check(lib.xlb_empty_launches(k, st) == 0,
+              "empty kernel did not launch")
+
+    device = kernel_ms(torch, lambda: launch(1), "empty_kernel", reps=200)
+    check(device is not None, "the profiler saw no empty kernel")
+    launch(10)
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    launch(n)
+    e.record()
+    e.synchronize()
+    return device, s.elapsed_time(e) / n
+
+
+def admit_work(torch, RT, PD, routing, rid, svc, feats, free, res, commit):
+    """(bytes, operations) the admission kernel needs for this batch and
+    its result: each input element it reads once, each output element
+    written once.  Of the tables it reads only what the batch indexes
+    (csrc/admit.cu): the drain bits of the windows of the clusters the
+    rows resolve to, one Maglev entry per distinct (cluster, key) of the
+    maglev and affinity rows, the eligible Gumbel lanes and weights of
+    the weighted rows, and at most the whole rule chain of each service
+    asked for (the walk stops at the first match)."""
+    R, F = feats.shape
+    S, E = routing.svc_rule_start.shape[0], routing.ep_load.shape[0]
+    CL, A = routing.cluster_ep_count.shape[0], routing.aff_key.shape[0]
+    T = routing.maglev_table.shape[1]
+    I, C = free.shape
+    WE = RT.MAX_EPS_PER_CLUSTER
+    cc = routing.cluster_ep_count.long()
+    cs = routing.cluster_ep_start.long()
+    cl = res.cluster.long().clamp(0, CL - 1)     # every row reads a cluster
+    pol = routing.cluster_policy.long()[cl]
+    routable = res.endpoint != -1
+    ok = res.ok > 0
+    win = torch.arange(WE, device=cl.device)
+    eidx = (cs[cl][:, None] + win).clamp(0, E - 1)
+    eok = (win < cc[cl][:, None]) & (routing.ep_drained[eidx] == 0)
+    wt = routable & (pol == RT.POLICY_WEIGHTED)
+    ucl = cl.unique()
+    sv = svc[rid >= 0].long().clamp(0, S - 1).unique()
+    fkey = PD.flow_hash(feats).long()
+    mrow = routable & ((pol == RT.POLICY_MAGLEV)
+                       | (pol == RT.POLICY_AFFINITY))
+    ints = (R * (2 + F)                                  # rid, svc, features
+            + int((ok & (svc < S)).sum())                # msg_bytes
+            + (int(ok.sum()) if commit else 0)           # prompt token
+            + int((routable & (pol == RT.POLICY_RANDOM)).sum())   # rnd
+            + 2 * len(sv)
+            + 3 * int(routing.svc_rule_count.long()[sv]
+                      .clamp(max=RT.MAX_RULES_PER_SVC).sum())
+            + 2 * CL + 2 * len(ucl)                      # cc, cursors; cs, cp
+            + int(cc[ucl].clamp(max=WE).sum())           # drain bits
+            + int(res.endpoint[routable].clamp_min(0).unique().numel())
+            + E + 2 * A                                  # ep_load, aff cache
+            + int((cl[mrow] * T + fkey[mrow] % T).unique().numel()))
+    floats = int(eok[wt].sum()) + int(eidx[eok & wt[:, None]].unique()
+                                      .numel())
+    bytes_in = 4 * (ints + floats) + I * C + (5 * 4 * I * C if commit else 0)
+    # integer operations: the hash, the rule walk, the window scan, the
+    # three in-tile rank counts over earlier rows, the slot scan, and the
+    # least-request search (~10 passes over the window)
+    pos = torch.arange(R) % 256
+    ops = (R * (2 * F + RT.MAX_RULES_PER_SVC + 2 * WE + C)
+           + 3 * int(pos.sum())
+           + 10 * WE * int((routable & (pol == RT.POLICY_LEAST_REQUEST))
+                           .sum()))
+    return bytes_in + nbytes(*res), ops
+
+
+def routing_config(RT, device):
+    """One service per policy (8 endpoints each over lanes 8i..8i+7), a
+    50-endpoint least-request cluster over lanes 14..63 (bookinfo's
+    productpage), and a service whose only rule no request matches."""
+    services, clusters = [], []
+    for p in range(6):
+        services.append(RT.ServiceConfig(
+            f"svc{p}", [RT.Rule(0, f"/api/{p}", f"pol{p}"),
+                        RT.Rule(1, None, f"pol{p}")]))
+        clusters.append(RT.Cluster(
+            f"pol{p}", [8 * p + k for k in range(8)], policy=p,
+            weights=[1.0 + k for k in range(8)]))
+    services.append(RT.ServiceConfig("productpage",
+                                     [RT.Rule(0, None, "productpage")]))
+    clusters.append(RT.Cluster("productpage", list(range(14, 64)),
+                               policy=RT.POLICY_LEAST_REQUEST))
+    services.append(RT.ServiceConfig("closed",
+                                     [RT.Rule(0, "/never", "pol0")]))
+    return RT.build_state(services, clusters, device)
+
+
+# --------------------------------------------------------------------------- #
+# phase 2: kernels against their plain versions on the card
+# --------------------------------------------------------------------------- #
+
+
+def admit_inputs(torch, RT, routing, R, I, C, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    S = 8
+    svc = torch.randint(0, S, (R,), generator=g, dtype=torch.int32)
+    feats = torch.randint(0, 1 << 20, (R, RT.N_FEATURES), generator=g,
+                          dtype=torch.int32)
+    hit = torch.rand(R, generator=g) < 0.5
+    feats[:, 0] = torch.where(
+        hit, torch.tensor([RT.fnv1a(f"/api/{p}") for p in range(8)],
+                          dtype=torch.int32)[svc % 8], feats[:, 0])
+    dup = torch.rand(R, generator=g) < 0.25         # repeated flows
+    src = (torch.rand(R, generator=g) * torch.arange(R)).long()
+    feats[dup] = feats[src[dup]]
+    svc[dup] = svc[src[dup]]
+    svc[torch.rand(R, generator=g) < 0.03] = 70     # rogue ids
+    rid = torch.where(torch.rand(R, generator=g) < 0.9,
+                      torch.arange(R, dtype=torch.int32), -1)
+    act = torch.rand((I, C), generator=g) < 0.5
+    pool = [torch.where(act, torch.randint(1000, 9000, (I, C), generator=g),
+                        -1).int(),
+            torch.where(act, torch.randint(0, 100, (I, C), generator=g),
+                        -1).int(),
+            torch.randint(0, S, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(0, MAX_LEN - 2, (I, C), generator=g,
+                          dtype=torch.int32),
+            torch.randint(0, 500, (I, C), generator=g, dtype=torch.int32),
+            act]
+    reqs = [rid, svc, feats,
+            torch.randint(0, 500, (R,), generator=g, dtype=torch.int32),
+            torch.randint(1, 900, (R,), generator=g, dtype=torch.int32)]
+    rnd = torch.randint(0, 1 << 30, (R,), generator=g, dtype=torch.int32)
+    gum = -torch.log(-torch.log(torch.rand((R, 64), generator=g)
+                                .clamp_min(1e-30)))
+    loads = torch.randint(0, 6, routing.ep_load.shape, generator=g,
+                          dtype=torch.int32)
+    drained = torch.zeros_like(routing.ep_drained)
+    drained[[1, 17, 33]] = 1                        # rr, lr, maglev lanes
+    routing = routing._replace(ep_load=loads, ep_drained=drained).to(dev)
+    to = lambda xs: [x.to(dev) for x in xs]
+    return (routing, to(reqs), to(pool), rnd.to(dev), gum.to(dev))
+
+
+def phase_kernels(torch, RT, PD, ops, rm, cp, B, lib, dev="cuda"):
+    """Each kernel through its public wrapper in ``kernels/ops.py`` against
+    its plain PyTorch version on the same card tensors, bit-exact."""
+    dev = torch.device(dev)
+    routing0, _ = routing_config(RT, "cpu")
+    rows, timing = [], {}
+    cases = [("serving", ADMIT_R, I_LANES, SLOTS), ("ragged", 300, 8, 4)]
+    for label, R, I, C in cases:
+        routing, reqs, pool, rnd, gum = admit_inputs(
+            torch, RT, routing0, R, I, C, seed=R, dev=dev)
+        rid, svc, feats, tok, msgb = reqs
+        fields, act = pool[:5], pool[5]
+        batch = B.RequestBatch(rid, svc, feats, tok, msgb)
+        pstate = B.PoolState(*fields, act)
+        commit = lambda: ops.admit_commit(batch, routing, pstate, rnd, gum)
+        plain_c = lambda: rm.admit_commit(rid, svc, feats, msgb, tok,
+                                          routing, *fields, act, rnd, gum)
+        k, p = commit(), plain_c()
+        torch.cuda.synchronize()
+        err_c = max_abs_err(torch, [
+            *zip(rm.AdmitResult._fields, k[:13], p[:13]),
+            *zip(B.PoolState._fields, k.pool, p[13:])])
+        pol = routing.cluster_policy[k.cluster[k.cluster >= 0].long()]
+        check(int(k.held) > 0 or label == "serving", f"{label}: no held rows")
+        check(int(k.no_route) > 0, f"{label}: no NO_ROUTE rows")
+        check(len(set(pol.tolist())) == 6, f"{label}: not every policy ran")
+        free = (torch.rand((I, C), device=dev) < 0.6).int() * 2
+        admit = lambda: ops.admit(batch, routing, free, rnd, gum)
+        plain_a = lambda: rm.admit(rid, svc, feats, msgb, routing, free,
+                                   rnd, gum)
+        k2, p2 = admit(), plain_a()
+        torch.cuda.synchronize()
+        err_a = max_abs_err(torch, zip(rm.AdmitResult._fields, k2, p2))
+        rows.append(f"admit_commit[{label} R={R} I={I} C={C}] "
+                    f"max_abs_err={err_c} ok={int(k.ok.sum())} "
+                    f"held={int(k.held)} no_route={int(k.no_route)}; "
+                    f"admit max_abs_err={err_a}")
+        if label == "serving":
+            for name, call, plain, res, mask, c, err in (
+                    ("admit_commit", commit, plain_c, p, act == 0, True,
+                     err_c),
+                    ("admit", admit, plain_a, p2, free, False, err_a)):
+                nb, nops = admit_work(torch, RT, PD, routing, rid, svc,
+                                      feats, mask, res, c)
+                timing[name] = dict(
+                    ms=kernel_ms(torch, call, "admit_kernel"),
+                    call_ms=cuda_ms(torch, call),
+                    plain_ms=cuda_ms(torch, plain, reps=5, warm=1),
+                    bytes=nb, ops=nops, err=err)
+
+    # completion at the serving shape, warm EWMAs, ~25% EOS
+    g = torch.Generator().manual_seed(7)
+    I, C, E, S = I_LANES, SLOTS, RT.MAX_ENDPOINTS, RT.MAX_SERVICES
+    act = torch.rand((I, C), generator=g) < 0.8
+    pool = [torch.where(act, torch.randint(0, 9999, (I, C), generator=g),
+                        -1).int(),
+            torch.randint(-2, E + 3, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(-1, S + 2, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(0, MAX_LEN - 1, (I, C), generator=g,
+                          dtype=torch.int32),
+            torch.randint(0, 500, (I, C), generator=g, dtype=torch.int32),
+            act]
+    nxt = torch.where(torch.rand((I, C), generator=g) < 0.25, 1,
+                      torch.randint(2, 500, (I, C), generator=g)).int()
+    load = torch.randint(3, 9, (E,), generator=g, dtype=torch.int32)
+    rx = torch.randint(0, 100, (S,), generator=g, dtype=torch.int32)
+    ewl = torch.rand(E, generator=g) * 6
+    ewt = torch.rand(E, generator=g) * 2
+    args = [t.to(dev) for t in (*pool, nxt, load, rx, ewl, ewt)]
+    pstate = B.PoolState(*args[:6])
+    call = lambda: ops.complete(pstate, *args[6:], eos=1, max_len=MAX_LEN)
+    plain = lambda: cp.complete(*args, eos=1, max_len=MAX_LEN)
+    k, p = call(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [
+        *zip(B.PoolState._fields, k.pool, p[:6]),
+        *zip(("done", "ep_load", "rx_bytes", "done_cnt", "ep_inflight_ewma",
+              "ep_tput_ewma"), k[1:], p[6:])])
+    check(int(k.done.sum()) > 0, "complete: nothing finished")
+    rows.append(f"complete[I={I} C={C}] max_abs_err={err} "
+                f"done={int(k.done.sum())}")
+    timing["complete"] = dict(
+        ms=kernel_ms(torch, call, "complete_kernel"),
+        call_ms=cuda_ms(torch, call),
+        plain_ms=cuda_ms(torch, plain),
+        bytes=nbytes(*args) + nbytes(*p), ops=I * C * 12 + E * 8, err=err)
+    floor, issue = launch_floor(torch, lib)
+    for t in timing.values():
+        t["floor_ms"], t["issue_ms"] = floor, issue
+    return rows, timing
+
+
+def phase_model(torch, cfg, TM):
+    """The decode model on the card against the CPU (f32, no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = TM.init_params(cfg, torch.Generator().manual_seed(1),
+                            torch.float32, "cpu")
+    B, L = 16, 8
+    g = torch.Generator().manual_seed(2)
+    tok = torch.randint(0, cfg.vocab, (B, 1), generator=g, dtype=torch.int32)
+    lengths = torch.randint(0, L - 1, (B,), generator=g, dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _to(torch, params, dev)
+        cache = TM.init_cache(cfg, B, L, torch.float32, dev)
+        logits, _ = TM.decode_step(cfg, p, tok.to(dev), lengths.to(dev),
+                                   cache)
+        out[dev] = logits.cpu()
+    check(bool(torch.isfinite(out["cuda"]).all()), "decode: non-finite")
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    return float((out["cuda"] - out["cpu"]).abs().max())
+
+
+def _to(torch, tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(torch, v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+# --------------------------------------------------------------------------- #
+# phase 3: the main path
+# --------------------------------------------------------------------------- #
+
+
+def make_request(SL, cfg, ids, i):
+    """Request i of the traffic: the first N_UNROUTABLE go to the service
+    whose only rule nothing matches; the rest cycle over the six policy
+    services and productpage, a third of them on the wildcard rule."""
+    if i < N_UNROUTABLE:
+        return SL.Request(req_id=i, service=ids["services"]["closed"],
+                          headers={"path": f"/x/{i}"}, prompt_token=3)
+    svc_ids = [ids["services"][f"svc{p}"] for p in range(6)] \
+        + [ids["services"]["productpage"]]
+    s = svc_ids[i % len(svc_ids)]
+    hdr = {"path": f"/api/{s}" if i % 3 else f"/other/{i}",
+           "user": f"user{i % 997}", "tenant": f"t{i % 13}"}
+    return SL.Request(req_id=i, service=s, headers=hdr,
+                      prompt_token=3 + i % (cfg.vocab - 3))
+
+
+def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
+    """The timed drain of the main path (no profiler), then a separate
+    profiled pass for the device's busy share in steady state."""
+    dev = torch.device(dev)
+    routing, ids = routing_config(RT, dev)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
+    # unroutable requests drop after max_retries (64) attempts; the short
+    # backoff cap keeps their retry tail near the routable drain
+    loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
+                        dtype=torch.float32, backoff_cap=4)
+
+    events = {"admit": [], "decode": [], "complete": [], "tick": []}
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            events[name].append((s, e))
+            return out
+        return wrapper
+
+    reqs = [make_request(SL, cfg, ids, i) for i in range(N_REQUESTS)]
+    n_routable = N_REQUESTS - N_UNROUTABLE
+    nxt = 0
+
+    def step(tick):
+        nonlocal nxt
+        for r in reqs[nxt:nxt + ARRIVALS_PER_TICK]:
+            loop.submit(r)
+        nxt += ARRIVALS_PER_TICK
+        tick()
+
+    originals = (ops.admit_commit, ops.complete, TM.decode_step)
+    ops.admit_commit = timed("admit", ops.admit_commit)
+    ops.complete = timed("complete", ops.complete)
+    TM.decode_step = timed("decode", TM.decode_step)
+    timed_tick = timed("tick", loop.tick)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wall = None
+    try:
+        while (nxt < len(reqs) or loop.n_queued or loop.inflight) \
+                and loop.ticks < 3000:
+            step(timed_tick)
+            if wall is None and len(loop.done) == n_routable:
+                wall = time.perf_counter() - t0   # the tick synced already
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        ops.admit_commit, ops.complete, TM.decode_step = originals
+    launches = dict(ops.LAUNCHES)
+
+    done, dropped = list(loop.done), list(loop.dropped)
+    check(len(done) == n_routable,
+          f"{len(done)} of {n_routable} routable requests completed")
+    check(sorted(r.req_id for r in dropped) == list(range(N_UNROUTABLE)),
+          "the dropped requests are not exactly the unroutable ones")
+    m = loop.state.metrics
+    # no_route counts per admission attempt (FlowMetrics contract)
+    attempts = sum(r.retries for r in dropped)
+    check(int(m.no_route_match) == attempts,
+          f"no_route {int(m.no_route_match)} != {attempts} attempts of the "
+          f"{N_UNROUTABLE} unroutable requests")
+    check(not bool(loop.routing.ep_load.any()), "ep_load not back to zero")
+    check(not bool(loop.state.pool.active.any()), "pool not drained")
+    check(all(1 <= len(r.tokens) <= MAX_LEN - 1 for r in done),
+          "token counts out of range")
+    check(all(0 <= t < cfg.vocab_padded for r in done for t in r.tokens),
+          "emitted token out of range")
+    check(launches["admit_commit"] > 0 and launches["complete"] > 0,
+          f"kernels not launched on the main path: {launches}")
+    med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+           for k, v in events.items() if v}
+    lat = loop.latency_samples()
+    line = (f"serve: {len(done)} requests completed, {len(dropped)} "
+            f"unroutable dropped after {attempts} attempts, "
+            f"{loop.ticks} ticks in {total:.3f} s; the last routable one "
+            f"after {wall:.3f} s = {len(done) / wall:.1f} req/s; "
+            f"median ms per tick: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+            + f"; admit_to_done median {statistics.median(lat['admit_to_done'])}"
+            f" ticks, submit_to_done p99 "
+            f"{sorted(lat['submit_to_done'])[int(0.99 * len(done))]} ticks;"
+            f" overflow {int(m.overflow)}, held_first {loop.held_first}, "
+            f"max retries of a completed request "
+            f"{max(r.retries for r in done)}")
+
+    # profiled pass: fresh routable requests at the same arrival rate; the
+    # pool is full again after PROFILE_FROM ticks, then PROFILE_TICKS
+    # ticks run under the profiler, then the loop drains
+    reqs = [make_request(SL, cfg, ids, N_REQUESTS + i)
+            for i in range((PROFILE_FROM + PROFILE_TICKS)
+                           * ARRIVALS_PER_TICK)]
+    nxt, t_start = 0, loop.ticks
+    while loop.ticks - t_start < PROFILE_FROM:
+        step(loop.tick)
+    wall_us, by_name = device_events(
+        torch, lambda: [step(loop.tick) for _ in range(PROFILE_TICKS)])
+    loop.drain(max_ticks=3000)
+    check(len(loop.done) == n_routable + len(reqs),
+          "the profiled pass did not complete every request")
+    busy_ms = sum(by_name.values()) / 1e3
+    window_ms = PROFILE_TICKS * med["tick"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    prof = (f"serve profile (separate pass, steady state): device busy "
+            f"{busy_ms:.3f} ms over {PROFILE_TICKS} ticks = "
+            f"{100 * busy_ms / window_ms:.1f}% of {PROFILE_TICKS} x the "
+            f"unprofiled median tick {med['tick']:.4f} ms (idle "
+            f"{100 - 100 * busy_ms / window_ms:.1f}%); wall under the "
+            f"profiler {wall_us / 1e3:.3f} ms; {len(by_name)} kernel names; "
+            "top: " + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms"
+                                for n, t in top))
+    return line, prof, launches
+
+
+# --------------------------------------------------------------------------- #
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch finds no CUDA device")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail("src/repro_torch not found beside chip_smoke.py")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core import balancer as B
+    from repro_torch.core import interpose
+    from repro_torch.core import policy_defs as PD
+    from repro_torch.core import routing_table as RT
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import completion as cp
+    from repro_torch.kernels import route_match as rm
+    from repro_torch.models import model as TM
+    from repro_torch.runtime import serve_loop as SL
+
+    gpu = gpu_line()
+    print(gpu)
+    t0 = time.perf_counter()
+    lib = _build.library(torch.device("cuda"))
+    OUT.mkdir(exist_ok=True)
+    (OUT / "build_log.txt").write_text(_build.build_log)
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
+          f"{_build.build_seconds:.1f} s), log in chiprun_out/build_log.txt")
+
+    rows, timing = phase_kernels(torch, RT, PD, ops, rm, cp, B, lib)
+    for row in rows:
+        print("kernel " + row)
+    err = phase_model(torch, cfg, TM)
+    print(f"model: decode on the card vs the CPU max_abs_err={err:.3g} "
+          "(rtol=atol=1e-4)")
+
+    line, prof, launches = phase_serve(torch, RT, ops, TM, interpose, SL,
+                                       cfg)
+    print(line)
+    print(prof)
+    print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+
+    src = "src/repro_torch/kernels/csrc/"
+    meta = {"admit_commit": (src + "admit.cu",
+                             "src/repro/kernels/route_match.py:245"),
+            "complete": (src + "complete.cu",
+                         "src/repro/kernels/completion.py:100")}
+    kernels = []
+    for name, t in timing.items():
+        t_bytes, t_ops = t["bytes"] / MEM_BPS * 1e3, t["ops"] / OPS_PS * 1e3
+        bound = max(t_bytes, t_ops)
+        # device time from the profiler; the event-timed call where the
+        # profiler saw no kernel
+        ms = t["ms"] if t["ms"] is not None else t["call_ms"]
+        print(f"timing {name}: device ms {t['ms']}, call ms {t['call_ms']}, "
+              f"plain ms {t['plain_ms']}, bound ms {bound} ({t['bytes']} B, "
+              f"{t['ops']} operations), launch floor ms {t['floor_ms']} "
+              f"(device) / {t['issue_ms']} (issue interval), "
+              f"on {gpu}")
+        if name in meta:            # the kernels of the main path
+            source, replaces = meta[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": t["err"], "ms": ms,
+                "plain_ms": t["plain_ms"], "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "launch_floor_ms": t["floor_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

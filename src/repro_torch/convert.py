@@ -1,0 +1,51 @@
+"""Carry weights and state across from the JAX reference, given as numpy.
+
+``params_from_jax`` takes the reference ``init_params`` pytree (``embed``,
+``head``, ``norm_f`` and ``blocks`` stacked on a leading layer axis) with
+numpy leaves and keeps the ``x @ W`` layout.  ``routing_from_numpy`` and
+``pool_from_numpy`` do the same for the datapath state.  The caller turns
+its arrays into numpy; nothing here sees a JAX array.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.balancer import PoolState
+from repro_torch.core.routing_table import RoutingState, state_from_numpy
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_jax(tree, device, dtype=None):
+    """Nested dict of numpy arrays → the same nesting of tensors."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device, dtype) for v in tree)
+    return _tensor(tree, device, dtype)
+
+
+def _fields(obj, names) -> dict:
+    """Field-name → array from a mapping or a NamedTuple-like object."""
+    if isinstance(obj, dict):
+        return {n: obj[n] for n in names}
+    return {n: getattr(obj, n) for n in names}
+
+
+def routing_from_numpy(arrays, device) -> RoutingState:
+    """A ``RoutingState`` from numpy arrays (a mapping or an object with
+    the same field names)."""
+    return state_from_numpy(_fields(arrays, RoutingState._fields), device)
+
+
+def pool_from_numpy(arrays, device) -> PoolState:
+    """A ``PoolState`` from numpy arrays; ``active`` becomes bool."""
+    f = _fields(arrays, PoolState._fields)
+    return PoolState(*[_tensor(f[n], device, torch.int32)
+                       for n in PoolState._fields[:-1]],
+                     _tensor(f["active"], device).ne(0))

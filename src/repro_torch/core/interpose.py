@@ -1,0 +1,155 @@
+"""The XLB serving engine (twin of ``repro/core/interpose.py``).
+
+The engine owns ``I`` instance lanes × ``C`` decode slots.  Each serving
+tick runs two things:
+
+  * ``admit`` — content match → policy select → slot allocation → pool
+    commit, one kernel launch (``ops.admit_commit``), only on ticks with
+    arrivals;
+  * ``step``  — one batched decode over every slot, the argmax, then the
+    close path (done detect, load release, rx metrics, slot free, health
+    EWMAs) as one kernel launch (``ops.complete``).
+
+State tensors are replaced, not mutated, except the KV cache, which the
+decode writes in place.  The engine runs on the card unless the caller
+asks for the CPU (``device="cpu"``), where every kernel wrapper runs its
+plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.balancer import PoolState, RequestBatch
+from repro_torch.core.routing_table import (MAX_EPS_PER_CLUSTER, FlowMetrics,
+                                            RoutingState)
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import model as M
+
+
+class EngineState(NamedTuple):
+    routing: RoutingState
+    pool: PoolState
+    cache: Any             # model KV cache, batch dim = I*C
+    metrics: FlowMetrics
+
+
+@dataclasses.dataclass
+class Engine:
+    """XLB serving engine for one service fleet.
+
+    ``draws(R) -> (rnd, gumbel)`` supplies the host PRNG draws of one
+    admission: ``rnd`` (R,) int32 in [0, 2**30) for the random policy and
+    ``gumbel`` (R, 64) f32 for the weighted policy, from a
+    ``torch.Generator`` on the engine's device seeded with 0 (as the
+    reference seeds its key).  Tests replace the attribute to feed the
+    reference's draws.
+    """
+
+    cfg: ModelConfig
+    n_instances: int
+    slots: int
+    max_len: int
+    eos: int = 1
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.device.type == "cuda":
+            # the reference decodes in full f32; TF32 would drift the logits
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(0)
+        self.draws = self._draws
+
+    def _draws(self, R: int):
+        rnd = torch.randint(0, 1 << 30, (R,), generator=self._gen,
+                            dtype=torch.int32, device=self.device)
+        u = torch.rand((R, MAX_EPS_PER_CLUSTER), generator=self._gen,
+                       dtype=torch.float32, device=self.device)
+        tiny = torch.finfo(torch.float32).tiny
+        return rnd, -torch.log(-torch.log(u.clamp_min(tiny)))
+
+    # ------------------------------------------------------------------ #
+    def init_state(self, routing: RoutingState, dtype=None) -> EngineState:
+        return EngineState(
+            routing=routing.to(self.device),
+            pool=PoolState.init(self.n_instances, self.slots, self.device),
+            cache=M.init_cache(self.cfg, self.n_instances * self.slots,
+                               self.max_len, dtype, self.device),
+            metrics=FlowMetrics.zeros(self.device))
+
+    def upload(self, reqs: RequestBatch) -> RequestBatch:
+        """A host batch on the engine's device, in one copy: the five
+        fields packed into one (R, 4 + F) int32 tensor."""
+        if reqs.req_id.device == self.device:
+            return reqs
+        cols = [reqs.req_id, reqs.svc, reqs.token, reqs.msg_bytes]
+        packed = torch.cat([c.reshape(-1, 1) for c in cols]
+                           + [reqs.features], dim=1).to(torch.int32)
+        d = packed.to(self.device)
+        return RequestBatch(req_id=d[:, 0], svc=d[:, 1], features=d[:, 4:],
+                            token=d[:, 2], msg_bytes=d[:, 3])
+
+    # ------------------------------------------------------------------ #
+    def admit(self, state: EngineState, reqs: RequestBatch) -> EngineState:
+        rstate, metrics = state.routing, state.metrics
+        rnd, gumbel = self.draws(reqs.req_id.shape[0])
+        res = ops.admit_commit(reqs, rstate, state.pool, rnd, gumbel)
+        rstate = rstate._replace(ep_load=res.ep_load, rr_cursor=res.rr_cursor,
+                                 aff_key=res.aff_key, aff_ep=res.aff_ep)
+        metrics = metrics._replace(
+            requests=metrics.requests + res.svc_requests,
+            tx_bytes=metrics.tx_bytes + res.svc_tx_bytes,
+            no_route_match=metrics.no_route_match + res.no_route,
+            overflow=metrics.overflow + res.held)   # per-ATTEMPT hold events
+        return EngineState(rstate, res.pool, state.cache, metrics)
+
+    # ------------------------------------------------------------------ #
+    def step(self, params, state: EngineState) -> tuple[EngineState, dict]:
+        pool = state.pool
+        I, C = pool.req_id.shape
+        B = I * C
+        logits, cache = M.decode_step(self.cfg, params,
+                                      pool.token.reshape(B, 1),
+                                      pool.length.reshape(B), state.cache)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(I, C)
+        res = ops.complete(pool, nxt, state.routing.ep_load,
+                           state.metrics.rx_bytes,
+                           state.routing.ep_inflight_ewma,
+                           state.routing.ep_tput_ewma,
+                           eos=self.eos, max_len=self.max_len)
+        rstate = state.routing._replace(ep_load=res.ep_load,
+                                        ep_inflight_ewma=res.ep_inflight_ewma,
+                                        ep_tput_ewma=res.ep_tput_ewma)
+        metrics = state.metrics._replace(rx_bytes=res.rx_bytes)
+        out = {"emitted": nxt, "done": res.done,
+               "req_id": pool.req_id,           # ids that produced this tick
+               "active": res.pool.active.sum()}
+        return EngineState(rstate, res.pool, cache, metrics), out
+
+    # ------------------------------------------------------------------ #
+    def make_jitted(self, donate: bool = True):
+        """One serving tick: admit (on ticks with arrivals) + decode step.
+
+        PyTorch runs eagerly, so this is a plain callable.  The "any
+        arrivals" gate is decided from the batch as the caller built it:
+        give it the host batch (CPU tensors) and the gate costs no device
+        sync; ``upload`` then copies the batch over once.  ``donate`` is
+        accepted for the ``Balancer`` protocol; nothing is donated."""
+
+        def serve_step(params, state: EngineState, reqs: RequestBatch):
+            if bool((reqs.req_id >= 0).any()):
+                state = self.admit(state, self.upload(reqs))
+            return self.step(params, state)
+
+        return serve_step
+
+    def get_routing(self, state: EngineState) -> RoutingState:
+        return state.routing

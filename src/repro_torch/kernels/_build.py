@@ -1,0 +1,166 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by its own ``nvcc`` process for ``sm_90a``, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``.  The library is built at
+first use into ``build/repro_torch/`` at the root of the checkout (listed
+in ``.gitignore``) and rebuilt when a source's hash changes.  A failed
+build raises; nothing falls back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("admit.cu", "complete.cu", "launch_floor.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures (argtypes) of the exported functions; pointers and the
+# stream are c_void_p so ctypes never truncates them to 32 bits.
+SIGNATURES = {
+    "xlb_complete": [_P] * 7 + [_P] * 4 + [_P] * 7 + [_P] * 5
+                    + [_I] * 5 + [_F, _F, _P],
+    "xlb_complete_smem_bytes": [_I] * 2,
+    "xlb_admit": [_P] * 7 + [_I, _I]            # requests, R, F
+                 + [_P] * 5 + [_I, _I]          # svc + rule tables, S, NR
+                 + [_P] * 3 + [_I]              # cluster tables, CL
+                 + [_P] * 4 + [_I]              # endpoint tables, E
+                 + [_P, _P, _I]                 # rr cursor, maglev, T
+                 + [_P, _P, _I]                 # affinity cache, A
+                 + [_P, _I, _I]                 # slot mask, I, C
+                 + [_P] * 5                     # incoming pool
+                 + [_P] * 5                     # per-request outputs
+                 + [_P] * 7                     # carried-state outputs
+                 + [_P] * 6                     # committed pool
+                 + [_I, _P],                    # commit flag, stream
+    "xlb_admit_smem_bytes": [_I] * 6,
+    "xlb_admit_init": [],
+    "xlb_empty_launches": [_I, _P],
+    "xlb_error_string": [_I],
+}
+RESTYPES = {"xlb_error_string": ctypes.c_char_p}
+
+_lib: ctypes.CDLL | None = None
+_ready: set[int] = set()    # device indices the library was set up on
+#: seconds the last build took (0.0 when an existing library was loaded)
+build_seconds = 0.0
+#: nvcc's output of the last build (-Xptxas -v: registers, smem, spills)
+build_log = ""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    nvcc = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not nvcc:
+        raise RuntimeError("nvcc not found (CUDA_HOME or PATH): the CUDA "
+                           "kernels cannot be built")
+    return nvcc
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise with their output if any fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        logs.append(out)
+        if p.returncode != 0:
+            failed.append(f"$ {' '.join(c)}\n{out}")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
+def _build(target: Path) -> None:
+    global build_log
+    nvcc = _nvcc()
+    tmp = target.parent / f"tmp-{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [tmp / (Path(s).stem + ".o") for s in SOURCES]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+                        for s, o in zip(SOURCES, objs)])
+        so = tmp / target.name
+        log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", str(so), *map(str, objs)]])
+        os.replace(so, target)                # atomic: never a half file
+        build_log = log
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def library(device: torch.device | None = None) -> ctypes.CDLL:
+    """The loaded kernel library, built on first use and set up once per
+    ``device`` (the admission kernel's shared-memory opt-in)."""
+    global _lib, build_seconds
+    if _lib is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA kernels need a CUDA device; torch "
+                               "finds none")
+        target = BUILD_DIR / f"libxlb_kernels_{_digest()}.so"
+        t0 = time.perf_counter()
+        if not target.exists():
+            target.parent.mkdir(parents=True, exist_ok=True)
+            _build(target)
+        build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
+        _lib = lib
+    if device is not None:
+        index = torch.device(device).index
+        index = torch.cuda.current_device() if index is None else index
+        if index not in _ready:
+            with torch.cuda.device(index):
+                check(_lib.xlb_admit_init(), "admit (set-up)")
+            _ready.add(index)
+    return _lib
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` as a raw handle."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_device(device: torch.device, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"tensor on {t.device}, expected {device}")
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch reported a CUDA error (cudaGetLastError)."""
+    if err != 0:
+        msg = library().xlb_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name!r} failed: {msg} ({err})")

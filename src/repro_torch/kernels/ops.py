@@ -1,0 +1,138 @@
+"""Public datapath wrappers (twin of ``repro/kernels/ops.py``).
+
+Each wrapper checks where its tensors lie.  On a CUDA device it launches
+the hand-written kernel (``csrc/``) or raises; on the CPU it runs the
+plain PyTorch version.  There is no fallback from one to the other.
+``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
+that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.balancer import PoolState, RequestBatch
+from repro_torch.kernels import completion as _cp
+from repro_torch.kernels import route_match as _rm
+from repro_torch.kernels.route_match import AdmitResult
+
+#: kernel launches per wrapper (incremented only where a kernel launches)
+LAUNCHES = {"admit": 0, "admit_commit": 0, "complete": 0}
+
+
+class AdmitCommitOut(NamedTuple):
+    """Fused connect path: per-request decisions + updated LB state + the
+    committed connection pool."""
+
+    cluster: torch.Tensor       # (R,) i32 destination cluster (-1 = none)
+    endpoint: torch.Tensor      # (R,) i32 global endpoint (-1 = unroutable)
+    instance: torch.Tensor      # (R,) i32 instance lane (-1 = unroutable)
+    slot: torch.Tensor          # (R,) i32 pool slot (-1 = held/unroutable)
+    ok: torch.Tensor            # (R,) i32 1 = admitted into a pool slot
+    ep_load: torch.Tensor       # (E,) i32 updated outstanding requests
+    rr_cursor: torch.Tensor     # (CL,) i32 updated round-robin cursors
+    svc_requests: torch.Tensor  # (S,) i32 admitted requests per service
+    svc_tx_bytes: torch.Tensor  # (S,) i32 admitted payload bytes
+    no_route: torch.Tensor      # () i32 valid requests with no rule match
+    held: torch.Tensor          # () i32 routable requests without a slot
+    aff_key: torch.Tensor       # (A,) i32 updated affinity cache
+    aff_ep: torch.Tensor        # (A,) i32
+    pool: PoolState             # (I, C) committed pool (active as bool)
+
+
+class CompleteOut(NamedTuple):
+    """Fused close path: freed pool + released counters + rx metrics +
+    updated health EWMAs."""
+
+    pool: PoolState             # (I, C) pool after completion (active bool)
+    done: torch.Tensor          # (I, C) bool finished this step
+    ep_load: torch.Tensor       # (E,) i32 counters after release
+    rx_bytes: torch.Tensor      # (S,) i32 per-service rx metric
+    done_cnt: torch.Tensor      # (E,) i32 completions this step
+    ep_inflight_ewma: torch.Tensor  # (E,) f32
+    ep_tput_ewma: torch.Tensor  # (E,) f32
+
+
+def device_kind(t: torch.Tensor) -> str:
+    """Where a wrapper's tensors lie: ``"cuda"`` or ``"cpu"``."""
+    return t.device.type
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    kind = device_kind(t)
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {t.device}")
+    return kind == "cuda"
+
+
+def _empty_admit(routing):
+    """The admission result of an empty batch: no launch, state unchanged."""
+    z = torch.zeros((0,), dtype=torch.int32, device=routing.ep_load.device)
+    zs = torch.zeros_like(routing.svc_rule_start, dtype=torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=z.device)
+    return (z, z, z, z, z, routing.ep_load,
+            routing.rr_cursor % routing.cluster_ep_count.clamp_min(1),
+            zs, zs, zero, zero, routing.aff_key, routing.aff_ep)
+
+
+def admit(reqs: RequestBatch, routing, free_mask, rnd, gumbel) -> AdmitResult:
+    """Admission datapath without the pool write-back: match → balance →
+    slot-allocate → metrics.  ``free_mask`` (I, C), nonzero = free."""
+    if reqs.req_id.shape[0] == 0:         # empty batch: nothing to admit
+        return AdmitResult(*_empty_admit(routing))
+    if _on_cuda(reqs.req_id):
+        res = _rm.admit_cuda(reqs.req_id, reqs.svc, reqs.features,
+                             reqs.msg_bytes, None, routing, free_mask, None,
+                             rnd, gumbel)
+        LAUNCHES["admit"] += 1
+        return res
+    return _rm.admit(reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes,
+                     routing, free_mask, rnd, gumbel)
+
+
+def admit_commit(reqs: RequestBatch, routing, pool: PoolState, rnd,
+                 gumbel) -> AdmitCommitOut:
+    """Fused admission + in-kernel pool commit (no post-pass scatters)."""
+    if reqs.req_id.shape[0] == 0:         # empty batch: pool passes through
+        return AdmitCommitOut(*_empty_admit(routing), pool)
+    fields = (pool.req_id, pool.endpoint, pool.svc, pool.length, pool.token)
+    if _on_cuda(reqs.req_id):
+        res = _rm.admit_cuda(reqs.req_id, reqs.svc, reqs.features,
+                             reqs.msg_bytes, reqs.token, routing,
+                             pool.active == 0, fields, rnd, gumbel)
+        LAUNCHES["admit_commit"] += 1
+    else:
+        res = _rm.admit_commit(reqs.req_id, reqs.svc, reqs.features,
+                               reqs.msg_bytes, reqs.token, routing, *fields,
+                               pool.active, rnd, gumbel)
+    return AdmitCommitOut(
+        *res[:13], PoolState(res.pool_req_id, res.pool_endpoint,
+                             res.pool_svc, res.pool_length, res.pool_token,
+                             res.pool_active))
+
+
+def _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma):
+    E = ep_load.shape[0]
+    z = lambda: torch.zeros((E,), dtype=torch.float32, device=ep_load.device)
+    return (z() if ep_inflight_ewma is None else ep_inflight_ewma,
+            z() if ep_tput_ewma is None else ep_tput_ewma)
+
+
+def complete(pool: PoolState, nxt, ep_load, rx_bytes, ep_inflight_ewma=None,
+             ep_tput_ewma=None, *, eos: int, max_len: int) -> CompleteOut:
+    """Fused completion: done detect → load release → rx metrics → free →
+    health EWMA update (None EWMAs → cold-start zeros)."""
+    ewl, ewt = _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma)
+    args = (*pool, nxt, ep_load, rx_bytes, ewl, ewt)
+    if _on_cuda(nxt):
+        res = _cp.complete_cuda(*args, eos=eos, max_len=max_len)
+        LAUNCHES["complete"] += 1
+    else:
+        res = _cp.complete(*args, eos=eos, max_len=max_len)
+    return CompleteOut(
+        PoolState(res.req_id, res.endpoint, res.svc, res.length, res.token,
+                  res.active),
+        res.done, res.ep_load, res.rx_bytes, res.done_cnt,
+        res.inflight_ewma, res.tput_ewma)

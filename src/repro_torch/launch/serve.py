@@ -1,0 +1,76 @@
+"""Serving launcher: ``python -m repro_torch.launch.serve --engine xlb
+--policy least_request --instances 4 --slots 4 --requests 32 --max-len 24
+[--device cuda|cpu]``.
+
+Boots the XLB engine with the full-width ``xlb-service-model`` (random
+weights from a seed), one service routed to one cluster over the
+instances under the chosen policy, and drives a synthetic request stream
+through the continuous-batching loop.  Runs on the card unless
+``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import XLB_SERVICE_MODEL
+from repro_torch.core.balancer import ENGINE_KINDS, make_balancer
+from repro_torch.core.routing_table import (POLICY_NAMES, Cluster, Rule,
+                                            ServiceConfig, build_state)
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.runtime.serve_loop import Request, ServeLoop
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--engine", default="xlb", choices=ENGINE_KINDS)
+    ap.add_argument("--instances", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--max-len", type=int, default=24)
+    ap.add_argument("--policy", default="least_request",
+                    choices=sorted(POLICY_NAMES),
+                    help="load-balancing policy of the serving cluster")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = XLB_SERVICE_MODEL
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           dtype=torch.float32, device=device)
+    routing, _ = build_state(
+        [ServiceConfig("svc", rules=[Rule(0, None, "pool")])],
+        [Cluster("pool", endpoints=list(range(args.instances)),
+                 policy=POLICY_NAMES[args.policy])], device)
+    eng = make_balancer(args.engine, cfg, args.instances, args.slots,
+                        args.max_len, device=device)
+    loop = ServeLoop(eng, params, routing, admit_batch=8,
+                     dtype=torch.float32)
+
+    t0 = time.perf_counter()
+    for i in range(args.requests):
+        loop.submit(Request(req_id=i, service=0,
+                            headers={"path": f"/api/{i % 4}"},
+                            prompt_token=3 + i % (cfg.vocab - 3)))
+    rep = loop.drain()
+    wall = time.perf_counter() - t0
+    lat = [r.t_done - r.t_submit for r in rep.done] or [float("nan")]
+    print(f"{cfg.name} [{args.engine}, {device}]: {len(rep.done)} requests "
+          f"in {wall:.2f}s ({len(rep.done)/wall:.1f} req/s), avg latency "
+          f"{1e3*np.mean(lat):.1f} ms, p99 {1e3*np.percentile(lat, 99):.1f} ms")
+    if rep.queued or rep.inflight or rep.dropped:
+        print(f"drain left: queued={rep.queued} inflight={rep.inflight} "
+              f"dropped={len(rep.dropped)}")
+    m = loop.state.metrics
+    print(f"metrics: tx={int(m.tx_bytes.sum())}B rx={int(m.rx_bytes.sum())}B "
+          f"no_route={int(m.no_route_match)} overflow={int(m.overflow)}")
+    return len(rep.done)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,218 @@
+"""Host serving driver (twin of ``repro/runtime/serve_loop.py``): ingress
+parsing and continuous batching around a ``Balancer``.
+
+The host hashes L7 header fields into the fixed int32 feature vector and
+queues requests; routing, balancing, slot allocation and decode run on the
+engine's device.  Per tick the host uploads one admission batch and
+downloads one packed tensor (emitted tokens, done flags, serviced ids and
+the active count).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import heapq
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.balancer import Balancer, RequestBatch
+from repro_torch.core.routing_table import N_FEATURES, RoutingState, fnv1a
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: int
+    service: int
+    headers: dict[str, str]
+    prompt_token: int
+    msg_bytes: int = 128
+    t_submit: float = 0.0
+    t_done: float = 0.0
+    retries: int = 0
+    hop: int = 0                # chain position of this admission
+    tokens: list = dataclasses.field(default_factory=list)
+    submit_tick: int = -1       # loop tick the request entered the ingress
+    admit_tick: int = -1        # first tick it actually held a pool slot
+    done_tick: int = -1         # tick its final token completed
+
+
+class DrainReport(NamedTuple):
+    """What a drain actually left behind — not just the completions."""
+
+    done: list            # completed Requests (all-time, == loop.done)
+    dropped: list         # gave up after max retries (== loop.dropped)
+    queued: int           # still waiting at the ingress when draining ended
+    inflight: int         # still holding a pool slot when draining ended
+    held_first: int = 0   # DISTINCT requests ever re-queued
+
+
+def parse_features(headers: dict[str, str]) -> np.ndarray:
+    """Host ingress 'protocol parse': hash selected header fields into the
+    feature vector the router matches on."""
+    feats = np.zeros((N_FEATURES,), np.int32)
+    for i, field in enumerate(("path", "user", "version", "tenant",
+                               "method", "content-type", "region", "abtest")):
+        if field in headers:
+            feats[i] = fnv1a(headers[field])
+    return feats
+
+
+class ServeLoop:
+    """Continuous batching driver for one service fleet, on the balancer's
+    device (the engine's default is the card)."""
+
+    def __init__(self, balancer: Balancer, params, routing: RoutingState,
+                 admit_batch: int = 8, dtype=torch.float32,
+                 max_retries: int = 64, backoff_base: int = 1,
+                 backoff_cap: int = 16, backoff_seed: int = 0):
+        resolve_device(balancer.device)
+        self.balancer = balancer
+        self.params = params
+        self.admit_batch = admit_batch
+        self.state = balancer.init_state(routing, dtype=dtype)
+        self.serve_step = balancer.make_jitted(donate=False)
+        self.queue: collections.deque[Request] = collections.deque()
+        self.inflight: dict[int, Request] = {}
+        self.done: list[Request] = []
+        self.dropped: list[Request] = []    # gave up after max retries
+        self.held_first = 0                 # distinct requests ever re-queued
+        # Held/unroutable requests back off with capped exponential delay +
+        # deterministic jitter seeded by (seed, req_id, attempt).
+        self.max_retries = max_retries
+        self.backoff_base = backoff_base
+        self.backoff_cap = backoff_cap
+        self.backoff_seed = backoff_seed
+        self._waiting: list[tuple[int, int, Request]] = []   # backoff heap
+        self._wseq = 0
+        self.ticks = 0
+        self.submitted = 0
+
+    @property
+    def routing(self) -> RoutingState:
+        """The live routing tables the engine is reading right now."""
+        return self.balancer.get_routing(self.state)
+
+    @property
+    def n_queued(self) -> int:
+        """Everything still at the ingress: ready queue + backoff set.
+        ``submitted == done + dropped + n_queued + inflight`` at all times."""
+        return len(self.queue) + len(self._waiting)
+
+    def submit(self, req: Request) -> None:
+        req.t_submit = time.perf_counter()
+        if req.submit_tick < 0:
+            req.submit_tick = self.ticks
+        self.submitted += 1
+        self.queue.append(req)
+
+    def latency_samples(self) -> dict:
+        """Per-request tick samples over the completed set, aligned by row:
+        ``admit_to_done``, ``submit_to_done`` and ``retries``."""
+        done = [r for r in self.done if r.done_tick >= 0]
+        return {
+            "req_id": np.array([r.req_id for r in done], np.int64),
+            "admit_to_done": np.array(
+                [r.done_tick - r.admit_tick for r in done], np.int64),
+            "submit_to_done": np.array(
+                [r.done_tick - r.submit_tick for r in done], np.int64),
+            "retries": np.array([r.retries for r in done], np.int64),
+        }
+
+    def _backoff(self, req: Request) -> None:
+        """Park a held request until its retry matures (or drop it)."""
+        if req.retries >= self.max_retries:
+            req.t_done = time.perf_counter()
+            self.dropped.append(req)
+            return
+        delay = min(self.backoff_base << (req.retries - 1), self.backoff_cap)
+        rng = np.random.default_rng(
+            (self.backoff_seed, req.req_id, req.retries))
+        delay += int(rng.integers(0, delay))
+        heapq.heappush(self._waiting,
+                       (self.ticks + delay, self._wseq, req))
+        self._wseq += 1
+
+    def _release_matured(self) -> None:
+        """Move matured backoff entries to the FRONT of the ready queue."""
+        batch = []
+        while self._waiting and self._waiting[0][0] <= self.ticks:
+            batch.append(heapq.heappop(self._waiting)[2])
+        self.queue.extendleft(reversed(batch))
+
+    def _next_admission(self) -> tuple[RequestBatch, list]:
+        """The next admission batch as host (CPU) tensors."""
+        R = self.admit_batch
+        rid = np.full((R,), -1, np.int32)
+        svc = np.zeros((R,), np.int32)
+        feats = np.zeros((R, N_FEATURES), np.int32)
+        tok = np.zeros((R,), np.int32)
+        nbytes = np.zeros((R,), np.int32)
+        taken = []
+        for i in range(R):
+            if not self.queue:
+                break
+            r = self.queue.popleft()
+            rid[i], svc[i] = r.req_id, r.service
+            feats[i] = parse_features(r.headers)
+            tok[i], nbytes[i] = r.prompt_token, r.msg_bytes
+            self.inflight[r.req_id] = r
+            taken.append(r)
+        t = torch.from_numpy
+        return RequestBatch(req_id=t(rid), svc=t(svc), features=t(feats),
+                            token=t(tok), msg_bytes=t(nbytes)), taken
+
+    def tick(self) -> dict:
+        """One engine step: admit waiting requests + decode every lane."""
+        self._release_matured()
+        reqs, taken = self._next_admission()
+        self.state, out = self.serve_step(self.params, self.state, reqs)
+        I, C = out["emitted"].shape
+        n = I * C
+        host = torch.cat([out["emitted"].reshape(-1).to(torch.int32),
+                          out["done"].reshape(-1).to(torch.int32),
+                          out["req_id"].reshape(-1).to(torch.int32),
+                          out["active"].reshape(1).to(torch.int32)]
+                         ).cpu().numpy()
+        emitted, done, ids = host[:n], host[n:2 * n], host[2 * n:3 * n]
+        serviced = set()
+        for cell in np.flatnonzero(ids >= 0):     # row-major (i, s) order
+            rid = int(ids[cell])
+            if rid in self.inflight:
+                serviced.add(rid)
+                req = self.inflight[rid]
+                if req.admit_tick < 0:            # first tick holding a slot
+                    req.admit_tick = self.ticks
+                req.tokens.append(int(emitted[cell]))
+                if done[cell]:
+                    r = self.inflight.pop(rid)
+                    r.t_done = time.perf_counter()
+                    r.done_tick = self.ticks
+                    self.done.append(r)
+        # held requests (pool exhausted / unroutable this tick) re-queue
+        for r in taken:
+            if r.req_id not in serviced and r.req_id in self.inflight:
+                self.inflight.pop(r.req_id)
+                if r.retries == 0:          # first hold: count the REQUEST
+                    self.held_first += 1
+                r.retries += 1
+                self._backoff(r)
+        self.ticks += 1
+        return {"active": int(host[3 * n]), "queued": self.n_queued,
+                "done": len(self.done), "dropped": len(self.dropped)}
+
+    def drain(self, max_ticks: int = 10_000) -> DrainReport:
+        """Tick until idle (or the budget runs out) and report everything."""
+        t = 0
+        while (self.queue or self._waiting or self.inflight) \
+                and t < max_ticks:
+            self.tick()
+            t += 1
+        return DrainReport(done=self.done, dropped=self.dropped,
+                           queued=self.n_queued,
+                           inflight=len(self.inflight),
+                           held_first=self.held_first)

@@ -1,0 +1,104 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card (bit-exact on every integer output and both f32 EWMAs).  Needs a CUDA
+device and nvcc: ``PYTHONPATH=src python -m pytest -q -m gpu
+tests/test_torch_cuda.py``; skipped without a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import routing_table as RT
+from repro_torch.core.balancer import PoolState, RequestBatch
+from repro_torch.kernels import completion, ops, route_match
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _routing(dev, seed):
+    services = [RT.ServiceConfig(f"s{p}", [RT.Rule(0, "v2", f"c{p}"),
+                                           RT.Rule(1, None, f"d{p}")])
+                for p in range(6)]
+    clusters = []
+    for p in range(6):
+        clusters += [RT.Cluster(f"c{p}", [(3 * p + k) % 16 for k in range(5)],
+                                policy=p, weights=[1.0, 4.0, 0.5, 2.0, 1.0]),
+                     RT.Cluster(f"d{p}", [(5 * p + k) % 16 for k in range(3)],
+                                policy=(p + 1) % 5)]
+    st, _ = RT.build_state(services, clusters, "cpu")
+    rng = np.random.RandomState(seed)
+    load = torch.from_numpy(rng.randint(0, 6, 512).astype(np.int32))
+    drained = st.ep_drained.clone()
+    drained[[1, 11, 21]] = 1
+    return st._replace(ep_load=load, ep_drained=drained).to(dev)
+
+
+def _batch(R, seed, dev):
+    rng = np.random.RandomState(seed)
+    svc = rng.randint(0, 7, R).astype(np.int32)
+    feats = rng.randint(0, 30, (R, 8)).astype(np.int32)
+    feats[:, 0] = np.where(rng.rand(R) < 0.6, RT.fnv1a("v2"), 5)
+    rid = np.where(rng.rand(R) < 0.9, np.arange(R), -1).astype(np.int32)
+    cols = [rid, svc, feats, rng.randint(0, 97, R).astype(np.int32),
+            rng.randint(1, 500, R).astype(np.int32)]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    rnd = rng.randint(0, 1 << 30, R).astype(np.int32)
+    gum = rng.gumbel(size=(R, 64)).astype(np.float32)
+    return RequestBatch(*map(t, cols)), t(rnd), t(gum)
+
+
+@pytest.mark.parametrize("R,I,C", [(256, 64, 16), (300, 16, 4), (7, 2, 2)])
+def test_admit_kernels_match_plain(dev, R, I, C):
+    routing = _routing(dev, R)
+    reqs, rnd, gum = _batch(R, R + 1, dev)
+    g = torch.Generator().manual_seed(R)
+    act = (torch.rand((I, C), generator=g) < 0.5).to(dev)
+    pool = PoolState(*[torch.randint(-1, 50, (I, C), generator=g,
+                                     dtype=torch.int32).to(dev)
+                       for _ in range(5)], act)
+    n0 = ops.LAUNCHES["admit_commit"]
+    k = ops.admit_commit(reqs, routing, pool, rnd, gum)
+    assert ops.LAUNCHES["admit_commit"] == n0 + 1
+    p = route_match.admit_commit(reqs.req_id, reqs.svc, reqs.features,
+                                 reqs.msg_bytes, reqs.token, routing,
+                                 *pool[:5], pool.active, rnd, gum)
+    for f in route_match.AdmitResult._fields:
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    for f, pf in zip(PoolState._fields, route_match.AdmitCommitResult
+                     ._fields[13:]):
+        assert torch.equal(getattr(k.pool, f), getattr(p, pf)), f
+    free = (torch.rand((I, C), generator=g) < 0.6).int().to(dev) * 3
+    k2 = ops.admit(reqs, routing, free, rnd, gum)
+    p2 = route_match.admit(reqs.req_id, reqs.svc, reqs.features,
+                           reqs.msg_bytes, routing, free, rnd, gum)
+    for f in route_match.AdmitResult._fields:
+        assert torch.equal(getattr(k2, f), getattr(p2, f)), f
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("I,C", [(64, 16), (3, 5)])
+def test_complete_kernel_matches_plain(dev, I, C):
+    g = torch.Generator().manual_seed(I)
+    E, S = 512, 64
+    act = torch.rand((I, C), generator=g) < 0.7
+    pool = [torch.randint(-1, 99, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(-2, E + 3, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(-1, S + 2, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(0, 8, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(0, 97, (I, C), generator=g, dtype=torch.int32), act]
+    nxt = torch.randint(0, 4, (I, C), generator=g, dtype=torch.int32)
+    load = torch.randint(3, 9, (E,), generator=g, dtype=torch.int32)
+    rx = torch.randint(0, 100, (S,), generator=g, dtype=torch.int32)
+    ewl, ewt = torch.rand(E, generator=g) * 6, torch.rand(E, generator=g)
+    args = [t.to(dev) for t in (*pool, nxt, load, rx, ewl, ewt)]
+    k = completion.complete_cuda(*args, eos=1, max_len=8)
+    p = completion.complete(*args, eos=1, max_len=8)
+    for f in completion.CompleteResult._fields:
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    assert int(k.done.sum()) > 0
