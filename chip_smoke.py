@@ -9,15 +9,26 @@ Phases (each prints one line; any failure exits non-zero):
    against its plain PyTorch version on the same card tensors, bit-exact
    on every integer output and both f32 EWMAs: ``admit_commit`` and ``admit``
    over all six policies, drains, held rows and a ragged batch, at the
-   serving shape and a small pool; ``complete`` with warm EWMAs; plus the
-   decode model on the card against the CPU within rtol = atol = 1e-4;
+   serving shape and a small pool; ``complete`` with warm EWMAs;
+   ``route_match`` at R = 256 and 4096; ``relay_slots`` at the staged
+   chain's shapes, at N = 4096 and at a ragged N; plus the decode model on
+   the card against the CPU within rtol = atol = 1e-4;
 3. the main path: ``ServeLoop`` over the port's ``Engine`` at the full
    width of ``xlb-service-model`` with 64 instance lanes x 16 slots (1024
    concurrent connections), admit batches of 256, ``max_len`` 32, one
    cluster per policy plus a 50-endpoint cluster, several thousand
    requests drained to completion and timed with CUDA events; then a
    separate pass under torch.profiler for the device's busy share;
-4. the kernel launch counts of the main path.
+4. the staged admission chain (match_cluster → select → allocate_slots →
+   scatter_to_pool, through the route and relay kernels) on the card at
+   the main path's shape, against the same chain on the CPU with the same
+   draws, timed beside the fused admission kernel;
+5. the same traffic through ``ServeLoop`` over the XLB engine and the
+   Istio and Cilium sidecar baselines: requests/s, median tick and the
+   device's busy share of each, in this one run;
+6. the kernel launch counts: ``admit_commit`` and ``complete`` on the main
+   path, ``route_match``, ``relay_slots`` and ``admit`` in the staged
+   phase.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
@@ -42,6 +53,10 @@ OPS_PS = 67e12
 I_LANES, SLOTS, ADMIT_R, MAX_LEN = 64, 16, 256, 32
 N_REQUESTS, N_UNROUTABLE, ARRIVALS_PER_TICK = 4096, 64, 34
 PROFILE_FROM, PROFILE_TICKS = 60, 20    # the separate profiled pass
+# the engines phase: fewer requests, so that Istio's per-instance decode
+# launches fit the time limit, and a short profiled pass of each engine
+ENGINE_REQUESTS, ENGINE_WARM, ENGINE_PROFILE = 1024, 8, 4
+TIE_GAP = 1e-5      # weighted picks may flip between devices below this
 
 
 def fail(msg: str) -> None:
@@ -213,6 +228,25 @@ def admit_work(torch, RT, PD, routing, rid, svc, feats, free, res, commit):
     return bytes_in + nbytes(*res), ops
 
 
+def route_work(RT, routing, svc, feats, cluster):
+    """(bytes, operations) the route kernel needs for this batch: svc and
+    features of every row, the rule chain of each distinct service asked
+    for (rs, rc and three ints per rule), the window of each distinct
+    cluster matched (cs, cc and its loads), two outputs per row."""
+    R, F = feats.shape
+    S = routing.svc_rule_start.shape[0]
+    CL = routing.cluster_ep_count.shape[0]
+    sv = svc.long().clamp(0, S - 1).unique()
+    chain = int(routing.svc_rule_count.long()[sv]
+                .clamp(0, RT.MAX_RULES_PER_SVC).sum())
+    ucl = cluster.long().clamp(0, CL - 1).unique()
+    lanes = int(routing.cluster_ep_count.long()[ucl]
+                .clamp(0, RT.MAX_EPS_PER_CLUSTER).sum())
+    ints = R * (1 + F) + 2 * len(sv) + 3 * chain + 2 * len(ucl) + lanes
+    return 4 * ints + 2 * 4 * R, \
+        R * (RT.MAX_RULES_PER_SVC + 2 * RT.MAX_EPS_PER_CLUSTER)
+
+
 def routing_config(RT, device):
     """One service per policy (8 endpoints each over lanes 8i..8i+7), a
     50-endpoint least-request cluster over lanes 14..63 (bookinfo's
@@ -281,7 +315,7 @@ def admit_inputs(torch, RT, routing, R, I, C, seed, dev):
     return (routing, to(reqs), to(pool), rnd.to(dev), gum.to(dev))
 
 
-def phase_kernels(torch, RT, PD, ops, rm, cp, B, lib, dev="cuda"):
+def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
     """Each kernel through its public wrapper in ``kernels/ops.py`` against
     its plain PyTorch version on the same card tensors, bit-exact."""
     dev = torch.device(dev)
@@ -367,6 +401,52 @@ def phase_kernels(torch, RT, PD, ops, rm, cp, B, lib, dev="cuda"):
         call_ms=cuda_ms(torch, call),
         plain_ms=cuda_ms(torch, plain),
         bytes=nbytes(*args) + nbytes(*p), ops=I * C * 12 + E * 8, err=err)
+    # route_match at the serving batch and a large one, over routing
+    # config's capacities with random loads
+    for R in (ADMIT_R, 4096):
+        routing, reqs, _, _, _ = admit_inputs(torch, RT, routing0, R, I_LANES,
+                                              SLOTS, seed=R + 1, dev=dev)
+        svc, feats = reqs[1], reqs[2]
+        call = lambda: ops.route_match(svc, feats, routing)
+        plain = lambda: rm.route_match(svc, feats, routing)
+        k, p = call(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, zip(("cluster", "endpoint"), k, p))
+        check(bool((k[0] < 0).any() and (k[1] >= 0).any()),
+              f"route_match[R={R}]: no NO_ROUTE or no routed rows")
+        rows.append(f"route_match[R={R}] max_abs_err={err} "
+                    f"matched={int((k[0] >= 0).sum())}")
+        nb, nops = route_work(RT, routing, svc, feats, k[0])
+        timing["route_match" if R == ADMIT_R else f"route_match[R={R}]"] = \
+            dict(ms=kernel_ms(torch, call, "route_kernel"),
+                 call_ms=cuda_ms(torch, call),
+                 plain_ms=cuda_ms(torch, plain, reps=10, warm=1),
+                 bytes=nb, ops=nops, err=err)
+
+    # relay_slots at the staged chain's shapes (select: CL + 1 = 65
+    # destinations, allocate_slots: I + 1 = 65, the affinity update:
+    # A + 1 = 513), a large batch and a ragged one; about one row in
+    # n_dest + 1 sits at the sentinel
+    for N, nd in ((ADMIT_R, 65), (ADMIT_R, 513), (4096, 65), (1000, 65)):
+        g = torch.Generator().manual_seed(N + nd)
+        idx = torch.randint(0, nd + 1, (N,), generator=g,
+                            dtype=torch.int32).to(dev)
+        call = lambda: ops.relay_slots(idx, nd)
+        plain = lambda: rs.relay_slots(idx, nd)
+        k, p = call(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, zip(("slot", "load"), k, p))
+        check(int(k[1].sum()) == int((idx < nd).sum()),
+              f"relay_slots[N={N}]: loads do not add up")
+        rows.append(f"relay_slots[N={N} n_dest={nd}] max_abs_err={err} "
+                    f"sentinel rows={int((idx == nd).sum())}")
+        key = ("relay_slots" if (N, nd) == (ADMIT_R, 65)
+               else f"relay_slots[N={N},n_dest={nd}]")
+        timing[key] = dict(ms=kernel_ms(torch, call, "relay_kernel"),
+                           call_ms=cuda_ms(torch, call),
+                           plain_ms=cuda_ms(torch, plain, reps=10, warm=1),
+                           bytes=4 * (2 * N + nd), ops=2 * N + nd, err=err)
+
     floor, issue = launch_floor(torch, lib)
     for t in timing.values():
         t["floor_ms"], t["issue_ms"] = floor, issue
@@ -546,6 +626,181 @@ def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
 
 
 # --------------------------------------------------------------------------- #
+# phase 4: the staged admission chain, card against CPU
+# --------------------------------------------------------------------------- #
+
+
+def staged_chain(torch, M, routing, batch, pool, rnd, gum):
+    """match_cluster → select → allocate_slots → scatter_to_pool: the
+    pre-fusion admission chain, one batch, the pool committed field by
+    field.  Returns (cluster, selection, routing, assignment, pool)."""
+    router, policies, request_map = M
+    rid, svc, feats, tok = batch.req_id, batch.svc, batch.features, \
+        batch.token
+    cl = torch.where(rid >= 0, router.match_cluster(routing, svc, feats), -1)
+    sel, st = policies.select(routing, cl, rnd, gum, feats)
+    a = request_map.allocate_slots(sel.instance, pool.active == 0)
+    vals = (rid, sel.endpoint, svc, torch.zeros_like(rid), tok)
+    fields = [request_map.scatter_to_pool(p, a, v)
+              for p, v in zip(pool[:5], vals)]
+    return cl, sel, st, a, fields
+
+
+def weighted_ties(torch, RT, routing, cl, feats_gum):
+    """Per row: a weighted row whose two best scores lie within TIE_GAP
+    (the rows whose pick may flip between devices by an ulp of log)."""
+    cs = routing.cluster_ep_start.long()
+    cc = routing.cluster_ep_count.long()
+    E = routing.ep_weight.shape[0]
+    clc = cl.long().clamp(0, cs.shape[0] - 1)
+    win = torch.arange(RT.MAX_EPS_PER_CLUSTER)
+    idx = (cs[clc][:, None] + win).clamp(0, E - 1)
+    ok = (win < cc[clc][:, None]) & (routing.ep_drained.long()[idx] == 0)
+    score = torch.where(ok, torch.log(routing.ep_weight[idx] + 1e-9)
+                        + feats_gum, -torch.inf)
+    top2 = score.topk(2, dim=1).values
+    wt = (cl >= 0) & (routing.cluster_policy.long()[clc]
+                      == RT.POLICY_WEIGHTED) & (ok.sum(1) > 1)
+    return wt & ((top2[:, 0] - top2[:, 1]) < TIE_GAP)
+
+
+def phase_staged(torch, RT, ops, B, M, dev="cuda"):
+    """The staged chain on the card against the same chain on the CPU with
+    the same draws; then its time beside the fused admission kernel's."""
+    routing0, _ = routing_config(RT, "cpu")
+    runs = {}
+    for name, d in (("cpu", "cpu"), ("card", torch.device(dev))):
+        routing, reqs, pool, rnd, gum = admit_inputs(
+            torch, RT, routing0, ADMIT_R, I_LANES, SLOTS, seed=11, dev=d)
+        args = (routing, B.RequestBatch(*reqs), B.PoolState(*pool), rnd, gum)
+        if name == "card":
+            for k in ops.LAUNCHES:
+                ops.LAUNCHES[k] = 0
+            out = staged_chain(torch, M, *args)
+            fused = ops.admit(args[1], routing, pool[5] == 0, rnd, gum)
+            torch.cuda.synchronize()
+            launches = {k: ops.LAUNCHES[k]
+                        for k in ("route_match", "relay_slots", "admit")}
+        else:
+            out = staged_chain(torch, M, *args)
+        runs[name] = (out, args)
+    check(launches["route_match"] >= 1 and launches["relay_slots"] >= 3
+          and launches["admit"] >= 1,
+          f"kernels not launched in the staged phase: {launches}")
+
+    (c_cl, c_sel, c_st, c_a, c_pool), c_args = runs["cpu"]
+    (k_cl, k_sel, k_st, k_a, k_pool), k_args = runs["card"]
+    ties = weighted_ties(torch, RT, c_args[0], c_cl, c_args[4])
+    flipped = k_sel.endpoint.cpu() != c_sel.endpoint
+    check(not bool((flipped & ~ties).any()),
+          "staged chain: endpoints differ between the card and the CPU on "
+          "rows that are not weighted near-ties")
+    pairs = [("cluster", k_cl.cpu(), c_cl)]
+    if not bool(flipped.any()):   # a flipped tie changes everything after
+        pairs += [("endpoint", k_sel.endpoint.cpu(), c_sel.endpoint),
+                  ("instance", k_sel.instance.cpu(), c_sel.instance),
+                  ("slot", k_a.slot.cpu(), c_a.slot),
+                  ("ok", k_a.ok.cpu(), c_a.ok)]
+        pairs += [(f, getattr(k_st, f).cpu(), getattr(c_st, f))
+                  for f in ("ep_load", "rr_cursor", "aff_key", "aff_ep")]
+        pairs += [(f"pool.{f}", x.cpu(), y) for f, x, y in
+                  zip(B.PoolState._fields, k_pool, c_pool)]
+    err = max_abs_err(torch, pairs)
+    n_ok = int(k_a.ok.sum())
+    check(n_ok > 0, "staged chain admitted nothing")
+
+    routing, batch, pstate, rnd, gum = k_args
+    chain = lambda: staged_chain(torch, M, *k_args)
+    admit = lambda: ops.admit(batch, routing, pstate.active == 0, rnd, gum)
+    commit = lambda: ops.admit_commit(batch, routing, pstate, rnd, gum)
+    staged_ms = cuda_ms(torch, chain, reps=20, warm=3)
+    admit_ms = cuda_ms(torch, admit, reps=20, warm=3)
+    commit_ms = cuda_ms(torch, commit, reps=20, warm=3)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        staged_chain(torch, M, *c_args)
+    cpu_ms = (time.perf_counter() - t0) / 5 * 1e3
+    line = (f"staged: chain on the card vs the CPU max_abs_err={err}, "
+            f"{n_ok} of {ADMIT_R} rows admitted (fused admit: "
+            f"{int(fused.ok.sum())}); weighted rows with top-two scores "
+            f"within {TIE_GAP}: {int(ties.sum())}, flipped: "
+            f"{int(flipped.sum())}; ms per batch (events): staged chain "
+            f"{staged_ms:.4f}, fused admit {admit_ms:.4f}, fused "
+            f"admit_commit {commit_ms:.4f}; the staged chain on the CPU "
+            f"{cpu_ms:.4f} ms (host clock); launches per chain: "
+            f"route_match {launches['route_match']}, relay_slots "
+            f"{launches['relay_slots']}")
+    return line, launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 5: the same traffic through the XLB engine and the sidecars
+# --------------------------------------------------------------------------- #
+
+
+def phase_engines(torch, RT, TM, B, SL, cfg, dev="cuda"):
+    """ServeLoop over make_balancer("xlb" | "istio" | "cilium"): a timed
+    drain of ENGINE_REQUESTS routable requests (host clock per tick),
+    then a separate short pass with ENGINE_PROFILE ticks under the
+    profiler for the device's busy share."""
+    dev = torch.device(dev)
+    routing, ids = routing_config(RT, dev)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    lines = []
+    for kind in B.ENGINE_KINDS:
+        eng = B.make_balancer(kind, cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
+        loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
+                            dtype=torch.float32, backoff_cap=4)
+        reqs = [make_request(SL, cfg, ids, N_UNROUTABLE + i)
+                for i in range(ENGINE_REQUESTS)]
+        nxt, tick_ms = 0, []
+
+        def step():
+            nonlocal nxt
+            for r in reqs[nxt:nxt + ARRIVALS_PER_TICK]:
+                loop.submit(r)
+            nxt += ARRIVALS_PER_TICK
+            t = time.perf_counter()
+            loop.tick()                 # ends in the tick's download
+            tick_ms.append((time.perf_counter() - t) * 1e3)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while (nxt < len(reqs) or loop.n_queued or loop.inflight) \
+                and loop.ticks < 2000:
+            step()
+        wall = time.perf_counter() - t0
+        check(len(loop.done) == len(reqs),
+              f"{kind}: {len(loop.done)} of {len(reqs)} requests completed")
+        check(not bool(torch.as_tensor(loop.routing.ep_load).any()),
+              f"{kind}: ep_load not back to zero")
+        check(not bool(torch.as_tensor(loop.state.pool.active).any()),
+              f"{kind}: pool not drained")
+        med = statistics.median(tick_ms)
+        ticks = loop.ticks
+
+        # profiled pass: fresh requests at the same rate, ENGINE_WARM
+        # ticks, then ENGINE_PROFILE ticks under the profiler
+        reqs, nxt = [make_request(SL, cfg, ids, 10 * N_REQUESTS + i)
+                     for i in range((ENGINE_WARM + ENGINE_PROFILE)
+                                    * ARRIVALS_PER_TICK)], 0
+        for _ in range(ENGINE_WARM):
+            step()
+        _, by_name = device_events(
+            torch, lambda: [step() for _ in range(ENGINE_PROFILE)])
+        busy = sum(by_name.values()) / 1e3 / ENGINE_PROFILE
+        lines.append(
+            f"engine {kind}: {ENGINE_REQUESTS} requests in {ticks} ticks, "
+            f"{wall:.3f} s = {ENGINE_REQUESTS / wall:.1f} req/s; median "
+            f"tick {med:.4f} ms (host clock); device busy {busy:.4f} ms "
+            f"per tick (profiler, {ENGINE_PROFILE} ticks) = "
+            f"{100 * busy / med:.1f}% of the median tick (idle "
+            f"{100 - 100 * busy / med:.1f}%)")
+    return lines
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -557,11 +812,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import XLB_SERVICE_MODEL as cfg
     from repro_torch.core import balancer as B
-    from repro_torch.core import interpose
+    from repro_torch.core import interpose, policies, request_map, router
     from repro_torch.core import policy_defs as PD
     from repro_torch.core import routing_table as RT
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import completion as cp
+    from repro_torch.kernels import relay_dispatch as rs
     from repro_torch.kernels import route_match as rm
     from repro_torch.models import model as TM
     from repro_torch.runtime import serve_loop as SL
@@ -575,7 +831,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds:.1f} s), log in chiprun_out/build_log.txt")
 
-    rows, timing = phase_kernels(torch, RT, PD, ops, rm, cp, B, lib)
+    rows, timing = phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib)
     for row in rows:
         print("kernel " + row)
     err = phase_model(torch, cfg, TM)
@@ -586,13 +842,28 @@ def main() -> int:
                                        cfg)
     print(line)
     print(prof)
-    print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    main_launches = {k: launches[k] for k in ("admit_commit", "complete")}
+    line, staged_launches = phase_staged(torch, RT, ops, B,
+                                         (router, policies, request_map))
+    print(line)
+    for line in phase_engines(torch, RT, TM, B, SL, cfg):
+        print(line)
+    launches = {**main_launches, **staged_launches}
+    print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())
+          + " (admit_commit and complete on the main path; route_match, "
+          "relay_slots and admit in the staged phase)")
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {"admit_commit": (src + "admit.cu",
                              "src/repro/kernels/route_match.py:245"),
+            "admit": (src + "admit.cu",
+                      "src/repro/kernels/route_match.py:245"),
             "complete": (src + "complete.cu",
-                         "src/repro/kernels/completion.py:100")}
+                         "src/repro/kernels/completion.py:100"),
+            "route_match": (src + "route.cu",
+                            "src/repro/kernels/route_match.py:170"),
+            "relay_slots": (src + "relay.cu",
+                            "src/repro/kernels/relay_dispatch.py:28")}
     kernels = []
     for name, t in timing.items():
         t_bytes, t_ops = t["bytes"] / MEM_BPS * 1e3, t["ops"] / OPS_PS * 1e3
@@ -605,7 +876,7 @@ def main() -> int:
               f"{t['ops']} operations), launch floor ms {t['floor_ms']} "
               f"(device) / {t['issue_ms']} (issue interval), "
               f"on {gpu}")
-        if name in meta:            # the kernels of the main path
+        if name in meta:            # each kernel at its path's shape
             source, replaces = meta[name]
             kernels.append({
                 "name": name, "route": "cuda", "source": source,

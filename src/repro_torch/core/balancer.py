@@ -65,14 +65,21 @@ class Balancer(Protocol):
         ...
 
 
-ENGINE_KINDS = ("xlb",)
+ENGINE_KINDS = ("xlb", "istio", "cilium")
 
 
 def make_balancer(kind: str, cfg, n_instances: int, slots: int,
                   max_len: int, **kw) -> Balancer:
-    """Factory over the serving architectures the port has so far."""
+    """Factory over the three architectures: the only place a caller ever
+    names an engine class."""
     if kind == "xlb":
         from repro_torch.core.interpose import Engine
         return Engine(cfg, n_instances, slots, max_len, **kw)
+    if kind == "istio":
+        from repro_torch.core.sidecar import IstioEngine
+        return IstioEngine(cfg, n_instances, slots, max_len, **kw)
+    if kind == "cilium":
+        from repro_torch.core.sidecar import CiliumEngine
+        return CiliumEngine(cfg, n_instances, slots, max_len, **kw)
     raise ValueError(f"unknown engine kind {kind!r}; "
                      f"choose from {ENGINE_KINDS}")

@@ -24,9 +24,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import policies
 from repro_torch.core.balancer import PoolState, RequestBatch
-from repro_torch.core.routing_table import (MAX_EPS_PER_CLUSTER, FlowMetrics,
-                                            RoutingState)
+from repro_torch.core.routing_table import FlowMetrics, RoutingState
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
@@ -64,17 +64,9 @@ class Engine:
             # the reference decodes in full f32; TF32 would drift the logits
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(0)
-        self.draws = self._draws
-
-    def _draws(self, R: int):
-        rnd = torch.randint(0, 1 << 30, (R,), generator=self._gen,
-                            dtype=torch.int32, device=self.device)
-        u = torch.rand((R, MAX_EPS_PER_CLUSTER), generator=self._gen,
-                       dtype=torch.float32, device=self.device)
-        tiny = torch.finfo(torch.float32).tiny
-        return rnd, -torch.log(-torch.log(u.clamp_min(tiny)))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        self.draws = lambda R: policies.draws(gen, R)
 
     # ------------------------------------------------------------------ #
     def init_state(self, routing: RoutingState, dtype=None) -> EngineState:

@@ -1,14 +1,21 @@
 """The LB policies, defined once for the port (twin of
 ``repro/core/policy_defs.py``).
 
-This slice carries the enum, the flow hash, the host-side Maglev table
-builder and the six ``kernel_offset`` hooks as plain PyTorch over one tile
-of requests.  The plain admission path (``kernels/route_match.py``) calls
-the hooks; the CUDA kernel (``kernels/csrc/admit.cu``) computes the same
-selections per thread and is held bit-exactly against them on the card.
+Each policy is one ``PolicyDef`` in ``REGISTRY`` carrying its enum, its
+CLI name and three lowering hooks:
 
-Every hook receives a ``KernelCtx`` whose fields are, per request row of
-the tile ((BR,) unless noted):
+  * ``kernel_offset`` - plain PyTorch over one tile of the admission path
+    (``kernels/route_match.py``); the CUDA kernel ``csrc/admit.cu``
+    computes the same selections per thread and is held bit-exactly
+    against it on the card;
+  * ``staged_offset`` - batched PyTorch for the staged chain
+    (``core/policies.py``);
+  * ``host_pick`` - per-request numpy in the sidecar baselines'
+    ``HostRouter`` (``core/sidecar.py``); maglev and affinity run the
+    sequential oracle hooks through ``_HostOracleView``.
+
+Kernel-hook ctx (``KernelCtx``), per request row of the tile ((BR,) unless
+noted):
 
   block_r            tile rows (static)
   policy, cl         policy enum / clamped cluster id
@@ -25,12 +32,28 @@ the tile ((BR,) unless noted):
   kth(k)             window offset of the k-th eligible endpoint
   seg_rank(ids, mask, n)  in-tile stable arrival rank among equal ids
 
-Hooks return WINDOW OFFSETS (int64 tensors).
+Staged-hook ctx (``StagedCtx``, filled per batch by ``policies.select``):
+
+  state              RoutingState
+  cl, start, count   clamped cluster / window start / raw count
+  cnt1, ok, idx      eligible count (>= 1) / (B, WE) masks / indices
+  rank               arrival rank within cluster
+  rnd, fkey, gum     PRNG draws / flow ids / Gumbel noise
+  kth(k)             k-th eligible offset
+
+Host-hook arguments (``HostRouter``, one request at a time, numpy):
+``h.t`` the router's mutable numpy ``RoutingState``, ``h.rng`` its
+``np.random.RandomState``.
+
+Kernel and staged hooks return WINDOW OFFSETS (int64 tensors); host hooks
+return ABSOLUTE endpoint indices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import types
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -247,8 +270,213 @@ def affinity_kernel_update(ctx, ep):
     return nk, ne
 
 
-#: enum → kernel_offset hook (dense over 0..5)
-KERNEL_OFFSET = (_rr_kernel, _random_kernel, _lr_kernel, _wt_kernel,
-                 _maglev_kernel, _affinity_kernel)
+# --------------------------------------------------------------------------- #
+# Staged hooks (batched PyTorch, core/policies.py)
+# --------------------------------------------------------------------------- #
 
-assert {v for v in POLICY_NAMES.values()} == set(range(len(KERNEL_OFFSET)))
+
+class StagedCtx(types.SimpleNamespace):
+    """The staged-hook ctx (``core/policies.py`` fills it per batch)."""
+
+
+def _i64(t):
+    return t.to(torch.int64)
+
+
+def _rr_staged(s):
+    return s.kth((_i64(s.state.rr_cursor)[s.cl] + s.rank) % s.cnt1)
+
+
+def _random_staged(s):
+    return s.kth(s.rnd % s.cnt1)
+
+
+def _lr_staged(s):
+    """The r-th request (arrival order) of a cluster takes the r-th LEAST
+    loaded endpoint, emulating sequential per-request counters; ineligible
+    endpoints sort behind INT32_MAX."""
+    load = torch.where(s.ok, _i64(s.state.ep_load)[s.idx], 2**31 - 1)
+    by_load = torch.argsort(load, dim=1, stable=True)
+    return by_load.gather(1, (s.rank % s.cnt1)[:, None])[:, 0]
+
+
+def _wt_staged(s):
+    w = torch.where(s.ok, s.state.ep_weight.to(torch.float32)[s.idx], 0.0)
+    return torch.argmax(torch.where(s.ok, torch.log(w + 1e-9) + s.gum,
+                                    -torch.inf), dim=1)
+
+
+def _maglev_staged(s):
+    mg = _i64(s.state.maglev_table)
+    ed = _i64(s.state.ep_drained)
+    t = mg[s.cl, s.fkey % mg.shape[1]]
+    te = (s.start + t).clamp(0, ed.shape[0] - 1)
+    t_ok = (t >= 0) & (t < s.count) & (ed[te] == 0)
+    return torch.where(t_ok, t, s.kth(s.fkey % s.cnt1))
+
+
+def _staged_aff(s):
+    """(slot, stored key, hit) of each request against the batch-start
+    affinity cache."""
+    A = s.state.aff_key.shape[0]
+    ed = _i64(s.state.ep_drained)
+    sl = s.fkey % A
+    ak = _i64(s.state.aff_key)[sl]
+    ae = _i64(s.state.aff_ep)[sl]
+    aec = ae.clamp(0, ed.shape[0] - 1)
+    hit = ((ak == s.fkey) & (ae >= s.start) & (ae < s.start + s.count)
+           & (ed[aec] == 0))
+    return sl, ak, ae, hit
+
+
+def _affinity_staged(s):
+    _, _, ae, hit = _staged_aff(s)
+    return torch.where(hit, ae - s.start, _maglev_staged(s))
+
+
+def affinity_staged_update(s, ep, routable, policy):
+    """Batch-snapshot cache update for the staged chain: the first writer
+    per slot in arrival order wins (rank 0 of the slot's counting sort,
+    ``ops.relay_slots``), and a live flow of another key is never evicted.
+    Returns (new_aff_key, new_aff_ep), int32."""
+    from repro_torch.kernels import ops
+    A = s.state.aff_key.shape[0]
+    sl, ak, _, hit = _staged_aff(s)
+    want = (routable & (policy == POLICY_AFFINITY) & ~hit
+            & ((ak == -1) | (ak == s.fkey)))
+    rank_w, _ = ops.relay_slots(torch.where(want, sl, A), A + 1)
+    win = want & (rank_w == 0)
+    tgt = torch.where(win, sl, A)          # losers write the dump slot A
+    dump = torch.zeros((1,), dtype=torch.int32, device=ep.device)
+
+    def put(table, vals):
+        out = torch.cat([table.to(torch.int32), dump])
+        return out.index_put_((tgt,), vals.to(torch.int32))[:A]
+
+    return put(s.state.aff_key, s.fkey), put(s.state.aff_ep, ep)
+
+
+# --------------------------------------------------------------------------- #
+# Sequential oracle hooks (numpy) the host router runs for maglev/affinity
+# --------------------------------------------------------------------------- #
+
+
+def _maglev_oracle(o, r, c, elig):
+    key = int(o.fkey[r])
+    t = int(o.mg[c, key % o.T])
+    if 0 <= t < o.cc[c]:
+        e = min(max(o.cs[c] + t, 0), o.E - 1)
+        if o.drained[e] == 0:
+            return e
+    return elig[key % len(elig)]
+
+
+def _affinity_oracle(o, r, c, elig):
+    key = int(o.fkey[r])
+    s = key % o.A
+    ae = int(o.affe[s])
+    if (int(o.affk[s]) == key and o.cs[c] <= ae < o.cs[c] + o.cc[c]
+            and o.drained[ae] == 0):
+        return ae
+    ep = _maglev_oracle(o, r, c, elig)
+    if o.affk[s] == -1 or o.affk[s] == key:     # first admit writes through
+        o.affk[s] = key
+        o.affe[s] = ep
+    return ep
+
+
+# --------------------------------------------------------------------------- #
+# Host hooks (per-request numpy, core/sidecar.py::HostRouter)
+# --------------------------------------------------------------------------- #
+
+
+def _rr_host(h, c, elig, feats):
+    ep = elig[h.t.rr_cursor[c] % len(elig)]
+    h.t.rr_cursor[c] += 1
+    return ep
+
+
+def _random_host(h, c, elig, feats):
+    return elig[h.rng.randint(0, len(elig))]
+
+
+def _lr_host(h, c, elig, feats):
+    return elig[int(np.argmin(h.t.ep_load[elig]))]
+
+
+def _wt_host(h, c, elig, feats):
+    w = np.maximum(h.t.ep_weight[elig], 0.0)
+    tot = float(w.sum())
+    if tot <= 0.0:
+        return elig[h.rng.randint(0, len(elig))]
+    return elig[h.rng.choice(len(elig), p=w / tot)]
+
+
+class _HostOracleView:
+    """A HostRouter and one request in the oracle hooks' field contract, so
+    maglev/affinity run the sequential oracle hooks per request (the
+    sidecar is sequential by construction)."""
+
+    def __init__(self, h, feats):
+        t = h.t
+        self.cs = t.cluster_ep_start
+        self.cc = t.cluster_ep_count
+        self.E = t.ep_instance.shape[0]
+        self.drained = t.ep_drained
+        self.mg = t.maglev_table
+        self.T = t.maglev_table.shape[1]
+        self.affk = t.aff_key
+        self.affe = t.aff_ep
+        self.A = t.aff_key.shape[0]
+        self.fkey = np.array([flow_hash(np.asarray(feats, np.int32))])
+
+
+def _maglev_host(h, c, elig, feats):
+    return _maglev_oracle(_HostOracleView(h, feats), 0, c, elig)
+
+
+def _affinity_host(h, c, elig, feats):
+    return _affinity_oracle(_HostOracleView(h, feats), 0, c, elig)
+
+
+# --------------------------------------------------------------------------- #
+# The registry
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyDef:
+    """One LB policy, defined once for every datapath of the port."""
+
+    name: str
+    enum: int
+    kernel_offset: Callable[[Any], Any]  # plain tile path → window offsets
+    staged_offset: Callable[[Any], Any]  # staged chain → window offsets
+    host_pick: Callable                  # sidecar numpy → absolute endpoint
+
+
+REGISTRY: tuple[PolicyDef, ...] = (
+    PolicyDef("rr", POLICY_RR, _rr_kernel, _rr_staged, _rr_host),
+    PolicyDef("random", POLICY_RANDOM, _random_kernel, _random_staged,
+              _random_host),
+    PolicyDef("least_request", POLICY_LEAST_REQUEST, _lr_kernel, _lr_staged,
+              _lr_host),
+    PolicyDef("weighted", POLICY_WEIGHTED, _wt_kernel, _wt_staged,
+              _wt_host),
+    PolicyDef("maglev", POLICY_MAGLEV, _maglev_kernel, _maglev_staged,
+              _maglev_host),
+    PolicyDef("affinity", POLICY_AFFINITY, _affinity_kernel,
+              _affinity_staged, _affinity_host),
+)
+
+BY_ENUM: dict[int, PolicyDef] = {p.enum: p for p in REGISTRY}
+
+# import-time guards: the registry is dense over 0..N-1 and its names agree
+# with POLICY_NAMES, so drift between the enum and the hooks fails here
+assert tuple(p.enum for p in REGISTRY) == tuple(range(len(REGISTRY))), \
+    "policy registry enums must be dense and ordered"
+assert {p.name: p.enum for p in REGISTRY} == POLICY_NAMES, \
+    "POLICY_NAMES and REGISTRY disagree"
+assert (POLICY_RR, POLICY_RANDOM, POLICY_LEAST_REQUEST, POLICY_WEIGHTED,
+        POLICY_MAGLEV, POLICY_AFFINITY) == tuple(range(6)), \
+    "policy enum constants drifted"

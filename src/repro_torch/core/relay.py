@@ -1,0 +1,136 @@
+"""Socket relay: payload redirection between "sockets" (twin of
+``repro/core/relay.py``).
+
+A p-sock relays a message straight into the TX queue of the chosen
+i-sock; on the device that is a capacity-bounded counting-sort dispatch:
+payload rows move to their destination's buffer slot in one scatter.
+
+Three interchangeable dispatch methods (the tests cross-check them):
+  * ``sort``    - counting-sort positions + scatter.  Default.
+  * ``cumsum``  - one-hot cumsum positions (GShard-style rank).
+  * ``einsum``  - dense one-hot dispatch/combine einsum, the oracle.
+
+``positions_sort`` stays plain PyTorch on every device: it is the oracle
+of the relay kernel (``kernels/relay_dispatch.py``), which the staged
+admission chain calls through ``ops.relay_slots``.  Rows beyond a
+destination's capacity are dropped (``ok`` False) and counted in
+``overflow_frac``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class RelayMeta(NamedTuple):
+    """Bookkeeping produced by dispatch, consumed by combine."""
+
+    idx: torch.Tensor        # (N,) destination id per payload row
+    slot: torch.Tensor       # (N,) i32 slot within the destination pool
+    ok: torch.Tensor         # (N,) bool row fit inside capacity
+    load: torch.Tensor       # (E,) i32 rows destined per backend, pre-drop
+    overflow_frac: torch.Tensor  # () f32 fraction of rows dropped
+
+
+# --------------------------------------------------------------------------- #
+# Slot assignment ("which position in the destination's connection pool")
+# --------------------------------------------------------------------------- #
+
+
+def positions_sort(idx, n_dest: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Counting-sort rank: stable position of each row within its
+    destination.  Returns (slot (N,) i32, load (n_dest,) i32); ids outside
+    [0, n_dest) count no load (``jnp.bincount(length=)``)."""
+    idx = idx.to(torch.int64)
+    N = idx.shape[0]
+    order = torch.argsort(idx, stable=True)
+    sorted_idx = idx[order]
+    inside = (idx >= 0) & (idx < n_dest)
+    load = torch.zeros((n_dest,), dtype=torch.int64, device=idx.device)
+    load.index_add_(0, idx.clamp(0, max(n_dest - 1, 0)), inside.long())
+    starts = torch.cumsum(load, 0) - load
+    # dropped rows sit at the sentinel n_dest: their rank is never
+    # consumed, but the gather must stay inside ``starts``
+    pos_sorted = torch.arange(N, device=idx.device) \
+        - starts[sorted_idx.clamp(0, n_dest - 1)]
+    slot = torch.empty_like(pos_sorted).index_put_((order,), pos_sorted)
+    return slot.to(torch.int32), load.to(torch.int32)
+
+
+def positions_cumsum(idx, n_dest: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One-hot cumsum rank (GShard form).  O(N·E) memory."""
+    oh = _one_hot(idx, n_dest, torch.int64)                  # (N, E)
+    ranks = torch.cumsum(oh, dim=0) - oh                     # rank before self
+    slot = (ranks * oh).sum(dim=-1)
+    return slot.to(torch.int32), oh.sum(dim=0).to(torch.int32)
+
+
+def _one_hot(idx, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: an id outside [0, n) gives a zero row."""
+    lanes = torch.arange(n, device=idx.device)
+    return (idx.to(torch.int64)[:, None] == lanes).to(dtype)
+
+
+_POSITIONS = {"sort": positions_sort, "cumsum": positions_cumsum}
+
+
+# --------------------------------------------------------------------------- #
+# Dispatch / combine (single device)
+# --------------------------------------------------------------------------- #
+
+
+def relay_dispatch(x, idx, n_dest: int, capacity: int,
+                   method: str = "sort") -> tuple[torch.Tensor, RelayMeta]:
+    """Scatter payload rows x (N, D) into per-destination pools
+    (n_dest, capacity, D).  Rows beyond ``capacity``, and rows whose
+    destination lies outside [0, n_dest), are dropped (ok False)."""
+    N, D = x.shape
+    slot, load = _POSITIONS[method](idx, n_dest)
+    ok = slot < capacity
+    i = idx.to(torch.int64)
+    inside = (i >= 0) & (i < n_dest)
+    write_slot = torch.where(ok & inside, slot.to(torch.int64), capacity)
+    buf = torch.zeros((n_dest, capacity + 1, D), dtype=x.dtype,
+                      device=x.device)                      # dump row = C
+    buf.index_put_((i.clamp(0, n_dest - 1), write_slot), x)
+    overflow = 1.0 - ok.to(torch.float32).mean()
+    return buf[:, :capacity], RelayMeta(idx, slot, ok, load, overflow)
+
+
+def relay_combine(buf, meta: RelayMeta, weights=None) -> torch.Tensor:
+    """Gather rows back from pools (E, C, D) to payload order (N, D).
+
+    ``weights``: optional (N,) scale.  Dropped rows come back as zeros."""
+    E, C = buf.shape[:2]
+    i = meta.idx.to(torch.int64).clamp(0, E - 1)
+    s = meta.slot.to(torch.int64).clamp(0, C - 1)
+    rows = torch.where(meta.ok[:, None], buf[i, s], 0)
+    if weights is not None:
+        rows = rows * weights[:, None].to(rows.dtype)
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# Dense-einsum oracle (GShard): slowest, simplest
+# --------------------------------------------------------------------------- #
+
+
+def relay_dispatch_einsum(x, idx, n_dest: int, capacity: int):
+    slot, load = positions_cumsum(idx, n_dest)
+    ok = slot < capacity
+    e_oh = _one_hot(idx, n_dest, x.dtype)                       # (N, E)
+    c_oh = _one_hot(slot.clamp(max=capacity - 1), capacity, x.dtype)
+    d_onehot = e_oh[:, :, None] * c_oh[:, None, :] \
+        * ok[:, None, None].to(x.dtype)                         # (N, E, C)
+    buf = torch.einsum("nec,nd->ecd", d_onehot, x)
+    overflow = 1.0 - ok.to(torch.float32).mean()
+    return buf, RelayMeta(idx, slot, ok, load, overflow), d_onehot
+
+
+def relay_combine_einsum(buf, d_onehot, weights=None):
+    out = torch.einsum("nec,ecd->nd", d_onehot.to(buf.dtype), buf)
+    if weights is not None:
+        out = out * weights[:, None].to(out.dtype)
+    return out

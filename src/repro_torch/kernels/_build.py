@@ -21,10 +21,15 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("admit.cu", "complete.cu", "launch_floor.cu")
+SOURCES = ("admit.cu", "complete.cu", "route.cu", "relay.cu",
+           "launch_floor.cu")
+HEADERS = ("match.cuh",)    # included by the sources; part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: shared memory a launch gets without opting in (48 KB)
+SMEM_DEFAULT = 48 * 1024
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +54,13 @@ SIGNATURES = {
                  + [_I, _P],                    # commit flag, stream
     "xlb_admit_smem_bytes": [_I] * 6,
     "xlb_admit_init": [],
+    "xlb_route": [_P, _P, _I, _I]               # svc, features, R, F
+                 + [_P] * 5 + [_I, _I]          # svc + rule tables, S, NR
+                 + [_P, _P, _I]                 # cluster windows, CL
+                 + [_P, _I]                     # ep_load, E
+                 + [_P, _P, _P],                # cluster, endpoint, stream
+    "xlb_relay_smem_bytes": [_I],
+    "xlb_relay": [_P, _I, _I, _P, _P, _P],      # idx, N, n_dest, outs, stream
     "xlb_empty_launches": [_I, _P],
     "xlb_error_string": [_I],
 }
@@ -74,7 +86,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -18,7 +18,6 @@ import torch
 from repro_torch.kernels import _build
 
 RX_BYTES_PER_TOKEN = 2     # response payload attributed per decoded token
-SMEM_DEFAULT = 48 * 1024   # shared memory a launch gets without opting in
 
 # EWMA smoothing for the health accumulators.
 ALPHA_INFLIGHT = 0.25
@@ -128,9 +127,10 @@ def complete_cuda(pool_req_id, pool_endpoint, pool_svc, pool_length,
     dev = load0.device
     _build.check_device(dev, *ins, rx0, ewl0, ewt0)
     lib = _build.library(dev)
-    if lib.xlb_complete_smem_bytes(E, S) > SMEM_DEFAULT:
+    if lib.xlb_complete_smem_bytes(E, S) > _build.SMEM_DEFAULT:
         raise ValueError(f"complete keeps E + S = {E + S} counters in "
-                         f"shared memory; at most {SMEM_DEFAULT // 4} fit")
+                         f"shared memory; at most {_build.SMEM_DEFAULT // 4}"
+                         " fit")
     new = lambda shape, dt=torch.int32: torch.empty(shape, dtype=dt,
                                                     device=dev)
     outs = [new((I, C)) for _ in range(5)] \

@@ -35,13 +35,15 @@
 #include <climits>
 #include <cmath>
 
+#include "match.cuh"
+
 namespace {
 
+using xlb::clampi;
+
 constexpr int kTile = 256;       // rows per tile == threads per block
-constexpr int kRules = 16;       // MAX_RULES_PER_SVC
 constexpr int kWE = 64;          // MAX_EPS_PER_CLUSTER
 constexpr int kBig = 1 << 30;    // sentinel load of an ineligible lane
-constexpr int kWildcard = -1;
 // policy enum (core/policy_defs.py); round robin (0) is the switch default
 constexpr int kRandom = 1, kLeast = 2, kWeighted = 3, kMaglev = 4,
               kAffinity = 5;
@@ -73,22 +75,10 @@ struct Args {
   bool* pact;
 };
 
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
 // Floor modulo (Python / torch / jnp semantics), b > 0.
 __device__ __forceinline__ int fmodi(int a, int b) {
   int m = a % b;
   return m < 0 ? m + b : m;
-}
-
-// jnp.take_along_axis on the feature row: a negative column wraps once,
-// a column still outside [0, F) reads INT_MIN (the gather's fill value).
-__device__ __forceinline__ int feature(const Args& a, int r, int f) {
-  if (f < 0) f += a.F;
-  if (f < 0 || f >= a.F) return INT_MIN;
-  return a.feats[(long long)r * a.F + f];
 }
 
 // Window offset of the k-th eligible endpoint (0 when there is none: the
@@ -234,18 +224,10 @@ __global__ void __launch_bounds__(kTile) admit_kernel(Args a) {
     const int svc = clampi(svc_raw, 0, a.S - 1);
 
     // ---- content match: first matching rule of the service's chain ----
-    int cluster = -1;
-    if (valid) {
-      int start = a.rs[svc], count = a.rc[svc];
-      for (int t = 0; t < kRules && t < count; ++t) {
-        int ix = clampi(start + t, 0, a.NR - 1);
-        int expect = a.rv[ix];
-        if (expect == kWildcard || expect == feature(a, r, a.rf[ix])) {
-          cluster = a.rcl[ix];
-          break;
-        }
-      }
-    }
+    const int cluster =
+        valid ? xlb::match_rule(a.feats + (long long)r * a.F, a.F, svc, a.rs,
+                                a.rc, a.rf, a.rv, a.rcl, a.NR)
+              : -1;
     const int cl = clampi(cluster, 0, a.CL - 1);
     const int count = a.cc[cl], estart = a.cs[cl], policy = a.cp[cl];
     unsigned long long eok = 0ull;   // eligible: in window, not draining

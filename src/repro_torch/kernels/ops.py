@@ -15,11 +15,13 @@ import torch
 
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.kernels import completion as _cp
+from repro_torch.kernels import relay_dispatch as _rd
 from repro_torch.kernels import route_match as _rm
 from repro_torch.kernels.route_match import AdmitResult
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
-LAUNCHES = {"admit": 0, "admit_commit": 0, "complete": 0}
+LAUNCHES = {"admit": 0, "admit_commit": 0, "complete": 0, "route_match": 0,
+            "relay_slots": 0}
 
 
 class AdmitCommitOut(NamedTuple):
@@ -136,3 +138,32 @@ def complete(pool: PoolState, nxt, ep_load, rx_bytes, ep_inflight_ewma=None,
                   res.active),
         res.done, res.ep_load, res.rx_bytes, res.done_cnt,
         res.inflight_ewma, res.tput_ewma)
+
+
+def route_match(svc, features, routing) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stateless route match: (cluster (R,), endpoint (R,)) i32 - the first
+    matching rule and the least-loaded lane of its window, no drain mask.
+    Any R; an empty batch returns empty outputs with no launch."""
+    if features.shape[0] == 0:
+        z = torch.zeros((0,), dtype=torch.int32, device=features.device)
+        return z, z.clone()
+    if _on_cuda(features):
+        res = _rm.route_match_cuda(svc, features, routing)
+        LAUNCHES["route_match"] += 1
+        return res
+    return _rm.route_match(svc, features, routing)
+
+
+def relay_slots(idx, n_dest: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Counting-sort rank: (slot (N,), load (n_dest,)) i32, the stable rank
+    of each row within its destination and the per-destination totals;
+    rows at the sentinel ``n_dest`` take no rank and count no load.  Any
+    N; N == 0 returns empty slots and zero loads with no launch."""
+    if idx.shape[0] == 0:
+        z = lambda n: torch.zeros((n,), dtype=torch.int32, device=idx.device)
+        return z(0), z(n_dest)
+    if _on_cuda(idx):
+        res = _rd.relay_slots_cuda(idx, n_dest)
+        LAUNCHES["relay_slots"] += 1
+        return res
+    return _rd.relay_slots(idx, n_dest)

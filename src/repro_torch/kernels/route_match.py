@@ -10,7 +10,11 @@ the tile size.
 
 ``admit`` / ``admit_commit`` here are the plain PyTorch versions;
 ``admit_cuda`` launches ``csrc/admit.cu`` (one template, ``commit`` a
-compile-time flag).  ``kernels/ops.py`` picks one by the tensors' device.
+compile-time flag).  ``route_match`` is the stateless building block
+(rule match + least-request argmin, no drain mask, no counters) and
+``route_match_cuda`` launches ``csrc/route.cu``; both kernels share the
+match stage ``csrc/match.cuh``.  ``kernels/ops.py`` picks a version by the
+tensors' device.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import policy_defs
-from repro_torch.core.policy_defs import POLICY_RR
+from repro_torch.core.policy_defs import BIG, POLICY_RR
 from repro_torch.core.routing_table import (MAX_EPS_PER_CLUSTER,
                                             MAX_RULES_PER_SVC, WILDCARD)
 from repro_torch.kernels import _build
@@ -177,10 +181,10 @@ def _admit_plain(req_id, svc, features, msg_bytes, token, state, free,
             loads=loads, ew=ew, ed=ed, cur_cl=cur[cl], mg_tab=mg,
             aff_key=affk, aff_ep=affe, kth=kth,
             seg_rank=lambda ids, m, n: _seg_rank(ids, m))
-        off = policy_defs.KERNEL_OFFSET[POLICY_RR](ctx)   # unknown → rr
-        for enum, hook in enumerate(policy_defs.KERNEL_OFFSET):
-            if enum != POLICY_RR:
-                off = torch.where(policy == enum, hook(ctx), off)
+        off = policy_defs.BY_ENUM[POLICY_RR].kernel_offset(ctx)  # unknown → rr
+        for p in policy_defs.REGISTRY:
+            if p.enum != POLICY_RR:
+                off = torch.where(policy == p.enum, p.kernel_offset(ctx), off)
         inside = (off >= 0) & (off < WE)
         ep = torch.where(inside,
                          eidx.gather(1, off.clamp(0, WE - 1)[:, None])[:, 0],
@@ -327,3 +331,64 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
     if commit:
         return AdmitCommitResult(*head, *pool_out)
     return AdmitResult(*head)
+
+
+# --------------------------------------------------------------------------- #
+# route_match: match + least-request scan (stateless building block)
+# --------------------------------------------------------------------------- #
+
+
+def _route_tables(state):
+    return [state.svc_rule_start, state.svc_rule_count, state.rule_field,
+            state.rule_value, state.rule_cluster, state.cluster_ep_start,
+            state.cluster_ep_count, state.ep_load]
+
+
+def route_match(svc, features, state) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch route match.  svc: (R,) int; features: (R, F) int;
+    state: RoutingState.  Returns (cluster (R,) i32, endpoint (R,) i32).
+
+    svc is clamped to [0, S-1] and the matched cluster to [0, CL-1]; the
+    endpoint is the first least-loaded lane of the cluster's 64-lane
+    window (lanes past its count at ``BIG``), -1 where no rule matched or
+    the cluster is empty.  No drain mask."""
+    rs, rc, rf, rv, rcl, cs, cc, load = [t.to(torch.int64)
+                                         for t in _route_tables(state)]
+    S, CL, E = rs.shape[0], cs.shape[0], load.shape[0]
+    t = dict(rs=rs, rc=rc, rf=rf, rv=rv, rcl=rcl)
+    cluster = _match(svc.to(torch.int64).clamp(0, S - 1),
+                     features.to(torch.int64), t)
+    cl = cluster.clamp(0, CL - 1)
+    start, count = cs[cl], cc[cl]
+    win = torch.arange(MAX_EPS_PER_CLUSTER, device=features.device)
+    eidx = (start[:, None] + win).clamp(0, E - 1)
+    lanes = torch.where(win < count[:, None], load[eidx], BIG)
+    best = torch.argmin(lanes, dim=1)                 # the first minimum
+    ep = eidx.gather(1, best[:, None])[:, 0]
+    ep = torch.where((cluster >= 0) & (count > 0), ep, -1)
+    return cluster.to(torch.int32), ep.to(torch.int32)
+
+
+def route_match_cuda(svc, features, state):
+    """Launch ``csrc/route.cu`` on the tensors' CUDA device; same contract
+    and result as ``route_match``.  Raises if the library cannot be built
+    or the launch fails.  The caller skips empty batches."""
+    R, F = features.shape
+    if R == 0 or svc.shape != (R,):
+        raise ValueError(f"svc must be ({R},) and R > 0")
+    dev = features.device
+    x = [_i32(svc), _i32(features)]
+    tabs = [_i32(t) for t in _route_tables(state)]
+    _build.check_device(dev, *x, *tabs)
+    lib = _build.library(dev)
+    rs, rc, rf, rv, rcl, cs, cc, load = tabs
+    cluster = torch.empty((R,), dtype=torch.int32, device=dev)
+    ep = torch.empty((R,), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = lib.xlb_route(p(x[0]), p(x[1]), R, F,
+                        p(rs), p(rc), p(rf), p(rv), p(rcl), rs.shape[0],
+                        rf.shape[0], p(cs), p(cc), cs.shape[0],
+                        p(load), load.shape[0], p(cluster), p(ep),
+                        _build.stream(dev))
+    _build.check(err, "route_match")
+    return cluster, ep

@@ -1,12 +1,13 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --engine xlb
---policy least_request --instances 4 --slots 4 --requests 32 --max-len 24
-[--device cuda|cpu]``.
+"""Serving launcher: ``python -m repro_torch.launch.serve --engine
+xlb|istio|cilium --policy least_request --instances 4 --slots 4
+--requests 32 --max-len 24 [--device cuda|cpu]``.
 
-Boots the XLB engine with the full-width ``xlb-service-model`` (random
-weights from a seed), one service routed to one cluster over the
-instances under the chosen policy, and drives a synthetic request stream
-through the continuous-batching loop.  Runs on the card unless
-``--device cpu`` is given.
+Boots the chosen engine (XLB or one of the sidecar baselines) with the
+full-width ``xlb-service-model`` (random weights from a seed), one
+service routed to one cluster over the instances under the chosen
+policy, and drives a synthetic request stream through the
+continuous-batching loop.  Runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Params, dense_init, embed_init, rms_norm
@@ -25,13 +26,15 @@ def _stack(layers: list):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     """The port's own seeded init (the reference's layout: ``embed``,
     ``head``, ``norm_f`` and ``blocks`` stacked on a leading layer axis).
     Draws come from ``generator`` on the CPU, so a seed gives the same
-    weights on any device."""
+    weights on any device.  On the card unless ``device="cpu"``; raises
+    without a GPU."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    device = resolve_device(device)
     dtype = _dtype(cfg, dtype)
     D, Vp = cfg.d_model, cfg.vocab_padded
     return {
@@ -44,9 +47,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device="cpu"):
+               device="cuda"):
     """``{"blocks": {"self": {"k", "v"}}}`` stacked on the layer axis:
-    (L, B, max_len, K, hd) each."""
+    (L, B, max_len, K, hd) each.  On the card unless ``device="cpu"``;
+    raises without a GPU."""
+    device = resolve_device(device)
     one = attn.init_gqa_cache(cfg, batch, max_len, _dtype(cfg, dtype),
                               device)
     return {"blocks": {"self": {k: torch.zeros((cfg.n_layers,) + v.shape,

@@ -5,7 +5,7 @@ The host hashes L7 header fields into the fixed int32 feature vector and
 queues requests; routing, balancing, slot allocation and decode run on the
 engine's device.  Per tick the host uploads one admission batch and
 downloads one packed tensor (emitted tokens, done flags, serviced ids and
-the active count).
+the active count); the sidecar baselines hand those back as host numpy.
 """
 
 from __future__ import annotations
@@ -173,11 +173,13 @@ class ServeLoop:
         self.state, out = self.serve_step(self.params, self.state, reqs)
         I, C = out["emitted"].shape
         n = I * C
-        host = torch.cat([out["emitted"].reshape(-1).to(torch.int32),
-                          out["done"].reshape(-1).to(torch.int32),
-                          out["req_id"].reshape(-1).to(torch.int32),
-                          out["active"].reshape(1).to(torch.int32)]
-                         ).cpu().numpy()
+        cols = [out[k] for k in ("emitted", "done", "req_id", "active")]
+        if isinstance(cols[0], torch.Tensor):   # one download per tick
+            host = torch.cat([c.reshape(-1).to(torch.int32) for c in cols]
+                             ).cpu().numpy()
+        else:                                   # a sidecar's host outputs
+            host = np.concatenate([np.asarray(c, np.int32).reshape(-1)
+                                   for c in cols])
         emitted, done, ids = host[:n], host[n:2 * n], host[2 * n:3 * n]
         serviced = set()
         for cell in np.flatnonzero(ids >= 0):     # row-major (i, s) order

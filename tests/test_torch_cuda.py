@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
-card (bit-exact on every integer output and both f32 EWMAs).  Needs a CUDA
+card (bit-exact on every integer output and both f32 EWMAs): admission,
+completion, the route match and the relay slot assignment.  Needs a CUDA
 device and nvcc: ``PYTHONPATH=src python -m pytest -q -m gpu
 tests/test_torch_cuda.py``; skipped without a card."""
 
@@ -9,7 +10,7 @@ import torch
 
 from repro_torch.core import routing_table as RT
 from repro_torch.core.balancer import PoolState, RequestBatch
-from repro_torch.kernels import completion, ops, route_match
+from repro_torch.kernels import completion, ops, relay_dispatch, route_match
 
 pytestmark = pytest.mark.gpu
 
@@ -102,3 +103,33 @@ def test_complete_kernel_matches_plain(dev, I, C):
     for f in completion.CompleteResult._fields:
         assert torch.equal(getattr(k, f), getattr(p, f)), f
     assert int(k.done.sum()) > 0
+
+
+@pytest.mark.parametrize("R", [256, 4096, 1])
+def test_route_match_kernel_matches_plain(dev, R):
+    routing = _routing(dev, R)
+    reqs, _, _ = _batch(R, R + 2, dev)
+    svc = reqs.svc.clone()
+    svc[::17] = 70                        # clamps to the last service
+    n0 = ops.LAUNCHES["route_match"]
+    k = ops.route_match(svc, reqs.features, routing)
+    assert ops.LAUNCHES["route_match"] == n0 + 1
+    p = route_match.route_match(svc, reqs.features, routing)
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("N,n_dest", [(256, 65), (256, 513), (4096, 65),
+                                      (1000, 7), (1, 3)])
+def test_relay_slots_kernel_matches_plain(dev, N, n_dest):
+    g = torch.Generator().manual_seed(N + n_dest)
+    idx = torch.randint(0, n_dest + 1, (N,), generator=g,
+                        dtype=torch.int32).to(dev)    # n_dest = sentinel
+    n0 = ops.LAUNCHES["relay_slots"]
+    slot, load = ops.relay_slots(idx, n_dest)
+    assert ops.LAUNCHES["relay_slots"] == n0 + 1
+    ps, pl = relay_dispatch.relay_slots(idx, n_dest)
+    assert torch.equal(slot, ps) and torch.equal(load, pl)
+    assert int(load.sum()) == int((idx < n_dest).sum())
+    torch.cuda.synchronize()

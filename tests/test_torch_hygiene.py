@@ -14,8 +14,10 @@ from repro_torch.core import interpose
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.core.routing_table import (POLICY_RR, Cluster, Rule,
                                             ServiceConfig, build_state)
-from repro_torch.kernels import _build, completion, ops, route_match
+from repro_torch.kernels import (_build, completion, ops, relay_dispatch,
+                                 route_match)
 from repro_torch.launch import serve
+from repro_torch.models import model
 from repro_torch.runtime.serve_loop import ServeLoop
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -54,6 +56,26 @@ def test_engine_defaults_to_cuda_and_raises_without_gpu(no_gpu):
     assert interpose.Engine.__dataclass_fields__["device"].default == "cuda"
 
 
+def test_model_init_defaults_to_cuda_and_raises_without_gpu(no_gpu):
+    g = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_params(XLB_SERVICE_MODEL, g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(XLB_SERVICE_MODEL, 2, 8)
+    p = model.init_params(XLB_SERVICE_MODEL, g, torch.float32, device="cpu")
+    c = model.init_cache(XLB_SERVICE_MODEL, 2, 8, torch.float32, "cpu")
+    assert p["embed"].device.type == "cpu"
+    assert c["blocks"]["self"]["k"].device.type == "cpu"
+
+
+def test_sidecars_default_to_cuda_and_raise_without_gpu(no_gpu):
+    from repro_torch.core import sidecar
+    for cls in (sidecar.IstioEngine, sidecar.CiliumEngine):
+        assert cls.__dataclass_fields__["device"].default == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(XLB_SERVICE_MODEL, 2, 2, 8)
+
+
 def test_serve_loop_and_launcher_raise_without_gpu(no_gpu):
     eng = interpose.Engine(XLB_SERVICE_MODEL, 2, 2, 8, device="cpu")
     routing, _ = build_state([ServiceConfig("s", [Rule(0, None, "p")])],
@@ -75,7 +97,8 @@ def fake_cuda(monkeypatch):
         raise AssertionError("plain version ran for a CUDA tensor")
 
     for mod, name in ((route_match, "admit"), (route_match, "admit_commit"),
-                      (completion, "complete")):
+                      (route_match, "route_match"), (completion, "complete"),
+                      (relay_dispatch, "relay_slots")):
         monkeypatch.setattr(mod, name, plain)
     monkeypatch.setattr(_build, "_lib", None)
 
@@ -100,7 +123,12 @@ def test_wrappers_raise_without_a_built_library(fake_cuda, no_gpu):
         ops.complete(pool, torch.zeros((2, 2), dtype=torch.int32),
                      routing.ep_load, torch.zeros(64, dtype=torch.int32),
                      eos=1, max_len=8)
-    assert ops.LAUNCHES == {"admit": 0, "admit_commit": 0, "complete": 0}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.route_match(reqs.svc, reqs.features, routing)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.relay_slots(reqs.svc, 3)
+    assert ops.LAUNCHES == {"admit": 0, "admit_commit": 0, "complete": 0,
+                            "route_match": 0, "relay_slots": 0}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
