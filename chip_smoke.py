@@ -26,9 +26,27 @@ Phases (each prints one line; any failure exits non-zero):
 5. the same traffic through ``ServeLoop`` over the XLB engine and the
    Istio and Cilium sidecar baselines: requests/s, median tick and the
    device's busy share of each, in this one run;
-6. the kernel launch counts: ``admit_commit`` and ``complete`` on the main
-   path, ``route_match``, ``relay_slots`` and ``admit`` in the staged
-   phase.
+6. the model stack at full width and depth in bf16, with weights from a
+   CUDA generator: minitron-4b (prefill through ``flash_attention``,
+   decode through ``decode_attention``) and mamba2-2.7b (prefill through
+   ``ssd_scan``, recurrent decode), each prefilling 2 x 4096 tokens and
+   decoding 32 greedy steps (prefill ms, ms per decode step, tokens/s,
+   peak memory), with finite logits, and decode after a shorter prefill
+   against the last logits of the full prefill: relative error < 1e-3 in
+   f32 (the weights cast up), and in bf16 under a fixed limit per
+   architecture that a planted decode fault must exceed;
+7. the kernel launch counts: ``admit_commit``, ``complete`` and
+   ``decode_attention`` on the main path, ``route_match``, ``relay_slots``
+   and ``admit`` in the staged phase, ``flash_attention``,
+   ``decode_attention`` and ``ssd_scan`` in the model phases.
+
+Phase 2 also holds the float kernels against their plain versions at the
+paths' shapes (decode attention at minitron-4b's and the serving model's,
+flash attention at minitron-4b's prefill, the SSD scan at mamba2-2.7b's),
+in the path's dtype (bf16: rtol 2e-2, atol 2e-2 x the output's RMS) and
+in f32 at the same shapes (2e-5), and times each beside one PyTorch call
+of the same function (``scaled_dot_product_attention``) where there is
+one.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
@@ -46,9 +64,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-# H100 SXM data-sheet peaks: HBM3 bytes/s, non-tensor f32 operations/s
+# H100 SXM data-sheet peaks: HBM3 bytes/s, non-tensor f32 operations/s,
+# dense bf16 tensor-core operations/s
 MEM_BPS = 3.35e12
 OPS_PS = 67e12
+BF16_OPS_PS = 989e12
 
 I_LANES, SLOTS, ADMIT_R, MAX_LEN = 64, 16, 256, 32
 N_REQUESTS, N_UNROUTABLE, ARRIVALS_PER_TICK = 4096, 64, 34
@@ -57,6 +77,17 @@ PROFILE_FROM, PROFILE_TICKS = 60, 20    # the separate profiled pass
 # launches fit the time limit, and a short profiled pass of each engine
 ENGINE_REQUESTS, ENGINE_WARM, ENGINE_PROFILE = 1024, 8, 4
 TIE_GAP = 1e-5      # weighted picks may flip between devices below this
+# the model phases: cuts of SHAPES prefill_32k (32 x 32768) and decode_32k
+# (128 x 32768) to one card
+LLM_BATCH, LLM_PROMPT, LLM_STEPS = 2, 4096, 32
+# decode after a shorter prefill vs the full prefill, max |diff| / max |logit|:
+# in f32 sound runs read 5.1e-6 (minitron-4b) and 1.4e-5 (mamba2-2.7b); in
+# bf16 minitron-4b reads 1.7e-2 against tests/test_smoke_archs.py's 5e-2,
+# and mamba2-2.7b 6.4e-2, as bf16 rounding grows over its 64 layers (its
+# bf16 prefill alone is 5.5e-2 from the f32 one)
+LLM_REL_TOL_F32 = 1e-3
+LLM_REL_TOL_BF16 = {"minitron-4b": 5e-2, "mamba2-2.7b": 1e-1}
+PLANT_KEYS = 256    # one key split of csrc/decode_attention.cu
 
 
 def fail(msg: str) -> None:
@@ -115,17 +146,19 @@ def device_events(torch, fn):
     return wall, by_name
 
 
-def kernel_ms(torch, fn, key: str, reps: int = 20):
-    """Device ms per call of the kernels whose name contains ``key``
-    (profiler), or None where the profiler sees none."""
+def kernel_ms(torch, fn, key, reps: int = 20):
+    """Device ms per call of the kernels whose name contains ``key`` (a
+    string or a tuple of them) (profiler), or None where the profiler sees
+    none."""
     fn()
+    keys = (key,) if isinstance(key, str) else key
 
     def run():
         for _ in range(reps):
             fn()
 
     _, by_name = device_events(torch, run)
-    us = sum(t for n, t in by_name.items() if key in n)
+    us = sum(t for n, t in by_name.items() if any(k in n for k in keys))
     return us / 1e3 / reps if us else None
 
 
@@ -483,6 +516,311 @@ def _to(torch, tree, dev):
 
 
 # --------------------------------------------------------------------------- #
+# phase 2b: the float kernels against their plain versions on the card
+# --------------------------------------------------------------------------- #
+
+
+def float_err(torch, name, got, want) -> float:
+    """Fail unless ``got`` is finite and within the dtype's tolerance of
+    ``want``: f32 rtol = atol = 2e-5, bf16 rtol = 2e-2 (tests/test_kernels.py)
+    with atol = 2e-2 x the RMS of ``want``, so that the bound follows
+    outputs far below 1 (attention over n unit-variance values averages to
+    an RMS of about sqrt(e / n), 0.026 at 4096 keys).  The largest absolute
+    difference."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: {got.dtype}{tuple(got.shape)} vs "
+             f"{want.dtype}{tuple(want.shape)}")
+    a, b = got.float(), want.float()
+    check(bool(torch.isfinite(a).all()), f"{name}: non-finite output")
+    rtol = atol = 2e-5
+    if want.dtype == torch.bfloat16:
+        rtol, atol = 2e-2, 2e-2 * float(b.square().mean().sqrt())
+    if not torch.allclose(a, b, rtol=rtol, atol=atol):
+        fail(f"{name}: differs from the plain version beyond rtol {rtol}, "
+             f"atol {atol:.3g}: max abs err {float((a - b).abs().max())}")
+    return float((a - b).abs().max())
+
+
+def decode_inputs(torch, B, S, H, K, hd, dtype, lengths, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev,
+                                    dtype=torch.float32).to(dtype)
+    return (rn(B, H, hd), rn(B, S, K, hd), rn(B, S, K, hd),
+            torch.as_tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def decode_work(q, kc, lengths):
+    """(bytes, operations): q and the output, the lengths, and
+    the keys and values at kpos <= lengths[b] each read once; 4 operations
+    per (query head, valid key, dim)."""
+    B, H, hd = q.shape
+    S, K = kc.shape[1], kc.shape[2]
+    valid = int(lengths.long().add(1).clamp(1, S).sum())
+    e = q.element_size()
+    return (2 * B * H * hd * e + 4 * B + 2 * valid * K * hd * e,
+            4 * valid * H * hd)
+
+
+def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
+    """Decode attention, flash attention and the SSD scan through
+    ``kernels/ops.py`` against their plain versions on the same card
+    tensors at the paths' shapes; device, call, plain and library times."""
+    import torch.nn.functional as F
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False     # the f32 plain runs
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, timing = [], {}
+    sdpa = F.scaled_dot_product_attention
+
+    # B6 at minitron-4b's decode (the last of 32 steps after a 4096-token
+    # prompt) and at the serving model's (1024 slots x max_len 32)
+    g = torch.Generator().manual_seed(5)
+    xlb_len = torch.randint(0, MAX_LEN - 1, (I_LANES * SLOTS,), generator=g)
+    last = LLM_PROMPT + LLM_STEPS - 1
+    for key, shape, dtype, lengths, peak in (
+            ("decode_attention", (LLM_BATCH, LLM_PROMPT + LLM_STEPS, 24, 8,
+                                  128), bf16, [last - 20, last],
+             BF16_OPS_PS),
+            ("decode_attention[xlb]", (I_LANES * SLOTS, MAX_LEN, 4, 2, 32),
+             f32, xlb_len, OPS_PS)):
+        B, S, H, K, hd = shape
+        q, kc, vc, lens = decode_inputs(torch, *shape, dtype, lengths, dev,
+                                        seed=S)
+        call = lambda: ops.decode_attention(q, kc, vc, lens)
+        plain = lambda: da.decode_attention(q, kc, vc, lens)
+        err = float_err(torch, key, call(), plain())
+        err32 = err if dtype == f32 else f32_err(
+            torch, ops.decode_attention, da.decode_attention, key,
+            q.float(), kc.float(), vc.float(), lens)
+        mask = (torch.arange(S, device=dev)[None, :]
+                <= lens[:, None].long())[:, None, None, :]
+        q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        lib = lambda: sdpa(q4, k4, v4, attn_mask=mask, enable_gqa=True)
+        lib_err = float((lib()[:, :, 0].float() - plain().float())
+                        .abs().max())
+        rows.append(f"{key}[B={B} S={S} H={H} K={K} hd={hd} {dtype}] "
+                    f"max_abs_err={err}, in f32 {err32} (sdpa vs plain "
+                    f"{lib_err:.3g})")
+        nb, nops = decode_work(q, kc, lens)
+        timing[key] = dict(
+            ms=kernel_ms(torch, call, ("decode_kernel", "decode_merge")),
+            call_ms=cuda_ms(torch, call),
+            plain_ms=cuda_ms(torch, plain, reps=10, warm=2),
+            library_ms=cuda_ms(torch, lib, reps=20, warm=3),
+            bytes=nb, ops=nops, peak=peak, err=err, err_f32=err32)
+
+    # B7 at minitron-4b's prefill
+    B, S, H, K, hd = LLM_BATCH, LLM_PROMPT, 24, 8, 128
+    gd = torch.Generator(device=dev).manual_seed(7)
+    rn = lambda *shape: torch.randn(shape, generator=gd, device=dev).to(bf16)
+    q, k, v = rn(B, S, H, hd), rn(B, S, K, hd), rn(B, S, K, hd)
+    call = lambda: ops.flash_attention(q, k, v, causal=True)
+    plain = lambda: fa.flash_attention(q, k, v, causal=True)
+    err = float_err(torch, "flash_attention", call(), plain())
+    err32 = f32_err(torch, lambda *t: ops.flash_attention(*t, causal=True),
+                    lambda *t: fa.flash_attention(*t, causal=True),
+                    "flash_attention", q.float(), k.float(), v.float())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - plain().float())
+                    .abs().max())
+    rows.append(f"flash_attention[B={B} S={S} H={H} K={K} hd={hd} causal "
+                f"bf16] max_abs_err={err}, in f32 {err32} (sdpa vs plain "
+                f"{lib_err:.3g})")
+    timing["flash_attention"] = dict(
+        ms=kernel_ms(torch, call, "flash_kernel", reps=5),
+        call_ms=cuda_ms(torch, call, reps=5, warm=1),
+        plain_ms=cuda_ms(torch, plain, reps=3, warm=1),
+        library_ms=cuda_ms(torch, lib, reps=10, warm=2),
+        bytes=nbytes(q, k, v, q),                 # q, k, v in; out
+        ops=4 * B * H * hd * S * (S + 1) // 2, peak=BF16_OPS_PS, err=err,
+        err_f32=err32)
+
+    # B8 at mamba2-2.7b's prefill: 80 heads of hd 64, N 128, one group
+    # broadcast over the heads (stride 0), chunk 256
+    B, S, nh, hd, N = LLM_BATCH, LLM_PROMPT, 80, 64, 128
+    Q = min(256, S)
+    x = (torch.randn((B, S, nh, hd), generator=gd, device=dev) * 0.5).to(bf16)
+    a = -F.softplus(torch.randn((B, S, nh), generator=gd, device=dev)) * 0.5
+    Bg = (torch.randn((B, S, 1, N), generator=gd, device=dev) * 0.3).to(bf16)
+    Cg = (torch.randn((B, S, 1, N), generator=gd, device=dev) * 0.3).to(bf16)
+    Bm, Cm = Bg.expand(-1, -1, nh, -1), Cg.expand(-1, -1, nh, -1)
+    call = lambda: ops.ssd_scan(x, a, Bm, Cm, chunk=Q, return_state=True)
+    plain = lambda: ssd.ssd_scan(x, a, Bm, Cm, Q)
+    (ky, kh), (py, ph) = call(), plain()
+    err = max(float_err(torch, "ssd_scan y", ky, py),
+              float_err(torch, "ssd_scan h_last", kh, ph))
+    err32 = f32_err(
+        torch, lambda *t: ops.ssd_scan(*t, chunk=Q, return_state=True),
+        lambda *t: ssd.ssd_scan(*t, Q), "ssd_scan", x.float(), a,
+        Bg.float().expand(-1, -1, nh, -1), Cg.float().expand(-1, -1, nh, -1))
+    rows.append(f"ssd_scan[B={B} S={S} nh={nh} hd={hd} N={N} chunk={Q} "
+                f"bf16] max_abs_err={err}, in f32 {err32} (y and h_last)")
+    T = 64      # the kernel's tile: its operations per (sequence, head)
+    tiles = -(-S // T)
+    timing["ssd_scan"] = dict(
+        ms=kernel_ms(torch, call, "ssd_kernel", reps=5),
+        call_ms=cuda_ms(torch, call, reps=5, warm=1),
+        plain_ms=cuda_ms(torch, plain, reps=3, warm=1), library_ms=None,
+        bytes=nbytes(x, a, Bg, Cg, ky, kh),
+        ops=B * nh * tiles * 2 * (T * (T + 1) // 2 * (N + hd)
+                                   + 2 * T * N * hd),
+        peak=BF16_OPS_PS, err=err, err_f32=err32)
+    return rows, timing
+
+
+def f32_err(torch, call, plain, name, *inputs) -> float:
+    """The f32 build of a kernel against its plain version on f32
+    ``inputs`` within 2e-5: the path's shape gated without bf16's
+    rounding."""
+    got, want = call(*inputs), plain(*inputs)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    err = max(float_err(torch, f"{name} f32", a, b) for a, b in pairs)
+    del got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: the model stack at full width on the card
+# --------------------------------------------------------------------------- #
+
+
+def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
+    """Build ``cfg`` at full width and depth in bf16 (weights from a CUDA
+    generator), prefill LLM_BATCH x LLM_PROMPT tokens and decode LLM_STEPS
+    greedy steps through the launcher's ``run``; check the path's kernel
+    launches, finite logits, and decode after a shorter prefill against
+    the last logits of the full prefill."""
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False     # the f32 check
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = TM.init_params(cfg, gen, None, dev)
+    tokens = torch.randint(0, cfg.vocab, (LLM_BATCH, LLM_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    launcher.run(cfg, params, tokens[:, :256], 2)   # warm-up (cuBLAS)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    res = launcher.run(cfg, params, tokens, LLM_STEPS)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    L = cfg.n_layers
+    want = ({"ssd_scan": L} if cfg.family == "ssm" else
+            {"flash_attention": L, "decode_attention": L * LLM_STEPS})
+    check(launches == want, f"{cfg.name}: kernel launches {launches}, "
+          f"expected {want}")
+    check(bool(torch.isfinite(res["logits"]).all()),
+          f"{cfg.name}: non-finite decode logits")
+    peak = torch.cuda.max_memory_allocated(dev)    # init, prefill, decode
+
+    # consistency, as tests/test_smoke_archs.py checks it (in f32): the
+    # full prefill's last logits against a shorter prefill plus
+    # teacher-forced decode of the rest (mamba: a prefill that is a
+    # multiple of the 256-row chunk, as ssd_chunked asserts)
+    split = LLM_PROMPT - (cfg.ssm.chunk if cfg.family == "ssm" else 1)
+    f16_full, f16_dec = consistency(torch, TM, ops, cfg, params, tokens,
+                                    split)
+    _, bad_dec = consistency(torch, TM, ops, cfg, params, tokens, split,
+                             plant=True)
+    p32 = _tree(params, lambda t: t.float())
+    f32_full, f32_dec = consistency(torch, TM, ops, cfg, p32, tokens, split)
+    del p32
+    for name, t in (("bf16 prefill", f16_full), ("bf16 decode", f16_dec),
+                    ("f32 prefill", f32_full), ("f32 decode", f32_dec)):
+        check(bool(torch.isfinite(t).all()), f"{cfg.name}: non-finite "
+              f"{name} logits")
+    rel32 = rel_err(f32_dec, f32_full)
+    check(rel32 < LLM_REL_TOL_F32, f"{cfg.name}: f32 decode after a "
+          f"{split}-token prefill vs the full prefill: rel {rel32:.3e} >= "
+          f"{LLM_REL_TOL_F32}")
+    tol16 = LLM_REL_TOL_BF16[cfg.name]
+    rel16 = rel_err(f16_dec, f16_full)
+    check(rel16 < tol16, f"{cfg.name}: bf16 decode after a {split}-token "
+          f"prefill vs the full prefill: rel {rel16:.3e} >= {tol16}")
+    planted = rel_err(bad_dec, f16_full)
+    fault = (f"layer {cfg.n_layers // 2} skips its state update"
+             if cfg.attn_free else
+             f"decode attention drops the newest {PLANT_KEYS} keys")
+    check(planted >= tol16, f"{cfg.name}: the bf16 gate does not see a "
+          f"planted fault ({fault}): rel {planted:.3e} < {tol16}")
+    floor16, dist16 = rel_err(f16_full, f32_full), rel_err(f16_dec, f32_full)
+    per_step = res["decode_s"] / LLM_STEPS
+    line = (f"model {cfg.name}: {n_params / 1e9:.3f} B parameters "
+            f"({cfg.n_layers} layers, bf16), init {init_s:.2f} s; prefill "
+            f"{LLM_BATCH} x {LLM_PROMPT} tokens {1e3 * res['prefill_s']:.3f}"
+            f" ms ({LLM_BATCH * LLM_PROMPT / res['prefill_s']:.1f} tokens/s)"
+            f"; {LLM_STEPS} decode steps {1e3 * per_step:.3f} ms per step "
+            f"= {LLM_BATCH / per_step:.1f} tokens/s (host clock, "
+            f"synchronised); peak memory {peak / 2**30:.2f} GiB; decode "
+            f"after a {split}-token prefill vs the full prefill: rel "
+            f"{rel32:.3e} in f32 (< {LLM_REL_TOL_F32}), {rel16:.3e} in "
+            f"bf16 (< {tol16}), with a planted fault ({fault}) {planted:.3e}"
+            f" (>= {tol16}); bf16 vs f32 logits: prefill {floor16:.3e}, "
+            f"decode {dist16:.3e}; launches "
+            + " ".join(f"{k}={v}" for k, v in launches.items()))
+    del params, res
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def consistency(torch, TM, ops, cfg, params, tokens, split, plant=False):
+    """(the last logits of a prefill over all of ``tokens``, the logits
+    after a prefill of ``tokens[:, :split]`` and decode of the rest, each
+    token fed as the reference's test feeds it).  With ``plant`` the
+    decode carries a fault that the bf16 gate must see, and the first is
+    None: attention drops the newest PLANT_KEYS keys (a lost key split of
+    the decode kernel), or mamba's middle layer keeps its state from
+    before each step (its state update skipped)."""
+    dev, dt = tokens.device, params["embed"].dtype
+    B, S = tokens.shape
+    full = None if plant else TM.prefill(
+        cfg, params, tokens, TM.init_cache(cfg, B, S, dt, dev))[0]
+    logits, cache = TM.prefill(cfg, params, tokens[:, :split],
+                               TM.init_cache(cfg, B, S, dt, dev))
+    decode_attention, mid = ops.decode_attention, cfg.n_layers // 2
+    if plant and not cfg.attn_free:
+        ops.decode_attention = lambda q, k, v, lengths: decode_attention(
+            q, k, v, lengths - PLANT_KEYS)
+    try:
+        for pos in range(split, S):
+            lengths = torch.full((B,), pos, dtype=torch.int32, device=dev)
+            held = [t[mid].clone() for t in cache] \
+                if plant and cfg.attn_free else []
+            logits, cache = TM.decode_step(cfg, params,
+                                           tokens[:, pos:pos + 1], lengths,
+                                           cache)
+            for t, h in zip(cache, held):
+                t[mid].copy_(h)
+    finally:
+        ops.decode_attention = decode_attention
+    return full, logits
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| (tests/test_smoke_archs.py)."""
+    return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# --------------------------------------------------------------------------- #
 # phase 3: the main path
 # --------------------------------------------------------------------------- #
 
@@ -579,7 +917,8 @@ def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
           "token counts out of range")
     check(all(0 <= t < cfg.vocab_padded for r in done for t in r.tokens),
           "emitted token out of range")
-    check(launches["admit_commit"] > 0 and launches["complete"] > 0,
+    check(launches["admit_commit"] > 0 and launches["complete"] > 0
+          and launches["decode_attention"] > 0,
           f"kernels not launched on the main path: {launches}")
     med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
            for k, v in events.items() if v}
@@ -816,9 +1155,14 @@ def main() -> int:
     from repro_torch.core import policy_defs as PD
     from repro_torch.core import routing_table as RT
     from repro_torch.kernels import _build, ops
+    from repro_torch.configs import get_config
     from repro_torch.kernels import completion as cp
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import relay_dispatch as rs
     from repro_torch.kernels import route_match as rm
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import prefill_decode as PDL
     from repro_torch.models import model as TM
     from repro_torch.runtime import serve_loop as SL
 
@@ -832,7 +1176,12 @@ def main() -> int:
           f"{_build.build_seconds:.1f} s), log in chiprun_out/build_log.txt")
 
     rows, timing = phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib)
-    for row in rows:
+    frows, ftiming = phase_float_kernels(torch, ops, da, fa, ssd)
+    for t in ftiming.values():
+        t["floor_ms"], t["issue_ms"] = timing["complete"]["floor_ms"], \
+            timing["complete"]["issue_ms"]
+    timing.update(ftiming)
+    for row in rows + frows:
         print("kernel " + row)
     err = phase_model(torch, cfg, TM)
     print(f"model: decode on the card vs the CPU max_abs_err={err:.3g} "
@@ -842,16 +1191,26 @@ def main() -> int:
                                        cfg)
     print(line)
     print(prof)
-    main_launches = {k: launches[k] for k in ("admit_commit", "complete")}
+    main_launches = {k: launches[k] for k in ("admit_commit", "complete",
+                                              "decode_attention")}
     line, staged_launches = phase_staged(torch, RT, ops, B,
                                          (router, policies, request_map))
     print(line)
     for line in phase_engines(torch, RT, TM, B, SL, cfg):
         print(line)
-    launches = {**main_launches, **staged_launches}
-    print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())
-          + " (admit_commit and complete on the main path; route_match, "
-          "relay_slots and admit in the staged phase)")
+    llm_launches = {}
+    for arch in ("minitron-4b", "mamba2-2.7b"):
+        line, got = phase_llm(torch, ops, TM, PDL, get_config(arch))
+        print(line)
+        llm_launches.update(got)
+    launches = {**main_launches, **staged_launches, **llm_launches}
+    print("kernels: " + " ".join(
+        f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
+                                main_launches["decode_attention"]}.items())
+          + " (admit_commit, complete and decode_attention[xlb] on the main "
+          "path; route_match, relay_slots and admit in the staged phase; "
+          "flash_attention and decode_attention in minitron-4b's, ssd_scan "
+          "in mamba2-2.7b's)")
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {"admit_commit": (src + "admit.cu",
@@ -863,19 +1222,26 @@ def main() -> int:
             "route_match": (src + "route.cu",
                             "src/repro/kernels/route_match.py:170"),
             "relay_slots": (src + "relay.cu",
-                            "src/repro/kernels/relay_dispatch.py:28")}
+                            "src/repro/kernels/relay_dispatch.py:28"),
+            "decode_attention": (src + "decode_attention.cu",
+                                 "src/repro/kernels/decode_attention.py:32"),
+            "flash_attention": (src + "flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:34"),
+            "ssd_scan": (src + "ssd_scan.cu",
+                         "src/repro/kernels/ssd_scan.py:28")}
     kernels = []
     for name, t in timing.items():
-        t_bytes, t_ops = t["bytes"] / MEM_BPS * 1e3, t["ops"] / OPS_PS * 1e3
+        t_bytes = t["bytes"] / MEM_BPS * 1e3
+        t_ops = t["ops"] / t.get("peak", OPS_PS) * 1e3
         bound = max(t_bytes, t_ops)
         # device time from the profiler; the event-timed call where the
         # profiler saw no kernel
         ms = t["ms"] if t["ms"] is not None else t["call_ms"]
         print(f"timing {name}: device ms {t['ms']}, call ms {t['call_ms']}, "
-              f"plain ms {t['plain_ms']}, bound ms {bound} ({t['bytes']} B, "
-              f"{t['ops']} operations), launch floor ms {t['floor_ms']} "
-              f"(device) / {t['issue_ms']} (issue interval), "
-              f"on {gpu}")
+              f"plain ms {t['plain_ms']}, library ms {t.get('library_ms')}, "
+              f"bound ms {bound} ({t['bytes']} B, {t['ops']} operations), "
+              f"launch floor ms {t['floor_ms']} (device) / {t['issue_ms']} "
+              f"(issue interval), on {gpu}")
         if name in meta:            # each kernel at its path's shape
             source, replaces = meta[name]
             kernels.append({
@@ -884,7 +1250,11 @@ def main() -> int:
                 "max_abs_err": t["err"], "ms": ms,
                 "plain_ms": t["plain_ms"], "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None, "launch_floor_ms": t["floor_ms"]})
+                "library_ms": t.get("library_ms"),
+                "launch_floor_ms": t["floor_ms"]})
+            if name == "decode_attention":
+                kernels[-1]["launches_xlb_main_path"] = \
+                    main_launches["decode_attention"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

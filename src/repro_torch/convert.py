@@ -1,9 +1,11 @@
 """Carry weights and state across from the JAX reference, given as numpy.
 
 ``params_from_jax`` takes the reference ``init_params`` pytree (``embed``,
-``head``, ``norm_f`` and ``blocks`` stacked on a leading layer axis) with
-numpy leaves and keeps the ``x @ W`` layout.  ``routing_from_numpy`` and
-``pool_from_numpy`` do the same for the datapath state.  The caller turns
+``head``, ``norm_f`` and ``blocks`` stacked on a leading layer axis; dense
+and ssm families alike) with numpy leaves and keeps the ``x @ W`` layout.
+``ssm_state_from_numpy`` carries a (stacked or per-layer) ``SSMState``;
+``routing_from_numpy`` and ``pool_from_numpy`` do the same for the
+datapath state.  The caller turns
 its arrays into numpy; nothing here sees a JAX array.
 """
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.core.balancer import PoolState
 from repro_torch.core.routing_table import RoutingState, state_from_numpy
+from repro_torch.models.ssm import SSMState
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -35,6 +38,13 @@ def _fields(obj, names) -> dict:
     if isinstance(obj, dict):
         return {n: obj[n] for n in names}
     return {n: getattr(obj, n) for n in names}
+
+
+def ssm_state_from_numpy(state, device) -> SSMState:
+    """An ``SSMState`` from numpy arrays (a mapping or an object with the
+    fields ``ssm`` and ``conv``), dtypes kept."""
+    f = _fields(state, SSMState._fields)
+    return SSMState(*(_tensor(f[n], device) for n in SSMState._fields))
 
 
 def routing_from_numpy(arrays, device) -> RoutingState:

@@ -22,8 +22,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("admit.cu", "complete.cu", "route.cu", "relay.cu",
+           "decode_attention.cu", "flash_attention.cu", "ssd_scan.cu",
            "launch_floor.cu")
-HEADERS = ("match.cuh",)    # included by the sources; part of the hash
+HEADERS = ("match.cuh", "float_io.cuh")   # included; part of the hash
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,6 +35,10 @@ SMEM_DEFAULT = 48 * 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+
+#: activation type codes of the float kernels (csrc/float_io.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # C signatures (argtypes) of the exported functions; pointers and the
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 SIGNATURES = {
@@ -61,6 +66,20 @@ SIGNATURES = {
                  + [_P, _P, _P],                # cluster, endpoint, stream
     "xlb_relay_smem_bytes": [_I],
     "xlb_relay": [_P, _I, _I, _P, _P, _P],      # idx, N, n_dest, outs, stream
+    "xlb_decode_attention": [_P] * 7            # q, k, v, lengths, out,
+                                                # partials (acc, m/l)
+                            + [_I] * 6          # B, H, K, S, hd, dtype
+                            + [_L] * 8          # q, k, v strides
+                            + [_I, _I, _F, _P],  # split, n_split, scale
+    "xlb_flash_attention": [_P] * 4             # q, k, v, out
+                           + [_I] * 7           # B, S, H, K, hd, dtype,
+                                                # causal
+                           + [_L] * 12          # q, k, v, out strides
+                           + [_F, _P],          # scale, stream
+    "xlb_ssd_scan": [_P] * 6                    # x, a, B, C, y, h_last
+                    + [_I] * 6                  # B, S, nh, hd, N, dtype
+                    + [_L] * 12                 # x, a, B, C strides
+                    + [_P],                     # stream
     "xlb_empty_launches": [_I, _P],
     "xlb_error_string": [_I],
 }
@@ -68,6 +87,7 @@ RESTYPES = {"xlb_error_string": ctypes.c_char_p}
 
 _lib: ctypes.CDLL | None = None
 _ready: set[int] = set()    # device indices the library was set up on
+_sms: dict[int, int] = {}   # device index -> streaming multiprocessors
 #: seconds the last build took (0.0 when an existing library was loaded)
 build_seconds = 0.0
 #: nvcc's output of the last build (-Xptxas -v: registers, smem, spills)
@@ -163,6 +183,16 @@ def ptr(t: torch.Tensor) -> int:
 def stream(device: torch.device) -> int:
     """PyTorch's current stream on ``device`` as a raw handle."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of streaming multiprocessors of ``device``."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index) \
+            .multi_processor_count
+    return _sms[index]
 
 
 def check_device(device: torch.device, *tensors: torch.Tensor) -> None:

@@ -1,0 +1,77 @@
+"""GQA prefill attention, causal or not (twin of
+``repro/kernels/flash_attention.py``; semantics of
+``repro/kernels/ref.py::flash_attention_ref``).
+
+``flash_attention`` here is the plain PyTorch version (the full score
+matrix); ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``
+(online softmax over KV tiles).  ``kernels/ops.py`` picks one by the
+tensors' device.  Both compute the reference function: the Pallas
+kernel's skip of KV blocks with ``qi * block_q < ki * block_k`` drops
+valid keys when ``block_q > block_k``, and neither port version has it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+#: head dims the kernel is built for
+HEAD_DIMS = (32, 64, 128)
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, S, K, hd) with H = K * G.  Returns
+    (B, S, H, hd) in q's dtype; scores (scaled by 1/sqrt(hd)), softmax
+    and sums in f32."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, K, H // K, hd).to(torch.float32)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.to(torch.float32)) * scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.to(torch.float32))
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` on the tensors' CUDA device; same
+    contract and result as ``flash_attention``.  Inputs are read through
+    their strides (last axis contiguous).  Raises on a shape, dtype or head
+    dim the kernel does not take, if the library cannot be built or the
+    launch fails."""
+    B, S, H, hd = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[:2] != (B, S) \
+            or k.shape[3] != hd:
+        raise ValueError(f"k and v must be (B, S, K, hd) = ({B}, {S}, K, "
+                         f"{hd}), got {tuple(k.shape)}, {tuple(v.shape)}")
+    K = k.shape[2]
+    if S == 0 or H % K or hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention takes S > 0, H a multiple of K "
+                         f"and hd in {HEAD_DIMS}; got S={S}, H={H}, K={K}, "
+                         f"hd={hd}")
+    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must share one of "
+                         f"{list(_build.DTYPE_CODES)}, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("the last axis of q, k and v must be contiguous")
+    dev = q.device
+    _build.check_device(dev, k, v)
+    lib = _build.library(dev)
+    out = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
+    p = _build.ptr
+    err = lib.xlb_flash_attention(
+        p(q), p(k), p(v), p(out), B, S, H, K, hd,
+        _build.DTYPE_CODES[q.dtype], int(causal),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], 1.0 / math.sqrt(hd), _build.stream(dev))
+    _build.check(err, "flash_attention")
+    return out

@@ -15,13 +15,17 @@ import torch
 
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.kernels import completion as _cp
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import relay_dispatch as _rd
 from repro_torch.kernels import route_match as _rm
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.route_match import AdmitResult
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"admit": 0, "admit_commit": 0, "complete": 0, "route_match": 0,
-            "relay_slots": 0}
+            "relay_slots": 0, "decode_attention": 0, "flash_attention": 0,
+            "ssd_scan": 0}
 
 
 class AdmitCommitOut(NamedTuple):
@@ -167,3 +171,45 @@ def relay_slots(idx, n_dest: int) -> tuple[torch.Tensor, torch.Tensor]:
         LAUNCHES["relay_slots"] += 1
         return res
     return _rd.relay_slots(idx, n_dest)
+
+
+def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
+    """One-token GQA attention: q (B, H, hd) against caches (B, S, K, hd)
+    at ``kpos <= lengths[b]``, scaled by 1/sqrt(hd) → (B, H, hd).  Any S;
+    the caches are read in place on the card."""
+    if _on_cuda(q):
+        res = _da.decode_attention_cuda(q, k_cache, v_cache, lengths)
+        LAUNCHES["decode_attention"] += 1
+        return res
+    return _da.decode_attention(q, k_cache, v_cache, lengths)
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """GQA prefill attention: q (B, S, H, hd), k/v (B, S, K, hd) →
+    (B, S, H, hd), causal or not, scaled by 1/sqrt(hd).  Any S."""
+    if _on_cuda(q):
+        res = _fa.flash_attention_cuda(q, k, v, causal=causal)
+        LAUNCHES["flash_attention"] += 1
+        return res
+    return _fa.flash_attention(q, k, v, causal=causal)
+
+
+def ssd_scan(xdt, a_log, Bm, Cm, *, chunk: int,
+             return_state: bool = False):
+    """Mamba-2 SSD from a zero state: xdt (B, S, nh, hd), a_log (B, S, nh)
+    f32, Bm/Cm (B, S, nh, N) → y (B, S, nh, hd), and with
+    ``return_state`` also the final state (B, nh, hd, N) f32.  ``chunk``
+    is clipped to S and must divide it, as the Pallas wrapper asserts.
+    The plain version computes chunk by chunk; on the card ``chunk`` is
+    only checked for divisibility (the kernel tiles by 64 rows, and the
+    form is exact for any tile)."""
+    S = xdt.shape[1]
+    chunk = min(chunk, S)
+    if chunk <= 0 or S % chunk:
+        raise ValueError(f"S = {S} is not a multiple of the chunk {chunk}")
+    if _on_cuda(xdt):
+        y, h = _ssd.ssd_scan_cuda(xdt, a_log, Bm, Cm)
+        LAUNCHES["ssd_scan"] += 1
+    else:
+        y, h = _ssd.ssd_scan(xdt, a_log, Bm, Cm, chunk)
+    return (y, h) if return_state else y

@@ -1,0 +1,109 @@
+"""Mamba-2 SSD chunked scan (twin of ``repro/kernels/ssd_scan.py``; the
+plain version is the twin of ``repro/models/ssm.py::ssd_chunked``).
+
+``ssd_scan`` here is the plain PyTorch version, in f32 whatever the
+inputs' dtype (as the Pallas kernel computes); ``ssd_scan_cuda`` launches
+``csrc/ssd_scan.cu``.  ``kernels/ops.py`` picks one by the tensors'
+device.  Both start from a zero state and return ``(y, h_last)``: y
+(B, S, nh, hd) in xdt's dtype and the final state (B, nh, hd, N) f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: head dims and state sizes the kernel is built for
+HEAD_DIMS = (32, 64, 128)
+STATE_DIMS = (32, 64, 128)
+
+
+def _segsum(a):
+    """a: (..., Q) → (..., Q, Q), out[i, j] = sum_{j<k<=i} a_k (i >= j),
+    -inf above the diagonal."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=a.device).tril()
+    return torch.where(mask, seg, -torch.inf)
+
+
+def ssd_scan(xdt, a_log, Bm, Cm, chunk: int):
+    """The SSD dual form over chunks of ``chunk`` rows (S % chunk == 0).
+    xdt: (B, S, nh, hd) = dt * x; a_log: (B, S, nh) = dt * A; Bm/Cm:
+    (B, S, nh, N).  Returns (y, h_last)."""
+    B, S, nh, hd = xdt.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    if S % Q:
+        raise ValueError(f"S = {S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+    f32 = torch.float32
+    xc = xdt.to(f32).reshape(B, nc, Q, nh, hd)
+    ac = a_log.to(f32).reshape(B, nc, Q, nh).permute(0, 3, 1, 2)
+    Bc = Bm.to(f32).reshape(B, nc, Q, nh, N)
+    Cc = Cm.to(f32).reshape(B, nc, Q, nh, N)
+    A_cum = torch.cumsum(ac, dim=-1)                        # (B, nh, nc, Q)
+
+    # 1) intra-chunk (diagonal blocks)
+    L = torch.exp(_segsum(ac))                              # (B,nh,nc,Q,Q)
+    Y_diag = torch.einsum("bclhn,bcshn,bhcls,bcshp->bclhp", Cc, Bc, L, xc)
+    # 2) chunk states
+    decay_states = torch.exp(A_cum[..., -1:] - A_cum)       # (B, nh, nc, Q)
+    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bc, decay_states, xc)
+    # 3) inter-chunk recurrence, in order over the chunks
+    chunk_decay = torch.exp(A_cum[..., -1]).permute(0, 2, 1)  # (B, nc, nh)
+    h = torch.zeros((B, nh, hd, N), dtype=f32, device=xdt.device)
+    prev = []
+    for c in range(nc):
+        prev.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + states[:, c]
+    h_prev = torch.stack(prev, dim=1)                       # (B,nc,nh,hd,N)
+    # 4) inter-chunk output
+    Y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Cc, h_prev,
+                         torch.exp(A_cum))
+    y = (Y_diag + Y_off).reshape(B, S, nh, hd)
+    return y.to(xdt.dtype), h
+
+
+def ssd_scan_cuda(xdt, a_log, Bm, Cm):
+    """Launch ``csrc/ssd_scan.cu`` on the tensors' CUDA device; same result
+    as ``ssd_scan`` at any chunk (the kernel tiles by 64 rows; the form is
+    exact for any tile).  Inputs are read through their strides, so Bm and
+    Cm may be broadcast over the heads (stride 0); the last axis of xdt,
+    Bm and Cm must be contiguous.  Raises on a shape, dtype or size the
+    kernel does not take, if the library cannot be built or the launch
+    fails."""
+    B, S, nh, hd = xdt.shape
+    N = Bm.shape[-1]
+    if Bm.shape != (B, S, nh, N) or Cm.shape != Bm.shape \
+            or a_log.shape != (B, S, nh):
+        raise ValueError(f"ssd_scan takes xdt (B, S, nh, hd), a_log "
+                         f"(B, S, nh), Bm/Cm (B, S, nh, N); got "
+                         f"{tuple(xdt.shape)}, {tuple(a_log.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
+    if S == 0 or hd not in HEAD_DIMS or N not in STATE_DIMS:
+        raise ValueError(f"ssd_scan takes S > 0, hd in {HEAD_DIMS} and N in "
+                         f"{STATE_DIMS}; got S={S}, hd={hd}, N={N}")
+    if xdt.dtype not in _build.DTYPE_CODES or Bm.dtype != xdt.dtype \
+            or Cm.dtype != xdt.dtype or a_log.dtype != torch.float32:
+        raise ValueError(f"xdt, Bm and Cm must share one of "
+                         f"{list(_build.DTYPE_CODES)} and a_log be f32; got "
+                         f"{xdt.dtype}, {Bm.dtype}, {Cm.dtype}, "
+                         f"{a_log.dtype}")
+    if xdt.stride(3) != 1 or Bm.stride(3) != 1 or Cm.stride(3) != 1:
+        raise ValueError("the last axis of xdt, Bm and Cm must be "
+                         "contiguous")
+    dev = xdt.device
+    _build.check_device(dev, a_log, Bm, Cm)
+    lib = _build.library(dev)
+    y = torch.empty((B, S, nh, hd), dtype=xdt.dtype, device=dev)
+    h_last = torch.empty((B, nh, hd, N), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = lib.xlb_ssd_scan(
+        p(xdt), p(a_log), p(Bm), p(Cm), p(y), p(h_last), B, S, nh, hd, N,
+        _build.DTYPE_CODES[xdt.dtype], *xdt.stride()[:3], *a_log.stride(),
+        *Bm.stride()[:3], *Cm.stride()[:3], _build.stream(dev))
+    _build.check(err, "ssd_scan")
+    return y, h_last

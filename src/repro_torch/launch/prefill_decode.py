@@ -1,0 +1,92 @@
+"""Prefill-then-decode launcher for the model stack: ``python -m
+repro_torch.launch.prefill_decode --arch minitron-4b --batch 2 --prompt
+4096 --steps 32 [--device cuda|cpu] [--smoke]``.
+
+The port's counterpart of ``launch/dryrun.py::build_prefill_step`` and
+``build_decode_step`` in the reference, run for real: it builds the
+architecture at full width and depth (or its reduced config with
+``--smoke``) with random weights from ``--seed``, prefills ``--batch``
+random prompts of ``--prompt`` tokens, then runs ``--steps`` decode steps
+on the argmax tokens, and prints the prefill time, the time per decode
+step and the decode tokens/s.  Runs on the card unless ``--device cpu``;
+there the weights are drawn on the card too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(cfg, params, tokens, steps: int) -> dict:
+    """Prefill ``tokens`` (B, S) into a fresh cache, then ``steps`` greedy
+    decode steps; returns the generated tokens (B, steps), the last logits
+    and the host-clock seconds of each part (synchronised on the card)."""
+    device = tokens.device
+    batch, prompt = tokens.shape
+    cache = M.init_cache(cfg, batch, prompt + steps,
+                         params["embed"].dtype, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, tokens, cache)
+    _sync(device)
+    t1 = time.perf_counter()
+    lengths = torch.full((batch,), prompt, dtype=torch.int32, device=device)
+    out = []
+    for _ in range(steps):
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        out.append(tok)
+        logits, cache = M.decode_step(cfg, params, tok, lengths, cache)
+        lengths = lengths + 1
+    _sync(device)
+    t2 = time.perf_counter()
+    return {"logits": logits, "tokens": torch.cat(out, 1) if out else None,
+            "prefill_s": t1 - t0, "decode_s": t2 - t1}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="minitron-4b",
+                    choices=("minitron-4b", "mamba2-2.7b"))
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt", type=int, default=4096)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reference's reduced config (f32)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    dtype = None
+    if args.smoke:
+        cfg, dtype = smoke_config(cfg), torch.float32
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = M.init_params(cfg, gen, dtype, device)
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt),
+                           generator=gen, device=device, dtype=torch.int32)
+    res = run(cfg, params, tokens, args.steps)
+    n = args.batch * args.steps
+    per_step = res["decode_s"] / max(args.steps, 1)
+    print(f"{cfg.name} [{device}]: prefill {args.batch} x {args.prompt} "
+          f"tokens {1e3 * res['prefill_s']:.2f} ms; {args.steps} decode "
+          f"steps {1e3 * per_step:.2f} ms per step, "
+          f"{n / res['decode_s'] if res['decode_s'] else 0.0:.1f} tokens/s; "
+          f"logits finite: {bool(torch.isfinite(res['logits']).all())}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,23 +1,21 @@
-"""GQA attention for one-token decode (twin of the GQA parts of
+"""GQA attention for prefill and one-token decode (twin of the GQA parts of
 ``repro/models/attention.py``).
 
 Weights are flat on the head axis (``wq: (D, H*hd)``); caches are
-``(B, S, K, hd)`` per layer.  Attention is plain fp32 matmul + softmax,
-as the reference's ``sdpa`` computes it; there is no attention kernel on
-this path.  Unlike the reference, ``gqa_decode`` writes the new K/V into
-the cache in place (the engine owns the cache; no copy per step).
+``(B, S, K, hd)`` per layer.  Prefill attention runs through
+``ops.flash_attention`` and decode attention through
+``ops.decode_attention``: the hand-written kernels on the card, their
+plain versions on the CPU.  Unlike the reference, the caches are written
+in place (the caller owns them; no copy per step or per layer).
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, dense_init
-
-NEG_INF = -1e30
 
 
 def init_gqa(generator, cfg: ModelConfig, dtype, device) -> Params:
@@ -36,24 +34,30 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return {"k": z(), "v": z()}
 
 
-def make_decode_mask(lengths, Skv: int):
-    """Decode: new token at position ``lengths`` attends to kpos <= lengths."""
-    kpos = torch.arange(Skv, device=lengths.device)[None, :]
-    return (kpos <= lengths[:, None])[:, None, None]      # (B,1,1,Skv)
+def _qkv(cfg: ModelConfig, p: Params, x, positions):
+    """Projections and rope: q (B, S, H, hd), k/v (B, S, K, hd)."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, K, hd)
+    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _sdpa_masked(q, k, v, scale, mask):
-    """q:(B,Sq,H,hd) k/v:(B,Skv,K,hd), fp32 softmax under an explicit
-    (B,1,Sq,Skv) mask."""
-    B, Sq, H, hd = q.shape
-    K = k.shape[2]
-    qg = q.reshape(B, Sq, K, H // K, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).to(torch.float32)
-    scores = scores * scale
-    scores = torch.where(mask[:, :, None], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
-    return out.reshape(B, Sq, H, v.shape[-1])
+def gqa_full(cfg: ModelConfig, p: Params, x, positions, *,
+             cache: Params | None = None):
+    """Full-sequence causal self-attention (prefill).  x: (B, S, D);
+    positions broadcastable to (B, S).  With ``cache``, K/V are written
+    into it at offset 0 (in place, when S fits, as the reference's
+    ``dynamic_update_slice`` does).  Returns (out, cache)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, positions)
+    out = ops.flash_attention(q, k, v, causal=True)
+    if cache is not None and S <= cache["k"].shape[1]:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+    return out.reshape(B, S, -1) @ p["wo"], cache
 
 
 def gqa_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
@@ -64,18 +68,10 @@ def gqa_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
     lengths <= max_len - 2, so it never happens on the serving path.
     """
     B = x.shape[0]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, 1, H, hd)
-    k = (x @ p["wk"]).reshape(B, 1, K, hd)
-    v = (x @ p["wv"]).reshape(B, 1, K, hd)
-    pos = lengths[:, None]
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = _qkv(cfg, p, x, lengths[:, None])
     b = torch.arange(B, device=x.device)
     idx = lengths.to(torch.int64)
     cache["k"].index_put_((b, idx), k[:, 0].to(cache["k"].dtype))
     cache["v"].index_put_((b, idx), v[:, 0].to(cache["v"].dtype))
-    mask = make_decode_mask(lengths, cache["k"].shape[1])
-    scale = 1.0 / math.sqrt(hd)
-    out = _sdpa_masked(q, cache["k"], cache["v"], scale, mask)
-    return out.reshape(B, 1, H * hd) @ p["wo"], cache
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
+    return out.reshape(B, 1, -1) @ p["wo"], cache

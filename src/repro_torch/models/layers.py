@@ -16,17 +16,19 @@ Params = dict
 
 def dense_init(shape, generator: torch.Generator, dtype, device,
                scale: float | None = None) -> torch.Tensor:
-    """Truncated-normal (±3σ) fan-in init, drawn on the CPU from
-    ``generator`` so a seed gives the same weights on every device."""
+    """Truncated-normal (±3σ) fan-in init, drawn in f32 on the generator's
+    device (a CPU generator gives the same weights on every device; a CUDA
+    generator keeps a full-width init off the host)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=torch.float32)
+    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
     return (w * std).to(device=device, dtype=dtype)
 
 
 def embed_init(shape, generator: torch.Generator, dtype, device):
-    w = torch.randn(shape, generator=generator, dtype=torch.float32) * 0.02
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * 0.02
     return w.to(device=device, dtype=dtype)
 
 
@@ -35,6 +37,12 @@ def rms_norm(x, scale, eps: float = 1e-5):
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * scale.to(torch.float32)).to(x.dtype)
+
+
+def gated_rms_norm(x, gate, scale, eps: float = 1e-5):
+    """Mamba-2 gated RMSNorm: norm(x * silu(gate))."""
+    g = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype)
+    return rms_norm(x * g, scale, eps)
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Model factory for serving (twin of the dense parts of
-``repro/models/model.py``): seeded init, KV cache init and one decode step.
+"""Model factory for serving (twin of the dense and ssm parts of
+``repro/models/model.py``): seeded init, cache init, prefill and one
+decode step.
 """
 
 from __future__ import annotations
@@ -9,10 +10,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Params, dense_init, embed_init, rms_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_LAYER_INIT = {"dense": tfm._init_attn_layer, "ssm": tfm._init_mamba_layer}
 
 
 def _dtype(cfg: ModelConfig, dtype):
@@ -29,34 +32,64 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
                 device="cuda") -> Params:
     """The port's own seeded init (the reference's layout: ``embed``,
     ``head``, ``norm_f`` and ``blocks`` stacked on a leading layer axis).
-    Draws come from ``generator`` on the CPU, so a seed gives the same
-    weights on any device.  On the card unless ``device="cpu"``; raises
-    without a GPU."""
-    if cfg.family != "dense":
+    Draws come from ``generator`` on its own device: a CPU generator gives
+    the same weights on any device, a CUDA one keeps a full-width init on
+    the card.  On the card unless ``device="cpu"``; raises without a GPU."""
+    if cfg.family not in _LAYER_INIT:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     device = resolve_device(device)
     dtype = _dtype(cfg, dtype)
     D, Vp = cfg.d_model, cfg.vocab_padded
+    layer = _LAYER_INIT[cfg.family]
     return {
         "embed": embed_init((Vp, D), generator, dtype, device),
         "head": dense_init((D, Vp), generator, dtype, device),
         "norm_f": torch.ones((D,), dtype=dtype, device=device),
-        "blocks": _stack([tfm._init_attn_layer(generator, cfg, dtype, device)
+        "blocks": _stack([layer(generator, cfg, dtype, device)
                           for _ in range(cfg.n_layers)]),
     }
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
-    """``{"blocks": {"self": {"k", "v"}}}`` stacked on the layer axis:
-    (L, B, max_len, K, hd) each.  On the card unless ``device="cpu"``;
-    raises without a GPU."""
+    """Dense: ``{"blocks": {"self": {"k", "v"}}}``, (L, B, max_len, K, hd)
+    each.  ssm: an ``SSMState`` of (L, B, nh, hd, N) f32 states and
+    (L, B, conv_dim, W-1) conv windows (``max_len`` unused: the state does
+    not grow).  On the card unless ``device="cpu"``; raises without a
+    GPU."""
     device = resolve_device(device)
-    one = attn.init_gqa_cache(cfg, batch, max_len, _dtype(cfg, dtype),
-                              device)
-    return {"blocks": {"self": {k: torch.zeros((cfg.n_layers,) + v.shape,
+    dtype = _dtype(cfg, dtype)
+    L = cfg.n_layers
+    if cfg.attn_free:
+        one = ssm_mod.init_ssm_state(cfg, batch, dtype, device)
+        return ssm_mod.SSMState(*(torch.zeros((L,) + t.shape, dtype=t.dtype,
+                                              device=device) for t in one))
+    one = attn.init_gqa_cache(cfg, batch, max_len, dtype, device)
+    return {"blocks": {"self": {k: torch.zeros((L,) + v.shape,
                                                dtype=v.dtype, device=device)
                                 for k, v in one.items()}}}
+
+
+def _blocks(cfg: ModelConfig, cache):
+    return cache if cfg.attn_free else cache["blocks"]
+
+
+def _logits(cfg: ModelConfig, params: Params, x):
+    """fp32 logits (B, Vp) of the last position of x (B, S, D)."""
+    x = rms_norm(x[:, -1], params["norm_f"], cfg.norm_eps)
+    return (x @ params["head"]).to(torch.float32)
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens, cache):
+    """Run the prompt tokens (B, S) int from position 0, writing K/V (dense)
+    or the final SSM state (ssm) into ``cache`` in place.  Returns
+    (last-token logits (B, Vp) fp32, cache)."""
+    S = tokens.shape[1]
+    x = params["embed"][tokens.to(torch.int64)]           # (B, S, D)
+    positions = torch.arange(S, device=x.device)[None]
+    x, _ = tfm.stack_prefill(cfg, params["blocks"], x, positions,
+                             _blocks(cfg, cache))
+    return _logits(cfg, params, x), cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, token, lengths, cache):
@@ -65,7 +98,5 @@ def decode_step(cfg: ModelConfig, params: Params, token, lengths, cache):
     cache updated in place."""
     x = params["embed"][token.to(torch.int64)]            # (B, 1, D)
     x, _ = tfm.stack_decode(cfg, params["blocks"], x, lengths,
-                            cache["blocks"])
-    x = rms_norm(x, params["norm_f"], cfg.norm_eps)
-    logits = (x[:, -1] @ params["head"]).to(torch.float32)
-    return logits, cache
+                            _blocks(cfg, cache))
+    return _logits(cfg, params, x), cache

@@ -1,0 +1,160 @@
+"""The plain PyTorch versions of the port's attention kernels (B6
+``decode_attention``, B7 ``flash_attention``) against the JAX package's
+Pallas kernels (run in the interpreter, as ``tests/test_kernels.py`` runs
+them) and against its oracles in ``repro/kernels/ref.py``, on the shapes
+and dtypes of ``tests/test_kernels.py``, at its tolerances (f32 2e-5,
+bf16 2e-2).  Inputs come from a numpy seed; bf16 inputs are rounded from
+the same f32 values on both sides."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+TOLS = {"float32": dict(rtol=2e-5, atol=2e-5),
+        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+DT = {"float32": (jnp.float32, torch.float32),
+      "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a, dtype):
+    """The same values as a JAX array and a CPU tensor of ``dtype``."""
+    jd, td = DT[dtype]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def _close(got: torch.Tensor, want, dtype):
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), **TOLS[dtype])
+
+
+# --------------------------------------------------------------------------- #
+# B6 decode attention
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,bk", [
+    (2, 1024, 8, 2, 64, 256),
+    (4, 512, 4, 4, 128, 512),
+    (1, 2048, 8, 1, 64, 512),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_pallas_and_ref(B, S, H, K, hd, bk, dtype):
+    rng = np.random.RandomState(B * S + H)
+    jq, tq = _pair(rng.randn(B, H, hd).astype(np.float32), dtype)
+    jk, tk = _pair(rng.randn(B, S, K, hd).astype(np.float32), dtype)
+    jv, tv = _pair(rng.randn(B, S, K, hd).astype(np.float32), dtype)
+    lengths = rng.randint(0, S - 1, B).astype(np.int32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lengths))
+    assert got.dtype == DT[dtype][1] and got.shape == (B, H, hd)
+    _close(got, jops.decode_attention(jq, jk, jv, jnp.asarray(lengths),
+                                      block_k=bk), dtype)
+    _close(got, ref.decode_attention_ref(jq, jk, jv, jnp.asarray(lengths)),
+           dtype)
+
+
+@pytest.mark.parametrize("lengths", [[0, 36, 5], [-1, 40, 36]])
+def test_decode_attention_any_length_and_edges(lengths):
+    """S = 37 (no block multiple); a length of 0 (one key), S - 1 and past
+    the cache (every key) and -1 (every key masked: the reference's
+    softmax of an all -1e30 row is uniform)."""
+    rng = np.random.RandomState(7)
+    B, S, H, K, hd = 3, 37, 6, 2, 32
+    jq, tq = _pair(rng.randn(B, H, hd).astype(np.float32), "float32")
+    jk, tk = _pair(rng.randn(B, S, K, hd).astype(np.float32), "float32")
+    jv, tv = _pair(rng.randn(B, S, K, hd).astype(np.float32), "float32")
+    lens = np.asarray(lengths, np.int32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    _close(got, ref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens)),
+           "float32")
+
+
+def test_decode_attention_reads_a_strided_cache_view():
+    """A layer of a stacked (L, B, S, K, hd) cache, as the model passes it."""
+    rng = np.random.RandomState(3)
+    L, B, S, H, K, hd = 3, 2, 40, 4, 2, 32
+    kc = torch.from_numpy(rng.randn(L, B, S, K, hd).astype(np.float32))
+    vc = torch.from_numpy(rng.randn(L, B, S, K, hd).astype(np.float32))
+    q = torch.from_numpy(rng.randn(B, H, hd).astype(np.float32))
+    lens = torch.tensor([11, 39], dtype=torch.int32)
+    got = ops.decode_attention(q, kc[1], vc[1], lens)
+    want = da.decode_attention(q, kc[1].clone(), vc[1].clone(), lens)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("pairs,S,n", [(2048, 32, 1), (16, 4128, 17),
+                                       (1, 100, 1), (4, 4096, 16)])
+def test_decode_splits_cover_the_key_axis(pairs, S, n):
+    split_len, n_split = da._splits(pairs, S, sms=132)
+    assert n_split == n and split_len % 32 == 0
+    assert (n_split - 1) * split_len < S <= n_split * split_len
+
+
+# --------------------------------------------------------------------------- #
+# B7 flash attention
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (1, 256, 4, 4, 64),        # MHA
+    (2, 256, 8, 2, 64),        # GQA
+    (1, 512, 4, 1, 128),       # MQA
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_pallas_and_ref(B, S, H, K, hd, dtype,
+                                                causal):
+    rng = np.random.RandomState(B * S + H + K)
+    jq, tq = _pair(rng.randn(B, S, H, hd).astype(np.float32), dtype)
+    jk, tk = _pair(rng.randn(B, S, K, hd).astype(np.float32), dtype)
+    jv, tv = _pair(rng.randn(B, S, K, hd).astype(np.float32), dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == DT[dtype][1] and got.shape == (B, S, H, hd)
+    _close(got, jops.flash_attention(jq, jk, jv, causal=causal, block_q=128,
+                                     block_k=128), dtype)
+    _close(got, ref.flash_attention_ref(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("S", [31, 256])
+def test_flash_attention_where_pallas_blocks_cannot_follow(S):
+    """Against the oracle only: S = 31 is no block multiple (the smoke
+    prefill's prompt), and at S = 256 the Pallas kernel with block_q 128 >
+    block_k 64 skips KV blocks that hold valid keys (max error 0.70
+    against the oracle); the port computes the oracle's function."""
+    rng = np.random.RandomState(S)
+    B, H, K, hd = 1, 2, 1, 64
+    jq, tq = _pair(rng.randn(B, S, H, hd).astype(np.float32), "float32")
+    jk, tk = _pair(rng.randn(B, S, K, hd).astype(np.float32), "float32")
+    jv, tv = _pair(rng.randn(B, S, K, hd).astype(np.float32), "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    _close(got, ref.flash_attention_ref(jq, jk, jv, causal=True), "float32")
+
+
+def test_flash_attention_reads_strided_views():
+    """q, k, v as column slices of one fused projection (last axis
+    contiguous, rows strided)."""
+    rng = np.random.RandomState(5)
+    B, S, H, K, hd = 2, 48, 4, 2, 32
+    qkv = torch.from_numpy(rng.randn(B, S, (H + 2 * K) * hd)
+                           .astype(np.float32))
+    q, k, v = torch.split(qkv, [H * hd, K * hd, K * hd], dim=-1)
+    q, k, v = (t.reshape(B, S, -1, hd) for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_cpu_calls_launch_no_kernel():
+    before = dict(ops.LAUNCHES)
+    x = torch.zeros((1, 8, 2, 32))
+    ops.flash_attention(x, x[:, :, :1], x[:, :, :1])
+    ops.decode_attention(x[:, 0], x[:, :, :1], x[:, :, :1],
+                         torch.zeros(1, dtype=torch.int32))
+    assert ops.LAUNCHES == before

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
-card (bit-exact on every integer output and both f32 EWMAs): admission,
-completion, the route match and the relay slot assignment.  Needs a CUDA
-device and nvcc: ``PYTHONPATH=src python -m pytest -q -m gpu
-tests/test_torch_cuda.py``; skipped without a card."""
+card: admission, completion, the route match and the relay slot
+assignment bit-exact on every integer output and both f32 EWMAs; decode
+attention, flash attention and the SSD scan within the tolerances of
+``tests/test_kernels.py`` (f32 2e-5, the SSD's f32 recurrence 2e-4; bf16
+rtol 2e-2 with atol 2e-2 times the output's RMS).  Needs a CUDA device and nvcc: ``PYTHONPATH=src python -m pytest
+-q -m gpu tests/test_torch_cuda.py``; skipped without a card."""
 
 import numpy as np
 import pytest
@@ -10,7 +12,9 @@ import torch
 
 from repro_torch.core import routing_table as RT
 from repro_torch.core.balancer import PoolState, RequestBatch
-from repro_torch.kernels import completion, ops, relay_dispatch, route_match
+from repro_torch.kernels import (completion, decode_attention,
+                                 flash_attention, ops, relay_dispatch,
+                                 route_match, ssd_scan)
 
 pytestmark = pytest.mark.gpu
 
@@ -133,3 +137,91 @@ def test_relay_slots_kernel_matches_plain(dev, N, n_dest):
     assert torch.equal(slot, ps) and torch.equal(load, pl)
     assert int(load.sum()) == int((idx < n_dest).sum())
     torch.cuda.synchronize()
+
+
+def _assert_close(got, want, f32_tol=2e-5):
+    """f32: rtol = atol = ``f32_tol``.  bf16: rtol 2e-2 and atol 2e-2 x the
+    RMS of ``want``, so that the bound follows outputs far below 1
+    (attention over n unit-variance values averages to an RMS of about
+    sqrt(e / n))."""
+    tol = dict(rtol=f32_tol, atol=f32_tol)
+    if want.dtype == torch.bfloat16:
+        tol = dict(rtol=2e-2,
+                   atol=2e-2 * float(want.float().square().mean().sqrt()))
+    torch.testing.assert_close(got, want, **tol)
+
+
+def _randn(g, shape, dtype, dev, scale=1.0):
+    return (torch.randn(shape, generator=g) * scale).to(dtype).to(dev)
+
+
+def _counted(name, call):
+    n0 = ops.LAUNCHES[name]
+    out = call()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == n0 + 1
+    return out
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,dtype", [
+    (1024, 32, 4, 2, 32, torch.float32),     # the serving model's decode
+    (2, 4128, 24, 8, 128, torch.bfloat16),   # minitron-4b decode
+    (2, 4128, 24, 8, 128, torch.float32),
+    (2, 1000, 8, 1, 64, torch.float32),      # G = 8, ragged S, split
+    (3, 300, 6, 2, 128, torch.bfloat16),
+])
+def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype):
+    g = torch.Generator().manual_seed(S + H)
+    L = 2                                    # a layer of a stacked cache
+    q = _randn(g, (B, H, hd), dtype, dev)
+    kc = _randn(g, (L, B, S, K, hd), dtype, dev)[1]
+    vc = _randn(g, (L, B, S, K, hd), dtype, dev)[1]
+    lengths = torch.randint(0, S, (B,), generator=g, dtype=torch.int32)
+    lengths[0] = -1                          # every key masked
+    lengths[-1] = S + 3                      # every key
+    lengths = lengths.to(dev)
+    got = _counted("decode_attention",
+                   lambda: ops.decode_attention(q, kc, vc, lengths))
+    want = decode_attention.decode_attention(q, kc, vc, lengths)
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,dtype,causal", [
+    (2, 256, 8, 2, 64, torch.float32, True),
+    (2, 256, 8, 2, 64, torch.float32, False),
+    (1, 200, 4, 1, 128, torch.bfloat16, True),   # ragged S, MQA
+    (1, 1024, 24, 8, 128, torch.bfloat16, True),  # minitron-4b's heads
+    (1, 1024, 24, 8, 128, torch.float32, True),
+    (2, 97, 4, 4, 32, torch.float32, True),
+])
+def test_flash_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
+                                              causal):
+    g = torch.Generator().manual_seed(S + H + causal)
+    q = _randn(g, (B, S, H, hd), dtype, dev)
+    k = _randn(g, (B, S, K, hd), dtype, dev)
+    v = _randn(g, (B, S, K, hd), dtype, dev)
+    got = _counted("flash_attention",
+                   lambda: ops.flash_attention(q, k, v, causal=causal))
+    want = flash_attention.flash_attention(q, k, v, causal=causal)
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,dtype,chunk", [
+    (2, 256, 4, 64, 128, torch.float32, 64),
+    (1, 300, 3, 32, 32, torch.float32, 300),     # ragged tail tile
+    (1, 512, 2, 128, 128, torch.float32, 128),
+    (2, 512, 8, 64, 128, torch.bfloat16, 256),   # mamba2-2.7b's head
+])
+def test_ssd_scan_kernel_matches_plain(dev, B, S, nh, hd, N, dtype, chunk):
+    g = torch.Generator().manual_seed(S + nh)
+    x = _randn(g, (B, S, nh, hd), dtype, dev, 0.5)
+    a = (-torch.nn.functional.softplus(torch.randn((B, S, nh), generator=g))
+         * 0.5).to(dev)
+    # one group broadcast over the heads by stride, as the mixer passes it
+    Bm = _randn(g, (B, S, 1, N), dtype, dev, 0.3).expand(-1, -1, nh, -1)
+    Cm = _randn(g, (B, S, 1, N), dtype, dev, 0.3).expand(-1, -1, nh, -1)
+    y, h = _counted("ssd_scan", lambda: ops.ssd_scan(
+        x, a, Bm, Cm, chunk=chunk, return_state=True))
+    wy, wh = ssd_scan.ssd_scan(x, a, Bm, Cm, chunk)
+    _assert_close(y, wy, f32_tol=2e-4)
+    _assert_close(h, wh, f32_tol=2e-4)

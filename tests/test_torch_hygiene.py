@@ -14,9 +14,10 @@ from repro_torch.core import interpose
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.core.routing_table import (POLICY_RR, Cluster, Rule,
                                             ServiceConfig, build_state)
-from repro_torch.kernels import (_build, completion, ops, relay_dispatch,
-                                 route_match)
-from repro_torch.launch import serve
+from repro_torch.kernels import (_build, completion, decode_attention, ops,
+                                 flash_attention, relay_dispatch, route_match,
+                                 ssd_scan)
+from repro_torch.launch import prefill_decode, serve
 from repro_torch.models import model
 from repro_torch.runtime.serve_loop import ServeLoop
 
@@ -40,6 +41,12 @@ def _imports(path: Path):
 def test_port_never_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
+    names = {f.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for f in files[:-1]}
+    assert {"kernels/decode_attention.py", "kernels/flash_attention.py",
+            "kernels/ssd_scan.py", "models/ssm.py", "models/transformer.py",
+            "configs/minitron_4b.py", "configs/mamba2_2_7b.py",
+            "launch/prefill_decode.py", "convert.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -85,6 +92,8 @@ def test_serve_loop_and_launcher_raise_without_gpu(no_gpu):
         ServeLoop(eng, {}, routing)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefill_decode.main(["--smoke", "--prompt", "4", "--steps", "1"])
 
 
 @pytest.fixture
@@ -98,7 +107,10 @@ def fake_cuda(monkeypatch):
 
     for mod, name in ((route_match, "admit"), (route_match, "admit_commit"),
                       (route_match, "route_match"), (completion, "complete"),
-                      (relay_dispatch, "relay_slots")):
+                      (relay_dispatch, "relay_slots"),
+                      (decode_attention, "decode_attention"),
+                      (flash_attention, "flash_attention"),
+                      (ssd_scan, "ssd_scan")):
         monkeypatch.setattr(mod, name, plain)
     monkeypatch.setattr(_build, "_lib", None)
 
@@ -127,8 +139,19 @@ def test_wrappers_raise_without_a_built_library(fake_cuda, no_gpu):
         ops.route_match(reqs.svc, reqs.features, routing)
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.relay_slots(reqs.svc, 3)
+    q = torch.zeros((2, 4, 32))
+    kv = torch.zeros((2, 8, 2, 32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.decode_attention(q, kv, kv, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.flash_attention(torch.zeros((2, 8, 4, 32)), kv, kv)
+    x, bc = torch.zeros((1, 64, 2, 32)), torch.zeros((1, 64, 2, 32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.ssd_scan(x, torch.zeros((1, 64, 2)), bc, bc, chunk=32)
     assert ops.LAUNCHES == {"admit": 0, "admit_commit": 0, "complete": 0,
-                            "route_match": 0, "relay_slots": 0}
+                            "route_match": 0, "relay_slots": 0,
+                            "decode_attention": 0, "flash_attention": 0,
+                            "ssd_scan": 0}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -1,0 +1,134 @@
+"""The port's serving path of the model stack (prefill, then decode)
+against the JAX reference, for the reduced configs of minitron-4b (dense
+GQA: prefill through ``ops.flash_attention``, decode through
+``ops.decode_attention``) and mamba2-2.7b (SSD prefill through
+``ops.ssd_scan``, recurrent decode), with the reference's weights carried
+across as numpy.  On the CPU the wrappers run their plain versions.
+
+Tolerance: f32 logits, KV caches and SSM states within rtol = atol = 1e-4
+(summation order differs between XLA:CPU and torch).  Prompts of 31, 32
+and 64 tokens: the smoke SSD chunk is 32, so 31 is one short chunk and 64
+crosses a chunk boundary."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import smoke_config as jsmoke
+from repro.models import model as JM
+from repro_torch import convert
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch import prefill_decode
+from repro_torch.models import model as TM
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+CPU = torch.device("cpu")
+ARCHS = ("minitron-4b", "mamba2-2.7b")
+B, STEPS = 2, 3
+
+
+def _np(tree):
+    return jax.tree.map(lambda a: np.asarray(a), tree)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    jcfg = jsmoke(jget_config(request.param))
+    tcfg = smoke_config(get_config(request.param))
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    return jcfg, tcfg, jp, convert.params_from_jax(_np(jp), CPU)
+
+
+def test_configs_match_reference():
+    fields = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "d_ff", "vocab", "head_dim", "ffn_act", "rope_theta",
+              "norm_eps", "dtype", "vocab_padded", "attn_free", "source")
+    for arch in ARCHS:
+        for full in (False, True):
+            j = jget_config(arch) if full else jsmoke(jget_config(arch))
+            t = get_config(arch) if full else smoke_config(get_config(arch))
+            assert t.name == j.name
+            for f in fields:
+                assert getattr(t, f) == getattr(j, f), (arch, f)
+            if j.ssm is not None:
+                for f in ("d_state", "expand", "head_dim", "n_groups",
+                          "conv_width", "chunk"):
+                    assert getattr(t.ssm, f) == getattr(j.ssm, f), (arch, f)
+                assert t.ssm.n_heads(t.d_model) == j.ssm.n_heads(j.d_model)
+            else:
+                assert t.ssm is None
+
+
+def test_params_layout_matches_reference(model):
+    jcfg, tcfg, jp, tp = model
+    own = TM.init_params(tcfg, torch.Generator().manual_seed(0),
+                         torch.float32, CPU)
+    shapes = lambda tree, leaf: jax.tree.map(
+        lambda a: (tuple(a.shape), str(a.dtype).split(".")[-1]), tree,
+        is_leaf=leaf)
+    assert shapes(own, torch.is_tensor) == shapes(jp, None)
+    if tcfg.family == "ssm":     # the same numpy draws as the reference
+        for name in ("A_log", "dt_bias", "D"):
+            np.testing.assert_array_equal(own["blocks"]["mamba"][name],
+                                          np.asarray(jp["blocks"]["mamba"]
+                                                     [name]))
+
+
+def _caches_close(tcfg, tc, jc):
+    if tcfg.family == "ssm":
+        for name in ("ssm", "conv"):
+            np.testing.assert_allclose(getattr(tc, name).numpy(),
+                                       np.asarray(getattr(jc, name)), **TOL)
+    else:
+        for name in ("k", "v"):
+            np.testing.assert_allclose(
+                tc["blocks"]["self"][name].numpy(),
+                np.asarray(jc["blocks"]["self"][name]), **TOL)
+
+
+@pytest.mark.parametrize("prompt", [31, 32, 64])
+def test_prefill_then_decode_matches_reference(model, prompt):
+    """Prefill a prompt, then decode STEPS tokens fed back from the
+    reference's argmax; logits and caches after each call."""
+    jcfg, tcfg, jp, tp = model
+    rng = np.random.RandomState(prompt)
+    tok = rng.randint(0, jcfg.vocab, (B, prompt)).astype(np.int32)
+    max_len = prompt + STEPS + 1
+    jc = JM.init_cache(jcfg, B, max_len, jnp.float32)
+    tc = TM.init_cache(tcfg, B, max_len, torch.float32, CPU)
+    jl, jc = JM.prefill(jcfg, jp, jnp.asarray(tok), jc)
+    tl, tc = TM.prefill(tcfg, tp, torch.from_numpy(tok), tc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _caches_close(tcfg, tc, jc)
+    lengths = np.full((B,), prompt, np.int32)
+    for _ in range(STEPS):
+        nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)[:, None]
+        jl, jc = JM.decode_step(jcfg, jp, jnp.asarray(nxt),
+                                jnp.asarray(lengths), jc)
+        tl, tc = TM.decode_step(tcfg, tp, torch.from_numpy(nxt),
+                                torch.from_numpy(lengths), tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        lengths = lengths + 1
+    _caches_close(tcfg, tc, jc)
+
+
+def test_ssm_state_from_numpy_round_trips():
+    jc = JM.init_cache(jsmoke(jget_config("mamba2-2.7b")), B, 8,
+                       jnp.float32)
+    rng = np.random.RandomState(0)
+    arrays = {n: rng.randn(*getattr(jc, n).shape).astype(np.float32)
+              for n in ("ssm", "conv")}
+    st = convert.ssm_state_from_numpy(arrays, CPU)
+    for n in ("ssm", "conv"):
+        np.testing.assert_array_equal(getattr(st, n).numpy(), arrays[n])
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_runs_on_the_cpu(arch, capsys):
+    prefill_decode.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--batch", "2", "--prompt", "32", "--steps", "3"])
+    out = capsys.readouterr().out
+    assert "prefill" in out and "tokens/s" in out
