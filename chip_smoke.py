@@ -46,7 +46,10 @@ flash attention at minitron-4b's prefill, the SSD scan at mamba2-2.7b's),
 in the path's dtype (bf16: rtol 2e-2, atol 2e-2 x the output's RMS) and
 in f32 at the same shapes (2e-5), and times each beside one PyTorch call
 of the same function (``scaled_dot_product_attention``) where there is
-one.
+one: with events (``library_ms``) and as the profiler's sum over the
+kernels one call launches (``library_device_ms``, the clock of the
+kernels' own ``ms``).  In bf16 flash attention runs on the tensor cores;
+the model phase checks that minitron-4b's prefill ran that kernel.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
@@ -87,7 +90,7 @@ LLM_BATCH, LLM_PROMPT, LLM_STEPS = 2, 4096, 32
 # bf16 prefill alone is 5.5e-2 from the f32 one)
 LLM_REL_TOL_F32 = 1e-3
 LLM_REL_TOL_BF16 = {"minitron-4b": 5e-2, "mamba2-2.7b": 1e-1}
-PLANT_KEYS = 256    # one key split of csrc/decode_attention.cu
+PLANT_KEYS = 256    # two key splits of csrc/decode_attention.cu
 
 
 def fail(msg: str) -> None:
@@ -127,9 +130,10 @@ def cuda_ms(torch, fn, reps: int = 50, warm: int = 5) -> float:
     return s.elapsed_time(e) / reps
 
 
-def device_events(torch, fn):
+def device_events(torch, fn, counts: dict | None = None):
     """Run ``fn`` under torch.profiler (CUDA activity only) and return
-    (wall us, {device event name: total us})."""
+    (wall us, {device event name: total us}); ``counts``, where given, is
+    filled with the number of events of each name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -143,23 +147,62 @@ def device_events(torch, fn):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     return wall, by_name
 
 
-def kernel_ms(torch, fn, key, reps: int = 20):
-    """Device ms per call of the kernels whose name contains ``key`` (a
-    string or a tuple of them) (profiler), or None where the profiler sees
-    none."""
+def profile_calls(torch, fn, reps: int = 20) -> dict:
+    """{device event name: ms per call} over ``reps`` calls of ``fn``
+    (profiler), after one call outside the window.  A window in which a
+    name shows no whole number of events per call (the profiler once lost
+    about half of a library call's events on an H100) is taken again, up
+    to 3 times; the last one is kept with a note on stderr."""
     fn()
-    keys = (key,) if isinstance(key, str) else key
 
     def run():
         for _ in range(reps):
             fn()
 
-    _, by_name = device_events(torch, run)
-    us = sum(t for n, t in by_name.items() if any(k in n for k in keys))
-    return us / 1e3 / reps if us else None
+    for _ in range(3):
+        counts: dict = {}
+        _, by_name = device_events(torch, run, counts)
+        if all(c % reps == 0 for c in counts.values()):
+            break
+    else:
+        print(f"chip_smoke: note: events per call not whole in 3 profiler "
+              f"windows of {reps} calls: {counts}", file=sys.stderr)
+    return {n: us / 1e3 / reps for n, us in by_name.items()}
+
+
+def kernel_time(prof: dict, key) -> tuple:
+    """(ms per call of the kernels in ``prof`` whose name contains ``key``
+    (a string or a tuple of them), or None where there is none; their
+    short names, joined by " + ")."""
+    keys = (key,) if isinstance(key, str) else key
+    hit = {n: t for n, t in prof.items() if any(k in n for k in keys)}
+    return (sum(hit.values()) or None,
+            " + ".join(sorted(kernel_name(n) for n in hit)))
+
+
+def kernel_ms(torch, fn, key, reps: int = 20):
+    """Device ms per call of the kernels whose name contains ``key``
+    (profiler), or None where the profiler sees none."""
+    return kernel_time(profile_calls(torch, fn, reps), key)[0]
+
+
+def library_device_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per call of a library call: the sum over every kernel (and
+    memset) one call launches (profiler), the clock of a kernel's ``ms``;
+    ``library_ms`` times the same call with events, host gaps included."""
+    return sum(profile_calls(torch, fn, reps).values())
+
+
+def kernel_name(event: str) -> str:
+    """A profiler kernel name without return type, namespaces and
+    parameter list: ``flash_kernel_wgmma<128>``."""
+    name = event.replace("(anonymous namespace)::", "").split("(", 1)[0]
+    return name.removeprefix("void ").split("::")[-1]
 
 
 def nbytes(*tensors) -> int:
@@ -602,11 +645,13 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
                     f"max_abs_err={err}, in f32 {err32} (sdpa vs plain "
                     f"{lib_err:.3g})")
         nb, nops = decode_work(q, kc, lens)
+        ms, names = kernel_time(profile_calls(torch, call), "decode_")
         timing[key] = dict(
-            ms=kernel_ms(torch, call, ("decode_kernel", "decode_merge")),
+            ms=ms, kernel=names,
             call_ms=cuda_ms(torch, call),
             plain_ms=cuda_ms(torch, plain, reps=10, warm=2),
             library_ms=cuda_ms(torch, lib, reps=20, warm=3),
+            library_device_ms=library_device_ms(torch, lib),
             bytes=nb, ops=nops, peak=peak, err=err, err_f32=err32)
 
     # B7 at minitron-4b's prefill
@@ -627,11 +672,14 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
     rows.append(f"flash_attention[B={B} S={S} H={H} K={K} hd={hd} causal "
                 f"bf16] max_abs_err={err}, in f32 {err32} (sdpa vs plain "
                 f"{lib_err:.3g})")
+    ms, names = kernel_time(profile_calls(torch, call, reps=5),
+                            "flash_kernel")
     timing["flash_attention"] = dict(
-        ms=kernel_ms(torch, call, "flash_kernel", reps=5),
+        ms=ms, kernel=names,
         call_ms=cuda_ms(torch, call, reps=5, warm=1),
         plain_ms=cuda_ms(torch, plain, reps=3, warm=1),
         library_ms=cuda_ms(torch, lib, reps=10, warm=2),
+        library_device_ms=library_device_ms(torch, lib, reps=5),
         bytes=nbytes(q, k, v, q),                 # q, k, v in; out
         ops=4 * B * H * hd * S * (S + 1) // 2, peak=BF16_OPS_PS, err=err,
         err_f32=err32)
@@ -714,6 +762,16 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
             {"flash_attention": L, "decode_attention": L * LLM_STEPS})
     check(launches == want, f"{cfg.name}: kernel launches {launches}, "
           f"expected {want}")
+    # which attention kernel a bf16 prefill runs: one more prefill under
+    # the profiler (apart from the timed run)
+    kernels = ""
+    if not cfg.attn_free:
+        _, by_name = device_events(torch, lambda: TM.prefill(
+            cfg, params, tokens, TM.init_cache(cfg, LLM_BATCH, LLM_PROMPT,
+                                               params["embed"].dtype, dev)))
+        kernels = kernel_time(by_name, "flash_kernel")[1]
+        check(kernels == "flash_kernel_wgmma<128>", f"{cfg.name}: the bf16 "
+              f"prefill ran {kernels!r}, not the tensor-core kernel")
     check(bool(torch.isfinite(res["logits"]).all()),
           f"{cfg.name}: non-finite decode logits")
     peak = torch.cuda.max_memory_allocated(dev)    # init, prefill, decode
@@ -762,10 +820,11 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
             f"bf16 (< {tol16}), with a planted fault ({fault}) {planted:.3e}"
             f" (>= {tol16}); bf16 vs f32 logits: prefill {floor16:.3e}, "
             f"decode {dist16:.3e}; launches "
-            + " ".join(f"{k}={v}" for k, v in launches.items()))
+            + " ".join(f"{k}={v}" for k, v in launches.items())
+            + (f" (prefill attention: {kernels})" if kernels else ""))
     del params, res
     torch.cuda.empty_cache()
-    return line, launches
+    return line, launches, kernels
 
 
 def consistency(torch, TM, ops, cfg, params, tokens, split, plant=False):
@@ -1198,11 +1257,12 @@ def main() -> int:
     print(line)
     for line in phase_engines(torch, RT, TM, B, SL, cfg):
         print(line)
-    llm_launches = {}
+    llm_launches, prefill_kernel = {}, ""
     for arch in ("minitron-4b", "mamba2-2.7b"):
-        line, got = phase_llm(torch, ops, TM, PDL, get_config(arch))
+        line, got, names = phase_llm(torch, ops, TM, PDL, get_config(arch))
         print(line)
         llm_launches.update(got)
+        prefill_kernel = prefill_kernel or names
     launches = {**main_launches, **staged_launches, **llm_launches}
     print("kernels: " + " ".join(
         f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
@@ -1237,8 +1297,11 @@ def main() -> int:
         # device time from the profiler; the event-timed call where the
         # profiler saw no kernel
         ms = t["ms"] if t["ms"] is not None else t["call_ms"]
-        print(f"timing {name}: device ms {t['ms']}, call ms {t['call_ms']}, "
-              f"plain ms {t['plain_ms']}, library ms {t.get('library_ms')}, "
+        print(f"timing {name}: device ms {t['ms']}"
+              + (f" ({t['kernel']})" if t.get("kernel") else "")
+              + f", call ms {t['call_ms']}, plain ms {t['plain_ms']}, "
+              f"library ms {t.get('library_ms')} (device "
+              f"{t.get('library_device_ms')}), "
               f"bound ms {bound} ({t['bytes']} B, {t['ops']} operations), "
               f"launch floor ms {t['floor_ms']} (device) / {t['issue_ms']} "
               f"(issue interval), on {gpu}")
@@ -1251,10 +1314,18 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": t.get("library_ms"),
+                "library_device_ms": t.get("library_device_ms"),
                 "launch_floor_ms": t["floor_ms"]})
             if name == "decode_attention":
+                kernels[-1]["kernel"] = t["kernel"]
                 kernels[-1]["launches_xlb_main_path"] = \
                     main_launches["decode_attention"]
+                xlb = timing["decode_attention[xlb]"]
+                kernels[-1]["xlb_shape"] = {
+                    k: xlb[k] for k in ("ms", "kernel", "library_ms",
+                                        "library_device_ms")}
+            if name == "flash_attention":      # as minitron's prefill ran it
+                kernels[-1]["kernel"] = prefill_kernel
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("admit.cu", "complete.cu", "route.cu", "relay.cu",
            "decode_attention.cu", "flash_attention.cu", "ssd_scan.cu",
            "launch_floor.cu")
-HEADERS = ("match.cuh", "float_io.cuh")   # included; part of the hash
+HEADERS = ("match.cuh", "float_io.cuh",   # included; part of the hash
+           "hopper.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -199,6 +200,21 @@ def check_device(device: torch.device, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device != device:
             raise ValueError(f"tensor on {t.device}, expected {device}")
+
+
+def check_16_byte(reader: str, name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` has a 16-byte aligned base and, but for its last
+    (contiguous) axis, strides of 16-byte multiples (an axis of size 1 is
+    never stepped): what a kernel that reads it with TMA or in 16-byte
+    loads needs."""
+    e = t.element_size()
+    if t.data_ptr() % 16 or any(t.stride(d) * e % 16
+                                for d in range(t.dim() - 1) if t.shape[d] > 1):
+        raise ValueError(
+            f"{reader} reads {name} in 16-byte units: it needs a 16-byte "
+            f"aligned base and strides of 16-byte multiples; got strides "
+            f"{t.stride()} (elements of {e} B), base {t.data_ptr() % 16} B "
+            f"past 16-byte alignment")
 
 
 def check(err: int, name: str) -> None:

@@ -22,8 +22,11 @@ NEG_INF = -1e30
 #: head dims and query heads per KV head the kernel is built for
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
-_TILE = 32          # keys per tile of the kernel (csrc: kTile)
-_MIN_SPLIT = 256    # fewest keys a split of the key axis is given
+#: a split of the key axis is a multiple of this many keys, itself a
+#: multiple of the keys one block walks per step (4 warps x 32 /
+#: (hd * size / 16) rows x 4 rows in flight: 16 to 128)
+_TILE = 128
+_BLOCKS_PER_SM = 4  # blocks that keep enough bytes in flight on an SM
 
 
 def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
@@ -46,9 +49,10 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
 
 def _splits(pairs: int, S: int, sms: int) -> tuple[int, int]:
     """(keys per split, number of splits) of the key axis: enough blocks
-    for two per SM, no split shorter than _MIN_SPLIT keys."""
-    n = 1 if pairs >= sms else max(1, min(-(-2 * sms // pairs),
-                                          -(-S // _MIN_SPLIT)))
+    for _BLOCKS_PER_SM per SM where the (sequence, KV head) pairs alone are
+    fewer, splits a multiple of _TILE keys."""
+    want = _BLOCKS_PER_SM * sms
+    n = 1 if pairs >= want else min(-(-want // pairs), -(-S // _TILE))
     split_len = -(-S // (n * _TILE)) * _TILE
     return split_len, -(-S // split_len)
 
@@ -56,9 +60,10 @@ def _splits(pairs: int, S: int, sms: int) -> tuple[int, int]:
 def decode_attention_cuda(q, k_cache, v_cache, lengths) -> torch.Tensor:
     """Launch ``csrc/decode_attention.cu`` on the tensors' CUDA device; same
     contract and result as ``decode_attention``.  The caches are read in
-    place through their strides (their last axis must be contiguous).
-    Raises on a shape, dtype or head dim the kernel does not take, if the
-    library cannot be built or the launch fails."""
+    place through their strides, in 16-byte loads: their last axis must be
+    contiguous, their base 16-byte aligned and their strides multiples of
+    16 bytes.  Raises on a shape, dtype, head dim or layout the kernel does
+    not take, if the library cannot be built or the launch fails."""
     B, H, hd = q.shape
     if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
             or k_cache.shape[0] != B or k_cache.shape[3] != hd:
@@ -77,6 +82,8 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths) -> torch.Tensor:
                          f"{k_cache.dtype}, {v_cache.dtype}")
     if k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("the caches' last axis must be contiguous")
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _build.check_16_byte("decode_attention", name, c)
     if lengths.shape != (B,):
         raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
     dev = q.device

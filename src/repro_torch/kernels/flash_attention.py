@@ -4,8 +4,9 @@
 
 ``flash_attention`` here is the plain PyTorch version (the full score
 matrix); ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``
-(online softmax over KV tiles).  ``kernels/ops.py`` picks one by the
-tensors' device.  Both compute the reference function: the Pallas
+(online softmax over KV tiles): for bf16 a tensor-core kernel (wgmma, TMA),
+for f32 an FMA kernel on the CUDA cores.  ``kernels/ops.py`` picks one by
+the tensors' device.  Both compute the reference function: the Pallas
 kernel's skip of KV blocks with ``qi * block_q < ki * block_k`` drops
 valid keys when ``block_q > block_k``, and neither port version has it.
 """
@@ -43,8 +44,14 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
 def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on the tensors' CUDA device; same
     contract and result as ``flash_attention``.  Inputs are read through
-    their strides (last axis contiguous).  Raises on a shape, dtype or head
-    dim the kernel does not take, if the library cannot be built or the
+    their strides (last axis contiguous).
+
+    bf16 runs on the tensor cores (``flash_kernel_wgmma``: P rounded to
+    bf16 before P V, sums in f32) and reads q, k and v with TMA: 16-byte
+    aligned bases and strides of 16-byte multiples.  f32 runs as f32 FMAs
+    (``flash_kernel``): TF32 tensor cores would miss the f32 tolerance of
+    2e-5.  Neither falls back to the other or to the plain version.  Raises on a shape, dtype, head dim or
+    layout the kernels do not take, if the library cannot be built or the
     launch fails."""
     B, S, H, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[:2] != (B, S) \
@@ -63,6 +70,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:
                          f"{k.dtype}, {v.dtype}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the last axis of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _build.check_16_byte("bf16 flash_attention's TMA", name, t)
     dev = q.device
     _build.check_device(dev, k, v)
     lib = _build.library(dev)

@@ -88,12 +88,20 @@ def test_decode_attention_reads_a_strided_cache_view():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("pairs,S,n", [(2048, 32, 1), (16, 4128, 17),
-                                       (1, 100, 1), (4, 4096, 16)])
+@pytest.mark.parametrize("pairs,S,n", [(2048, 32, 1), (16, 4128, 33),
+                                       (1, 100, 1), (4, 4096, 32)])
 def test_decode_splits_cover_the_key_axis(pairs, S, n):
-    split_len, n_split = da._splits(pairs, S, sms=132)
-    assert n_split == n and split_len % 32 == 0
+    """Splits cover [0, S) exactly in multiples of the kernel's tile, and
+    give 4 blocks per SM (132 SMs) where the key axis has enough tiles:
+    minitron-4b's decode (16 pairs x 4128 keys) 33 x 16 = 528 blocks, the
+    serving model's 2048 pairs of 32 keys one split each."""
+    sms = 132
+    split_len, n_split = da._splits(pairs, S, sms=sms)
+    assert n_split == n and split_len % da._TILE == 0
     assert (n_split - 1) * split_len < S <= n_split * split_len
+    assert pairs * n_split >= min(4 * sms, pairs * -(-S // da._TILE))
+    if pairs >= 4 * sms:
+        assert n_split == 1
 
 
 # --------------------------------------------------------------------------- #
@@ -149,6 +157,32 @@ def test_flash_attention_reads_strided_views():
     want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=True)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("what", ["token stride", "head stride", "base"])
+def test_flash_bf16_refuses_views_tma_cannot_read(what):
+    """The bf16 kernel reads q, k, v with TMA (16-byte aligned base, strides
+    of 16-byte multiples): the wrapper raises before any launch or build."""
+    B, S, H, K, hd = 1, 16, 2, 1, 32
+    pad = {"token stride": 1, "head stride": 0, "base": 0}[what]
+    qkv = torch.zeros((B, S, (H + 2 * K) * hd + pad), dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, S, -1, hd) for t in torch.split(
+        qkv[..., :(H + 2 * K) * hd], [H * hd, K * hd, K * hd], dim=-1))
+    if what == "head stride":
+        q = torch.zeros((B, S, H, hd + 1), dtype=torch.bfloat16)[..., :hd]
+    if what == "base":
+        k = torch.zeros((B * S * K * hd + 1,), dtype=torch.bfloat16)[1:] \
+            .reshape(B, S, K, hd)
+    with pytest.raises(ValueError, match="TMA"):
+        fa.flash_attention_cuda(q, k, v, causal=True)
+
+
+def test_decode_refuses_a_cache_it_cannot_read_in_16_byte_loads():
+    B, S, K, hd = 2, 8, 1, 32
+    q = torch.zeros((B, 2, hd))
+    kc = torch.zeros((B, S, K, hd + 1))[..., :hd]
+    with pytest.raises(ValueError, match="16-byte"):
+        da.decode_attention_cuda(q, kc, kc, torch.zeros(B, dtype=torch.int32))
 
 
 def test_cpu_calls_launch_no_kernel():

@@ -163,22 +163,33 @@ def _counted(name, call):
     return out
 
 
-@pytest.mark.parametrize("B,S,H,K,hd,dtype", [
-    (1024, 32, 4, 2, 32, torch.float32),     # the serving model's decode
-    (2, 4128, 24, 8, 128, torch.bfloat16),   # minitron-4b decode
-    (2, 4128, 24, 8, 128, torch.float32),
-    (2, 1000, 8, 1, 64, torch.float32),      # G = 8, ragged S, split
-    (3, 300, 6, 2, 128, torch.bfloat16),
+@pytest.mark.parametrize("B,S,H,K,hd,dtype,lengths", [
+    (1024, 32, 4, 2, 32, torch.float32, None),   # the serving model's decode
+    (2, 4128, 24, 8, 128, torch.bfloat16, None),  # minitron-4b decode
+    (2, 4128, 24, 8, 128, torch.float32, None),
+    (2, 1000, 8, 1, 64, torch.float32, None),    # G = 8, ragged S, split
+    (3, 300, 6, 2, 128, torch.bfloat16, None),
+    # lengths on the kernel's tile and split boundaries (128 keys)
+    (4, 4128, 24, 8, 128, torch.bfloat16, [63, 64, 127, 128]),
+    (2, 500, 16, 1, 128, torch.bfloat16, None),  # G = 16: passes of 4 heads
+    (2, 300, 32, 2, 128, torch.float32, None),   # G = 16: passes of 8 heads
+    (600, 40, 4, 2, 64, torch.bfloat16, None),   # bf16, a warp a pair
+    (300, 200, 4, 2, 64, torch.float32, None),   # n_split = 1, 4 warps a pair
+    (3, 1000, 6, 2, 32, torch.bfloat16, None),   # 4 lanes a key row
 ])
-def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype):
+def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
+                                               lengths):
     g = torch.Generator().manual_seed(S + H)
     L = 2                                    # a layer of a stacked cache
     q = _randn(g, (B, H, hd), dtype, dev)
     kc = _randn(g, (L, B, S, K, hd), dtype, dev)[1]
     vc = _randn(g, (L, B, S, K, hd), dtype, dev)[1]
-    lengths = torch.randint(0, S, (B,), generator=g, dtype=torch.int32)
-    lengths[0] = -1                          # every key masked
-    lengths[-1] = S + 3                      # every key
+    if lengths is None:
+        lengths = torch.randint(0, S, (B,), generator=g, dtype=torch.int32)
+        lengths[0] = -1                      # every key masked
+        lengths[-1] = S + 3                  # every key
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32)
     lengths = lengths.to(dev)
     got = _counted("decode_attention",
                    lambda: ops.decode_attention(q, kc, vc, lengths))
@@ -186,20 +197,30 @@ def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype):
     _assert_close(got, want)
 
 
-@pytest.mark.parametrize("B,S,H,K,hd,dtype,causal", [
-    (2, 256, 8, 2, 64, torch.float32, True),
-    (2, 256, 8, 2, 64, torch.float32, False),
-    (1, 200, 4, 1, 128, torch.bfloat16, True),   # ragged S, MQA
-    (1, 1024, 24, 8, 128, torch.bfloat16, True),  # minitron-4b's heads
-    (1, 1024, 24, 8, 128, torch.float32, True),
-    (2, 97, 4, 4, 32, torch.float32, True),
+@pytest.mark.parametrize("B,S,H,K,hd,dtype,causal,stacked", [
+    (2, 256, 8, 2, 64, torch.float32, True, False),
+    (2, 256, 8, 2, 64, torch.float32, False, False),
+    (1, 200, 4, 1, 128, torch.bfloat16, True, False),   # ragged S, MQA
+    (1, 1024, 24, 8, 128, torch.bfloat16, True, False),  # minitron's heads
+    (1, 1024, 24, 8, 128, torch.float32, True, False),
+    (2, 97, 4, 4, 32, torch.float32, True, False),
+    # the bf16 tensor-core kernel: S not a multiple of its 128-row tiles,
+    # minitron-4b's whole prefill, hd 64 and 32 (64-byte swizzle)
+    # without the mask, and q, k, v as layers of stacked tensors
+    (1, 1000, 8, 2, 128, torch.bfloat16, True, False),
+    (2, 4096, 24, 8, 128, torch.bfloat16, True, False),
+    (2, 300, 8, 2, 64, torch.bfloat16, False, False),
+    (2, 257, 4, 2, 32, torch.bfloat16, False, False),
+    (2, 300, 6, 3, 128, torch.bfloat16, True, True),
+    (1, 130, 4, 2, 64, torch.bfloat16, False, True),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
-                                              causal):
+                                              causal, stacked):
     g = torch.Generator().manual_seed(S + H + causal)
-    q = _randn(g, (B, S, H, hd), dtype, dev)
-    k = _randn(g, (B, S, K, hd), dtype, dev)
-    v = _randn(g, (B, S, K, hd), dtype, dev)
+    L = 3 if stacked else 1
+    q = _randn(g, (L, B, S, H, hd), dtype, dev)[L - 1]
+    k = _randn(g, (L, B, S, K, hd), dtype, dev)[L // 2]
+    v = _randn(g, (L, B, S, K, hd), dtype, dev)[0]
     got = _counted("flash_attention",
                    lambda: ops.flash_attention(q, k, v, causal=causal))
     want = flash_attention.flash_attention(q, k, v, causal=causal)
