@@ -49,7 +49,11 @@ of the same function (``scaled_dot_product_attention``) where there is
 one: with events (``library_ms``) and as the profiler's sum over the
 kernels one call launches (``library_device_ms``, the clock of the
 kernels' own ``ms``).  In bf16 flash attention runs on the tensor cores;
-the model phase checks that minitron-4b's prefill ran that kernel.
+the model phase checks that minitron-4b's prefill ran that kernel.  The
+SSD's bf16 build is four passes (``ssd_chunk_state``, ``ssd_scores``,
+``ssd_state_pass``, ``ssd_chunk_scan``): its ``ms`` is their sum, each
+pass's time is printed, and both mamba's shape and mamba2-2.7b's bf16
+prefill must run exactly those four.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
@@ -91,6 +95,11 @@ LLM_BATCH, LLM_PROMPT, LLM_STEPS = 2, 4096, 32
 LLM_REL_TOL_F32 = 1e-3
 LLM_REL_TOL_BF16 = {"minitron-4b": 5e-2, "mamba2-2.7b": 1e-1}
 PLANT_KEYS = 256    # two key splits of csrc/decode_attention.cu
+# the SSD's kernels (csrc/ssd_scan.cu) and the passes of its bf16 build
+# with B and C shared by the heads, as mamba2-2.7b calls it
+SSD_PREFIX = "ssd_"
+SSD_BF16_PASSES = ("ssd_chunk_state", "ssd_scores", "ssd_state_pass",
+                   "ssd_chunk_scan")
 
 
 def fail(msg: str) -> None:
@@ -704,10 +713,19 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
         Bg.float().expand(-1, -1, nh, -1), Cg.float().expand(-1, -1, nh, -1))
     rows.append(f"ssd_scan[B={B} S={S} nh={nh} hd={hd} N={N} chunk={Q} "
                 f"bf16] max_abs_err={err}, in f32 {err32} (y and h_last)")
-    T = 64      # the kernel's tile: its operations per (sequence, head)
+    # every kernel one call launches (the passes share the prefix "ssd_")
+    prof = profile_calls(torch, call, reps=5)
+    ms, names = kernel_time(prof, SSD_PREFIX)
+    passes = ssd_passes(prof)
+    rows.append("ssd_scan passes (device ms per call): " + ", ".join(
+        f"{n} {t}" for n, t in passes.items()))
+    # the function's work in the 64-row chunked form, whatever chunk the
+    # kernels use: per (sequence, head) and 64 rows, the masked scores and
+    # G x over the causal half, C h^T and the state update
+    T = 64
     tiles = -(-S // T)
     timing["ssd_scan"] = dict(
-        ms=kernel_ms(torch, call, "ssd_kernel", reps=5),
+        ms=ms, kernel=names, passes=passes,
         call_ms=cuda_ms(torch, call, reps=5, warm=1),
         plain_ms=cuda_ms(torch, plain, reps=3, warm=1), library_ms=None,
         bytes=nbytes(x, a, Bg, Cg, ky, kh),
@@ -715,6 +733,17 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
                                    + 2 * T * N * hd),
         peak=BF16_OPS_PS, err=err, err_f32=err32)
     return rows, timing
+
+
+def ssd_passes(prof: dict) -> dict:
+    """{kernel name: ms} of the SSD's kernels in ``prof``, in pass order;
+    fails unless they are the four passes of the bf16 build."""
+    passes = {kernel_name(n): t for n, t in prof.items() if SSD_PREFIX in n}
+    base = lambda n: n.split("<", 1)[0]
+    check(sorted(map(base, passes)) == sorted(SSD_BF16_PASSES),
+          f"ssd_scan ran {sorted(passes)}, not the passes {SSD_BF16_PASSES}")
+    return dict(sorted(passes.items(),
+                       key=lambda kv: SSD_BF16_PASSES.index(base(kv[0]))))
 
 
 def f32_err(torch, call, plain, name, *inputs) -> float:
@@ -762,16 +791,19 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
             {"flash_attention": L, "decode_attention": L * LLM_STEPS})
     check(launches == want, f"{cfg.name}: kernel launches {launches}, "
           f"expected {want}")
-    # which attention kernel a bf16 prefill runs: one more prefill under
-    # the profiler (apart from the timed run)
-    kernels = ""
-    if not cfg.attn_free:
-        _, by_name = device_events(torch, lambda: TM.prefill(
-            cfg, params, tokens, TM.init_cache(cfg, LLM_BATCH, LLM_PROMPT,
-                                               params["embed"].dtype, dev)))
-        kernels = kernel_time(by_name, "flash_kernel")[1]
+    # which kernels a bf16 prefill runs, and their share of its device
+    # time: one more prefill under the profiler (apart from the timed run)
+    _, by_name = device_events(torch, lambda: TM.prefill(
+        cfg, params, tokens, TM.init_cache(cfg, LLM_BATCH, LLM_PROMPT,
+                                           params["embed"].dtype, dev)))
+    if cfg.attn_free:
+        kernels = " + ".join(ssd_passes(by_name))
+        kernel_us = kernel_time(by_name, SSD_PREFIX)[0]
+    else:
+        kernel_us, kernels = kernel_time(by_name, "flash_kernel")
         check(kernels == "flash_kernel_wgmma<128>", f"{cfg.name}: the bf16 "
               f"prefill ran {kernels!r}, not the tensor-core kernel")
+    busy_ms = sum(by_name.values()) / 1e3
     check(bool(torch.isfinite(res["logits"]).all()),
           f"{cfg.name}: non-finite decode logits")
     peak = torch.cuda.max_memory_allocated(dev)    # init, prefill, decode
@@ -821,7 +853,8 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
             f" (>= {tol16}); bf16 vs f32 logits: prefill {floor16:.3e}, "
             f"decode {dist16:.3e}; launches "
             + " ".join(f"{k}={v}" for k, v in launches.items())
-            + (f" (prefill attention: {kernels})" if kernels else ""))
+            + f"; profiled prefill: device busy {busy_ms:.3f} ms, of which "
+            f"{kernels} {kernel_us / 1e3:.3f} ms")
     del params, res
     torch.cuda.empty_cache()
     return line, launches, kernels
@@ -1257,12 +1290,12 @@ def main() -> int:
     print(line)
     for line in phase_engines(torch, RT, TM, B, SL, cfg):
         print(line)
-    llm_launches, prefill_kernel = {}, ""
+    llm_launches, prefill_kernels = {}, {}
     for arch in ("minitron-4b", "mamba2-2.7b"):
         line, got, names = phase_llm(torch, ops, TM, PDL, get_config(arch))
         print(line)
         llm_launches.update(got)
-        prefill_kernel = prefill_kernel or names
+        prefill_kernels[arch] = names
     launches = {**main_launches, **staged_launches, **llm_launches}
     print("kernels: " + " ".join(
         f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
@@ -1325,7 +1358,10 @@ def main() -> int:
                     k: xlb[k] for k in ("ms", "kernel", "library_ms",
                                         "library_device_ms")}
             if name == "flash_attention":      # as minitron's prefill ran it
-                kernels[-1]["kernel"] = prefill_kernel
+                kernels[-1]["kernel"] = prefill_kernels["minitron-4b"]
+            if name == "ssd_scan":             # as mamba's prefill ran it
+                kernels[-1]["kernel"] = prefill_kernels["mamba2-2.7b"]
+                kernels[-1]["passes_ms"] = t["passes"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -77,14 +77,18 @@ SIGNATURES = {
                                                 # causal
                            + [_L] * 12          # q, k, v, out strides
                            + [_F, _P],          # scale, stream
-    "xlb_ssd_scan": [_P] * 6                    # x, a, B, C, y, h_last
+    "xlb_ssd_scratch_floats": [_I] * 6          # B, S, nh, hd, N, dtype
+                              + [_L, _L],       # B, C head strides
+    "xlb_ssd_scan": [_P] * 7                    # x, a, B, C, y, h_last,
+                                                # scratch
                     + [_I] * 6                  # B, S, nh, hd, N, dtype
                     + [_L] * 12                 # x, a, B, C strides
                     + [_P],                     # stream
     "xlb_empty_launches": [_I, _P],
     "xlb_error_string": [_I],
 }
-RESTYPES = {"xlb_error_string": ctypes.c_char_p}
+RESTYPES = {"xlb_error_string": ctypes.c_char_p,
+            "xlb_ssd_scratch_floats": ctypes.c_longlong}
 
 _lib: ctypes.CDLL | None = None
 _ready: set[int] = set()    # device indices the library was set up on

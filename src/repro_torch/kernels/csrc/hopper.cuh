@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: shared-memory addresses,
-// mbarriers, TMA tensor loads, and warpgroup MMA (wgmma) with its
-// shared-memory matrix descriptors.
+// mbarriers, TMA tensor loads, warpgroup MMA (wgmma) with its
+// shared-memory matrix descriptors, the warp-level bf16 MMA
+// (mma.sync.m16n8k16) with the ldmatrix loads that feed it, and cp.async.
 //
 // Shared-memory tiles that wgmma reads use the hardware's 128- or 64-byte
 // swizzle: a tile is stored as panels of rows of SW bytes (SW = 128 or
@@ -244,6 +245,67 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- warp-level MMA (mma.sync) ---------------------------------------------
+//
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators.  Fragments,
+// with g = lane / 4 and t = lane % 4: A (16 x 16, row-major) a0 = (g,
+// 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..), a3 = (g + 8, 2t + 8..);
+// B (16 x 8) b0 = (k 2t..2t+1, n g), b1 = (k 2t + 8.., n g); C (16 x 8)
+// c0, c1 = (g, 2t..2t+1), c2, c3 = (g + 8, 2t..).  Two bf16 per 32-bit
+// register, the lower index in the low half.  ldmatrix loads four 8 x 8
+// bf16 matrices, lane l giving the address of row l % 8 of matrix l / 8;
+// without .trans lane l receives (row l / 4, columns 2 (l % 4)..), with
+// .trans (rows 2 (l % 4).., column l / 4).  Rows are 16 bytes, 16-byte
+// aligned.
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+// d += a b (m16n8k16, bf16 in, f32 accumulators)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- cp.async (global -> shared, 16 bytes, no registers) ------------------
+
+// Copy 16 bytes, or write 16 zero bytes where !valid (src is not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` (0-3) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
 }
 
 }  // namespace xlb

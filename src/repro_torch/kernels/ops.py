@@ -201,8 +201,9 @@ def ssd_scan(xdt, a_log, Bm, Cm, *, chunk: int,
     ``return_state`` also the final state (B, nh, hd, N) f32.  ``chunk``
     is clipped to S and must divide it, as the Pallas wrapper asserts.
     The plain version computes chunk by chunk; on the card ``chunk`` is
-    only checked for divisibility (the kernel tiles by 64 rows, and the
-    form is exact for any tile)."""
+    only checked for divisibility (the kernels use chunks of their own,
+    and the form is exact for any chunk).  One call is one count in
+    ``LAUNCHES``, whatever number of passes it runs."""
     S = xdt.shape[1]
     chunk = min(chunk, S)
     if chunk <= 0 or S % chunk:

@@ -69,11 +69,15 @@ def ssd_scan(xdt, a_log, Bm, Cm, chunk: int):
 
 def ssd_scan_cuda(xdt, a_log, Bm, Cm):
     """Launch ``csrc/ssd_scan.cu`` on the tensors' CUDA device; same result
-    as ``ssd_scan`` at any chunk (the kernel tiles by 64 rows; the form is
-    exact for any tile).  Inputs are read through their strides, so Bm and
-    Cm may be broadcast over the heads (stride 0); the last axis of xdt,
-    Bm and Cm must be contiguous.  Raises on a shape, dtype or size the
-    kernel does not take, if the library cannot be built or the launch
+    as ``ssd_scan`` at any chunk (the form is exact for any chunk, and the
+    kernels use their own).  bf16 runs four chunk-parallel passes on the
+    tensor cores over scratch this wrapper allocates (``ssd_chunk_state``,
+    ``ssd_scores`` where Bm and Cm are broadcast over the heads by stride
+    0, ``ssd_state_pass``, ``ssd_chunk_scan``); f32 one FMA kernel
+    (``ssd_kernel``).  Inputs are read through their strides; the last
+    axis of xdt, Bm and Cm must be contiguous, and in bf16 their bases and
+    other strides 16-byte multiples.  Raises on a shape, dtype or layout
+    the kernels do not take, if the library cannot be built or a launch
     fails."""
     B, S, nh, hd = xdt.shape
     N = Bm.shape[-1]
@@ -97,13 +101,21 @@ def ssd_scan_cuda(xdt, a_log, Bm, Cm):
                          "contiguous")
     dev = xdt.device
     _build.check_device(dev, a_log, Bm, Cm)
+    dtype = _build.DTYPE_CODES[xdt.dtype]
+    if xdt.dtype == torch.bfloat16:
+        for name, t in (("xdt", xdt), ("Bm", Bm), ("Cm", Cm)):
+            _build.check_16_byte("ssd_scan", name, t)
     lib = _build.library(dev)
     y = torch.empty((B, S, nh, hd), dtype=xdt.dtype, device=dev)
     h_last = torch.empty((B, nh, hd, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        (lib.xlb_ssd_scratch_floats(B, S, nh, hd, N, dtype, Bm.stride(2),
+                                    Cm.stride(2)),),
+        dtype=torch.float32, device=dev)
     p = _build.ptr
     err = lib.xlb_ssd_scan(
-        p(xdt), p(a_log), p(Bm), p(Cm), p(y), p(h_last), B, S, nh, hd, N,
-        _build.DTYPE_CODES[xdt.dtype], *xdt.stride()[:3], *a_log.stride(),
+        p(xdt), p(a_log), p(Bm), p(Cm), p(y), p(h_last), p(scratch), B, S,
+        nh, hd, N, dtype, *xdt.stride()[:3], *a_log.stride(),
         *Bm.stride()[:3], *Cm.stride()[:3], _build.stream(dev))
     _build.check(err, "ssd_scan")
     return y, h_last

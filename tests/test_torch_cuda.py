@@ -227,20 +227,55 @@ def test_flash_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
     _assert_close(got, want)
 
 
-@pytest.mark.parametrize("B,S,nh,hd,N,dtype,chunk", [
-    (2, 256, 4, 64, 128, torch.float32, 64),
-    (1, 300, 3, 32, 32, torch.float32, 300),     # ragged tail tile
-    (1, 512, 2, 128, 128, torch.float32, 128),
-    (2, 512, 8, 64, 128, torch.bfloat16, 256),   # mamba2-2.7b's head
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("B,S,nh,hd,N,dtype,chunk,per_head", [
+    (2, 256, 4, 64, 128, _F32, 64, ""),
+    (1, 300, 3, 32, 32, _F32, 300, ""),        # ragged tail tile
+    (1, 512, 2, 128, 128, _F32, 128, ""),
+    (2, 512, 8, 64, 128, _BF16, 256, ""),      # mamba2-2.7b's head
+    # the bf16 passes: 16 chunks of 256 rows in the state hand-off
+    (1, 4096, 2, 64, 128, _BF16, 256, ""),
+    (1, 4096, 2, 64, 128, _F32, 256, ""),
+    (1, 4096, 2, 64, 128, _BF16, 256, "BC"),
+    # scores shared by the heads (stride 0) beside B and C per head, and
+    # beside only C per head
+    (2, 512, 8, 64, 128, _BF16, 256, "BC"),
+    (2, 512, 8, 64, 128, _BF16, 256, "C"),
+    (1, 1, 2, 64, 128, _BF16, 1, ""),          # shorter than one chunk
+    (1, 100, 3, 64, 128, _BF16, 100, ""),
+    (1, 100, 3, 64, 128, _BF16, 100, "BC"),
+    (2, 1000, 4, 64, 128, _BF16, 1000, ""),    # ragged: 3 chunks + 232
+    (2, 1000, 4, 64, 128, _BF16, 1000, "BC"),
+    (1, 600, 1, 64, 64, _BF16, 600, "BC"),     # one head
+    # every (hd, N) build of the bf16 passes, with a ragged tail
+    (1, 300, 2, 32, 32, _BF16, 300, ""),
+    (1, 300, 2, 32, 64, _BF16, 300, "BC"),
+    (1, 300, 2, 32, 128, _BF16, 300, ""),
+    (1, 300, 2, 64, 32, _BF16, 300, "BC"),
+    (1, 300, 2, 64, 64, _BF16, 300, ""),
+    (1, 300, 2, 128, 32, _BF16, 300, ""),
+    (1, 300, 2, 128, 64, _BF16, 300, "BC"),
+    (1, 300, 2, 128, 128, _BF16, 300, ""),
+    (1, 300, 2, 128, 128, _BF16, 300, "BC"),
 ])
-def test_ssd_scan_kernel_matches_plain(dev, B, S, nh, hd, N, dtype, chunk):
+def test_ssd_scan_kernel_matches_plain(dev, B, S, nh, hd, N, dtype, chunk,
+                                       per_head):
     g = torch.Generator().manual_seed(S + nh)
     x = _randn(g, (B, S, nh, hd), dtype, dev, 0.5)
     a = (-torch.nn.functional.softplus(torch.randn((B, S, nh), generator=g))
          * 0.5).to(dev)
-    # one group broadcast over the heads by stride, as the mixer passes it
-    Bm = _randn(g, (B, S, 1, N), dtype, dev, 0.3).expand(-1, -1, nh, -1)
-    Cm = _randn(g, (B, S, 1, N), dtype, dev, 0.3).expand(-1, -1, nh, -1)
+    # one group broadcast over the heads by stride, as the mixer passes it,
+    # or (named in per_head) a projection per head
+    def proj():
+        return _randn(g, (B, S, nh, N), dtype, dev, 0.3)
+
+    def group():
+        return _randn(g, (B, S, 1, N), dtype, dev, 0.3).expand(-1, -1, nh,
+                                                               -1)
+    Bm = proj() if "B" in per_head else group()
+    Cm = proj() if "C" in per_head else group()
     y, h = _counted("ssd_scan", lambda: ops.ssd_scan(
         x, a, Bm, Cm, chunk=chunk, return_state=True))
     wy, wh = ssd_scan.ssd_scan(x, a, Bm, Cm, chunk)
