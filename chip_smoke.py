@@ -35,7 +35,12 @@ Phases (each prints one line; any failure exits non-zero):
    against the last logits of the full prefill: relative error < 1e-3 in
    f32 (the weights cast up), and in bf16 under a fixed limit per
    architecture that a planted decode fault must exceed;
-7. the kernel launch counts: ``admit_commit``, ``complete`` and
+7. the reduced (smoke) configs of minitron-4b and mamba2-2.7b (head dim
+   16; mamba's state 16) through the launcher's ``main`` on the card, as a
+   user runs ``prefill_decode --smoke``, with finite logits and every
+   attention or SSD call through its kernel; then prefill and one decode
+   step of each on the card against the CPU (f32, rtol = atol = 1e-4);
+8. the kernel launch counts: ``admit_commit``, ``complete`` and
    ``decode_attention`` on the main path, ``route_match``, ``relay_slots``
    and ``admit`` in the staged phase, ``flash_attention``,
    ``decode_attention`` and ``ssd_scan`` in the model phases.
@@ -53,7 +58,12 @@ the model phase checks that minitron-4b's prefill ran that kernel.  The
 SSD's bf16 build is four passes (``ssd_chunk_state``, ``ssd_scores``,
 ``ssd_state_pass``, ``ssd_chunk_scan``): its ``ms`` is their sum, each
 pass's time is printed, and both mamba's shape and mamba2-2.7b's bf16
-prefill must run exactly those four.
+prefill must run exactly those four.  Decode attention is also held at
+G = 48 query heads over one KV head (granite-20b's MQA), and the three
+float kernels at the smoke configs' head dim 16 (and the SSD's N 16), in
+f32 and bf16.  The admission kernel's device time at the serving shape
+is printed beside its time before the redesign, with its bound and the
+launch floor.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
@@ -100,6 +110,12 @@ PLANT_KEYS = 256    # two key splits of csrc/decode_attention.cu
 SSD_PREFIX = "ssd_"
 SSD_BF16_PASSES = ("ssd_chunk_state", "ssd_scores", "ssd_state_pass",
                    "ssd_chunk_scan")
+# the admission kernel before its redesign: device ms per call at the
+# serving shape, commit and not (PERF.md §6, on an NVIDIA H100 80GB HBM3
+# at 700 W)
+ADMIT_BEFORE_MS = {"admit_commit": 0.0350, "admit": 0.0349}
+# the launcher's reduced configs on the card: batch, prompt, decode steps
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_STEPS = 2, 64, 4
 
 
 def fail(msg: str) -> None:
@@ -214,6 +230,14 @@ def kernel_name(event: str) -> str:
     return name.removeprefix("void ").split("::")[-1]
 
 
+def bound_ms(t: dict) -> tuple:
+    """(the least ms the card could take for a kernel's work, the bytes'
+    ms, the operations' ms) from its ``bytes``, ``ops`` and ``peak``."""
+    t_bytes = t["bytes"] / MEM_BPS * 1e3
+    t_ops = t["ops"] / t.get("peak", OPS_PS) * 1e3
+    return max(t_bytes, t_ops), t_bytes, t_ops
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -302,14 +326,16 @@ def admit_work(torch, RT, PD, routing, rid, svc, feats, free, res, commit):
     floats = int(eok[wt].sum()) + int(eidx[eok & wt[:, None]].unique()
                                       .numel())
     bytes_in = 4 * (ints + floats) + I * C + (5 * 4 * I * C if commit else 0)
-    # integer operations: the hash, the rule walk, the window scan, the
-    # three in-tile rank counts over earlier rows, the slot scan, and the
-    # least-request search (~10 passes over the window)
-    pos = torch.arange(R) % 256
-    ops = (R * (2 * F + RT.MAX_RULES_PER_SVC + 2 * WE + C)
-           + 3 * int(pos.sum())
-           + 10 * WE * int((routable & (pol == RT.POLICY_LEAST_REQUEST))
-                           .sum()))
+    # integer operations: the hash, the rule walk, the in-tile ranks (a
+    # warp match and up to 8 warp counts, twice), the k-th set bit (6
+    # popcount steps), the Gumbel argmax of weighted rows, and per tile a
+    # (load, lane) ranking of the 64 lanes of each least-request cluster
+    # with rows in it
+    lr = routable & (pol == RT.POLICY_LEAST_REQUEST)
+    tiles = torch.arange(R, device=cl.device) // 256
+    lr_tables = int((tiles[lr] * CL + cl[lr]).unique().numel())
+    ops = (R * (2 * F + RT.MAX_RULES_PER_SVC + 2 * 9 + 6)
+           + 2 * WE * int(wt.sum()) + 4 * WE * WE * lr_tables)
     return bytes_in + nbytes(*res), ops
 
 
@@ -663,6 +689,58 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
             library_device_ms=library_device_ms(torch, lib),
             bytes=nb, ops=nops, peak=peak, err=err, err_f32=err32)
 
+    # B6 at G = 48: 48 query heads over one KV head at hd 128 (granite-20b's
+    # MQA), walked in passes of 4 heads (bf16) or 8 (f32)
+    for dtype in (bf16, f32):
+        shape = (LLM_BATCH, 2048, 48, 1, 128)
+        q, kc, vc, lens = decode_inputs(torch, *shape, dtype, [1000, 2047],
+                                        dev, seed=48)
+        call = lambda: ops.decode_attention(q, kc, vc, lens)
+        plain = lambda: da.decode_attention(q, kc, vc, lens)
+        key = "decode_attention[G48]" + ("" if dtype == bf16 else "[f32]")
+        err = float_err(torch, key, call(), plain())
+        nb, nops = decode_work(q, kc, lens)
+        ms, names = kernel_time(profile_calls(torch, call), "decode_")
+        rows.append(f"{key}[B={shape[0]} S={shape[1]} H=48 K=1 hd=128 "
+                    f"{dtype}] max_abs_err={err} ({names})")
+        timing[key] = dict(
+            ms=ms, kernel=names, call_ms=cuda_ms(torch, call),
+            plain_ms=cuda_ms(torch, plain, reps=5, warm=1), bytes=nb,
+            ops=nops, peak=BF16_OPS_PS if dtype == bf16 else OPS_PS,
+            err=err)
+
+    # head dim 16 (the smoke configs; the SSD at N 16 too), f32 and bf16:
+    # B6, B7 and B8 at the smoke shapes, all three on their FMA kernels
+    gs = torch.Generator(device=dev).manual_seed(16)
+    rs = lambda *shape, dt, scale=1.0: (torch.randn(
+        shape, generator=gs, device=dev) * scale).to(dt)
+    for dtype in (f32, bf16):
+        q, kc, vc, lens = decode_inputs(
+            torch, SMOKE_BATCH, SMOKE_PROMPT + SMOKE_STEPS, 4, 2, 16, dtype,
+            [20, SMOKE_PROMPT + SMOKE_STEPS - 1], dev, seed=16)
+        e6 = float_err(torch, f"decode_attention[hd16 {dtype}]",
+                       ops.decode_attention(q, kc, vc, lens),
+                       da.decode_attention(q, kc, vc, lens))
+        q = rs(SMOKE_BATCH, SMOKE_PROMPT, 4, 16, dt=dtype)
+        k, v = (rs(SMOKE_BATCH, SMOKE_PROMPT, 2, 16, dt=dtype)
+                for _ in range(2))
+        e7 = float_err(torch, f"flash_attention[hd16 {dtype}]",
+                       ops.flash_attention(q, k, v, causal=True),
+                       fa.flash_attention(q, k, v, causal=True))
+        x = rs(SMOKE_BATCH, SMOKE_PROMPT, 8, 16, dt=dtype, scale=0.5)
+        a = -F.softplus(rs(SMOKE_BATCH, SMOKE_PROMPT, 8, dt=f32)) * 0.5
+        Bm, Cm = (rs(SMOKE_BATCH, SMOKE_PROMPT, 1, 16, dt=dtype, scale=0.3)
+                  .expand(-1, -1, 8, -1) for _ in range(2))
+        (ky, kh), (py, ph) = ops.ssd_scan(x, a, Bm, Cm, chunk=32,
+                                          return_state=True), \
+            ssd.ssd_scan(x, a, Bm, Cm, 32)
+        e8 = max(float_err(torch, f"ssd_scan[hd16 N16 {dtype}] y", ky, py),
+                 float_err(torch, f"ssd_scan[hd16 N16 {dtype}] h_last", kh,
+                           ph))
+        rows.append(f"hd 16 [{dtype}]: decode_attention[B=2 S=68 H=4 K=2] "
+                    f"max_abs_err={e6}, flash_attention[B=2 S=64 H=4 K=2] "
+                    f"{e7}, ssd_scan[B=2 S=64 nh=8 N=16] {e8}")
+
     # B7 at minitron-4b's prefill
     B, S, H, K, hd = LLM_BATCH, LLM_PROMPT, 24, 8, 128
     gd = torch.Generator(device=dev).manual_seed(7)
@@ -910,6 +988,71 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: the reduced configs through the launcher on the card
+# --------------------------------------------------------------------------- #
+
+
+def phase_smoke_configs(torch, ops, TM, launcher, configs, dev="cuda"):
+    """``prefill_decode --smoke`` of minitron-4b and mamba2-2.7b on the
+    card through the launcher's ``main`` (weights from a CUDA generator):
+    finite logits, and the kernel launches of that run counted from zero;
+    then prefill and one decode step of each smoke config on the card
+    against the CPU with the same weights (f32, rtol = atol = 1e-4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lines = []
+    for arch in ("minitron-4b", "mamba2-2.7b"):
+        cfg = configs.smoke_config(configs.get_config(arch))
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        res = launcher.main(["--smoke", "--arch", arch, "--batch",
+                             str(SMOKE_BATCH), "--prompt", str(SMOKE_PROMPT),
+                             "--steps", str(SMOKE_STEPS)])
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        L = cfg.n_layers
+        want = ({"ssd_scan": L} if cfg.attn_free else
+                {"flash_attention": L, "decode_attention": L * SMOKE_STEPS})
+        check(got == want, f"{cfg.name}: launcher kernel launches {got}, "
+              f"expected {want}")
+        check(res["logits"].shape == (SMOKE_BATCH, cfg.vocab_padded)
+              and bool(torch.isfinite(res["logits"]).all()),
+              f"{cfg.name}: launcher logits not finite of the right shape")
+        params = TM.init_params(cfg, torch.Generator().manual_seed(3),
+                                torch.float32, "cpu")
+        tokens = torch.randint(0, cfg.vocab, (SMOKE_BATCH, SMOKE_PROMPT),
+                               generator=torch.Generator().manual_seed(4),
+                               dtype=torch.int32)
+        out = {}
+        for d in ("cpu", dev):
+            p = _to(torch, params, d)
+            cache = TM.init_cache(cfg, SMOKE_BATCH, SMOKE_PROMPT + 1,
+                                  torch.float32, d)
+            first, cache = TM.prefill(cfg, p, tokens.to(d), cache)
+            lengths = torch.full((SMOKE_BATCH,), SMOKE_PROMPT,
+                                 dtype=torch.int32, device=d)
+            nxt, _ = TM.decode_step(cfg, p, tokens[:, :1].to(d), lengths,
+                                    cache)
+            out[d] = (first.cpu(), nxt.cpu())
+        for a, b in zip(out[dev], out["cpu"]):
+            check(bool(torch.isfinite(a).all()), f"{cfg.name}: non-finite")
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(out[dev], out["cpu"]))
+        per_step = res["decode_s"] / SMOKE_STEPS
+        lines.append(
+            f"smoke {cfg.name} (hd {cfg.head_dim}"
+            + (f", N {cfg.ssm.d_state}" if cfg.ssm else "")
+            + f", f32): prefill_decode --smoke on the card, prefill "
+            f"{SMOKE_BATCH} x {SMOKE_PROMPT} tokens "
+            f"{1e3 * res['prefill_s']:.3f} ms, {SMOKE_STEPS} decode steps "
+            f"{1e3 * per_step:.3f} ms per step, logits finite; launches "
+            + " ".join(f"{k}={v}" for k, v in got.items())
+            + f"; prefill + decode on the card vs the CPU max_abs_err={err}"
+            " (rtol=atol=1e-4)")
+    return lines
 
 
 # --------------------------------------------------------------------------- #
@@ -1241,6 +1384,7 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
     from repro_torch.configs import XLB_SERVICE_MODEL as cfg
     from repro_torch.core import balancer as B
     from repro_torch.core import interpose, policies, request_map, router
@@ -1296,6 +1440,8 @@ def main() -> int:
         print(line)
         llm_launches.update(got)
         prefill_kernels[arch] = names
+    for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
+        print(line)
     launches = {**main_launches, **staged_launches, **llm_launches}
     print("kernels: " + " ".join(
         f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
@@ -1324,9 +1470,7 @@ def main() -> int:
                          "src/repro/kernels/ssd_scan.py:28")}
     kernels = []
     for name, t in timing.items():
-        t_bytes = t["bytes"] / MEM_BPS * 1e3
-        t_ops = t["ops"] / t.get("peak", OPS_PS) * 1e3
-        bound = max(t_bytes, t_ops)
+        bound, t_bytes, t_ops = bound_ms(t)
         # device time from the profiler; the event-timed call where the
         # profiler saw no kernel
         ms = t["ms"] if t["ms"] is not None else t["call_ms"]
@@ -1362,6 +1506,13 @@ def main() -> int:
             if name == "ssd_scan":             # as mamba's prefill ran it
                 kernels[-1]["kernel"] = prefill_kernels["mamba2-2.7b"]
                 kernels[-1]["passes_ms"] = t["passes"]
+    for name, label in (("admit_commit", "B2"), ("admit", "B3")):
+        t = timing[name]
+        print(f"admit redesign: {label} {name} device ms {t['ms']} at the "
+              f"serving shape (R {ADMIT_R}, {I_LANES} x {SLOTS} pool, six "
+              f"policies; before the redesign: {ADMIT_BEFORE_MS[name]}), "
+              f"bound ms {bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, "
+              f"call ms {t['call_ms']}, on {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,27 @@
 """The paper's evaluation topologies (twin of
-``repro/configs/xlb_microbench.py``): the per-service application model and
-the service graphs of the microbenchmark, bookinfo and call chains."""
+``repro/configs/xlb_microbench.py``): the per-service application model (registered by name, like the
+model configs) and the service graphs of the microbenchmark, bookinfo
+(Fig. 12a), Bank of Anthos (Fig. 12b) and call chains."""
 
 from dataclasses import dataclass, field
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, register
 
 # Per-service application model (shared by all services in a graph).
-XLB_SERVICE_MODEL = ModelConfig(
-    name="xlb-service-model",
-    family="dense",
-    n_layers=2,
-    d_model=128,
-    n_heads=4,
-    n_kv_heads=2,
-    d_ff=256,
-    vocab=512,
-    head_dim=32,
-    ffn_act="swiglu",
-    source="paper §6 microbenchmark",
+XLB_SERVICE_MODEL = register(
+    ModelConfig(
+        name="xlb-service-model",
+        family="dense",
+        n_layers=2,
+        d_model=128,
+        n_heads=4,
+        n_kv_heads=2,
+        d_ff=256,
+        vocab=512,
+        head_dim=32,
+        ffn_act="swiglu",
+        source="paper §6 microbenchmark",
+    )
 )
 
 
@@ -79,5 +82,25 @@ BOOKINFO = ServiceGraph(
         ("productpage", "details"),
         ("productpage", "reviews"),
         ("reviews", "ratings"),
+    ),
+)
+
+BANK_OF_ANTHOS = ServiceGraph(
+    name="bank-of-anthos",
+    services=(
+        "client", "frontend", "userservice", "contacts",
+        "ledgerwriter", "balancereader", "transactionhistory",
+    ),
+    instances={
+        "client": 1, "frontend": 30, "userservice": 50, "contacts": 5,
+        "ledgerwriter": 5, "balancereader": 5, "transactionhistory": 5,
+    },
+    edges=(
+        ("client", "frontend"),
+        ("frontend", "userservice"),
+        ("frontend", "contacts"),
+        ("frontend", "ledgerwriter"),
+        ("ledgerwriter", "balancereader"),
+        ("frontend", "transactionhistory"),
     ),
 )

@@ -58,7 +58,7 @@ SIGNATURES = {
                  + [_P] * 7                     # carried-state outputs
                  + [_P] * 6                     # committed pool
                  + [_I, _P],                    # commit flag, stream
-    "xlb_admit_smem_bytes": [_I] * 6,
+    "xlb_admit_smem_bytes": [_I] * 8,           # E, CL, S, NR, A, I, C, F
     "xlb_admit_init": [],
     "xlb_route": [_P, _P, _I, _I]               # svc, features, R, F
                  + [_P] * 5 + [_I, _I]          # svc + rule tables, S, NR

@@ -5,31 +5,66 @@
 // semantics pinned by src/repro/kernels/ref.py::admit_ref and
 // admit_commit_ref, policy math by src/repro/core/policy_defs.py.
 //
-// What bounds it: launch latency and the sequential dependence between
-// tiles, not bytes or operations.  A batch of R = 256 requests over a
-// 64 x 16 pool moves well under 100 KB: the request columns, the pool
-// (read and written in commit mode), the carried tables, and of the rest
-// only what the batch indexes - one Maglev entry per maglev/affinity row
-// and the eligible Gumbel lanes of weighted rows.  It does a few hundred
-// integer operations per request.  Both are far under one launch of this
-// card.  What costs time is that each tile's decisions read the counters
-// the previous tile wrote (ep_load, rr cursors, per-instance slot
-// cursors, the affinity cache).
+// What bounds it: latency, not bytes or operations.  A batch of R = 256
+// requests over a 64 x 16 pool moves well under 100 KB: the request
+// columns, the pool (read and written in commit mode), the carried tables,
+// and of the rest only what the batch indexes - one Maglev entry per
+// maglev/affinity row and the Gumbel lanes of weighted rows.  It does a
+// few hundred integer operations per request.  Both are far under one
+// launch of this card.  What costs time is the chain of dependent steps:
+// each tile's decisions read the counters the previous tile wrote
+// (ep_load, rr cursors, per-instance slot cursors, the affinity cache),
+// and inside a tile every row's rank depends on the rows before it.
 //
-// Design: ONE thread block loops over the batch in tiles of kTile rows,
-// one thread per request, with every carried counter in shared memory -
-// the translation of the Pallas kernel's sequential grid with VMEM
-// scratch.  Every policy hook reads the tile-start snapshot of the
-// counters; the in-tile ranks (per cluster, per instance, per affinity
-// slot) are stable arrival-order ranks computed by counting earlier rows
-// of the tile.  Write-backs go after a __syncthreads(), with integer
-// shared-memory atomics (order-free, so bit-exact).  Pool cells have one
-// writer each: the slot allocator hands out the k-th free slot of an
-// instance to the request of global instance rank k.  The Maglev table
-// (64 x 521 ints) stays in global memory and L2.  A single block is slow
-// by design; a many-block counting-sort formulation is later work.
-// Built without --use_fast_math: the weighted policy needs the accurate
-// logf of log(w + 1e-9) + gumbel or Gumbel ties flip.
+// Design: ONE block of kTile = 256 threads (8 warps) walks the batch in
+// tiles of kTile rows, a thread per row, with every carried counter in
+// shared memory - the translation of the Pallas kernel's sequential grid
+// with VMEM scratch.  The 256-row tile is part of the semantics: every
+// policy hook reads the tile-start snapshot of the counters, the in-tile
+// ranks are stable arrival-order ranks, and in the affinity cache the
+// first writer of a tile wins.  What keeps each row's work O(1):
+//   * the small tables are staged into shared memory once per launch with
+//     coalesced loads (rules, services, clusters, ep_instance, the drain
+//     bits, log(w + 1e-9) per endpoint), and derived once from them: a
+//     64-bit eligibility mask per cluster and, per instance, the list of
+//     its free slots (the k-th free slot is one read).  The Maglev table
+//     (CL x 521 ints) stays in L2, one read per maglev/affinity row,
+//     issued right after the match;
+//   * in-tile ranks (per cluster, per instance) come from
+//     __match_any_sync and a popcount of the lower lanes inside a warp,
+//     plus the counts of the earlier warps from per-warp histograms in
+//     shared memory; the affinity first writer is an atomicMin of the row
+//     index per cache slot;
+//   * least request is the water-filling closed form of "argmin, then
+//     increment": the row of in-tile cluster rank rho takes the rho-th
+//     smallest ticket of {load_j + t : t >= 0} ordered by (value, j).
+//     Per tile, one warp per least-request cluster with rows in the tile
+//     ranks the 64 window lanes by (tile-start load, lane) and writes, for
+//     each k, the tickets below the k-th smallest load (C_k, clamped at
+//     kTile) and the mask of the k + 1 smallest lanes; a row then finds
+//     its level by a binary search over C and its lane as the
+//     ((rho - C_k) mod (k + 1))-th set bit of that mask;
+//   * the weighted Gumbel argmax prefetches the row's Gumbel values into
+//     L1 right after the match (overlapping the least-request tables),
+//     walks only up to the highest eligible lane, branch-free, and adds
+//     the staged per-endpoint log(w + 1e-9): the same float value the
+//     per-lane call gives, keeping the first-maximum and NaN rules;
+//   * every other policy ends in the k-th set bit of a lane mask (rr,
+//     random, the Maglev fallback over the eligible lanes; least request
+//     over its level's lanes) or in an offset it already holds (a live
+//     Maglev entry, an affinity hit): one select by popcounts, not a scan,
+//     for all of them.
+// Most of the code runs once per launch, so instruction fetch is part of
+// the latency: the code is kept small (loops that run once or twice at
+// the serving sizes stay rolled), and the prologue issues every global
+// load before any store, so that one DRAM round trip serves all the
+// tables.
+// Write-backs go after a barrier, with integer shared-memory atomics
+// (order-free, so bit-exact).  Pool cells have one writer each: the slot
+// allocator hands out the k-th free slot of an instance to the request of
+// global instance rank k.  Built without --use_fast_math: the weighted
+// policy needs the accurate logf of log(w + 1e-9) + gumbel or Gumbel ties
+// flip.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -40,10 +75,13 @@
 namespace {
 
 using xlb::clampi;
+using u64 = unsigned long long;
 
 constexpr int kTile = 256;       // rows per tile == threads per block
+constexpr int kWarps = kTile / 32;
 constexpr int kWE = 64;          // MAX_EPS_PER_CLUSTER
 constexpr int kBig = 1 << 30;    // sentinel load of an ineligible lane
+constexpr unsigned kFull = 0xffffffffu;
 // policy enum (core/policy_defs.py); round robin (0) is the switch default
 constexpr int kRandom = 1, kLeast = 2, kWeighted = 3, kMaglev = 4,
               kAffinity = 5;
@@ -75,143 +113,452 @@ struct Args {
   bool* pact;
 };
 
+// Byte offsets of the shared-memory arrays (8-byte arrays first, then 4-,
+// 2- and 1-byte ones); `total` is the block's dynamic shared memory.
+struct Layout {
+  long long emask, lr_mask, wkey;                       // u64
+  long long load, held, einst, logw, cur, cs, cc, cp, need, histc, icnt,
+      nfree, histi, sreq, stx, rs, rc, rf, rv, rcl, affk, affe, wmin, cnt,
+      wload, feat;                                      // 4 bytes
+  long long lr_c, fslot;                                // u16
+  long long drained, freem;                             // u8
+  long long total;
+};
+
+__host__ __device__ inline long long take(long long& at, long long n,
+                                          int size) {
+  const long long o = at;
+  at += n * size;
+  return o;
+}
+
+__host__ __device__ inline Layout layout(int E, int CL, int S, int NR, int A,
+                                         int I, int C, int F) {
+  Layout l;
+  long long o = 0;
+  l.emask = take(o, CL, 8);
+  l.lr_mask = take(o, (long long)kWE * CL, 8);
+  l.wkey = take(o, kWarps * kWE, 8);
+  l.load = take(o, E, 4);
+  l.held = take(o, E, 4);
+  l.einst = take(o, E, 4);
+  l.logw = take(o, E, 4);
+  l.cur = take(o, CL, 4);
+  l.cs = take(o, CL, 4);
+  l.cc = take(o, CL, 4);
+  l.cp = take(o, CL, 4);
+  l.need = take(o, CL, 4);
+  l.histc = take(o, (long long)kWarps * CL, 4);
+  l.icnt = take(o, I, 4);
+  l.nfree = take(o, I, 4);
+  l.histi = take(o, (long long)kWarps * I, 4);
+  l.sreq = take(o, S, 4);
+  l.stx = take(o, S, 4);
+  l.rs = take(o, S, 4);
+  l.rc = take(o, S, 4);
+  l.rf = take(o, NR, 4);
+  l.rv = take(o, NR, 4);
+  l.rcl = take(o, NR, 4);
+  l.affk = take(o, A, 4);
+  l.affe = take(o, A, 4);
+  l.wmin = take(o, A, 4);
+  l.cnt = take(o, 2, 4);
+  l.wload = take(o, kWarps * kWE, 4);
+  l.feat = take(o, (long long)kTile * (F + 1), 4);
+  l.lr_c = take(o, (long long)kWE * CL, 2);
+  l.fslot = take(o, (long long)I * C, 2);
+  l.drained = take(o, E, 1);
+  l.freem = take(o, (long long)I * C, 1);
+  l.total = (o + 15) / 16 * 16;
+  return l;
+}
+
+struct Shared {
+  u64 *emask, *lr_mask, *wkey;
+  int *load, *held, *einst;
+  float* logw;
+  int *cur, *cs, *cc, *cp, *need, *histc, *icnt, *nfree, *histi, *sreq,
+      *stx, *rs, *rc, *rf, *rv, *rcl, *affk, *affe, *wmin, *cnt, *wload,
+      *feat;
+  unsigned short *lr_c, *fslot;
+  unsigned char *drained, *freem;
+};
+
+__device__ Shared carve(unsigned char* base, const Layout& l) {
+  auto at = [&](long long off) { return base + off; };
+  Shared s;
+  s.emask = reinterpret_cast<u64*>(at(l.emask));
+  s.lr_mask = reinterpret_cast<u64*>(at(l.lr_mask));
+  s.wkey = reinterpret_cast<u64*>(at(l.wkey));
+  s.load = reinterpret_cast<int*>(at(l.load));
+  s.held = reinterpret_cast<int*>(at(l.held));
+  s.einst = reinterpret_cast<int*>(at(l.einst));
+  s.logw = reinterpret_cast<float*>(at(l.logw));
+  s.cur = reinterpret_cast<int*>(at(l.cur));
+  s.cs = reinterpret_cast<int*>(at(l.cs));
+  s.cc = reinterpret_cast<int*>(at(l.cc));
+  s.cp = reinterpret_cast<int*>(at(l.cp));
+  s.need = reinterpret_cast<int*>(at(l.need));
+  s.histc = reinterpret_cast<int*>(at(l.histc));
+  s.icnt = reinterpret_cast<int*>(at(l.icnt));
+  s.nfree = reinterpret_cast<int*>(at(l.nfree));
+  s.histi = reinterpret_cast<int*>(at(l.histi));
+  s.sreq = reinterpret_cast<int*>(at(l.sreq));
+  s.stx = reinterpret_cast<int*>(at(l.stx));
+  s.rs = reinterpret_cast<int*>(at(l.rs));
+  s.rc = reinterpret_cast<int*>(at(l.rc));
+  s.rf = reinterpret_cast<int*>(at(l.rf));
+  s.rv = reinterpret_cast<int*>(at(l.rv));
+  s.rcl = reinterpret_cast<int*>(at(l.rcl));
+  s.affk = reinterpret_cast<int*>(at(l.affk));
+  s.affe = reinterpret_cast<int*>(at(l.affe));
+  s.wmin = reinterpret_cast<int*>(at(l.wmin));
+  s.cnt = reinterpret_cast<int*>(at(l.cnt));
+  s.wload = reinterpret_cast<int*>(at(l.wload));
+  s.feat = reinterpret_cast<int*>(at(l.feat));
+  s.lr_c = reinterpret_cast<unsigned short*>(at(l.lr_c));
+  s.fslot = reinterpret_cast<unsigned short*>(at(l.fslot));
+  s.drained = at(l.drained);
+  s.freem = at(l.freem);
+  return s;
+}
+
 // Floor modulo (Python / torch / jnp semantics), b > 0.
 __device__ __forceinline__ int fmodi(int a, int b) {
   int m = a % b;
   return m < 0 ? m + b : m;
 }
 
-// Window offset of the k-th eligible endpoint (0 when there is none: the
-// argmax of an all-false row).
-__device__ __forceinline__ int kth(unsigned long long eok, int k) {
-  int c = 0;
-  for (int j = 0; j < kWE; ++j) {
-    if ((eok >> j) & 1ull) {
-      if (c == k) return j;
-      ++c;
+// Position of the k-th (from 0) set bit of m; 0 when there is none (the
+// argmax of an all-false row).  Six popcount steps, no scan.
+__device__ __forceinline__ int kth_bit(u64 m, int k) {
+  if (k < 0 || k >= __popcll(m)) return 0;
+  unsigned x = (unsigned)m;
+  int pos = 0, c = __popc(x);
+  if (k >= c) {
+    k -= c;
+    pos = 32;
+    x = (unsigned)(m >> 32);
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    c = __popc(x & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      pos += w;
+      x >>= w;
     }
   }
-  return 0;
+  return pos;
 }
 
-struct Shared {
-  int *load, *held, *cur, *icnt, *nfree, *sreq, *stx, *cnt, *affk, *affe;
-  int *ta, *tb, *tc;
-  unsigned char* freem;
-};
-
-__device__ Shared carve(int* base, int E, int CL, int S, int A, int I) {
-  Shared s;
-  s.load = base;          base += E;
-  s.held = base;          base += E;
-  s.cur = base;           base += CL;
-  s.icnt = base;          base += I;
-  s.nfree = base;         base += I;
-  s.sreq = base;          base += S;
-  s.stx = base;           base += S;
-  s.cnt = base;           base += 2;
-  s.affk = base;          base += A;
-  s.affe = base;          base += A;
-  s.ta = base;            base += kTile;
-  s.tb = base;            base += kTile;
-  s.tc = base;            base += kTile;
-  s.freem = reinterpret_cast<unsigned char*>(base);
-  return s;
-}
-
-// Least request: the request with in-tile cluster rank rho owns the
-// rho-th smallest ticket of {load_j + t : t >= 0} ordered by (value, j).
-__device__ int least_request(const Shared& sh, const Args& a,
-                             unsigned long long eok, int estart, int rank) {
-  auto lane = [&](int j) -> int {
-    return ((eok >> j) & 1ull) ? sh.load[clampi(estart + j, 0, a.E - 1)]
-                               : kBig;
-  };
-  int lo = kBig;
-  for (int j = 0; j < kWE; ++j) lo = min(lo, lane(j));
-  int hi = lo + rank;
-  long long tgt = rank + 1;
-  while (lo < hi) {
-    int mid = lo + (hi - lo) / 2;
-    long long n = 0;
-    for (int j = 0; j < kWE; ++j) n += max(mid - lane(j) + 1, 0);
-    if (n >= tgt) hi = mid; else lo = mid + 1;
+// The least-request table of cluster cl over the tile-start loads, built
+// by one warp: the 64 window lanes ranked by (load, lane), an ineligible
+// lane at kBig; at rank k, C_k = the tickets below the k-th smallest load
+// (k L_k minus the sum of the k smaller loads, clamped at kTile: a rank in
+// the tile is below it) and the mask of the k + 1 smallest lanes.  The
+// ranking is one compare a pair; the sums and masks are warp scans over
+// the ranked order.
+__device__ void build_lr(const Shared& sh, const Args& a, int cl, int lane,
+                         int warp) {
+  u64* key = sh.wkey + warp * kWE;     // keys, then the ranked lanes
+  int* lv = sh.wload + warp * kWE;     // the ranked loads
+  const int start = sh.cs[cl];
+  const u64 eok = sh.emask[cl];
+  u64 mine[2];
+  int ml[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    ml[h] = ((eok >> j) & 1ull) ? sh.load[clampi(start + j, 0, a.E - 1)]
+                                : kBig;
+    // (load, lane) as one unsigned key: the load's sign bit flipped
+    mine[h] = (u64)((unsigned)ml[h] ^ 0x80000000u) << 6 | (unsigned)j;
+    key[j] = mine[h];
   }
-  long long below = 0;
-  for (int j = 0; j < kWE; ++j) below += max(lo - lane(j), 0);
-  long long m = rank - below;                 // rank among value-lo ties
-  long long c = 0;
-  for (int j = 0; j < kWE; ++j) {
-    if (lane(j) <= lo) {
-      if (c == m) return j;
-      ++c;
+  __syncwarp();
+  int rank[2] = {0, 0};
+#pragma unroll 16
+  for (int i = 0; i < kWE; ++i) {
+    const u64 ki = key[i];
+    rank[0] += ki < mine[0];
+    rank[1] += ki < mine[1];
+  }
+  __syncwarp();                        // every key read before the reuse
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lv[rank[h]] = ml[h];
+    key[rank[h]] = 1ull << (lane + 32 * h);
+  }
+  __syncwarp();
+  // lane t: ranks 2t and 2t + 1; inclusive scans of the pair's load sum
+  // and lane mask
+  const int l0 = lv[2 * lane], l1 = lv[2 * lane + 1];
+  const u64 b0 = key[2 * lane], b1 = key[2 * lane + 1];
+  long long sum = (long long)l0 + l1;
+  u64 mask = b0 | b1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long su = __shfl_up_sync(kFull, sum, o);
+    const u64 mu = __shfl_up_sync(kFull, mask, o);
+    if (lane >= o) {
+      sum += su;
+      mask |= mu;
     }
   }
-  return 0;
+  const long long below = sum - l0 - l1;          // loads of ranks < 2t
+  const u64 before = mask & ~(b0 | b1);           // lanes of ranks < 2t
+  const long long c0 = (long long)(2 * lane) * l0 - below;
+  const long long c1 = (long long)(2 * lane + 1) * l1 - below - l0;
+  __syncwarp();                        // the buffers serve the next cluster
+  sh.lr_c[cl * kWE + 2 * lane] = (unsigned short)(c0 < kTile ? c0 : kTile);
+  sh.lr_c[cl * kWE + 2 * lane + 1] =
+      (unsigned short)(c1 < kTile ? c1 : kTile);
+  sh.lr_mask[cl * kWE + 2 * lane] = before | b0;
+  sh.lr_mask[cl * kWE + 2 * lane + 1] = before | b0 | b1;
 }
 
 // Weighted: argmax over eligible lanes of log(w + 1e-9) + gumbel; the
 // first maximum wins and a NaN counts as the maximum (torch/jnp argmax).
-__device__ int weighted(const Args& a, unsigned long long eok, int estart,
-                        int r) {
+// The walk stops after the highest eligible lane: the lanes past it score
+// -inf and can never be taken.  Branch-free: lanes of a warp whose rows
+// take different lanes do not diverge.  The row's Gumbel values were
+// prefetched into L1 right after the match.
+__device__ __forceinline__ int weighted(const float* gum, const float* logw,
+                                        u64 eok, int estart, int E) {
+  const int n = kWE - __clzll(eok);
   int best_j = 0;
-  float best = 0.f;
-  for (int j = 0; j < kWE; ++j) {
-    float s = -INFINITY;
-    if ((eok >> j) & 1ull) {
-      float w = a.ew[clampi(estart + j, 0, a.E - 1)];
-      s = logf(w + 1e-9f) + a.gum[(long long)r * kWE + j];
-    }
-    if (j == 0) { best = s; continue; }
-    if (isnan(best)) break;
-    if (isnan(s) || s > best) { best = s; best_j = j; }
+  float best = -INFINITY;
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    const float s = ((eok >> j) & 1ull)
+                        ? logw[clampi(estart + j, 0, E - 1)] + __ldg(gum + j)
+                        : -INFINITY;
+    const bool take = (j == 0) | (!isnan(best) & (isnan(s) | (s > best)));
+    best = take ? s : best;
+    best_j = take ? j : best_j;
   }
   return best_j;
 }
 
-__device__ int maglev(const Args& a, unsigned long long eok, int cl,
-                      int estart, int count, int cnt1, int fkey) {
-  int t = a.mg[(long long)cl * a.T + fmodi(fkey, a.T)];
-  int te = clampi(estart + t, 0, a.E - 1);
-  bool ok = t >= 0 && t < count && a.ed[te] == 0;
-  return ok ? t : kth(eok, fmodi(fkey, cnt1));
+// Up to kU entries a thread of one table, held in registers between the
+// loads and the stores.
+template <int kU, typename T>
+struct Slab {
+  T v[kU];
+  __device__ __forceinline__ void load(const T* src, int n, int tid) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (u * kTile + tid < n) v[u] = src[u * kTile + tid];
+  }
+  template <typename D, typename Fn>
+  __device__ __forceinline__ void store(D* dst, int n, int tid,
+                                        Fn fn) const {
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (u * kTile + tid < n) dst[u * kTile + tid] = fn(v[u]);
+  }
+  // features: flat index k to row k / F of a row stride of F + 1
+  __device__ __forceinline__ void store_feat(int* dst, int n, int F,
+                                             int tid) const {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int k = u * kTile + tid;
+      if (k < n) dst[k + k / F] = v[u];
+    }
+  }
+};
+
+// Rows [base, base + kTile) of the features into shared memory, rows
+// padded to F + 1 ints (no bank conflicts when each thread walks its row);
+// the loads of up to 8 ints a thread in flight together.
+__device__ __forceinline__ void stage_features(int* feat, const Args& a,
+                                               int base, int tid) {
+  const int n = min(kTile, a.R - base) * a.F;
+  const int* src = a.feats + (long long)base * a.F;
+  Slab<8, int> v;
+  v.load(src, n, tid);
+  v.store_feat(feat, n, a.F, tid);
+#pragma unroll 1
+  for (int k = 8 * kTile + tid; k < n; k += kTile) feat[k + k / a.F] = src[k];
 }
 
-template <bool kCommit>
-__global__ void __launch_bounds__(kTile) admit_kernel(Args a) {
-  extern __shared__ int smem[];
-  const int tid = threadIdx.x;
-  Shared sh = carve(smem, a.E, a.CL, a.S, a.A, a.I);
-  const int IC = a.I * a.C;
-
-  for (int k = tid; k < a.E; k += kTile) {
-    sh.load[k] = a.load0[k];
-    sh.held[k] = 0;
+// One thread's request columns of a tile (row base + tid).
+struct Row {
+  int rid, svc, bytes, tok;
+  template <bool kCommit>
+  __device__ __forceinline__ void load(const Args& a, int tid,
+                                       int base = 0) {
+    const int r = base + tid;
+    const bool inb = r < a.R;
+    rid = inb ? a.rid[r] : -1;
+    svc = inb ? a.svc[r] : 0;
+    bytes = inb ? a.bytes[r] : 0;
+    tok = kCommit && inb ? a.tok[r] : 0;
   }
-  for (int k = tid; k < a.CL; k += kTile) sh.cur[k] = a.cur0[k];
+};
+
+template <bool kCommit>
+__global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Shared sh =
+      carve(smem, layout(a.E, a.CL, a.S, a.NR, a.A, a.I, a.C, a.F));
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const unsigned lower = (1u << lane) - 1u;
+  const int IC = a.I * a.C, FP = a.F + 1;
+
+  // ---- stage the tables ------------------------------------------------
+  // Every global load of the first kU entries a thread of each table (all
+  // of them at the serving capacities), of tile 0's features and of its
+  // request columns is issued before any store: a store to global memory
+  // ahead of a load would keep the load waiting for it.  Larger tables
+  // finish in the loops after.
+  Slab<2, int> v_load, v_einst, v_ed, v_affk, v_affe;
+  Slab<2, float> v_ew;
+  Slab<1, int> v_cur, v_cs, v_cc, v_cp, v_rs, v_rc, v_rf, v_rv, v_rcl;
+  Slab<4, int> v_pool[5];
+  Slab<4, bool> v_free;
+  Slab<8, int> v_feat;
+  Row row_in;
+  v_load.load(a.load0, a.E, tid);
+  v_einst.load(a.einst, a.E, tid);
+  v_ed.load(a.ed, a.E, tid);
+  v_ew.load(a.ew, a.E, tid);
+  v_affk.load(a.affk0, a.A, tid);
+  v_affe.load(a.affe0, a.A, tid);
+  v_cur.load(a.cur0, a.CL, tid);
+  v_cs.load(a.cs, a.CL, tid);
+  v_cc.load(a.cc, a.CL, tid);
+  v_cp.load(a.cp, a.CL, tid);
+  v_rs.load(a.rs, a.S, tid);
+  v_rc.load(a.rc, a.S, tid);
+  v_rf.load(a.rf, a.NR, tid);
+  v_rv.load(a.rv, a.NR, tid);
+  v_rcl.load(a.rcl, a.NR, tid);
+  v_free.load(a.free, IC, tid);
+  if (kCommit) {
+    const int* p0[5] = {a.preq0, a.pep0, a.psvc0, a.plen0, a.ptok0};
+#pragma unroll
+    for (int f = 0; f < 5; ++f) v_pool[f].load(p0[f], IC, tid);
+  }
+  const int nfeat = min(kTile, a.R) * a.F;
+  v_feat.load(a.feats, nfeat, tid);
+  row_in.load<kCommit>(a, tid);
+
+  const auto ident = [](auto x) { return x; };
+  v_load.store(sh.load, a.E, tid, ident);
+  v_einst.store(sh.einst, a.E, tid, ident);
+  v_ed.store(sh.drained, a.E, tid,
+             [](int x) { return (unsigned char)(x != 0); });
+  v_ew.store(sh.logw, a.E, tid,   // the value the per-lane call makes
+             [](float w) { return logf(w + 1e-9f); });
+  v_affk.store(sh.affk, a.A, tid, ident);
+  v_affe.store(sh.affe, a.A, tid, ident);
+  v_cur.store(sh.cur, a.CL, tid, ident);
+  v_cs.store(sh.cs, a.CL, tid, ident);
+  v_cc.store(sh.cc, a.CL, tid, ident);
+  v_cp.store(sh.cp, a.CL, tid, ident);
+  v_rs.store(sh.rs, a.S, tid, ident);
+  v_rc.store(sh.rc, a.S, tid, ident);
+  v_rf.store(sh.rf, a.NR, tid, ident);
+  v_rv.store(sh.rv, a.NR, tid, ident);
+  v_rcl.store(sh.rcl, a.NR, tid, ident);
+  v_free.store(sh.freem, IC, tid,
+               [](bool f) { return (unsigned char)f; });
+  v_feat.store_feat(sh.feat, nfeat, a.F, tid);
+#pragma unroll 1
+  for (int k = tid; k < a.E; k += kTile) sh.held[k] = 0;
+#pragma unroll 1
+  for (int k = tid; k < a.CL; k += kTile) sh.need[k] = 0;
+#pragma unroll 1
+  for (int k = tid; k < kWarps * a.CL; k += kTile) sh.histc[k] = 0;
+#pragma unroll 1
   for (int k = tid; k < a.I; k += kTile) sh.icnt[k] = 0;
+#pragma unroll 1
+  for (int k = tid; k < kWarps * a.I; k += kTile) sh.histi[k] = 0;
+#pragma unroll 1
   for (int k = tid; k < a.S; k += kTile) sh.sreq[k] = sh.stx[k] = 0;
+#pragma unroll 1
+  for (int k = tid; k < a.A; k += kTile) sh.wmin[k] = kTile;
   if (tid < 2) sh.cnt[tid] = 0;
-  for (int k = tid; k < a.A; k += kTile) {
+  // the rest of tables larger than the slabs
+#pragma unroll 1
+  for (int k = 2 * kTile + tid; k < a.E; k += kTile) {
+    sh.load[k] = a.load0[k];
+    sh.einst[k] = a.einst[k];
+    sh.drained[k] = a.ed[k] != 0;
+    sh.logw[k] = logf(a.ew[k] + 1e-9f);
+  }
+#pragma unroll 1
+  for (int k = 2 * kTile + tid; k < a.A; k += kTile) {
     sh.affk[k] = a.affk0[k];
     sh.affe[k] = a.affe0[k];
   }
-  for (int k = tid; k < IC; k += kTile) {
-    bool f = a.free[k];
-    sh.freem[k] = f;
-    if (kCommit) {              // the pool rides through; admits overwrite
-      a.preq[k] = a.preq0[k];
-      a.pep[k] = a.pep0[k];
-      a.psvc[k] = a.psvc0[k];
-      a.plen[k] = a.plen0[k];
-      a.ptok[k] = a.ptok0[k];
-      a.pact[k] = !f;
+#pragma unroll 1
+  for (int k = kTile + tid; k < a.CL; k += kTile) {
+    sh.cur[k] = a.cur0[k];
+    sh.cs[k] = a.cs[k];
+    sh.cc[k] = a.cc[k];
+    sh.cp[k] = a.cp[k];
+  }
+#pragma unroll 1
+  for (int k = kTile + tid; k < a.S; k += kTile) {
+    sh.rs[k] = a.rs[k];
+    sh.rc[k] = a.rc[k];
+  }
+#pragma unroll 1
+  for (int k = kTile + tid; k < a.NR; k += kTile) {
+    sh.rf[k] = a.rf[k];
+    sh.rv[k] = a.rv[k];
+    sh.rcl[k] = a.rcl[k];
+  }
+#pragma unroll 1
+  for (int k = 4 * kTile + tid; k < IC; k += kTile) sh.freem[k] = a.free[k];
+#pragma unroll 1
+  for (int k = 8 * kTile + tid; k < nfeat; k += kTile)
+    sh.feat[k + k / a.F] = a.feats[k];
+  if (kCommit) {                  // the pool rides through; admits overwrite
+    int* p1[5] = {a.preq, a.pep, a.psvc, a.plen, a.ptok};
+#pragma unroll
+    for (int f = 0; f < 5; ++f) v_pool[f].store(p1[f], IC, tid, ident);
+    v_free.store(a.pact, IC, tid, [](bool f) { return !f; });
+    const int* p0[5] = {a.preq0, a.pep0, a.psvc0, a.plen0, a.ptok0};
+#pragma unroll 1
+    for (int k = 4 * kTile + tid; k < IC; k += kTile) {
+#pragma unroll
+      for (int f = 0; f < 5; ++f) p1[f][k] = p0[f][k];
+      a.pact[k] = !a.free[k];
     }
   }
   __syncthreads();
+
+  // ---- derived once: eligibility masks, free-slot lists ----------------
+  // a thread per quarter (16 lanes) of a cluster's window; the four
+  // quarters of a cluster sit in one warp and join by shuffles
+#pragma unroll 1
+  for (int q0 = 0; q0 < 4 * a.CL; q0 += kTile) {
+    const int t = q0 + tid, c = t >> 2, q = t & 3;
+    u64 m = 0ull;
+    if (t < 4 * a.CL) {
+      const int start = sh.cs[c], count = sh.cc[c];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int e = 16 * q + j;
+        m |= (u64)(e < count && !sh.drained[clampi(start + e, 0, a.E - 1)])
+             << e;
+      }
+    }
+    m |= __shfl_xor_sync(kFull, m, 1);
+    m |= __shfl_xor_sync(kFull, m, 2);
+    if (t < 4 * a.CL && q == 0) sh.emask[c] = m;
+  }
+  // a thread per instance: its free slots in order
+#pragma unroll 1
   for (int i = tid; i < a.I; i += kTile) {
     int n = 0;
-    for (int c = 0; c < a.C; ++c) n += sh.freem[i * a.C + c];
+#pragma unroll 4
+    for (int c = 0; c < a.C; ++c)
+      if (sh.freem[i * a.C + c]) sh.fslot[i * a.C + n++] = (unsigned short)c;
     sh.nfree[i] = n;
   }
   __syncthreads();
@@ -219,92 +566,130 @@ __global__ void __launch_bounds__(kTile) admit_kernel(Args a) {
   for (int base = 0; base < a.R; base += kTile) {
     const int r = base + tid;
     const bool inb = r < a.R;
-    const bool valid = inb && a.rid[r] >= 0;
-    const int svc_raw = inb ? a.svc[r] : 0;
-    const int svc = clampi(svc_raw, 0, a.S - 1);
+    const int* row = sh.feat + tid * FP;
 
-    // ---- content match: first matching rule of the service's chain ----
-    const int cluster =
-        valid ? xlb::match_rule(a.feats + (long long)r * a.F, a.F, svc, a.rs,
-                                a.rc, a.rf, a.rv, a.rcl, a.NR)
-              : -1;
-    const int cl = clampi(cluster, 0, a.CL - 1);
-    const int count = a.cc[cl], estart = a.cs[cl], policy = a.cp[cl];
-    unsigned long long eok = 0ull;   // eligible: in window, not draining
-    for (int j = 0; j < kWE && j < count; ++j)
-      if (a.ed[clampi(estart + j, 0, a.E - 1)] == 0) eok |= 1ull << j;
-    const int cnt2 = __popcll(eok);
-    const int cnt1 = max(cnt2, 1);
-    const bool routable = valid && cluster >= 0 && cnt2 > 0;
+    // ---- content match, flow key, and the hooks' global reads ----------
+    const Row in = row_in;              // this tile's request columns
+    const int rid = in.rid;
+    const int svc_raw = in.svc;
+    const bool valid = inb && rid >= 0;
+    const int svc = clampi(svc_raw, 0, a.S - 1);
     int fkey = 0;
     if (inb) {
       unsigned h = 0x811C9DC5u;
-      for (int j = 0; j < a.F; ++j)
-        h = (h ^ (unsigned)a.feats[(long long)r * a.F + j]) * 0x01000193u;
+      for (int j = 0; j < a.F; ++j) h = (h ^ (unsigned)row[j]) * 0x01000193u;
       fkey = (int)(h & 0x7FFFFFFFu);
     }
+    const int cluster =
+        valid ? xlb::match_rule(row, a.F, svc, sh.rs, sh.rc, sh.rf, sh.rv,
+                                sh.rcl, a.NR)
+              : -1;
+    const int cl = clampi(cluster, 0, a.CL - 1);
+    const int count = sh.cc[cl], estart = sh.cs[cl], policy = sh.cp[cl];
+    const u64 eok = sh.emask[cl];              // in window, not draining
+    const int cnt2 = __popcll(eok);
+    const int cnt1 = max(cnt2, 1);
+    const bool routable = valid && cluster >= 0 && cnt2 > 0;
+    const int nbytes = in.bytes, tok = in.tok;
+    const int rnd = routable && policy == kRandom ? a.rnd[r] : 0;
+    const int mg_t = routable && (policy == kMaglev || policy == kAffinity)
+                         ? a.mg[(long long)cl * a.T + fmodi(fkey, a.T)]
+                         : 0;
+    const float* gum = a.gum + (long long)r * kWE;
+    if (routable && policy == kWeighted) {   // its two 128-byte lines
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(gum));
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(gum + 32));
+    }
 
-    sh.ta[tid] = routable ? cl : -1;
-    __syncthreads();
-    int rank_c = 0;
-    if (routable)
-      for (int j = 0; j < tid; ++j) rank_c += sh.ta[j] == cl;
+    // in-warp cluster rank; each warp's count per cluster for the others
+    const unsigned peers_c = __match_any_sync(kFull, routable ? cl : -1);
+    const bool lead_c = routable && __ffs(peers_c) - 1 == lane;
+    if (lead_c) sh.histc[warp * a.CL + cl] = __popc(peers_c);
+    const bool lr = routable && policy == kLeast;
+    if (lr) sh.need[cl] = 1;
+    if (__syncthreads_or(lr)) {
+      // ---- least-request tables: a warp per cluster with rows here -----
+      int seen = 0;
+      for (int c0 = 0; c0 < a.CL; c0 += 32) {
+        unsigned b = __ballot_sync(kFull,
+                                   c0 + lane < a.CL && sh.need[c0 + lane]);
+        while (b) {
+          const int c = c0 + __ffs(b) - 1;
+          b &= b - 1;
+          if (seen++ % kWarps == warp) build_lr(sh, a, c, lane, warp);
+        }
+      }
+      __syncthreads();
+    }
 
     // ---- policy dispatch over the tile-start snapshot ------------------
+    int rank_c = __popc(peers_c & lower);
+#pragma unroll
+    for (int w = 0; w < kWarps - 1; ++w)
+      rank_c += w < warp ? sh.histc[w * a.CL + cl] : 0;
     const int aslot = fmodi(fkey, a.A);
     const int ak = sh.affk[aslot], ae = sh.affe[aslot];
     const bool hit = ak == fkey && ae >= estart && ae < estart + count &&
-                     a.ed[clampi(ae, 0, a.E - 1)] == 0;
+                     !sh.drained[clampi(ae, 0, a.E - 1)];
+    // every policy but weighted ends in the k-th set bit of a lane mask,
+    // or in an offset it already holds: one select for all of them
+    const bool mg_ok = mg_t >= 0 && mg_t < count &&
+                       !sh.drained[clampi(estart + mg_t, 0, a.E - 1)];
     int off = 0;
-    if (routable) {
-      switch (policy) {
-        case kRandom: off = kth(eok, fmodi(a.rnd[r], cnt1)); break;
-        case kLeast:
-          off = least_request(sh, a, eok, estart, rank_c);
-          break;
-        case kWeighted: off = weighted(a, eok, estart, r); break;
-        case kMaglev:
-          off = maglev(a, eok, cl, estart, count, cnt1, fkey);
-          break;
-        case kAffinity:
-          off = hit ? ae - estart
-                    : maglev(a, eok, cl, estart, count, cnt1, fkey);
-          break;
-        default:               // round robin, also for an unknown policy
-          off = kth(eok, fmodi(sh.cur[cl] + rank_c, cnt1));
+    if (routable && policy == kWeighted) {
+      off = weighted(gum, sh.logw, eok, estart, a.E);
+    } else if (routable) {
+      u64 mask = eok;
+      int x = sh.cur[cl] + rank_c;   // round robin, also an unknown policy
+      int direct = -1;               // an offset that needs no select
+      if (policy == kRandom) x = rnd;
+      if (policy == kMaglev || policy == kAffinity) {
+        x = fkey;                    // the fallback: the (fkey mod n)-th lane
+        direct = policy == kAffinity && hit ? ae - estart
+                 : mg_ok                   ? mg_t
+                                           : -1;
       }
+      int k;
+      if (policy == kLeast) {
+        // the row of in-tile cluster rank rho (< kTile) owns the rho-th
+        // smallest ticket: its level is that of the largest lv with
+        // C_lv <= rho, and it is the ((rho - C_lv) mod (lv + 1))-th of
+        // the lv + 1 lanes at or below it, in lane order
+        const unsigned short* c = sh.lr_c + cl * kWE;
+        int lv = 0;
+#pragma unroll
+        for (int step = kWE / 2; step > 0; step >>= 1)
+          if (c[lv + step] <= rank_c) lv += step;
+        mask = sh.lr_mask[cl * kWE + lv];
+        k = (rank_c - c[lv]) % (lv + 1);
+      } else {
+        k = fmodi(x, cnt1);
+      }
+      off = direct >= 0 ? direct : kth_bit(mask, k);
     }
     int ep = -1;
     if (routable)
       ep = (off >= 0 && off < kWE) ? clampi(estart + off, 0, a.E - 1)
                                    : INT_MIN;
     const int epc = max(ep, 0);
-    const int inst = routable ? a.einst[epc] : -1;
+    const int inst = routable ? sh.einst[epc] : -1;
     const int instc = clampi(inst, 0, a.I - 1);
     const bool want = routable && policy == kAffinity && !hit &&
                       (ak == -1 || ak == fkey);
+    const unsigned peers_i = __match_any_sync(kFull, routable ? instc : -1);
+    const bool lead_i = routable && __ffs(peers_i) - 1 == lane;
+    if (lead_i) sh.histi[warp * a.I + instc] = __popc(peers_i);
+    if (want) atomicMin(&sh.wmin[aslot], tid);  // first writer per slot
+    const int icnt0 = sh.icnt[instc];
+    __syncthreads();
 
     // ---- free-slot allocation: the k-th free slot per instance ---------
-    sh.tb[tid] = routable ? instc : -1;
-    sh.tc[tid] = want ? aslot : -1;
-    __syncthreads();
-    int rank_i = 0, rank_w = 0;
-    for (int j = 0; j < tid; ++j) {
-      rank_i += routable && sh.tb[j] == instc;
-      rank_w += want && sh.tc[j] == aslot;
-    }
-    rank_i += routable ? sh.icnt[instc] : 0;
+    int rank_i = icnt0 + __popc(peers_i & lower);
+#pragma unroll
+    for (int w = 0; w < kWarps - 1; ++w)
+      rank_i += w < warp ? sh.histi[w * a.I + instc] : 0;
     const bool ok = routable && rank_i < sh.nfree[instc];
-    int slot = -1;
-    if (ok) {
-      int k = 0;
-      for (int c = 0; c < a.C; ++c) {
-        if (sh.freem[instc * a.C + c]) {
-          if (k == rank_i) { slot = c; break; }
-          ++k;
-        }
-      }
-    }
+    const int slot = ok ? sh.fslot[instc * a.C + rank_i] : -1;
     const bool held = routable && !ok;
     if (inb) {
       a.cluster[r] = valid ? cluster : -1;
@@ -314,48 +699,65 @@ __global__ void __launch_bounds__(kTile) admit_kernel(Args a) {
       a.ok[r] = ok;
     }
     if (kCommit && ok) {
-      int cell = instc * a.C + slot;
-      a.preq[cell] = a.rid[r];
+      const int cell = instc * a.C + slot;
+      a.preq[cell] = rid;
       a.pep[cell] = ep;
       a.psvc[cell] = svc_raw;        // raw svc, as the engine stores it
       a.plen[cell] = 0;
-      a.ptok[cell] = a.tok[r];
+      a.ptok[cell] = tok;
       a.pact[cell] = true;
     }
-    __syncthreads();                 // every snapshot read is done
-
-    // ---- carried state: folds into shared memory -----------------------
-    if (want && rank_w == 0) {       // first writer per slot wins
+    const bool first = want && sh.wmin[aslot] == tid;
+    if (first) {                     // every snapshot read of it is done
       sh.affk[aslot] = fkey;
       sh.affe[aslot] = ep;
     }
-    if (routable) {
-      atomicAdd(&sh.load[epc], 1);
-      atomicAdd(&sh.cur[cl], 1);     // raw count, reduced at emit
-      atomicAdd(&sh.icnt[instc], 1);
+    __syncthreads();                 // every rank and snapshot read is done
+
+    // ---- carried state: folds into shared memory -----------------------
+    if (first) sh.wmin[aslot] = kTile;
+    if (lr) sh.need[cl] = 0;
+    if (lead_c) {
+      atomicAdd(&sh.cur[cl], __popc(peers_c));   // raw count, reduced at emit
+      sh.histc[warp * a.CL + cl] = 0;
     }
-    if (held) {
-      atomicAdd(&sh.held[epc], 1);
-      atomicAdd(&sh.cnt[1], 1);
+    if (lead_i) {
+      atomicAdd(&sh.icnt[instc], __popc(peers_i));
+      sh.histi[warp * a.I + instc] = 0;
     }
+    if (routable) atomicAdd(&sh.load[epc], 1);
+    if (held) atomicAdd(&sh.held[epc], 1);
     if (ok && svc_raw < a.S) {       // metrics drop svc >= S
       atomicAdd(&sh.sreq[svc], 1);
-      atomicAdd(&sh.stx[svc], a.bytes[r]);
+      atomicAdd(&sh.stx[svc], nbytes);
     }
-    if (valid && cluster < 0) atomicAdd(&sh.cnt[0], 1);
+    const unsigned n_held = __ballot_sync(kFull, held);
+    const unsigned n_miss = __ballot_sync(kFull, valid && cluster < 0);
+    if (lane == 0) {
+      if (n_held) atomicAdd(&sh.cnt[1], __popc(n_held));
+      if (n_miss) atomicAdd(&sh.cnt[0], __popc(n_miss));
+    }
+    if (base + kTile < a.R) {
+      stage_features(sh.feat, a, base + kTile, tid);
+      row_in.load<kCommit>(a, tid, base + kTile);
+    }
     __syncthreads();
   }
 
   // ---- emit: held requests release their load; cursors reduce ----------
+#pragma unroll 1
   for (int k = tid; k < a.E; k += kTile)
     a.load_out[k] = sh.load[k] - sh.held[k];
+#pragma unroll 1
   for (int k = tid; k < a.CL; k += kTile)
-    a.cur_out[k] = fmodi(sh.cur[k], max(a.cc[k], 1));
+    a.cur_out[k] = fmodi(sh.cur[k], max(sh.cc[k], 1));
+#pragma unroll 1
   for (int k = tid; k < a.S; k += kTile) {
     a.sreq_out[k] = sh.sreq[k];
     a.stx_out[k] = sh.stx[k];
   }
   if (tid < 2) a.cnt_out[tid] = sh.cnt[tid];
+#pragma unroll 1
   for (int k = tid; k < a.A; k += kTile) {
     a.affk_out[k] = sh.affk[k];
     a.affe_out[k] = sh.affe[k];
@@ -364,11 +766,9 @@ __global__ void __launch_bounds__(kTile) admit_kernel(Args a) {
 
 }  // namespace
 
-extern "C" int xlb_admit_smem_bytes(int E, int CL, int S, int A, int I,
-                                    int C) {
-  long long ints = 2LL * E + CL + 2LL * I + 2LL * S + 2 + 2LL * A + 3 * kTile;
-  long long bytes = 4 * ints + (long long)I * C;
-  bytes = (bytes + 15) / 16 * 16;
+extern "C" int xlb_admit_smem_bytes(int E, int CL, int S, int NR, int A,
+                                    int I, int C, int F) {
+  const long long bytes = layout(E, CL, S, NR, A, I, C, F).total;
   return bytes > INT_MAX ? INT_MAX : (int)bytes;
 }
 
@@ -417,7 +817,7 @@ extern "C" int xlb_admit(
          affk0, affe0, A, free, I, C, preq0, pep0, psvc0, plen0, ptok0,
          cluster, ep, inst, slot, ok, load_out, cur_out, sreq, stx, cnt,
          affk, affe, preq, pep, psvc, plen, ptok, pact};
-  int smem = xlb_admit_smem_bytes(E, CL, S, A, I, C);
+  const int smem = xlb_admit_smem_bytes(E, CL, S, NR, A, I, C, F);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (commit)
     admit_kernel<true><<<1, kTile, smem, st>>>(a);

@@ -53,7 +53,6 @@ using xlb::to_f32;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;       // key rows in flight per lane group
-constexpr int kMaxG = 16;        // query heads per KV head
 constexpr int kSoloKeys = 128;   // caches this short: a warp per pair
 constexpr float kNegInf = -1e30f;
 
@@ -259,20 +258,21 @@ __global__ void __launch_bounds__(kThreads, GP <= 3 ? 4 : 2)
 
 // Merge the n_split partials of one (sequence, query head): a block of
 // kMergeWarps warps per (b, kh, g); warp w folds splits w, w + kMergeWarps,
-// ... (a lane holds hd / 32 dims), then the warps merge through shared
-// memory.
+// ... (a lane holds hd / 32 dims; at hd 16 lanes 0-15 hold one each), then
+// the warps merge through shared memory.
 constexpr int kMergeWarps = 16;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kMergeWarps * 32)
     decode_merge_kernel(DecodeArgs a) {
-  constexpr int V = HD / 32;
+  constexpr int V = HD >= 32 ? HD / 32 : 1;   // dims a lane holds
   __shared__ float acc_s[kMergeWarps][HD];
   __shared__ float m_s[kMergeWarps], l_s[kMergeWarps];
   const int G = a.G;
   const int bkg = blockIdx.x, g = bkg % G, bk = bkg / G;
   const int b = bk / a.K, kh = bk % a.K;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool mine = lane * V < HD;
   float m = kNegInf, l = 0.f, acc[V];
 #pragma unroll
   for (int e = 0; e < V; ++e) acc[e] = 0.f;
@@ -283,11 +283,14 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
     const float mx = fmaxf(m, mi), w = expf(m - mx), wi = expf(mi - mx);
     l = l * w + li * wi;
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] = acc[e] * w + pa[e] * wi;
+    for (int e = 0; e < V; ++e)
+      acc[e] = acc[e] * w + (mine ? pa[e] : 0.f) * wi;
     m = mx;
   }
+  if (mine) {
 #pragma unroll
-  for (int e = 0; e < V; ++e) acc_s[warp][lane * V + e] = acc[e];
+    for (int e = 0; e < V; ++e) acc_s[warp][lane * V + e] = acc[e];
+  }
   if (lane == 0) {
     m_s[warp] = m;
     l_s[warp] = l;
@@ -324,8 +327,9 @@ int launch(const DecodeArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// Query heads per pass: all of G up to 4; f32 keeps up to 8 (4 values a
-// lane per head), bf16 walks passes of 4 (8 values a lane per head).
+// Query heads per pass: all of G up to 4; beyond, f32 walks passes of 8
+// (4 values a lane per head), bf16 passes of 4 (8 values a lane per head),
+// for any G.
 template <typename T, int HD>
 int launch_g(const DecodeArgs& a, cudaStream_t st) {
   switch (a.G) {
@@ -341,6 +345,7 @@ int launch_g(const DecodeArgs& a, cudaStream_t st) {
 template <typename T>
 int launch_hd(const DecodeArgs& a, int hd, cudaStream_t st) {
   switch (hd) {
+    case 16: return launch_g<T, 16>(a, st);
     case 32: return launch_g<T, 32>(a, st);
     case 64: return launch_g<T, 64>(a, st);
     case 128: return launch_g<T, 128>(a, st);
@@ -356,7 +361,7 @@ extern "C" int xlb_decode_attention(
     int hd, int dtype, long long qsb, long long qsh, long long ksb,
     long long kss, long long ksk, long long vsb, long long vss,
     long long vsk, int split_len, int n_split, float scale, void* stream) {
-  if (K <= 0 || H % K != 0 || H / K > kMaxG || n_split < 1 || split_len < 1)
+  if (K <= 0 || H % K != 0 || n_split < 1 || split_len < 1)
     return (int)cudaErrorInvalidValue;
   DecodeArgs a{q,   k,   v,   lengths, out, part_acc, part_ml, B * K,
                H,   K,   H / K, S, qsb, qsh, ksb, kss, ksk, vsb, vss, vsk,

@@ -53,6 +53,11 @@
 // multiplied in a second pass of P V.  Q (32 KB at hd 128) and two stages
 // of K and V (128 KB) take 161 KB of shared memory: one block per SM.
 //
+// hd 16 (the reference's smoke configs), f32 and bf16: flash_kernel, the
+// FMA template below, instantiated for both types (bf16 loads widened to
+// f32, all arithmetic in f32).  At 32 bytes a row there is too little
+// depth per key for a wgmma tile to pay for its set-up.
+//
 // f32 (flash_kernel): f32 FMAs on the CUDA cores.  TF32 tensor cores keep
 // about three decimal digits, short of the f32 tolerance (2e-5), so f32
 // stays here.  A block of 256 threads owns kBQ = 64 queries of one
@@ -601,6 +606,8 @@ int launch_hd(const FlashArgs& a, int B, int hd, int dtype,
               cudaStream_t st) {
   const bool f32 = dtype == xlb::kF32;
   switch (hd) {
+    case 16: return f32 ? launch_fma<float, 16>(a, B, st)
+                        : launch_fma<__nv_bfloat16, 16>(a, B, st);
     case 32: return f32 ? launch_fma<float, 32>(a, B, st)
                         : tc::launch<32>(a, B, st);
     case 64: return f32 ? launch_fma<float, 64>(a, B, st)

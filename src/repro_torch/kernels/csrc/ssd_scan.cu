@@ -46,6 +46,11 @@
 // 1, would otherwise miss y's bf16 tolerance); only h_prev is rounded to
 // bf16, for the term exp(A_r) C h_prev^T that decays along the chunk.
 //
+// hd 16 or N 16 (the reference's smoke configs), f32 and bf16: ssd_kernel
+// below, instantiated for both types (bf16 loads widened to f32, all
+// arithmetic in f32).  The passes' warp tiling needs at least 32 columns
+// of the state; the FMA kernel takes any multiple of 16.
+//
 // f32: ssd_kernel, f32 FMAs on the CUDA cores (TF32 would miss the 2e-5
 // the f32 build is held to): one block of 256 threads per (sequence,
 // head) walks 64-row tiles in order, the state h in shared memory for the
@@ -798,22 +803,36 @@ int launch_passes(const SSDArgs& a, int B, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// bf16 runs the FMA kernel where hd or N is 16
+__host__ __device__ constexpr bool fma_bf16(int hd, int n) {
+  return hd == 16 || n == 16;
+}
+
+template <typename T, int HD, int N>
+int launch_fma(const SSDArgs& a, int B, cudaStream_t st) {
+  constexpr int smem = f32_smem_bytes<HD, N>();
+  cudaError_t err = xlb::allow_smem(ssd_kernel<T, HD, N>, smem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_kernel<T, HD, N><<<B * a.nh, kThreads, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int HD, int N>
 int launch(const SSDArgs& a, int B, int dtype, cudaStream_t st) {
-  if (dtype == xlb::kF32) {
-    constexpr int smem = f32_smem_bytes<HD, N>();
-    cudaError_t err = xlb::allow_smem(ssd_kernel<float, HD, N>, smem);
-    if (err != cudaSuccess) return (int)err;
-    ssd_kernel<float, HD, N><<<B * a.nh, kThreads, smem, st>>>(a);
-    return (int)cudaGetLastError();
+  if (dtype == xlb::kF32) return launch_fma<float, HD, N>(a, B, st);
+  if constexpr (fma_bf16(HD, N)) {
+    return launch_fma<bf16, HD, N>(a, B, st);
+  } else {
+    return shared_bc(a.bsh, a.csh, a.nh)
+               ? launch_passes<HD, N, true>(a, B, st)
+               : launch_passes<HD, N, false>(a, B, st);
   }
-  return shared_bc(a.bsh, a.csh, a.nh) ? launch_passes<HD, N, true>(a, B, st)
-                                       : launch_passes<HD, N, false>(a, B, st);
 }
 
 template <int HD>
 int launch_n(const SSDArgs& a, int B, int n, int dtype, cudaStream_t st) {
   switch (n) {
+    case 16: return launch<HD, 16>(a, B, dtype, st);
     case 32: return launch<HD, 32>(a, B, dtype, st);
     case 64: return launch<HD, 64>(a, B, dtype, st);
     case 128: return launch<HD, 128>(a, B, dtype, st);
@@ -829,7 +848,7 @@ int launch_n(const SSDArgs& a, int B, int n, int dtype, cudaStream_t st) {
 extern "C" long long xlb_ssd_scratch_floats(int B, int S, int nh, int hd,
                                             int n, int dtype, long long bsh,
                                             long long csh) {
-  if (dtype != xlb::kBF16 || S <= 0) return 0;
+  if (dtype != xlb::kBF16 || S <= 0 || fma_bf16(hd, n)) return 0;
   const long long nc = nchunks(S);
   // acum, states, and h_prev in bf16 (half a float an entry)
   long long f = (long long)B * nh * nc * (kQ + (long long)hd * n * 3 / 2);
@@ -857,6 +876,7 @@ extern "C" int xlb_ssd_scan(
                                        (long long)B * nh * a.nc * hd * n * 3 / 2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return launch_n<16>(a, B, n, dtype, st);
     case 32: return launch_n<32>(a, B, n, dtype, st);
     case 64: return launch_n<64>(a, B, n, dtype, st);
     case 128: return launch_n<128>(a, B, n, dtype, st);

@@ -19,9 +19,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-#: head dims and query heads per KV head the kernel is built for
-HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 16
+#: head dims the kernel is built for (any number of query heads per KV
+#: head: the kernel walks them in passes)
+HEAD_DIMS = (16, 32, 64, 128)
 #: a split of the key axis is a multiple of this many keys, itself a
 #: multiple of the keys one block walks per step (4 warps x 32 /
 #: (hd * size / 16) rows x 4 rows in flight: 16 to 128)
@@ -71,10 +71,10 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths) -> torch.Tensor:
                          f"got {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}")
     S, K = k_cache.shape[1], k_cache.shape[2]
-    if S == 0 or H % K or H // K > MAX_GROUP or hd not in HEAD_DIMS:
+    if S == 0 or H % K or hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention takes S > 0, H a multiple of K "
-                         f"with H/K <= {MAX_GROUP}, hd in {HEAD_DIMS}; got "
-                         f"S={S}, H={H}, K={K}, hd={hd}")
+                         f"and hd in {HEAD_DIMS}; got S={S}, H={H}, K={K}, "
+                         f"hd={hd}")
     if q.dtype not in _build.DTYPE_CODES or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise ValueError(f"q and caches must share one of "

@@ -5,7 +5,8 @@
 ``flash_attention`` here is the plain PyTorch version (the full score
 matrix); ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``
 (online softmax over KV tiles): for bf16 a tensor-core kernel (wgmma, TMA),
-for f32 an FMA kernel on the CUDA cores.  ``kernels/ops.py`` picks one by
+for f32 an FMA kernel on the CUDA cores; at hd 16 (the smoke configs) the
+FMA kernel in both dtypes.  ``kernels/ops.py`` picks one by
 the tensors' device.  Both compute the reference function: the Pallas
 kernel's skip of KV blocks with ``qi * block_q < ki * block_k`` drops
 valid keys when ``block_q > block_k``, and neither port version has it.
@@ -20,8 +21,10 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-#: head dims the kernel is built for
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)
+#: head dims whose bf16 calls run on the tensor cores (the rest: FMAs)
+TC_HEAD_DIMS = (32, 64, 128)
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
@@ -46,13 +49,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:
     contract and result as ``flash_attention``.  Inputs are read through
     their strides (last axis contiguous).
 
-    bf16 runs on the tensor cores (``flash_kernel_wgmma``: P rounded to
-    bf16 before P V, sums in f32) and reads q, k and v with TMA: 16-byte
-    aligned bases and strides of 16-byte multiples.  f32 runs as f32 FMAs
+    bf16 at hd in ``TC_HEAD_DIMS`` runs on the tensor cores
+    (``flash_kernel_wgmma``: P rounded to bf16 before P V, sums in f32)
+    and reads q, k and v with TMA: 16-byte aligned bases and strides of
+    16-byte multiples.  f32, and bf16 at hd 16, run as f32 FMAs
     (``flash_kernel``): TF32 tensor cores would miss the f32 tolerance of
-    2e-5.  Neither falls back to the other or to the plain version.  Raises on a shape, dtype, head dim or
-    layout the kernels do not take, if the library cannot be built or the
-    launch fails."""
+    2e-5.  The kernel is picked by (dtype, hd) before the launch; none
+    falls back to another or to the plain version.  Raises on a shape,
+    dtype, head dim or layout the kernels do not take, if the library
+    cannot be built or the launch fails."""
     B, S, H, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[:2] != (B, S) \
             or k.shape[3] != hd:
@@ -70,7 +75,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:
                          f"{k.dtype}, {v.dtype}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the last axis of q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
         for name, t in (("q", q), ("k", k), ("v", v)):
             _build.check_16_byte("bf16 flash_attention's TMA", name, t)
     dev = q.device

@@ -10,7 +10,9 @@ the tile size.
 
 ``admit`` / ``admit_commit`` here are the plain PyTorch versions;
 ``admit_cuda`` launches ``csrc/admit.cu`` (one template, ``commit`` a
-compile-time flag).  ``route_match`` is the stateless building block
+compile-time flag; O(1) work per row: ranks by warp match, least request
+from per-cluster ticket tables, tables staged in shared memory).
+``route_match`` is the stateless building block
 (rule match + least-request argmin, no drain mask, no counters) and
 ``route_match_cuda`` launches ``csrc/route.cu``; both kernels share the
 match stage ``csrc/match.cuh``.  ``kernels/ops.py`` picks a version by the
@@ -257,7 +259,21 @@ def admit_commit(req_id, svc, features, msg_bytes, token, state,
 
 
 def _i32(t):
+    """``t`` as a contiguous int32 tensor; ``t`` itself when it is one."""
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
     return t.to(torch.int32).contiguous()
+
+
+def _f32(t):
+    """``t`` as a contiguous f32 tensor; ``t`` itself when it is one."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
+#: bytes of shared memory per admission launch, by its table sizes
+_SMEM: dict[tuple, int] = {}
 
 
 def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
@@ -268,14 +284,17 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
     both modes.  ``pool`` None: the commit-free kernel, and the result an
     ``AdmitResult``.  Otherwise ``pool`` is the five incoming (I, C) int
     fields, the committed pool is active where ``free`` is not or where a
-    request was admitted, and the result an ``AdmitCommitResult``.  Raises
-    if the shapes do not fit the kernel, the library cannot be built or
-    the launch fails.  The caller skips empty batches.
+    request was admitted, and the result an ``AdmitCommitResult``.  Inputs
+    that are contiguous and of the kernel's type are passed as they are;
+    all int32 outputs are views of one allocation.  Raises if the shapes
+    do not fit the kernel, the library cannot be built or the launch
+    fails.  The caller skips empty batches.
     """
     commit = pool is not None
     R, F = features.shape
     I, C = free.shape
     S = state.svc_rule_start.shape[0]
+    NR = state.rule_field.shape[0]
     CL = state.cluster_ep_count.shape[0]
     E = state.ep_load.shape[0]
     A = state.aff_key.shape[0]
@@ -284,32 +303,40 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
         raise ValueError("empty batch: the caller passes it through")
     if gumbel.shape != (R, MAX_EPS_PER_CLUSTER):
         raise ValueError(f"gumbel must be {(R, MAX_EPS_PER_CLUSTER)}")
+    if C > 0xFFFF:
+        raise ValueError(f"admit keeps slot numbers in 16 bits; C = {C}")
     dev = free.device
     lib = _build.library(dev)
-    smem = lib.xlb_admit_smem_bytes(E, CL, S, A, I, C)
+    key = (E, CL, S, NR, A, I, C, F)
+    smem = _SMEM.get(key)
+    if smem is None:
+        smem = _SMEM[key] = lib.xlb_admit_smem_bytes(*key)
     if smem > SMEM_OPTIN:
-        raise ValueError(f"admit needs {smem} B of shared memory for an "
-                         f"({I}, {C}) pool; a block has {SMEM_OPTIN} B")
+        raise ValueError(f"admit needs {smem} B of shared memory for "
+                         f"tables of sizes {key}; a block has {SMEM_OPTIN} B")
     reqs = [_i32(req_id), _i32(svc), _i32(features), _i32(msg_bytes),
-            _i32(rnd), gumbel.to(torch.float32).contiguous()]
+            _i32(rnd), _f32(gumbel)]
     tok = _i32(token) if commit else None
     tabs = [_i32(x) for x in (state.svc_rule_start, state.svc_rule_count,
                               state.rule_field, state.rule_value,
                               state.rule_cluster, state.cluster_ep_start,
                               state.cluster_ep_count, state.cluster_policy,
                               state.ep_instance)]
-    ew = state.ep_weight.to(torch.float32).contiguous()
+    ew = _f32(state.ep_weight)
     rest = [_i32(x) for x in (state.ep_drained, state.ep_load,
                               state.rr_cursor, state.maglev_table,
                               state.aff_key, state.aff_ep)]
-    fm = (free if free.dtype == torch.bool else free != 0).contiguous()
+    fm = free if free.dtype == torch.bool else free != 0
+    fm = fm if fm.is_contiguous() else fm.contiguous()
     pool_in = [_i32(p) for p in pool] if commit else []
     _build.check_device(dev, *reqs, *tabs, ew, *rest, fm, *pool_in,
                         *([tok] if commit else []))
-    new = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
-    per_req = [new(R) for _ in range(5)]
-    carried = [new(E), new(CL), new(S), new(S), new(2), new(A), new(A)]
-    pool_out = [new(I, C) for _ in range(5)] + [torch.empty(
+    sizes = [R] * 5 + [E, CL, S, S, 2, A, A] + ([I * C] * 5 if commit
+                                                else [])
+    outs = torch.empty((sum(sizes),), dtype=torch.int32,
+                       device=dev).split(sizes)
+    per_req, carried = outs[:5], outs[5:12]
+    pool_out = [o.view(I, C) for o in outs[12:]] + [torch.empty(
         (I, C), dtype=torch.bool, device=dev)] if commit else []
     p = _build.ptr
     maybe = lambda xs, n: [p(x) for x in xs] if xs else [None] * n
@@ -317,7 +344,7 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
     ed, load0, cur0, mg, affk0, affe0 = rest
     err = lib.xlb_admit(
         *[p(x) for x in reqs], p(tok) if commit else None, R, F,
-        p(rs), p(rc), p(rf), p(rv), p(rcl), S, rf.shape[0],
+        p(rs), p(rc), p(rf), p(rv), p(rcl), S, NR,
         p(cs), p(cc), p(cp), CL,
         p(einst), p(ew), p(ed), p(load0), E,
         p(cur0), p(mg), T, p(affk0), p(affe0), A,

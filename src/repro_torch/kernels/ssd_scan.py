@@ -14,9 +14,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: head dims and state sizes the kernel is built for
-HEAD_DIMS = (32, 64, 128)
-STATE_DIMS = (32, 64, 128)
+#: head dims and state sizes the kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)
+STATE_DIMS = (16, 32, 64, 128)
+
+
+def runs_passes(hd: int, N: int) -> bool:
+    """Whether a bf16 call at (hd, N) runs the four tensor-core passes;
+    where hd or N is 16 (the smoke configs) it runs the FMA kernel."""
+    return hd != 16 and N != 16
 
 
 def _segsum(a):
@@ -73,12 +79,13 @@ def ssd_scan_cuda(xdt, a_log, Bm, Cm):
     kernels use their own).  bf16 runs four chunk-parallel passes on the
     tensor cores over scratch this wrapper allocates (``ssd_chunk_state``,
     ``ssd_scores`` where Bm and Cm are broadcast over the heads by stride
-    0, ``ssd_state_pass``, ``ssd_chunk_scan``); f32 one FMA kernel
-    (``ssd_kernel``).  Inputs are read through their strides; the last
-    axis of xdt, Bm and Cm must be contiguous, and in bf16 their bases and
-    other strides 16-byte multiples.  Raises on a shape, dtype or layout
-    the kernels do not take, if the library cannot be built or a launch
-    fails."""
+    0, ``ssd_state_pass``, ``ssd_chunk_scan``); f32, and bf16 where hd or
+    N is 16 (``runs_passes``), one FMA kernel (``ssd_kernel``), picked
+    before the launch.  Inputs are read through their strides; the last
+    axis of xdt, Bm and Cm must be contiguous, and for the passes their
+    bases and other strides 16-byte multiples.  Raises on a shape, dtype
+    or layout the kernels do not take, if the library cannot be built or
+    a launch fails."""
     B, S, nh, hd = xdt.shape
     N = Bm.shape[-1]
     if Bm.shape != (B, S, nh, N) or Cm.shape != Bm.shape \
@@ -102,7 +109,7 @@ def ssd_scan_cuda(xdt, a_log, Bm, Cm):
     dev = xdt.device
     _build.check_device(dev, a_log, Bm, Cm)
     dtype = _build.DTYPE_CODES[xdt.dtype]
-    if xdt.dtype == torch.bfloat16:
+    if xdt.dtype == torch.bfloat16 and runs_passes(hd, N):
         for name, t in (("xdt", xdt), ("Bm", Bm), ("Cm", Cm)):
             _build.check_16_byte("ssd_scan", name, t)
     lib = _build.library(dev)

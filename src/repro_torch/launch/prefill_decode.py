@@ -1,6 +1,7 @@
 """Prefill-then-decode launcher for the model stack: ``python -m
 repro_torch.launch.prefill_decode --arch minitron-4b --batch 2 --prompt
-4096 --steps 32 [--device cuda|cpu] [--smoke]``.
+4096 --steps 32 [--device cuda|cpu] [--smoke]``; ``--arch`` is one of
+``ARCHS``.
 
 The port's counterpart of ``launch/dryrun.py::build_prefill_step`` and
 ``build_decode_step`` in the reference, run for real: it builds the
@@ -22,6 +23,10 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+
+
+#: the architectures the launcher builds (the families the port runs)
+ARCHS = ("minitron-4b", "mamba2-2.7b", "xlb-service-model")
 
 
 def _sync(device: torch.device) -> None:
@@ -57,8 +62,7 @@ def run(cfg, params, tokens, steps: int) -> dict:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="minitron-4b",
-                    choices=("minitron-4b", "mamba2-2.7b"))
+    ap.add_argument("--arch", default="minitron-4b", choices=ARCHS)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--prompt", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=32)

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -73,6 +74,22 @@ def test_decode_attention_any_length_and_edges(lengths):
     got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
     _close(got, ref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens)),
            "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_any_group_matches_ref(dtype):
+    """G = 48 query heads over one KV head (granite-20b's MQA), past the
+    16 heads per KV head the kernel once took."""
+    rng = np.random.RandomState(48)
+    B, S, H, K, hd = 2, 300, 48, 1, 128
+    jq, tq = _pair(rng.randn(B, H, hd).astype(np.float32), dtype)
+    jk, tk = _pair(rng.randn(B, S, K, hd).astype(np.float32), dtype)
+    jv, tv = _pair(rng.randn(B, S, K, hd).astype(np.float32), dtype)
+    lens = np.asarray([17, 299], np.int32)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert got.shape == (B, H, hd)
+    _close(got, ref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens)),
+           dtype)
 
 
 def test_decode_attention_reads_a_strided_cache_view():
@@ -192,3 +209,35 @@ def test_cpu_calls_launch_no_kernel():
     ops.decode_attention(x[:, 0], x[:, :, :1], x[:, :, :1],
                          torch.zeros(1, dtype=torch.int32))
     assert ops.LAUNCHES == before
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "_lib", None)
+
+
+@pytest.mark.parametrize("what", ["decode hd 16", "decode hd 16 bf16",
+                                  "decode G 48", "flash hd 16",
+                                  "flash hd 16 bf16",
+                                  "flash hd 16 bf16 odd stride"])
+def test_cuda_wrappers_take_hd16_and_any_group(what, no_card):
+    """The CUDA wrappers take head dim 16 (the smoke configs) and G = 48:
+    on CPU tensors they get past every shape check and stop only where
+    the library needs a card.  bf16 at hd 16 runs the FMA kernel, which
+    does not read through TMA, so a view TMA could not read is taken."""
+    dt = torch.bfloat16 if "bf16" in what else torch.float32
+    if what.startswith("decode"):
+        H, K, hd = (48, 1, 128) if "G 48" in what else (4, 2, 16)
+        q = torch.zeros((2, H, hd), dtype=dt)
+        kv = torch.zeros((2, 40, K, hd), dtype=dt)
+        call = lambda: da.decode_attention_cuda(
+            q, kv, kv, torch.zeros(2, dtype=torch.int32))
+    else:
+        pad = 1 if "odd stride" in what else 0
+        x = torch.zeros((2, 64, 4 * 16 + pad), dtype=dt)[..., :64] \
+            .reshape(2, 64, 4, 16)
+        kv = torch.zeros((2, 64, 2, 16), dtype=dt)
+        call = lambda: fa.flash_attention_cuda(x, kv, kv, causal=True)
+    with pytest.raises(RuntimeError, match="need a CUDA device"):
+        call()

@@ -58,15 +58,17 @@ def _batch(R, seed, dev):
     return RequestBatch(*map(t, cols)), t(rnd), t(gum)
 
 
-@pytest.mark.parametrize("R,I,C", [(256, 64, 16), (300, 16, 4), (7, 2, 2)])
-def test_admit_kernels_match_plain(dev, R, I, C):
-    routing = _routing(dev, R)
-    reqs, rnd, gum = _batch(R, R + 1, dev)
-    g = torch.Generator().manual_seed(R)
-    act = (torch.rand((I, C), generator=g) < 0.5).to(dev)
-    pool = PoolState(*[torch.randint(-1, 50, (I, C), generator=g,
+def _pool(I, C, seed, dev, busy=0.5):
+    g = torch.Generator().manual_seed(seed)
+    act = (torch.rand((I, C), generator=g) < busy).to(dev)
+    return PoolState(*[torch.randint(-1, 50, (I, C), generator=g,
                                      dtype=torch.int32).to(dev)
-                       for _ in range(5)], act)
+                       for _ in range(5)], act), g
+
+
+def _check_admit(reqs, routing, pool, rnd, gum, free):
+    """Both kernels through ops against their plain versions, bit-exact on
+    every output; returns the plain commit result."""
     n0 = ops.LAUNCHES["admit_commit"]
     k = ops.admit_commit(reqs, routing, pool, rnd, gum)
     assert ops.LAUNCHES["admit_commit"] == n0 + 1
@@ -78,13 +80,108 @@ def test_admit_kernels_match_plain(dev, R, I, C):
     for f, pf in zip(PoolState._fields, route_match.AdmitCommitResult
                      ._fields[13:]):
         assert torch.equal(getattr(k.pool, f), getattr(p, pf)), f
-    free = (torch.rand((I, C), generator=g) < 0.6).int().to(dev) * 3
+    n0 = ops.LAUNCHES["admit"]
     k2 = ops.admit(reqs, routing, free, rnd, gum)
+    assert ops.LAUNCHES["admit"] == n0 + 1
     p2 = route_match.admit(reqs.req_id, reqs.svc, reqs.features,
                            reqs.msg_bytes, routing, free, rnd, gum)
     for f in route_match.AdmitResult._fields:
         assert torch.equal(getattr(k2, f), getattr(p2, f)), f
     torch.cuda.synchronize()
+    return p
+
+
+# 4096 rows: 16 tiles carrying the counters from one to the next
+@pytest.mark.parametrize("R,I,C", [(256, 64, 16), (300, 16, 4), (7, 2, 2),
+                                   (4096, 64, 16)])
+def test_admit_kernels_match_plain(dev, R, I, C):
+    routing = _routing(dev, R)
+    reqs, rnd, gum = _batch(R, R + 1, dev)
+    pool, g = _pool(I, C, R, dev)
+    free = (torch.rand((I, C), generator=g) < 0.6).int().to(dev) * 3
+    _check_admit(reqs, routing, pool, rnd, gum, free)
+
+
+def _rows_to(reqs, svc, rows, dev):
+    """``reqs`` with ``rows`` sent to service ``svc``'s first rule (the
+    "v2" header, cluster c<svc>)."""
+    s, f = reqs.svc.clone(), reqs.features.clone()
+    s[rows] = svc
+    f[rows, 0] = RT.fnv1a("v2")
+    return reqs._replace(svc=s.to(dev), features=f.to(dev))
+
+
+@pytest.mark.parametrize("case", ["least_request_all_rows", "full_pool",
+                                  "rogue_svc", "stale_maglev",
+                                  "affinity_same_flow", "nan_gumbel"])
+def test_admit_kernels_match_plain_at_the_edges(dev, case):
+    """The policies' corner cases, each bit-exact in both modes: a tile
+    whose 256 rows all go to one least-request cluster (in-tile ranks up
+    to 255 on the water-fill), a full pool (every routable row held),
+    svc < 0 and svc >= S, Maglev entries past the window, on a drained
+    lane or empty, two rows of one flow in an affinity cluster (the first
+    writer wins; a live flow of another key is not evicted), and NaN in
+    the Gumbel rows of weighted rows (NaN wins the argmax)."""
+    R, I, C = 512, 64, 16
+    routing = _routing(dev, 3)
+    reqs, rnd, gum = _batch(R, 4, dev)
+    pool, g = _pool(I, C, 5, dev)
+    rows = torch.arange(R)
+    if case == "least_request_all_rows":      # c2: least request
+        reqs = _rows_to(reqs, 2, rows, dev)
+        reqs = reqs._replace(req_id=torch.arange(R, dtype=torch.int32,
+                                                 device=dev))
+        pool, g = _pool(I, C, 5, dev, busy=0.0)
+    elif case == "full_pool":
+        pool = pool._replace(active=torch.ones_like(pool.active))
+    elif case == "rogue_svc":
+        svc = reqs.svc.clone()
+        svc[::5] = -3
+        svc[1::5] = 64                        # S = MAX_SERVICES
+        svc[2::5] = 1000
+        reqs = reqs._replace(svc=svc)
+    elif case == "stale_maglev":              # c4: maglev, c5: affinity
+        reqs = _rows_to(reqs, 4, rows[::2], dev)
+        reqs = _rows_to(reqs, 5, rows[1::2], dev)
+        mg = routing.maglev_table.clone()
+        for c in (4 * 2, 5 * 2):              # clusters c4, c5
+            mg[c, ::3] = 7                    # past the 5-lane window
+            mg[c, 1::3] = 1                   # lane 1 of c4/c5 is drained
+            mg[c, 2::5] = -1                  # empty entry
+        drained = routing.ep_drained.clone()
+        drained[routing.cluster_ep_start[8] + 1] = 1
+        drained[routing.cluster_ep_start[10] + 1] = 1
+        routing = routing._replace(maglev_table=mg, ep_drained=drained)
+    elif case == "affinity_same_flow":
+        reqs = _rows_to(reqs, 5, rows, dev)
+        f = reqs.features.clone()
+        f[1::2] = f[0::2]                     # pairs of one flow key
+        f[3::8] = f[0::8]                     # and flows spread over tiles
+        reqs = reqs._replace(features=f)
+        keys = route_match.policy_defs.flow_hash(f.cpu())
+        ak, ae = routing.aff_key.clone(), routing.aff_ep.clone()
+        A = ak.shape[0]
+        start = int(routing.cluster_ep_start[10])
+        for i in range(0, 64, 4):             # cached flows: hits
+            ak[int(keys[i]) % A] = int(keys[i])
+            ae[int(keys[i]) % A] = start + 2
+        for i in range(2, 64, 8):             # slots held by another key
+            ak[int(keys[i]) % A] = int(keys[i]) + 1
+        routing = routing._replace(aff_key=ak.to(dev), aff_ep=ae.to(dev))
+    elif case == "nan_gumbel":                # c3: weighted
+        reqs = _rows_to(reqs, 3, rows[::2], dev)
+        gum = gum.clone()
+        gum[::6, 0] = float("nan")
+        gum[1::6, 3] = float("nan")
+        gum[2::6, :] = float("nan")
+        gum[3::6, 1] = float("inf")
+    free = (torch.rand((I, C), generator=g) < 0.6).to(dev)
+    p = _check_admit(reqs, routing, pool, rnd, gum, free)
+    pol = routing.cluster_policy[p.cluster[p.cluster >= 0].long()]
+    if case == "least_request_all_rows":
+        assert set(pol.tolist()) == {2} and bool((p.cluster >= 0).all())
+    if case == "full_pool":
+        assert int(p.ok.sum()) == 0 and int(p.held) > 0
 
 
 @pytest.mark.parametrize("I,C", [(64, 16), (3, 5)])
@@ -176,6 +273,15 @@ def _counted(name, call):
     (600, 40, 4, 2, 64, torch.bfloat16, None),   # bf16, a warp a pair
     (300, 200, 4, 2, 64, torch.float32, None),   # n_split = 1, 4 warps a pair
     (3, 1000, 6, 2, 32, torch.bfloat16, None),   # 4 lanes a key row
+    # hd 16: the smoke configs' decode (a warp a pair), and split keys
+    # through the merge (16 of a warp's lanes hold a dim each)
+    (2, 67, 4, 2, 16, torch.float32, None),
+    (2, 67, 4, 2, 16, torch.bfloat16, None),
+    (2, 1000, 4, 2, 16, torch.float32, None),
+    (2, 1000, 4, 2, 16, torch.bfloat16, None),
+    # G = 48 (granite-20b's MQA): 12 passes of 4 heads in bf16, 6 of 8 in f32
+    (2, 500, 48, 1, 128, torch.float32, None),
+    (2, 500, 48, 1, 128, torch.bfloat16, None),
 ])
 def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
                                                lengths):
@@ -213,6 +319,10 @@ def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
     (2, 257, 4, 2, 32, torch.bfloat16, False, False),
     (2, 300, 6, 3, 128, torch.bfloat16, True, True),
     (1, 130, 4, 2, 64, torch.bfloat16, False, True),
+    # hd 16 (the smoke configs): the FMA kernel in both dtypes
+    (2, 64, 4, 2, 16, torch.float32, True, False),
+    (2, 64, 4, 2, 16, torch.bfloat16, True, False),
+    (1, 200, 4, 2, 16, torch.bfloat16, False, True),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
                                               causal, stacked):
@@ -259,6 +369,12 @@ _F32, _BF16 = torch.float32, torch.bfloat16
     (1, 300, 2, 128, 64, _BF16, 300, "BC"),
     (1, 300, 2, 128, 128, _BF16, 300, ""),
     (1, 300, 2, 128, 128, _BF16, 300, "BC"),
+    # hd 16 / N 16 (mamba2-2.7b's smoke config: 8 heads, chunk 32): the
+    # FMA kernel in both dtypes, and beside larger hd or N
+    (2, 64, 8, 16, 16, _F32, 32, ""),
+    (2, 64, 8, 16, 16, _BF16, 32, ""),
+    (1, 300, 2, 16, 64, _BF16, 300, "BC"),
+    (1, 300, 2, 64, 16, _BF16, 300, ""),
 ])
 def test_ssd_scan_kernel_matches_plain(dev, B, S, nh, hd, N, dtype, chunk,
                                        per_head):
@@ -281,3 +397,19 @@ def test_ssd_scan_kernel_matches_plain(dev, B, S, nh, hd, N, dtype, chunk,
     wy, wh = ssd_scan.ssd_scan(x, a, Bm, Cm, chunk)
     _assert_close(y, wy, f32_tol=2e-4)
     _assert_close(h, wh, f32_tol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "mamba2-2.7b"])
+def test_prefill_decode_smoke_configs_on_the_card(dev, arch):
+    """The launcher's reduced config (hd 16; mamba's N 16) on the card:
+    finite logits, every attention or SSD call through its kernel."""
+    from repro_torch.launch import prefill_decode
+    before = dict(ops.LAUNCHES)
+    res = prefill_decode.main(["--smoke", "--arch", arch, "--batch", "2",
+                               "--prompt", "64", "--steps", "4"])
+    assert bool(torch.isfinite(res["logits"]).all())
+    runs = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    if arch == "mamba2-2.7b":
+        assert runs["ssd_scan"] == 2                # 2 layers, one prefill
+    else:
+        assert runs["flash_attention"] == 2 and runs["decode_attention"] == 8

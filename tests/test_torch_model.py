@@ -95,3 +95,24 @@ def test_decode_rejects_write_past_the_cache(weights):
     with pytest.raises(IndexError):
         TM.decode_step(TCFG, tp, torch.zeros((2, 1), dtype=torch.int32),
                        torch.tensor([1, 4], dtype=torch.int32), tc)
+
+
+def test_registry_serves_the_service_model_as_the_reference():
+    """``get_config("xlb-service-model")`` in the port is the reference's
+    registered config, field by field."""
+    import dataclasses
+
+    from repro.configs import get_config as jget_config
+    from repro_torch.configs import get_config
+    j, t = jget_config("xlb-service-model"), get_config("xlb-service-model")
+    assert t is TCFG
+    for f in dataclasses.fields(t):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
+
+
+def test_bank_of_anthos_matches_reference():
+    from repro.configs import BANK_OF_ANTHOS as JG
+    from repro_torch.configs import BANK_OF_ANTHOS as TG
+    assert (TG.name, TG.services, TG.instances, TG.edges) == \
+        (JG.name, JG.services, JG.instances, JG.edges)
+    assert TG.chain() == JG.chain()

@@ -26,7 +26,7 @@ from repro_torch.models import model as TM
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CPU = torch.device("cpu")
-ARCHS = ("minitron-4b", "mamba2-2.7b")
+ARCHS = ("minitron-4b", "mamba2-2.7b", "xlb-service-model")
 B, STEPS = 2, 3
 
 

@@ -20,7 +20,7 @@ from repro.kernels import ref
 from repro.models import ssm as jssm
 from repro_torch import convert
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import ssm as tssm
 
@@ -90,6 +90,25 @@ def test_ssd_scan_rejects_a_ragged_chunk():
         ops.ssd_scan(*t, chunk=32)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ssd.ssd_scan(*t, chunk=32)
+
+
+@pytest.mark.parametrize("hd,N,dtype", [
+    (16, 16, torch.float32), (16, 16, torch.bfloat16),
+    (16, 128, torch.bfloat16), (64, 16, torch.bfloat16)])
+def test_ssd_cuda_wrapper_takes_hd16_and_n16(monkeypatch, hd, N, dtype):
+    """hd 16 and N 16 (the smoke config) get past every shape check of the
+    CUDA wrapper and stop only where the library needs a card; in bf16
+    they run the FMA kernel, which needs no 16-byte layout, so a view of
+    odd strides is taken."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "_lib", None)
+    B, S, nh = 1, 64, 2
+    x = torch.zeros((B, S, nh * hd + 1), dtype=dtype)[..., 1:] \
+        .reshape(B, S, nh, hd)
+    bc = torch.zeros((B, S, nh, N), dtype=dtype)
+    assert not ssd.runs_passes(hd, N)
+    with pytest.raises(RuntimeError, match="need a CUDA device"):
+        ssd.ssd_scan_cuda(x, torch.zeros((B, S, nh)), bc, bc)
 
 
 @pytest.fixture(scope="module")
