@@ -11,7 +11,8 @@ Phases (each prints one line; any failure exits non-zero):
    over all six policies, drains, held rows and a ragged batch, at the
    serving shape and a small pool; ``complete`` with warm EWMAs;
    ``route_match`` at R = 256 and 4096; ``relay_slots`` at the staged
-   chain's shapes, at N = 4096 and at a ragged N; plus the decode model on
+   chain's shapes, at N = 4096, at a ragged N and with 4096 rows on one
+   destination; plus the decode model on
    the card against the CPU within rtol = atol = 1e-4;
 3. the main path: ``ServeLoop`` over the port's ``Engine`` at the full
    width of ``xlb-service-model`` with 64 instance lanes x 16 slots (1024
@@ -61,9 +62,10 @@ pass's time is printed, and both mamba's shape and mamba2-2.7b's bf16
 prefill must run exactly those four.  Decode attention is also held at
 G = 48 query heads over one KV head (granite-20b's MQA), and the three
 float kernels at the smoke configs' head dim 16 (and the SSD's N 16), in
-f32 and bf16.  The admission kernel's device time at the serving shape
-is printed beside its time before the redesign, with its bound and the
-launch floor.
+f32 and bf16.  The admission and completion kernels' device times at
+the serving shape, and the relay kernel's at each of its shapes, are
+printed beside their times before their redesigns, with the bound and
+the launch floor.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
@@ -114,6 +116,17 @@ SSD_BF16_PASSES = ("ssd_chunk_state", "ssd_scores", "ssd_state_pass",
 # serving shape, commit and not (PERF.md §6, on an NVIDIA H100 80GB HBM3
 # at 700 W)
 ADMIT_BEFORE_MS = {"admit_commit": 0.0350, "admit": 0.0349}
+# the completion and relay kernels before their redesign: device ms per
+# call at the serving shape and at each relay shape (PERF.md §6, on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+COMPLETE_BEFORE_MS = 0.00274
+RELAY_BEFORE_MS = {(256, 65): 0.00337, (256, 513): 0.00345,
+                   (4096, 65): 0.0383, (1000, 65): 0.0101, (4096, 1): 0.0382}
+# relay_slots at the staged chain's shapes (select: CL + 1 = 65
+# destinations, allocate_slots: I + 1 = 65, the affinity update: A + 1 =
+# 513), a large batch, a ragged one, and every row of a large batch on one
+# destination
+RELAY_SHAPES = ((256, 65), (256, 513), (4096, 65), (1000, 65), (4096, 1))
 # the launcher's reduced configs on the card: batch, prompt, decode steps
 SMOKE_BATCH, SMOKE_PROMPT, SMOKE_STEPS = 2, 64, 4
 
@@ -268,8 +281,10 @@ def launch_floor(torch, lib, n: int = 2000):
         check(lib.xlb_empty_launches(k, st) == 0,
               "empty kernel did not launch")
 
-    device = kernel_ms(torch, lambda: launch(1), "empty_kernel", reps=200)
-    check(device is not None, "the profiler saw no empty kernel")
+    prof = profile_calls(torch, lambda: launch(1), reps=200)
+    device = kernel_time(prof, "empty_kernel")[0]
+    check(device is not None, f"the profiler saw no empty kernel (it saw "
+          f"{ {kernel_name(n): ms for n, ms in prof.items()} })")
     launch(10)
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
@@ -426,6 +441,42 @@ def admit_inputs(torch, RT, routing, R, I, C, seed, dev):
     return (routing, to(reqs), to(pool), rnd.to(dev), gum.to(dev))
 
 
+def complete_inputs(torch, RT, dev):
+    """Completion at the serving shape (I_LANES x SLOTS cells, the routing
+    config's E and S), from a seed: ~80 % active cells, ~25 % of them at
+    EOS, some endpoints and services out of range, warm EWMAs.  The
+    eleven arguments of ``completion.complete`` on ``dev``."""
+    g = torch.Generator().manual_seed(7)
+    I, C, E, S = I_LANES, SLOTS, RT.MAX_ENDPOINTS, RT.MAX_SERVICES
+    act = torch.rand((I, C), generator=g) < 0.8
+    pool = [torch.where(act, torch.randint(0, 9999, (I, C), generator=g),
+                        -1).int(),
+            torch.randint(-2, E + 3, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(-1, S + 2, (I, C), generator=g, dtype=torch.int32),
+            torch.randint(0, MAX_LEN - 1, (I, C), generator=g,
+                          dtype=torch.int32),
+            torch.randint(0, 500, (I, C), generator=g, dtype=torch.int32),
+            act]
+    nxt = torch.where(torch.rand((I, C), generator=g) < 0.25, 1,
+                      torch.randint(2, 500, (I, C), generator=g)).int()
+    load = torch.randint(3, 9, (E,), generator=g, dtype=torch.int32)
+    rx = torch.randint(0, 100, (S,), generator=g, dtype=torch.int32)
+    ewl = torch.rand(E, generator=g) * 6
+    ewt = torch.rand(E, generator=g) * 2
+    return [t.to(dev) for t in (*pool, nxt, load, rx, ewl, ewt)]
+
+
+def relay_inputs(torch, N, nd, dev):
+    """N relay rows from a seed: destinations uniform over [0, nd] with nd
+    the sentinel (about one row in nd + 1), except that with one
+    destination every row goes to it."""
+    if nd == 1:
+        return torch.zeros((N,), dtype=torch.int32, device=dev)
+    g = torch.Generator().manual_seed(N + nd)
+    return torch.randint(0, nd + 1, (N,), generator=g,
+                         dtype=torch.int32).to(dev)
+
+
 def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
     """Each kernel through its public wrapper in ``kernels/ops.py`` against
     its plain PyTorch version on the same card tensors, bit-exact."""
@@ -476,25 +527,8 @@ def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
                     plain_ms=cuda_ms(torch, plain, reps=5, warm=1),
                     bytes=nb, ops=nops, err=err)
 
-    # completion at the serving shape, warm EWMAs, ~25% EOS
-    g = torch.Generator().manual_seed(7)
-    I, C, E, S = I_LANES, SLOTS, RT.MAX_ENDPOINTS, RT.MAX_SERVICES
-    act = torch.rand((I, C), generator=g) < 0.8
-    pool = [torch.where(act, torch.randint(0, 9999, (I, C), generator=g),
-                        -1).int(),
-            torch.randint(-2, E + 3, (I, C), generator=g, dtype=torch.int32),
-            torch.randint(-1, S + 2, (I, C), generator=g, dtype=torch.int32),
-            torch.randint(0, MAX_LEN - 1, (I, C), generator=g,
-                          dtype=torch.int32),
-            torch.randint(0, 500, (I, C), generator=g, dtype=torch.int32),
-            act]
-    nxt = torch.where(torch.rand((I, C), generator=g) < 0.25, 1,
-                      torch.randint(2, 500, (I, C), generator=g)).int()
-    load = torch.randint(3, 9, (E,), generator=g, dtype=torch.int32)
-    rx = torch.randint(0, 100, (S,), generator=g, dtype=torch.int32)
-    ewl = torch.rand(E, generator=g) * 6
-    ewt = torch.rand(E, generator=g) * 2
-    args = [t.to(dev) for t in (*pool, nxt, load, rx, ewl, ewt)]
+    args = complete_inputs(torch, RT, dev)
+    I, C = args[0].shape
     pstate = B.PoolState(*args[:6])
     call = lambda: ops.complete(pstate, *args[6:], eos=1, max_len=MAX_LEN)
     plain = lambda: cp.complete(*args, eos=1, max_len=MAX_LEN)
@@ -507,6 +541,7 @@ def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
     check(int(k.done.sum()) > 0, "complete: nothing finished")
     rows.append(f"complete[I={I} C={C}] max_abs_err={err} "
                 f"done={int(k.done.sum())}")
+    E = args[7].shape[0]
     timing["complete"] = dict(
         ms=kernel_ms(torch, call, "complete_kernel"),
         call_ms=cuda_ms(torch, call),
@@ -534,14 +569,8 @@ def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
                  plain_ms=cuda_ms(torch, plain, reps=10, warm=1),
                  bytes=nb, ops=nops, err=err)
 
-    # relay_slots at the staged chain's shapes (select: CL + 1 = 65
-    # destinations, allocate_slots: I + 1 = 65, the affinity update:
-    # A + 1 = 513), a large batch and a ragged one; about one row in
-    # n_dest + 1 sits at the sentinel
-    for N, nd in ((ADMIT_R, 65), (ADMIT_R, 513), (4096, 65), (1000, 65)):
-        g = torch.Generator().manual_seed(N + nd)
-        idx = torch.randint(0, nd + 1, (N,), generator=g,
-                            dtype=torch.int32).to(dev)
+    for N, nd in RELAY_SHAPES:
+        idx = relay_inputs(torch, N, nd, dev)
         call = lambda: ops.relay_slots(idx, nd)
         plain = lambda: rs.relay_slots(idx, nd)
         k, p = call(), plain()
@@ -556,7 +585,8 @@ def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
         timing[key] = dict(ms=kernel_ms(torch, call, "relay_kernel"),
                            call_ms=cuda_ms(torch, call),
                            plain_ms=cuda_ms(torch, plain, reps=10, warm=1),
-                           bytes=4 * (2 * N + nd), ops=2 * N + nd, err=err)
+                           bytes=4 * (2 * N + nd), ops=2 * N + nd, err=err,
+                           shape=(N, nd))
 
     floor, issue = launch_floor(torch, lib)
     for t in timing.values():
@@ -1513,6 +1543,19 @@ def main() -> int:
               f"policies; before the redesign: {ADMIT_BEFORE_MS[name]}), "
               f"bound ms {bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, "
               f"call ms {t['call_ms']}, on {gpu}")
+    t = timing["complete"]
+    print(f"complete redesign: B1 complete device ms {t['ms']} at the "
+          f"serving shape ({I_LANES} x {SLOTS} cells; before the redesign: "
+          f"{COMPLETE_BEFORE_MS}), bound ms {bound_ms(t)[0]}, launch floor "
+          f"ms {t['floor_ms']}, call ms {t['call_ms']}, on {gpu}")
+    for t in timing.values():
+        if "shape" in t:
+            N, nd = t["shape"]
+            print(f"relay redesign: B5 relay_slots[N={N},n_dest={nd}] device "
+                  f"ms {t['ms']} (before the redesign: "
+                  f"{RELAY_BEFORE_MS[N, nd]}), bound "
+                  f"ms {bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, "
+                  f"call ms {t['call_ms']}, on {gpu}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ build raises; nothing falls back to the plain PyTorch versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -45,7 +47,6 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SIGNATURES = {
     "xlb_complete": [_P] * 7 + [_P] * 4 + [_P] * 7 + [_P] * 5
                     + [_I] * 5 + [_F, _F, _P],
-    "xlb_complete_smem_bytes": [_I] * 2,
     "xlb_admit": [_P] * 7 + [_I, _I]            # requests, R, F
                  + [_P] * 5 + [_I, _I]          # svc + rule tables, S, NR
                  + [_P] * 3 + [_I]              # cluster tables, CL
@@ -65,7 +66,6 @@ SIGNATURES = {
                  + [_P, _P, _I]                 # cluster windows, CL
                  + [_P, _I]                     # ep_load, E
                  + [_P, _P, _P],                # cluster, endpoint, stream
-    "xlb_relay_smem_bytes": [_I],
     "xlb_relay": [_P, _I, _I, _P, _P, _P],      # idx, N, n_dest, outs, stream
     "xlb_decode_attention": [_P] * 7            # q, k, v, lengths, out,
                                                 # partials (acc, m/l)
@@ -198,6 +198,46 @@ def sm_count(device: torch.device) -> int:
         _sms[index] = torch.cuda.get_device_properties(index) \
             .multi_processor_count
     return _sms[index]
+
+
+def as_i32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous int32 tensor; ``t`` itself when it is one."""
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
+
+
+def as_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous f32 tensor; ``t`` itself when it is one."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.to(torch.float32).contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(shapes: tuple, itemsize: int) -> tuple:
+    """(offsets, strides, total) of contiguous tensors of ``shapes`` laid
+    one after another, each starting on a 16-byte boundary."""
+    unit = 16 // itemsize
+    offs, strides, total = [], [], 0
+    for shape in shapes:
+        offs.append(total)
+        strides.append(tuple(math.prod(shape[d + 1:])
+                             for d in range(len(shape))))
+        total += -(-math.prod(shape) // unit) * unit
+    return offs, strides, total
+
+
+def packed(shapes: list[tuple[int, ...]], dtype: torch.dtype,
+           device: torch.device) -> list[torch.Tensor]:
+    """Contiguous tensors of ``shapes``, views of ONE allocation of
+    ``dtype``, each starting on a 16-byte boundary (so a kernel may store
+    them in 16-byte units): a wrapper's outputs for the price of one
+    ``torch.empty`` and one ``as_strided`` each."""
+    offs, strides, total = _layout(tuple(shapes), dtype.itemsize)
+    buf = torch.empty((total,), dtype=dtype, device=device)
+    return [buf.as_strided(shape, st, off)
+            for shape, st, off in zip(shapes, strides, offs)]
 
 
 def check_device(device: torch.device, *tensors: torch.Tensor) -> None:

@@ -10,12 +10,12 @@ release, per-service rx bytes, slot free, and the f32 health-EWMA epilogue
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import as_f32, as_i32
 
 RX_BYTES_PER_TOKEN = 2     # response payload attributed per decoded token
 
@@ -98,51 +98,45 @@ def complete(pool_req_id, pool_endpoint, pool_svc, pool_length, pool_token,
         tput_ewma=ewt)
 
 
-def _i32(t: torch.Tensor) -> torch.Tensor:
-    return t.to(torch.int32).contiguous()
-
-
 def complete_cuda(pool_req_id, pool_endpoint, pool_svc, pool_length,
                   pool_token, pool_active, nxt, ep_load, rx_bytes,
                   ep_inflight_ewma, ep_tput_ewma, *, eos: int,
                   max_len: int) -> CompleteResult:
     """Launch ``csrc/complete.cu`` on the tensors' CUDA device; same
-    contract and result as ``complete``.  Raises if the library cannot be
-    built or the launch fails."""
+    contract and result as ``complete``.  Inputs that are contiguous and
+    of the kernel's type are passed as they are; the int32 and f32
+    outputs are views of one allocation, the two bool ones of another.
+    Raises if E + S counters do not fit in a block's default shared
+    memory, the library cannot be built or the launch fails."""
     I, C = pool_req_id.shape
     E, S = ep_load.shape[0], rx_bytes.shape[0]
+    if E + S > _build.SMEM_DEFAULT // 4:
+        raise ValueError(f"complete keeps E + S = {E + S} counters in "
+                         f"shared memory; at most {_build.SMEM_DEFAULT // 4}"
+                         " fit")
     act = pool_active if pool_active.dtype == torch.bool else pool_active > 0
-    ins = [*(_i32(t) for t in (pool_req_id, pool_endpoint, pool_svc,
-                               pool_length, pool_token)),
-           act.contiguous(), _i32(nxt)]
+    ins = [*map(as_i32, (pool_req_id, pool_endpoint, pool_svc, pool_length,
+                         pool_token)),
+           act if act.is_contiguous() else act.contiguous(), as_i32(nxt)]
     for t in ins:
         if t.shape != (I, C):
             raise ValueError(f"pool tensors must all be {(I, C)}, got "
                              f"{tuple(t.shape)}")
-    load0, rx0 = _i32(ep_load), _i32(rx_bytes)
-    ewl0 = ep_inflight_ewma.to(torch.float32).contiguous()
-    ewt0 = ep_tput_ewma.to(torch.float32).contiguous()
+    load0, rx0 = as_i32(ep_load), as_i32(rx_bytes)
+    ewl0, ewt0 = as_f32(ep_inflight_ewma), as_f32(ep_tput_ewma)
     if ewl0.shape != (E,) or ewt0.shape != (E,):
         raise ValueError("EWMA tensors must be (E,)")
     dev = load0.device
     _build.check_device(dev, *ins, rx0, ewl0, ewt0)
     lib = _build.library(dev)
-    if lib.xlb_complete_smem_bytes(E, S) > _build.SMEM_DEFAULT:
-        raise ValueError(f"complete keeps E + S = {E + S} counters in "
-                         f"shared memory; at most {_build.SMEM_DEFAULT // 4}"
-                         " fit")
-    new = lambda shape, dt=torch.int32: torch.empty(shape, dtype=dt,
-                                                    device=dev)
-    outs = [new((I, C)) for _ in range(5)] \
-        + [new((I, C), torch.bool), new((I, C), torch.bool)]
-    load_out, rx_out, cnt = new((E,)), new((S,)), new((E,))
-    ewl, ewt = new((E,), torch.float32), new((E,), torch.float32)
-    ptr = _build.ptr
+    *outs, load_out, rx_out, cnt, ewl, ewt = _build.packed(
+        [(I, C)] * 5 + [(E,), (S,), (E,), (E,), (E,)], torch.int32, dev)
+    outs += _build.packed([(I, C)] * 2, torch.bool, dev)
+    ewl, ewt = ewl.view(torch.float32), ewt.view(torch.float32)
     err = lib.xlb_complete(
-        *[ptr(t) for t in ins], ptr(load0), ptr(rx0), ptr(ewl0), ptr(ewt0),
-        *[ptr(t) for t in outs], ptr(load_out), ptr(rx_out), ptr(cnt),
-        ptr(ewl), ptr(ewt), I * C, E, S, int(eos), int(max_len),
-        ctypes.c_float(ALPHA_INFLIGHT), ctypes.c_float(ALPHA_TPUT),
+        *[t.data_ptr() for t in (*ins, load0, rx0, ewl0, ewt0, *outs,
+                                 load_out, rx_out, cnt, ewl, ewt)],
+        I * C, E, S, int(eos), int(max_len), ALPHA_INFLIGHT, ALPHA_TPUT,
         _build.stream(dev))
     _build.check(err, "complete")
     return CompleteResult(*outs, load_out, rx_out, cnt, ewl, ewt)

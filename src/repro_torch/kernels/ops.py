@@ -130,7 +130,9 @@ def complete(pool: PoolState, nxt, ep_load, rx_bytes, ep_inflight_ewma=None,
              ep_tput_ewma=None, *, eos: int, max_len: int) -> CompleteOut:
     """Fused completion: done detect → load release → rx metrics → free →
     health EWMA update (None EWMAs → cold-start zeros)."""
-    ewl, ewt = _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma)
+    ewl, ewt = ep_inflight_ewma, ep_tput_ewma
+    if ewl is None or ewt is None:
+        ewl, ewt = _ewma_defaults(ep_load, ewl, ewt)
     args = (*pool, nxt, ep_load, rx_bytes, ewl, ewt)
     if _on_cuda(nxt):
         res = _cp.complete_cuda(*args, eos=eos, max_len=max_len)

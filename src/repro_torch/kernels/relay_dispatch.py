@@ -30,25 +30,27 @@ def relay_slots(idx, n_dest: int) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.where(live, slot, 0), load
 
 
+#: destinations ``relay_slots_cuda`` takes: ``csrc/relay.cu`` keeps a 64-bit
+#: word of per-warp counts and an int of running count per destination in
+#: a block's default shared memory
+MAX_DEST = _build.SMEM_DEFAULT // 12
+
+
 def relay_slots_cuda(idx, n_dest: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/relay.cu`` on the tensor's CUDA device; same contract
-    and result as ``relay_slots``.  Raises if ``n_dest`` counters do not
-    fit in a block's default shared memory, the library cannot be built or
-    the launch fails.  The caller skips empty inputs."""
+    and result as ``relay_slots``.  Raises if ``n_dest`` exceeds
+    ``MAX_DEST``, the library cannot be built or the launch fails.  The
+    caller skips empty inputs."""
     if idx.dim() != 1 or idx.shape[0] == 0:
         raise ValueError("idx must be a non-empty (N,) tensor")
-    if n_dest < 0:
-        raise ValueError(f"n_dest must be >= 0, got {n_dest}")
+    if not 0 <= n_dest <= MAX_DEST:
+        raise ValueError(f"relay_slots keeps n_dest counters in shared "
+                         f"memory: 0 <= n_dest <= {MAX_DEST}, got {n_dest}")
     N = idx.shape[0]
     dev = idx.device
     lib = _build.library(dev)
-    if lib.xlb_relay_smem_bytes(n_dest) > _build.SMEM_DEFAULT:
-        raise ValueError(f"relay_slots keeps n_dest = {n_dest} counters in "
-                         "shared memory; at most "
-                         f"{_build.SMEM_DEFAULT // 4 - 256} fit")
-    x = idx.to(torch.int32).contiguous()
-    slot = torch.empty((N,), dtype=torch.int32, device=dev)
-    load = torch.empty((n_dest,), dtype=torch.int32, device=dev)
+    x = _build.as_i32(idx)
+    slot, load = _build.packed([(N,), (n_dest,)], torch.int32, dev)
     p = _build.ptr
     err = lib.xlb_relay(p(x), N, n_dest, p(slot), p(load), _build.stream(dev))
     _build.check(err, "relay_slots")

@@ -30,6 +30,7 @@ from repro_torch.core.policy_defs import BIG, POLICY_RR
 from repro_torch.core.routing_table import (MAX_EPS_PER_CLUSTER,
                                             MAX_RULES_PER_SVC, WILDCARD)
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import as_f32, as_i32
 
 #: tile rows of the CUDA kernel (``kTile`` in csrc/admit.cu)
 TILE = 256
@@ -258,20 +259,6 @@ def admit_commit(req_id, svc, features, msg_bytes, token, state,
                         pool_active == 0, pool, rnd, gumbel, block_r)
 
 
-def _i32(t):
-    """``t`` as a contiguous int32 tensor; ``t`` itself when it is one."""
-    if t.dtype == torch.int32 and t.is_contiguous():
-        return t
-    return t.to(torch.int32).contiguous()
-
-
-def _f32(t):
-    """``t`` as a contiguous f32 tensor; ``t`` itself when it is one."""
-    if t.dtype == torch.float32 and t.is_contiguous():
-        return t
-    return t.to(torch.float32).contiguous()
-
-
 #: bytes of shared memory per admission launch, by its table sizes
 _SMEM: dict[tuple, int] = {}
 
@@ -314,29 +301,28 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
     if smem > SMEM_OPTIN:
         raise ValueError(f"admit needs {smem} B of shared memory for "
                          f"tables of sizes {key}; a block has {SMEM_OPTIN} B")
-    reqs = [_i32(req_id), _i32(svc), _i32(features), _i32(msg_bytes),
-            _i32(rnd), _f32(gumbel)]
-    tok = _i32(token) if commit else None
-    tabs = [_i32(x) for x in (state.svc_rule_start, state.svc_rule_count,
-                              state.rule_field, state.rule_value,
-                              state.rule_cluster, state.cluster_ep_start,
-                              state.cluster_ep_count, state.cluster_policy,
-                              state.ep_instance)]
-    ew = _f32(state.ep_weight)
-    rest = [_i32(x) for x in (state.ep_drained, state.ep_load,
-                              state.rr_cursor, state.maglev_table,
-                              state.aff_key, state.aff_ep)]
+    reqs = [as_i32(req_id), as_i32(svc), as_i32(features), as_i32(msg_bytes),
+            as_i32(rnd), as_f32(gumbel)]
+    tok = as_i32(token) if commit else None
+    tabs = [as_i32(x) for x in (state.svc_rule_start, state.svc_rule_count,
+                                state.rule_field, state.rule_value,
+                                state.rule_cluster, state.cluster_ep_start,
+                                state.cluster_ep_count, state.cluster_policy,
+                                state.ep_instance)]
+    ew = as_f32(state.ep_weight)
+    rest = [as_i32(x) for x in (state.ep_drained, state.ep_load,
+                                state.rr_cursor, state.maglev_table,
+                                state.aff_key, state.aff_ep)]
     fm = free if free.dtype == torch.bool else free != 0
     fm = fm if fm.is_contiguous() else fm.contiguous()
-    pool_in = [_i32(p) for p in pool] if commit else []
+    pool_in = [as_i32(p) for p in pool] if commit else []
     _build.check_device(dev, *reqs, *tabs, ew, *rest, fm, *pool_in,
                         *([tok] if commit else []))
-    sizes = [R] * 5 + [E, CL, S, S, 2, A, A] + ([I * C] * 5 if commit
-                                                else [])
-    outs = torch.empty((sum(sizes),), dtype=torch.int32,
-                       device=dev).split(sizes)
+    shapes = [(n,) for n in [R] * 5 + [E, CL, S, S, 2, A, A]] \
+        + ([(I, C)] * 5 if commit else [])
+    outs = _build.packed(shapes, torch.int32, dev)
     per_req, carried = outs[:5], outs[5:12]
-    pool_out = [o.view(I, C) for o in outs[12:]] + [torch.empty(
+    pool_out = outs[12:] + [torch.empty(
         (I, C), dtype=torch.bool, device=dev)] if commit else []
     p = _build.ptr
     maybe = lambda xs, n: [p(x) for x in xs] if xs else [None] * n
@@ -404,8 +390,8 @@ def route_match_cuda(svc, features, state):
     if R == 0 or svc.shape != (R,):
         raise ValueError(f"svc must be ({R},) and R > 0")
     dev = features.device
-    x = [_i32(svc), _i32(features)]
-    tabs = [_i32(t) for t in _route_tables(state)]
+    x = [as_i32(svc), as_i32(features)]
+    tabs = [as_i32(t) for t in _route_tables(state)]
     _build.check_device(dev, *x, *tabs)
     lib = _build.library(dev)
     rs, rc, rf, rv, rcl, cs, cc, load = tabs

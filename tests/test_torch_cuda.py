@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core import routing_table as RT
 from repro_torch.core.balancer import PoolState, RequestBatch
-from repro_torch.kernels import (completion, decode_attention,
+from repro_torch.kernels import (_build, completion, decode_attention,
                                  flash_attention, ops, relay_dispatch,
                                  route_match, ssd_scan)
 
@@ -184,26 +184,82 @@ def test_admit_kernels_match_plain_at_the_edges(dev, case):
         assert int(p.ok.sum()) == 0 and int(p.held) > 0
 
 
-@pytest.mark.parametrize("I,C", [(64, 16), (3, 5)])
-def test_complete_kernel_matches_plain(dev, I, C):
-    g = torch.Generator().manual_seed(I)
-    E, S = 512, 64
+def _complete_args(I, C, E, S, seed, case="random"):
+    """Completion inputs on the CPU: a pool with ~70 % active cells, some
+    endpoints and services out of range, warm EWMAs.  ``case``
+    "one_endpoint" puts every cell, active, on one endpoint and one
+    service; "out_of_range" every endpoint in {-2, E, E + 7} and every
+    service at or past S."""
+    g = torch.Generator().manual_seed(seed)
     act = torch.rand((I, C), generator=g) < 0.7
     pool = [torch.randint(-1, 99, (I, C), generator=g, dtype=torch.int32),
             torch.randint(-2, E + 3, (I, C), generator=g, dtype=torch.int32),
             torch.randint(-1, S + 2, (I, C), generator=g, dtype=torch.int32),
             torch.randint(0, 8, (I, C), generator=g, dtype=torch.int32),
             torch.randint(0, 97, (I, C), generator=g, dtype=torch.int32), act]
+    if case == "one_endpoint":
+        pool[1][:], pool[2][:], pool[5][:] = 5, 3, True
+    if case == "out_of_range":
+        pool[1] = torch.tensor([-2, E, E + 7], dtype=torch.int32)[
+            torch.randint(0, 3, (I, C), generator=g)]
+        pool[2] = S + torch.randint(0, 4, (I, C), generator=g,
+                                    dtype=torch.int32)
     nxt = torch.randint(0, 4, (I, C), generator=g, dtype=torch.int32)
     load = torch.randint(3, 9, (E,), generator=g, dtype=torch.int32)
     rx = torch.randint(0, 100, (S,), generator=g, dtype=torch.int32)
     ewl, ewt = torch.rand(E, generator=g) * 6, torch.rand(E, generator=g)
-    args = [t.to(dev) for t in (*pool, nxt, load, rx, ewl, ewt)]
+    return [*pool, nxt, load, rx, ewl, ewt]
+
+
+@pytest.mark.parametrize("I,C", [(64, 16), (3, 5), (64, 64)])
+def test_complete_kernel_matches_plain(dev, I, C):
+    args = [t.to(dev) for t in _complete_args(I, C, 512, 64, I)]
     k = completion.complete_cuda(*args, eos=1, max_len=8)
     p = completion.complete(*args, eos=1, max_len=8)
     for f in completion.CompleteResult._fields:
         assert torch.equal(getattr(k, f), getattr(p, f)), f
     assert int(k.done.sum()) > 0
+
+
+def _misaligned(t):
+    """``t`` on the card as a view one element past an allocation's start
+    (4 bytes for int32, 1 for bool): the kernel's scalar build."""
+    flat = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    v = flat[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("case", ["one_endpoint", "out_of_range",
+                                  "smem_limit", "misaligned"])
+def test_complete_kernel_matches_plain_at_the_edges(dev, case):
+    """Through ``ops.complete``, bit-exact with one launch: every cell on
+    one endpoint and one service (the most contended folds), every
+    endpoint and service out of range, E + S at the shared-memory limit
+    (one more raises), and a pool handed over as misaligned views."""
+    I, C, E, S = 64, 16, 512, 64
+    if case == "smem_limit":
+        E = _build.SMEM_DEFAULT // 4 - S
+    args = [t.to(dev) for t in _complete_args(I, C, E, S, 7, case)]
+    if case == "misaligned":
+        args[:7] = [_misaligned(t) for t in args[:7]]
+    n0 = ops.LAUNCHES["complete"]
+    k = ops.complete(PoolState(*args[:6]), *args[6:], eos=1, max_len=8)
+    assert ops.LAUNCHES["complete"] == n0 + 1
+    p = completion.complete(*args, eos=1, max_len=8)
+    for f, a, b in zip(PoolState._fields, k.pool, p[:6]):
+        assert torch.equal(a, b), f
+    for f, a, b in zip(("done", "ep_load", "rx_bytes", "done_cnt",
+                        "inflight_ewma", "tput_ewma"), k[1:], p[6:]):
+        assert torch.equal(a, b), f
+    assert int(k.done.sum()) > 0
+    if case == "smem_limit":
+        more = torch.zeros((S + 1,), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.complete(PoolState(*args[:6]), args[6], args[7], more,
+                         *args[9:], eos=1, max_len=8)
+        assert ops.LAUNCHES["complete"] == n0 + 1
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("R", [256, 4096, 1])
@@ -221,12 +277,46 @@ def test_route_match_kernel_matches_plain(dev, R):
     torch.cuda.synchronize()
 
 
+# one tile (one block), one row past it (a cluster of 2 blocks), one row
+# past a cluster of 8 blocks of one tile each (2049) and past 16 tiles
+# (4097), and 256 tiles (8 blocks walking 32 tiles each)
 @pytest.mark.parametrize("N,n_dest", [(256, 65), (256, 513), (4096, 65),
-                                      (1000, 7), (1, 3)])
+                                      (1000, 7), (1, 3), (257, 65),
+                                      (2049, 65), (4097, 65), (65536, 65)])
 def test_relay_slots_kernel_matches_plain(dev, N, n_dest):
     g = torch.Generator().manual_seed(N + n_dest)
     idx = torch.randint(0, n_dest + 1, (N,), generator=g,
                         dtype=torch.int32).to(dev)    # n_dest = sentinel
+    _check_relay(idx, n_dest)
+
+
+@pytest.mark.parametrize("case", ["one_destination", "all_sentinel",
+                                  "dest_limit"])
+def test_relay_slots_kernel_matches_plain_at_the_edges(dev, case):
+    """Every row of 4096 on one destination (a whole tile in one group),
+    every row at the sentinel, and n_dest at ``MAX_DEST`` (one more
+    raises)."""
+    N, n_dest = 4096, 65
+    if case == "one_destination":
+        idx = torch.zeros((N,), dtype=torch.int32, device=dev)
+        n_dest = 1
+    elif case == "all_sentinel":
+        idx = torch.full((N,), n_dest, dtype=torch.int32, device=dev)
+    else:
+        n_dest = relay_dispatch.MAX_DEST
+        g = torch.Generator().manual_seed(n_dest)
+        idx = torch.randint(0, n_dest + 1, (N,), generator=g,
+                            dtype=torch.int32).to(dev)
+        n0 = ops.LAUNCHES["relay_slots"]
+        with pytest.raises(ValueError, match="n_dest"):
+            ops.relay_slots(idx, n_dest + 1)
+        assert ops.LAUNCHES["relay_slots"] == n0
+    _check_relay(idx, n_dest)
+
+
+def _check_relay(idx, n_dest):
+    """The kernel through ``ops.relay_slots``, one launch, against the
+    plain version, bit-exact."""
     n0 = ops.LAUNCHES["relay_slots"]
     slot, load = ops.relay_slots(idx, n_dest)
     assert ops.LAUNCHES["relay_slots"] == n0 + 1

@@ -20,7 +20,7 @@ from repro_torch import convert
 from repro_torch.core import routing_table as TR
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.core.policy_defs import flow_hash
-from repro_torch.kernels import ops, route_match
+from repro_torch.kernels import _build, ops, route_match
 
 WE = JR.MAX_EPS_PER_CLUSTER
 CPU = torch.device("cpu")
@@ -319,19 +319,32 @@ def test_admit_commit_matches_reference_ops_odd_rule_fields():
 # --------------------------------------------------------------------------- #
 
 
-def _complete_case(I, C, seed, eos=1, active_p=0.6):
+def _complete_case(I, C, seed, eos=1, active_p=0.6, case="random"):
     """The reference's case shape: ~25% EOS lanes, lengths near the
     budget, plus out-of-range endpoint and service ids on some active
-    slots and warm EWMAs."""
+    slots and warm EWMAs.  ``case`` takes it to an edge of the completion
+    kernel: "one_endpoint" (every cell active on one endpoint and one
+    service), "out_of_range" (every endpoint in {-2, E, E + 7}, every
+    service >= S) or "smem_limit" (E + S fills the kernel's shared
+    memory)."""
     rng = np.random.RandomState(seed)
     pool = list(_pool(I, C, seed, active_p=active_p))
     E, S = JR.MAX_ENDPOINTS, JR.MAX_SERVICES
+    if case == "smem_limit":
+        E = _build.SMEM_DEFAULT // 4 - S
     odd = rng.rand(I, C) < 0.1
     pool[1] = np.where(odd, rng.choice([-1, E, E + 7], (I, C)),
                        pool[1]).astype(np.int32)
     pool[2] = np.where(rng.rand(I, C) < 0.1, rng.choice([-2, S, S + 3],
                                                         (I, C)),
                        pool[2]).astype(np.int32)
+    if case == "one_endpoint":
+        pool[1][:] = 5
+        pool[2][:] = 3
+        pool[5][:] = True
+    if case == "out_of_range":
+        pool[1] = rng.choice([-2, E, E + 7], (I, C)).astype(np.int32)
+        pool[2] = rng.choice([S, S + 3], (I, C)).astype(np.int32)
     load = rng.randint(3, 9, E).astype(np.int32)
     rx = rng.randint(0, 100, S).astype(np.int32)
     nxt = np.where(rng.rand(I, C) < 0.25, eos,
@@ -344,13 +357,32 @@ def _complete_case(I, C, seed, eos=1, active_p=0.6):
 COMPLETE_POOL = ("req_id", "endpoint", "svc", "length", "token", "active")
 
 
-@pytest.mark.parametrize("I,C,seed", [(2, 8, 0), (8, 16, 1), (8, 64, 2),
-                                      (64, 16, 3)])
+def _case(*a, case="random"):
+    """A case of (I, C, seed, case) with the id its three numbers always
+    had, plus the edge's name."""
+    return pytest.param(*a, case, id="-".join(map(str, a))
+                        + ("" if case == "random" else f"-{case}"))
+
+
+@pytest.mark.parametrize("I,C,seed,case", [
+    _case(2, 8, 0), _case(8, 16, 1), _case(8, 64, 2), _case(64, 16, 3),
+    _case(64, 64, 4), _case(3, 5, 5),
+    _case(64, 16, 6, case="one_endpoint"),
+    _case(64, 16, 7, case="out_of_range"),
+    _case(8, 16, 8, case="smem_limit"),
+    _case(64, 16, 9, case="misaligned")])
 @pytest.mark.parametrize("warm", [True, False])
-def test_complete_matches_oracle(I, C, seed, warm):
-    pool, nxt, load, rx, ewl, ewt = _complete_case(I, C, seed)
+def test_complete_matches_oracle(I, C, seed, case, warm):
+    """"misaligned" hands over the pool as views one element past an
+    allocation's start (on the card the kernel's scalar build)."""
+    pool, nxt, load, rx, ewl, ewt = _complete_case(I, C, seed, case=case)
+    tpool = [_t(p) for p in pool]
+    if case == "misaligned":
+        tpool = [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(I, C)
+                 for t in tpool]
+        assert all(t.storage_offset() == 1 for t in tpool)
     ew = (ewl, ewt) if warm else (None, None)
-    got = ops.complete(PoolState(*[_t(p) for p in pool]), _t(nxt), _t(load),
+    got = ops.complete(PoolState(*tpool), _t(nxt), _t(load),
                        _t(rx), *[None if e is None else _t(e) for e in ew],
                        eos=1, max_len=8)
     want = ref.complete_ref(*pool, nxt, load, rx, *ew, eos=1, max_len=8)

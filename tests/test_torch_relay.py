@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro_torch.core import relay
 from repro_torch.kernels import ops
+from repro_torch.kernels.relay_dispatch import MAX_DEST
 
 # the reference functions compiled once per shape (eager dispatch of each
 # jnp operation costs far more at these sizes)
@@ -30,13 +31,16 @@ j_dispatch_einsum = jax.jit(JRel.relay_dispatch_einsum,
 j_combine_einsum = jax.jit(JRel.relay_combine_einsum)
 
 
-def _idx(N, E, seed, sentinel=False):
+def _idx(N, E, seed, sentinel=False, fill="random"):
     """N destinations in [0, E) from numpy; with ``sentinel`` about one row
-    in five sits at the sentinel destination E."""
+    in five sits at the sentinel destination E.  ``fill`` "one_destination"
+    sends every row to destination 0, "all_sentinel" every row to E."""
     rng = np.random.RandomState(seed)
     idx = rng.randint(0, E, N).astype(np.int32)
     if sentinel:
         idx[rng.rand(N) < 0.2] = E
+    if fill != "random":
+        idx[:] = 0 if fill == "one_destination" else E
     return idx
 
 
@@ -52,18 +56,32 @@ def test_positions_match_reference(method, N, E, sentinel):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-# every (N, E, block_n) case of the reference's relay kernel tests
-RELAY_CASES = [(1024, 16, 256), (2048, 160, 1024), (512, 4, 512),
-               (1536, 16, 1024), (1, 4, 1024), (7, 3, 4), (1000, 8, 256),
-               (5, 2, 8)]
+def _relay_case(N, E, bn, fill="random"):
+    return pytest.param(N, E, bn, fill, id=f"{N}-{E}-{bn}" + (
+        "" if fill == "random" else f"-{fill}"))
 
 
-@pytest.mark.parametrize("N,E,bn", RELAY_CASES)
-def test_relay_slots_match_pallas_and_oracle(N, E, bn):
+# every (N, E, block_n) case of the reference's relay kernel tests, then
+# the edges of the CUDA kernel: every row on one destination, many tiles
+# (8192 standing for the card's 65536, kept short in the interpreter), the
+# kernel's destination limit, one row past a tile and past a cluster of
+# blocks walking one tile each (257, 2049) and past 16 tiles (4097), and
+# every row at the sentinel
+RELAY_CASES = [_relay_case(*c) for c in (
+    (1024, 16, 256), (2048, 160, 1024), (512, 4, 512), (1536, 16, 1024),
+    (1, 4, 1024), (7, 3, 4), (1000, 8, 256), (5, 2, 8))] + [
+    _relay_case(4096, 1, 1024, "one_destination"),
+    _relay_case(8192, 65, 1024), _relay_case(1000, MAX_DEST, 256),
+    _relay_case(257, 65, 256), _relay_case(2049, 65, 1024),
+    _relay_case(4097, 65, 1024), _relay_case(1000, 65, 256, "all_sentinel")]
+
+
+@pytest.mark.parametrize("N,E,bn,fill", RELAY_CASES)
+def test_relay_slots_match_pallas_and_oracle(N, E, bn, fill):
     """Slots on the rows with a real destination and loads everywhere;
     a sentinel row's slot is outside the contract (the Pallas value
     depends on block_n)."""
-    idx = _idx(N, E, seed=N * 7 + E, sentinel=N > 1)
+    idx = _idx(N, E, seed=N * 7 + E, sentinel=N > 1, fill=fill)
     slot, load = ops.relay_slots(torch.from_numpy(idx), E)
     assert slot.dtype == load.dtype == torch.int32
     assert slot.shape == (N,) and load.shape == (E,)
