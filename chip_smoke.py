@@ -26,7 +26,13 @@ Phases (each prints one line; any failure exits non-zero):
    draws, timed beside the fused admission kernel;
 5. the same traffic through ``ServeLoop`` over the XLB engine and the
    Istio and Cilium sidecar baselines: requests/s, median tick and the
-   device's busy share of each, in this one run;
+   device's busy share of each, in this one run; then the control plane:
+   the serving routing built by the port's ``ControlPlane``, ``ServeLoop``
+   attached to it on the card, and one transaction mid-drain (drain a
+   loaded endpoint of productpage, remove one by swap-with-last, add one),
+   with the version, the drained endpoint's admissions and reap, the
+   loads and the splice on the card against the CPU checked, and the
+   commit, the splice and the tick that carried it timed;
 6. the model stack at full width and depth in bf16, with weights from a
    CUDA generator: minitron-4b (prefill through ``flash_attention``,
    decode through ``decode_attention``) and mamba2-2.7b (prefill through
@@ -65,7 +71,8 @@ float kernels at the smoke configs' head dim 16 (and the SSD's N 16), in
 f32 and bf16.  The admission and completion kernels' device times at
 the serving shape, and the relay kernel's at each of its shapes, are
 printed beside their times before their redesigns, with the bound and
-the launch floor.
+the launch floor; the route kernel's ("route redesign:") at R = 256
+and 4096 likewise.
 
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
@@ -122,6 +129,15 @@ ADMIT_BEFORE_MS = {"admit_commit": 0.0350, "admit": 0.0349}
 COMPLETE_BEFORE_MS = 0.00274
 RELAY_BEFORE_MS = {(256, 65): 0.00337, (256, 513): 0.00345,
                    (4096, 65): 0.0383, (1000, 65): 0.0101, (4096, 1): 0.0382}
+# the route kernel before its redesign: device ms per call at R = 256
+# and 4096 (the R = 4096 time by tools/admit_timing.py; PERF.md §6), on
+# an NVIDIA H100 80GB HBM3 at 700 W
+ROUTE_BEFORE_MS = {256: 0.00415, 4096: 0.00436}
+# the control phase: routable requests, the tick whose commit drains,
+# removes and adds an endpoint of productpage, the instance lane added,
+# and the calls over which the splice alone is timed
+CONTROL_REQUESTS, CONTROL_COMMIT_TICK, CONTROL_ADD_LANE = 1024, 12, 5
+SPLICE_REPS = 50
 # relay_slots at the staged chain's shapes (select: CL + 1 = 65
 # destinations, allocate_slots: I + 1 = 65, the affinity update: A + 1 =
 # 513), a large batch, a ragged one, and every row of a large batch on one
@@ -374,9 +390,16 @@ def route_work(RT, routing, svc, feats, cluster):
 
 
 def routing_config(RT, device):
+    """``serving_config`` built into routing tables on ``device``:
+    (RoutingState, name → id maps)."""
+    return RT.build_state(*serving_config(RT), device)
+
+
+def serving_config(RT):
     """One service per policy (8 endpoints each over lanes 8i..8i+7), a
     50-endpoint least-request cluster over lanes 14..63 (bookinfo's
-    productpage), and a service whose only rule no request matches."""
+    productpage), and a service whose only rule no request matches:
+    (services, clusters)."""
     services, clusters = [], []
     for p in range(6):
         services.append(RT.ServiceConfig(
@@ -391,7 +414,7 @@ def routing_config(RT, device):
                                policy=RT.POLICY_LEAST_REQUEST))
     services.append(RT.ServiceConfig("closed",
                                      [RT.Rule(0, "/never", "pol0")]))
-    return RT.build_state(services, clusters, device)
+    return services, clusters
 
 
 # --------------------------------------------------------------------------- #
@@ -1405,6 +1428,157 @@ def phase_engines(torch, RT, TM, B, SL, cfg, dev="cuda"):
 
 
 # --------------------------------------------------------------------------- #
+# phase 5, continued: the control plane, a commit mid-drain
+# --------------------------------------------------------------------------- #
+
+
+def phase_control(torch, RT, CT, TM, interpose, SL, ops, cfg, dev="cuda"):
+    """The serving routing built by the port's ControlPlane and served by
+    ServeLoop over the XLB engine on the card.  At CONTROL_COMMIT_TICK one
+    transaction drains the most loaded endpoint of productpage (the
+    50-endpoint least-request cluster), removes one from the middle of its
+    window (swap-with-last) and adds one; after it, each tick runs the
+    reaper.  Checks one version bump, no admission onto the drained
+    endpoint, every request completed, loads back to zero, the endpoint
+    reaped on a later commit, and apply_plan on the card equal to
+    apply_plan on the CPU.  Times the commit (host clock, synchronised),
+    the splice inside it (host clock and CUDA events), the splice alone
+    over SPLICE_REPS calls (host clock, events, profiler), and the tick
+    that carried the commit against the median tick."""
+    dev = torch.device(dev)
+    cp = CT.ControlPlane(*serving_config(RT))
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
+    loop = SL.ServeLoop(eng, params, cp, admit_batch=ADMIT_R,
+                        dtype=torch.float32, backoff_cap=4)
+    check(loop.cp is cp and int(loop.routing.version) == 0,
+          "control: the loop did not attach at version 0")
+    refresh, inside = eng.apply_refresh, {}
+
+    def timed_refresh(state, plan):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        s.record()
+        out = refresh(state, plan)
+        e.record()
+        inside["host_ms"] = (time.perf_counter() - t) * 1e3
+        inside["events"] = (s, e)
+        return out
+
+    eng.apply_refresh = timed_refresh
+    reqs = [make_request(SL, cfg, cp.ids, N_UNROUTABLE + i)
+            for i in range(CONTROL_REQUESTS)]
+    pp = "productpage"
+    nxt, tick_ms, slot, reaped_at, onto_drained = 0, [], None, None, 0
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    while (nxt < len(reqs) or loop.n_queued or loop.inflight) \
+            and loop.ticks < 2000:
+        for r in reqs[nxt:nxt + ARRIVALS_PER_TICK]:
+            loop.submit(r)
+        nxt += ARRIVALS_PER_TICK
+        t0 = time.perf_counter()
+        if loop.ticks == CONTROL_COMMIT_TICK:
+            members = cp.cluster_members(pp)
+            load = loop.routing.ep_load.cpu()
+            _, drained = max(members, key=lambda m: int(load[m[0]]))
+            _, removed = next(m for m in members[len(members) // 2:]
+                              if m[1] != drained)
+            state0 = loop.state
+            tc = time.perf_counter()
+            with cp.transaction():
+                cp.drain_endpoint(pp, drained)
+                cp.remove_endpoint(pp, removed)
+                cp.add_endpoint(pp, CONTROL_ADD_LANE)
+            torch.cuda.synchronize()
+            commit_ms = (time.perf_counter() - tc) * 1e3
+            plan, commit_log = cp.last_plan, list(cp.last_commit_log)
+            slot = cp.endpoint_slot(pp, drained)
+            check(cp.version == 1 and int(loop.routing.version) == 1,
+                  f"control: version {cp.version} / "
+                  f"{int(loop.routing.version)} after one commit")
+            load_at_commit = int(loop.routing.ep_load[slot])
+            check(load_at_commit > 0,
+                  "control: the drained endpoint carried no load")
+        watch = slot is not None and reaped_at is None
+        before = loop.state.pool.active.clone() if watch else None
+        loop.tick()
+        if watch:
+            new = loop.state.pool.active & ~before
+            onto_drained += int((new & (loop.state.pool.endpoint == slot))
+                                .sum())
+            cp.reap()
+            if cp.endpoint_slot(pp, drained) < 0:
+                reaped_at = loop.ticks - 1
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in ("admit_commit", "complete",
+                                             "decode_attention")}
+    eng.apply_refresh = refresh
+
+    check(len(loop.done) == CONTROL_REQUESTS and not loop.dropped,
+          f"control: {len(loop.done)} of {CONTROL_REQUESTS} requests "
+          f"completed, {len(loop.dropped)} dropped")
+    check(onto_drained == 0, f"control: {onto_drained} admissions onto "
+          "the drained endpoint after the commit")
+    check(not bool(loop.routing.ep_load.any()), "control: ep_load not "
+          "back to zero")
+    check(not bool(loop.state.pool.active.any()), "control: pool not "
+          "drained")
+    check(reaped_at is not None and reaped_at > CONTROL_COMMIT_TICK
+          and ("reap", pp, drained) in cp.last_commit_log,
+          "control: the drained endpoint was not reaped on a later commit")
+    check(min(launches.values()) > 0,
+          f"control: kernels not launched: {launches}")
+    # the splice on the card against the same splice on the CPU
+    got = CT.apply_plan(state0.routing, plan)
+    want = CT.apply_plan(state0.routing.to("cpu"), plan)
+    err = max_abs_err(torch, [(f, getattr(got, f).cpu(), getattr(want, f))
+                              for f in RT.RoutingState._fields])
+    err = max(err, max_abs_err(torch, [(
+        "pool.endpoint",
+        CT.remap_endpoints(plan, state0.pool.endpoint).cpu(),
+        CT.remap_endpoints(plan, state0.pool.endpoint.cpu()))]))
+    # the splice alone, as the commit ran it
+    splice = lambda: refresh(state0, plan)
+    splice()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(SPLICE_REPS):
+        splice()
+    host_ms = (time.perf_counter() - t) * 1e3 / SPLICE_REPS
+    torch.cuda.synchronize()
+    events_ms = cuda_ms(torch, splice, reps=SPLICE_REPS)
+    device_ms = library_device_ms(torch, splice, reps=SPLICE_REPS)
+    s, e = inside["events"]
+    c = CONTROL_COMMIT_TICK
+    med = statistics.median(tick_ms[:c] + tick_ms[c + 1:])
+    return (f"control: {CONTROL_REQUESTS} requests through ServeLoop "
+            f"attached to the port's ControlPlane, {loop.ticks} ticks; at "
+            f"tick {c} one commit ({len(commit_log)} primitive writes) "
+            f"drained instance {drained} of {pp} with {load_at_commit} "
+            f"in flight, removed instance {removed} (swap-with-last) and "
+            f"added lane {CONTROL_ADD_LANE}: version 0 -> 1, "
+            f"{onto_drained} admissions onto the drained endpoint, reaped "
+            f"at tick {reaped_at} (version {cp.version}); every request "
+            f"completed, ep_load back to 0; apply_plan and "
+            f"remap_endpoints card vs CPU max_abs_err={err}; kernels: "
+            + " ".join(f"{k}={v}" for k, v in launches.items()),
+            f"control timing: commit host ms {commit_ms:.4f} (the "
+            f"transaction, the splice's issue and a synchronize); splice "
+            f"inside the commit: host ms {inside['host_ms']:.4f}, events "
+            f"ms {s.elapsed_time(e):.4f}; splice alone ({SPLICE_REPS} "
+            f"calls): host ms {host_ms:.4f} per call, events ms "
+            f"{events_ms:.4f}, device ms {device_ms:.5f} (profiler, every "
+            f"kernel and copy of one splice); the tick with the commit "
+            f"{tick_ms[c]:.4f} ms (host clock) vs the median tick "
+            f"{med:.4f} ms", launches)
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -1417,6 +1591,7 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.configs import XLB_SERVICE_MODEL as cfg
     from repro_torch.core import balancer as B
+    from repro_torch.core import control as CT
     from repro_torch.core import interpose, policies, request_map, router
     from repro_torch.core import policy_defs as PD
     from repro_torch.core import routing_table as RT
@@ -1464,6 +1639,10 @@ def main() -> int:
     print(line)
     for line in phase_engines(torch, RT, TM, B, SL, cfg):
         print(line)
+    line, ctiming, control_launches = phase_control(
+        torch, RT, CT, TM, interpose, SL, ops, cfg)
+    print(line)
+    print(ctiming)
     llm_launches, prefill_kernels = {}, {}
     for arch in ("minitron-4b", "mamba2-2.7b"):
         line, got, names = phase_llm(torch, ops, TM, PDL, get_config(arch))
@@ -1479,7 +1658,8 @@ def main() -> int:
           + " (admit_commit, complete and decode_attention[xlb] on the main "
           "path; route_match, relay_slots and admit in the staged phase; "
           "flash_attention and decode_attention in minitron-4b's, ssd_scan "
-          "in mamba2-2.7b's)")
+          "in mamba2-2.7b's); in the control phase: " + " ".join(
+              f"{k}={v}" for k, v in control_launches.items()))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {"admit_commit": (src + "admit.cu",
@@ -1543,6 +1723,12 @@ def main() -> int:
               f"policies; before the redesign: {ADMIT_BEFORE_MS[name]}), "
               f"bound ms {bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, "
               f"call ms {t['call_ms']}, on {gpu}")
+    for R in (ADMIT_R, 4096):
+        t = timing["route_match" if R == ADMIT_R else f"route_match[R={R}]"]
+        print(f"route redesign: B4 route_match[R={R}] device ms {t['ms']} "
+              f"(before the redesign: {ROUTE_BEFORE_MS[R]}), bound ms "
+              f"{bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, call ms "
+              f"{t['call_ms']}, on {gpu}")
     t = timing["complete"]
     print(f"complete redesign: B1 complete device ms {t['ms']} at the "
           f"serving shape ({I_LANES} x {SLOTS} cells; before the redesign: "

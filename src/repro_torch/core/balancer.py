@@ -64,6 +64,11 @@ class Balancer(Protocol):
         """The live RoutingState this engine's datapath reads."""
         ...
 
+    def apply_refresh(self, state, plan) -> Any:
+        """Splice a committed control-plane transaction (a
+        ``control.RefreshPlan``) into the live engine state."""
+        ...
+
 
 ENGINE_KINDS = ("xlb", "istio", "cilium")
 

@@ -24,7 +24,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import policies
+from repro_torch.core import control, policies
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.core.routing_table import FlowMetrics, RoutingState
 from repro_torch.device import resolve_device
@@ -143,5 +143,20 @@ class Engine:
 
         return serve_step
 
+    # ------------------------------------------------------------------ #
+    # control-plane seam (Balancer protocol)
+    # ------------------------------------------------------------------ #
     def get_routing(self, state: EngineState) -> RoutingState:
         return state.routing
+
+    def apply_refresh(self, state: EngineState,
+                      plan: control.RefreshPlan) -> EngineState:
+        """Splice a committed transaction into the live state: one buffer
+        swap of the tables (load counters migrate through the slot
+        permutation) and a remap of the pool's endpoint references, so an
+        in-flight connection releases its endpoint's new slot, never a
+        new occupant of its old one."""
+        routing = control.apply_plan(state.routing, plan)
+        pool = state.pool._replace(
+            endpoint=control.remap_endpoints(plan, state.pool.endpoint))
+        return state._replace(routing=routing, pool=pool)

@@ -182,6 +182,15 @@ def build_maglev_table(ep_start, ep_count, ep_instance, ep_drained,
     return tab
 
 
+def maglev_row_inputs(cfg: dict, c: int) -> tuple:
+    """The exact inputs one cluster's table row depends on: the control
+    plane diffs them across a transaction to rebuild only dirty rows."""
+    s = int(cfg["cluster_ep_start"][c])
+    n = int(cfg["cluster_ep_count"][c])
+    return (n, tuple(np.asarray(cfg["ep_instance"][s:s + n]).tolist()),
+            tuple(np.asarray(cfg["ep_drained"][s:s + n]).tolist()))
+
+
 # --------------------------------------------------------------------------- #
 # Kernel hooks (plain PyTorch over one tile)
 # --------------------------------------------------------------------------- #

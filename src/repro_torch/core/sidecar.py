@@ -18,8 +18,8 @@ Routing, balancing, slot allocation and all bookkeeping stay host numpy
 (``HostRouter`` with its own ``np.random.RandomState``): that is what the
 baselines measure, so none of it is moved to the device.  The decode runs
 the port's ``models.decode_step`` on the engine's device (the card unless
-``device="cpu"``).  Control-plane refreshes (``apply_refresh``) are not
-ported yet.
+``device="cpu"``).  A control-plane refresh (``apply_refresh``) runs the
+same splice as the XLB engine on CPU tensors over the host tables.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import policy_defs
+from repro_torch.core import control, policy_defs
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.core.routing_table import (MAX_SERVICES, FlowMetrics,
                                             RoutingState)
@@ -47,11 +47,16 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 class HostRouter:
     """The user-space LB logic of the proxy (numpy, per-request Python):
-    the proxy's routing tables as host numpy arrays."""
+    the proxy's routing tables as host numpy arrays.  ``refresh`` adopts
+    a new routing state (the caller migrates the mutable state through
+    the plan first)."""
 
     def __init__(self, routing: RoutingState, seed: int = 0):
         self.t = RoutingState(*[_host(a) for a in routing])
         self.rng = np.random.RandomState(seed)
+
+    def refresh(self, routing: RoutingState) -> None:
+        self.t = RoutingState(*[_host(a) for a in routing])
 
     def match(self, svc: int, features: np.ndarray) -> int:
         t = self.t
@@ -257,8 +262,23 @@ class SidecarEngine:
 
         return serve_step
 
+    # ------------------------------------------------------------------ #
+    # control-plane seam (Balancer protocol)
+    # ------------------------------------------------------------------ #
     def get_routing(self, state: SidecarState) -> RoutingState:
         return state.router.t
+
+    def apply_refresh(self, state: SidecarState,
+                      plan: control.RefreshPlan) -> SidecarState:
+        """Adopt a committed transaction: the XLB engine's splice on CPU
+        tensors over the router's tables, then the host pool's endpoint
+        references remapped in place."""
+        live = RoutingState(*[torch.from_numpy(np.asarray(a))
+                              for a in state.router.t])
+        state.router.refresh(control.apply_plan(live, plan))
+        pe = state.pool.endpoint
+        pe[...] = control.remap_endpoints(plan, torch.from_numpy(pe)).numpy()
+        return state
 
 
 @dataclasses.dataclass

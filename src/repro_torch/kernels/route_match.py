@@ -384,8 +384,9 @@ def route_match(svc, features, state) -> tuple[torch.Tensor, torch.Tensor]:
 
 def route_match_cuda(svc, features, state):
     """Launch ``csrc/route.cu`` on the tensors' CUDA device; same contract
-    and result as ``route_match``.  Raises if the library cannot be built
-    or the launch fails.  The caller skips empty batches."""
+    and result as ``route_match``.  The two outputs are the rows of one
+    (2, R) int32 allocation.  Raises if the library cannot be built or the
+    launch fails.  The caller skips empty batches."""
     R, F = features.shape
     if R == 0 or svc.shape != (R,):
         raise ValueError(f"svc must be ({R},) and R > 0")
@@ -395,13 +396,12 @@ def route_match_cuda(svc, features, state):
     _build.check_device(dev, *x, *tabs)
     lib = _build.library(dev)
     rs, rc, rf, rv, rcl, cs, cc, load = tabs
-    cluster = torch.empty((R,), dtype=torch.int32, device=dev)
-    ep = torch.empty((R,), dtype=torch.int32, device=dev)
+    S, NR, CL, E = rs.shape[0], rf.shape[0], cs.shape[0], load.shape[0]
+    out = torch.empty((2, R), dtype=torch.int32, device=dev)
     p = _build.ptr
     err = lib.xlb_route(p(x[0]), p(x[1]), R, F,
-                        p(rs), p(rc), p(rf), p(rv), p(rcl), rs.shape[0],
-                        rf.shape[0], p(cs), p(cc), cs.shape[0],
-                        p(load), load.shape[0], p(cluster), p(ep),
-                        _build.stream(dev))
+                        p(rs), p(rc), p(rf), p(rv), p(rcl), S, NR,
+                        p(cs), p(cc), CL, p(load), E,
+                        p(out), p(out) + 4 * R, _build.stream(dev))
     _build.check(err, "route_match")
-    return cluster, ep
+    return out[0], out[1]

@@ -5,7 +5,7 @@ xlb|istio|cilium --policy least_request --instances 4 --slots 4
 Boots the chosen engine (XLB or one of the sidecar baselines) with the
 full-width ``xlb-service-model`` (random weights from a seed), one
 service routed to one cluster over the instances under the chosen
-policy, and drives a synthetic request stream through the
+policy, built by a ``ControlPlane`` that the loop attaches to, and drives a synthetic request stream through the
 continuous-batching loop.  Runs on the card unless ``--device cpu`` is
 given.
 """
@@ -20,8 +20,9 @@ import torch
 
 from repro_torch.configs import XLB_SERVICE_MODEL
 from repro_torch.core.balancer import ENGINE_KINDS, make_balancer
+from repro_torch.core.control import ControlPlane
 from repro_torch.core.routing_table import (POLICY_NAMES, Cluster, Rule,
-                                            ServiceConfig, build_state)
+                                            ServiceConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.runtime.serve_loop import Request, ServeLoop
@@ -44,14 +45,13 @@ def main(argv=None) -> int:
     cfg = XLB_SERVICE_MODEL
     params = M.init_params(cfg, torch.Generator().manual_seed(0),
                            dtype=torch.float32, device=device)
-    routing, _ = build_state(
+    cp = ControlPlane(
         [ServiceConfig("svc", rules=[Rule(0, None, "pool")])],
         [Cluster("pool", endpoints=list(range(args.instances)),
-                 policy=POLICY_NAMES[args.policy])], device)
+                 policy=POLICY_NAMES[args.policy])])
     eng = make_balancer(args.engine, cfg, args.instances, args.slots,
                         args.max_len, device=device)
-    loop = ServeLoop(eng, params, routing, admit_batch=8,
-                     dtype=torch.float32)
+    loop = ServeLoop(eng, params, cp, admit_batch=8, dtype=torch.float32)
 
     t0 = time.perf_counter()
     for i in range(args.requests):

@@ -6,6 +6,11 @@ queues requests; routing, balancing, slot allocation and decode run on the
 engine's device.  Per tick the host uploads one admission batch and
 downloads one packed tensor (emitted tokens, done flags, serviced ids and
 the active count); the sidecar baselines hand those back as host numpy.
+
+A loop built on a ``ControlPlane`` boots from its snapshot, attaches as a
+consumer (every commit is spliced into the live engine state through
+``apply_refresh``) and heartbeats its lease once a tick.  Fault injection
+and the ``XLB_SANITIZE`` loop law of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import control
 from repro_torch.core.balancer import Balancer, RequestBatch
 from repro_torch.core.routing_table import N_FEATURES, RoutingState, fnv1a
 from repro_torch.device import resolve_device
@@ -66,7 +72,8 @@ class ServeLoop:
     """Continuous batching driver for one service fleet, on the balancer's
     device (the engine's default is the card)."""
 
-    def __init__(self, balancer: Balancer, params, routing: RoutingState,
+    def __init__(self, balancer: Balancer, params,
+                 routing: RoutingState | control.ControlPlane,
                  admit_batch: int = 8, dtype=torch.float32,
                  max_retries: int = 64, backoff_base: int = 1,
                  backoff_cap: int = 16, backoff_seed: int = 0):
@@ -74,6 +81,11 @@ class ServeLoop:
         self.balancer = balancer
         self.params = params
         self.admit_batch = admit_batch
+        self.cp = None
+        if isinstance(routing, control.ControlPlane):
+            cp, routing = routing, routing.snapshot()
+            cp.attach(self)
+            self.cp = cp
         self.state = balancer.init_state(routing, dtype=dtype)
         self.serve_step = balancer.make_jitted(donate=False)
         self.queue: collections.deque[Request] = collections.deque()
@@ -92,11 +104,20 @@ class ServeLoop:
         self.ticks = 0
         self.submitted = 0
 
+    # ------------------------------------------------------------------ #
+    # control-plane seam
+    # ------------------------------------------------------------------ #
     @property
     def routing(self) -> RoutingState:
         """The live routing tables the engine is reading right now."""
         return self.balancer.get_routing(self.state)
 
+    def apply_refresh(self, plan: control.RefreshPlan) -> None:
+        """ControlPlane consumer hook: splice a committed transaction into
+        the live engine state (same datapath, new tables)."""
+        self.state = self.balancer.apply_refresh(self.state, plan)
+
+    # ------------------------------------------------------------------ #
     @property
     def n_queued(self) -> int:
         """Everything still at the ingress: ready queue + backoff set.
@@ -168,6 +189,8 @@ class ServeLoop:
 
     def tick(self) -> dict:
         """One engine step: admit waiting requests + decode every lane."""
+        if self.cp is not None:
+            self.cp.heartbeat(self)          # liveness lease
         self._release_matured()
         reqs, taken = self._next_admission()
         self.state, out = self.serve_step(self.params, self.state, reqs)

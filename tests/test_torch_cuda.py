@@ -262,7 +262,7 @@ def test_complete_kernel_matches_plain_at_the_edges(dev, case):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("R", [256, 4096, 1])
+@pytest.mark.parametrize("R", [256, 4096, 1, 31, 255, 257])
 def test_route_match_kernel_matches_plain(dev, R):
     routing = _routing(dev, R)
     reqs, _, _ = _batch(R, R + 2, dev)
@@ -274,6 +274,68 @@ def test_route_match_kernel_matches_plain(dev, R):
     p = route_match.route_match(svc, reqs.features, routing)
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+def _route_edge(routing, case):
+    """``routing`` with one of B4's edges planted."""
+    if case == "rule_field":            # -1 wraps to column 7; 9, -9 read
+        rf = routing.rule_field.clone()  # INT_MIN and never match
+        rf[[0, 2, 4, 6]] = torch.tensor([-1, 9, -9, 7], dtype=torch.int32,
+                                        device=rf.device)
+        return routing._replace(rule_field=rf)
+    if case == "empty_clusters":
+        cc = routing.cluster_ep_count.clone()
+        cc[1::2] = 0
+        return routing._replace(cluster_ep_count=cc)
+    load = routing.ep_load.clone()
+    if case == "equal_loads":           # every lane ties: the first wins
+        load[:] = 3
+    elif case == "big_loads":           # in-window loads at and past BIG
+        load[:] = 2**30
+        load[::7] = 2**30 + 5
+    elif case == "negative_load":       # a corrupt table: signed compares
+        load[[5, 40, 41]] = torch.tensor([-4, -2**31, -7], dtype=torch.int32,
+                                         device=load.device)
+    return routing._replace(ep_load=load)
+
+
+def _pad_windows(routing, rows):
+    """``routing`` with its service and cluster window tables grown to
+    ``rows`` rows (empty windows): past the 64 rows the route kernel holds
+    in registers, so it reads them from memory."""
+    grow = lambda t: torch.cat([t, t.new_zeros(rows - t.shape[0])])
+    return routing._replace(
+        svc_rule_start=grow(routing.svc_rule_start),
+        svc_rule_count=grow(routing.svc_rule_count),
+        cluster_ep_start=grow(routing.cluster_ep_start),
+        cluster_ep_count=grow(routing.cluster_ep_count))
+
+
+@pytest.mark.parametrize("rows", [64, 100])
+@pytest.mark.parametrize("case", ["rule_field", "empty_clusters",
+                                  "equal_loads", "big_loads",
+                                  "negative_load"])
+def test_route_match_kernel_matches_plain_at_the_edges(dev, case, rows):
+    """B4 at its edges, with the service and cluster windows held in
+    registers (64 rows) and read from memory (100 rows): rogue and
+    negative svc, feature columns wrapping or out of range, empty
+    clusters, tied loads, loads at BIG and negative loads."""
+    for R in (1, 31, 257):
+        routing = _pad_windows(_route_edge(_routing(dev, R), case), rows)
+        reqs, _, _ = _batch(R, R + 5, dev)
+        svc = reqs.svc.clone()
+        svc[::17] = 170                 # clamps to the last service
+        svc[::13] = -3
+        feats = reqs.features.clone()
+        feats[::2, 7] = RT.fnv1a("v2")
+        n0 = ops.LAUNCHES["route_match"]
+        k = ops.route_match(svc, feats, routing)
+        assert ops.LAUNCHES["route_match"] == n0 + 1
+        p = route_match.route_match(svc, feats, routing)
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), (case, R)
+        assert bool((p[0] >= 0).any())
     torch.cuda.synchronize()
 
 
@@ -503,3 +565,98 @@ def test_prefill_decode_smoke_configs_on_the_card(dev, arch):
         assert runs["ssd_scan"] == 2                # 2 layers, one prefill
     else:
         assert runs["flash_attention"] == 2 and runs["decode_attention"] == 8
+
+
+def _control_plane():
+    from repro_torch.core.control import ControlPlane
+    return ControlPlane(
+        [RT.ServiceConfig("svc", rules=[RT.Rule(0, None, "pool")]),
+         RT.ServiceConfig("hashed", rules=[RT.Rule(0, None, "ring")])],
+        [RT.Cluster("pool", [0, 1, 2, 3], policy=RT.POLICY_LEAST_REQUEST),
+         RT.Cluster("ring", [4, 5, 6], policy=RT.POLICY_AFFINITY)])
+
+
+def test_apply_plan_on_the_card_matches_the_cpu(dev):
+    """The splice and the pool remap on CUDA state against the same calls
+    on CPU copies, bit for bit, with warm loads, EWMAs and affinity."""
+    from repro_torch.core import control
+    cp = _control_plane()
+    rng = np.random.RandomState(0)
+    live = cp.snapshot()
+    E, A = live.ep_load.shape[0], live.aff_key.shape[0]
+    t = torch.from_numpy
+    live = live._replace(
+        ep_load=t(rng.randint(0, 9, E).astype(np.int32)),
+        ep_inflight_ewma=t(rng.rand(E).astype(np.float32)),
+        ep_tput_ewma=t(rng.rand(E).astype(np.float32)),
+        rr_cursor=t(rng.randint(0, 50, live.rr_cursor.shape[0])
+                    .astype(np.int32)),
+        aff_key=t(np.where(rng.rand(A) < 0.5, rng.randint(0, 1 << 30, A),
+                           -1).astype(np.int32)),
+        aff_ep=t(np.where(rng.rand(A) < 0.5, rng.randint(0, 8, A),
+                          -1).astype(np.int32)))
+    with cp.transaction():
+        cp.drain_endpoint("pool", 1)
+        cp.remove_endpoint("pool", 0)          # swap-with-last
+        cp.add_endpoint("pool", instance=7)
+        cp.drain_endpoint("ring", 5)
+    for plan in (cp.last_plan, cp.last_plan._replace(version=-1)):
+        want = control.apply_plan(live, plan)
+        got = control.apply_plan(live.to(dev), plan)
+        assert got.ep_load.device.type == "cuda"
+        for f in RT.RoutingState._fields:
+            a, b = getattr(got, f).cpu(), getattr(want, f)
+            assert a.dtype == b.dtype and torch.equal(a, b), f
+    ep = t(rng.randint(-1, 12, (64, 16)).astype(np.int32))
+    got = control.remap_endpoints(cp.last_plan, ep.to(dev))
+    assert torch.equal(got.cpu(), control.remap_endpoints(cp.last_plan, ep))
+
+
+def test_serve_loop_drains_across_a_mid_drain_commit_on_the_card(dev):
+    """ServeLoop over the XLB engine on the card, attached to a
+    ControlPlane: a commit mid-drain (drain a loaded endpoint, remove one,
+    add one) bumps the version once, no later admission lands on the
+    drained endpoint, every request completes, the loads return to zero
+    and the drained endpoint is reaped on a later commit."""
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core.interpose import Engine
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serve_loop import Request, ServeLoop
+    cp = _control_plane()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, dev)
+    loop = ServeLoop(Engine(cfg, 8, 4, 8, eos=-1, device=dev), params, cp,
+                     admit_batch=8)
+    for i in range(64):
+        loop.submit(Request(req_id=i, service=i % 2,
+                            headers={"user": f"u{i % 9}"},
+                            prompt_token=3 + i))
+    for _ in range(3):
+        loop.tick()
+    slot = cp.endpoint_slot("pool", 2)
+    loaded = int(loop.routing.ep_load[slot])
+    assert loaded > 0
+    held = int(((loop.state.pool.endpoint == slot)
+                & loop.state.pool.active).sum())
+    with cp.transaction():
+        cp.drain_endpoint("pool", 2)
+        cp.remove_endpoint("pool", 0)
+        cp.add_endpoint("pool", instance=7)
+    assert cp.version == 1 and int(loop.routing.version) == 1
+    slot = cp.endpoint_slot("pool", 2)
+    admitted_after = 0
+    while loop.queue or loop._waiting or loop.inflight:
+        before = loop.state.pool.active.clone()
+        loop.tick()
+        new = loop.state.pool.active & ~before
+        if cp.endpoint_slot("pool", 2) == slot:     # not reaped yet
+            admitted_after += int(
+                (new & (loop.state.pool.endpoint == slot)).sum())
+            cp.reap()
+        assert loop.ticks < 400
+    assert admitted_after == 0 and held == loaded, (admitted_after, held, loaded)
+    assert cp.endpoint_slot("pool", 2) < 0 and cp.version >= 2
+    assert ("reap", "pool", 2) in cp.last_commit_log or cp.version > 2
+    assert len(loop.done) == 64
+    assert not bool(loop.routing.ep_load.any())
+    torch.cuda.synchronize()

@@ -8,9 +8,11 @@
 - ``--kernel complete``: the completion kernel B1 (``ops.complete``) over
   the 64 x 16 pool with warm EWMAs;
 - ``--kernel relay``: the relay kernel B5 (``ops.relay_slots``) at each of
-  ``chip_smoke.RELAY_SHAPES``.
+  ``chip_smoke.RELAY_SHAPES``;
+- ``--kernel route``: the route kernel B4 (``ops.route_match``) at R = 256
+  and 4096 over the serving routing state.
 
-    python3 tools/admit_timing.py [--kernel admit|complete|relay]
+    python3 tools/admit_timing.py [--kernel admit|complete|relay|route]
                                   [--src DIR] [--reps N]
 
 ``--src`` names the ``src`` directory of the port to time (default: this
@@ -70,8 +72,23 @@ def relay_calls(torch, CS, dev):
     return calls
 
 
+def route_calls(torch, CS, dev):
+    from repro_torch.core import routing_table as RT
+    from repro_torch.kernels import ops
+    routing0, _ = CS.routing_config(RT, "cpu")
+    calls = {}
+    for R in (CS.ADMIT_R, 4096):
+        routing, reqs, _, _, _ = CS.admit_inputs(
+            torch, RT, routing0, R, CS.I_LANES, CS.SLOTS, seed=R + 1,
+            dev=dev)
+        calls[f"route_match[R={R}]"] = (
+            lambda svc=reqs[1], feats=reqs[2], routing=routing:
+            ops.route_match(svc, feats, routing), "route_kernel")
+    return calls
+
+
 KERNELS = {"admit": admit_calls, "complete": complete_calls,
-           "relay": relay_calls}
+           "relay": relay_calls, "route": route_calls}
 
 
 def main() -> int:
