@@ -32,7 +32,24 @@ Phases (each prints one line; any failure exits non-zero):
    loaded endpoint of productpage, remove one by swap-with-last, add one),
    with the version, the drained endpoint's admissions and reap, the
    loads and the splice on the card against the CPU checked, and the
-   commit, the splice and the tick that carried it timed;
+   commit, the splice and the tick that carried it timed; then the
+   fault-tolerant serving loop, each scenario run on the card and again
+   on the CPU, where it must give the same result:
+   - degraded: productpage over all 64 lanes, one lane 10x slow for 180
+     ticks, the health daemon (``core/health.py``) epochs on the EWMAs the
+     completion kernel keeps; the lane is ejected inside the fault, re-
+     admitted after it, ends closed at weight 1 with no operator
+     transaction, every request completes; the same eject and re-admit
+     ticks, commit logs and bit-exact EWMAs on the CPU;
+   - chaos: ``ServeLoop`` attached through a ``RemoteConsumer`` on a lossy
+     channel with a partition, a crashed and restarted replica, the
+     operator's canary / drain / set_weight / canary / undrain and a slow
+     lane; the consumers converge, the replica resyncs once, every request
+     completes; the same channel stats, histories and chaos row on the CPU;
+   - sanitizer: the main path's traffic with ``XLB_SANITIZE=1`` (every
+     admit and complete guard and the loop law on the card), no law fires
+     and the state equals the plain run's; a planted off-by-one release
+     must raise naming its law;
 6. the model stack at full width and depth in bf16, with weights from a
    CUDA generator: minitron-4b (prefill through ``flash_attention``,
    decode through ``decode_attention``) and mamba2-2.7b (prefill through
@@ -48,9 +65,10 @@ Phases (each prints one line; any failure exits non-zero):
    attention or SSD call through its kernel; then prefill and one decode
    step of each on the card against the CPU (f32, rtol = atol = 1e-4);
 8. the kernel launch counts: ``admit_commit``, ``complete`` and
-   ``decode_attention`` on the main path, ``route_match``, ``relay_slots``
-   and ``admit`` in the staged phase, ``flash_attention``,
-   ``decode_attention`` and ``ssd_scan`` in the model phases.
+   ``decode_attention`` on the main path (and in each serving phase after
+   it), ``route_match``, ``relay_slots`` and ``admit`` in the staged
+   phase, ``flash_attention``, ``decode_attention`` and ``ssd_scan`` in
+   the model phases.
 
 Phase 2 also holds the float kernels against their plain versions at the
 paths' shapes (decode attention at minitron-4b's and the serving model's,
@@ -145,6 +163,22 @@ SPLICE_REPS = 50
 RELAY_SHAPES = ((256, 65), (256, 513), (4096, 65), (1000, 65), (4096, 1))
 # the launcher's reduced configs on the card: batch, prompt, decode steps
 SMOKE_BATCH, SMOKE_PROMPT, SMOKE_STEPS = 2, 64, 4
+# the degraded phase: arrivals a tick (about half of what the main path's
+# ARRIVALS_PER_TICK saturate), ticks of arrivals, the fault window of the
+# slow lane and its slowdown, ticks between health epochs.  An epoch is
+# longer than one request (about MAX_LEN ticks): the half-open probe of a
+# least-request cluster takes a burst of new connections, and an epoch
+# that ends before they can complete reads the probe as sick (with 6-tick
+# epochs it is ejected again one epoch after it opens, and never closes;
+# the phase runs that schedule too and prints it)
+DEG_ARRIVALS, DEG_TICKS, DEG_FAULT = 16, 396, (60, 240)
+DEG_FACTOR, DEG_EPOCH, DEG_SHORT_EPOCH = 10, 36, 6
+# the chaos phase: the reference chaos leg's seed and its 170 ticks of
+# schedule, with its two tokens a request (max_len 3), so that its
+# windows (healthy before tick 20, recovered from 110) hold completions
+CHAOS_SEED, CHAOS_TICKS, CHAOS_MAX_LEN = 23, 170, 3
+# the sanitizer phase: ticks of the main path's traffic, plain and sanitized
+SAN_TICKS = 40
 
 
 def fail(msg: str) -> None:
@@ -1575,7 +1609,440 @@ def phase_control(torch, RT, CT, TM, interpose, SL, ops, cfg, dev="cuda"):
             f"{events_ms:.4f}, device ms {device_ms:.5f} (profiler, every "
             f"kernel and copy of one splice); the tick with the commit "
             f"{tick_ms[c]:.4f} ms (host clock) vs the median tick "
-            f"{med:.4f} ms", launches)
+            f"{med:.4f} ms", launches, med)
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: the fault-tolerant serving loop (degraded, chaos, sanitizer)
+# --------------------------------------------------------------------------- #
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_draws(torch, policies, dev, seed: int):
+    """An engine's policy draws made by a seeded CPU generator and moved to
+    ``dev``: the card run and the CPU run of a phase draw the same bits."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def draws(R):
+        rnd, gum = policies.draws(gen, R)
+        return rnd.to(dev, non_blocking=True), gum.to(dev, non_blocking=True)
+    return draws
+
+
+def p99_window(W, done, lo, hi, since="admit_tick") -> float:
+    """p99 of done_tick - ``since`` (ticks) over the requests done in
+    [lo, hi): admit_to_done by default, submit_to_done with
+    ``since="submit_tick"``."""
+    return W.percentiles([r.done_tick - getattr(r, since) for r in done
+                          if lo <= r.done_tick < hi])["p99"]
+
+
+def degraded_run(torch, RT, CT, TM, interpose, SL, H, W, policies, ops, cfg,
+                 dev, epoch=DEG_EPOCH):
+    """One run of the degraded scenario on ``dev``: productpage scaled to
+    the lane count (one least-request cluster of all I_LANES lanes),
+    DEG_ARRIVALS requests a tick, lane I_LANES - 1 DEG_FACTOR x slower
+    over DEG_FAULT, a HealthPolicy epoch every ``epoch`` ticks with the
+    cooldown sized so that the half-open probe lands after the fault
+    clears; then a drain."""
+    dev = torch.device(dev)
+    pp, sick = "productpage", I_LANES - 1
+    cp = CT.ControlPlane([RT.ServiceConfig(pp, [RT.Rule(0, None, pp)])],
+                         [RT.Cluster(pp, list(range(I_LANES)),
+                                     policy=RT.POLICY_LEAST_REQUEST)])
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, eos=-1, device=dev)
+    eng.draws = host_draws(torch, policies, dev, 1)
+    f0, f1 = DEG_FAULT
+    loop = SL.ServeLoop(eng, params, cp, admit_batch=ADMIT_R,
+                        dtype=torch.float32, backoff_cap=4,
+                        fault=SL.FaultInjector([SL.Fault(
+                            sick, "slow", factor=DEG_FACTOR, start=f0,
+                            end=f1)]))
+    pol = H.HealthPolicy(cp, H.HealthConfig(
+        trip_after=2, cooldown=(f1 - f0) // epoch, recover_after=2,
+        probe_patience=10), clusters=[pp])
+    rid, eject, uneject = 0, None, None
+    ewmas, logs, tick_ms, epoch_ms, commit_ms = [], [], [], [], []
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    sync(torch, dev)
+    for t in range(DEG_TICKS):
+        for _ in range(DEG_ARRIVALS):
+            loop.submit(SL.Request(req_id=rid, service=0,
+                                   headers={"user": f"user{rid % 997}"},
+                                   prompt_token=3 + rid % (cfg.vocab - 3)))
+            rid += 1
+        t0 = time.perf_counter()
+        loop.tick()
+        t1 = time.perf_counter()
+        tick_ms.append((t1 - t0) * 1e3)
+        if (t + 1) % epoch:
+            continue
+        acts = pol.epoch(loop.routing)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t1) * 1e3
+        if acts:                            # (epoch ms, the tick before)
+            commit_ms.append((ms, tick_ms[-1]))
+            logs.append((t, list(cp.last_commit_log)))
+        else:
+            epoch_ms.append(ms)
+        ewmas.append(torch.stack([loop.routing.ep_inflight_ewma,
+                                  loop.routing.ep_tput_ewma]).cpu()
+                     .view(torch.int32).numpy())
+        st = pol.state_of(pp, sick)
+        if st == H.OPEN and eject is None:
+            eject = t
+        if eject is not None and uneject is None and st == H.CLOSED:
+            uneject = t
+    rep = loop.drain(max_ticks=2000)
+    sync(torch, dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("admit_commit", "complete",
+                                             "decode_attention")}
+    slot = cp.endpoint_slot(pp, sick)
+    lat = loop.latency_samples()
+    return {"eject": eject, "uneject": uneject, "commits": pol.commits,
+            "version": cp.version, "events": pol.events, "logs": logs,
+            "ewmas": ewmas, "state": pol.state_of(pp, sick),
+            "weight": cp.endpoint_weight(pp, sick),
+            "drained": int(cp.snapshot().ep_drained[slot]),
+            "submitted": rid, "done": len(rep.done),
+            "dropped": len(rep.dropped), "stranded": rep.queued
+            + rep.inflight, "load": int(loop.routing.ep_load.abs().sum()),
+            "samples": {k: v.tolist() for k, v in lat.items()},
+            "p99": [p99_window(W, rep.done, MAX_LEN, f0),
+                    p99_window(W, rep.done, f0, f1),
+                    p99_window(W, rep.done, uneject or f1, loop.ticks)],
+            "ticks": loop.ticks, "launches": launches, "tick_ms": tick_ms,
+            "epoch_ms": epoch_ms, "commit_ms": commit_ms}
+
+
+def phase_degraded(torch, RT, CT, TM, interpose, SL, H, W, policies, ops,
+                   cfg, dev="cuda"):
+    """The degraded scenario on the card, checked, then the same on the
+    CPU: the same eject and re-admit ticks, commits and commit logs, and
+    the EWMAs bit-exact at every epoch."""
+    args = (torch, RT, CT, TM, interpose, SL, H, W, policies, ops, cfg)
+    card = degraded_run(*args, dev)
+    f0, f1 = DEG_FAULT
+    check(card["eject"] is not None and f0 < card["eject"] < f1,
+          f"degraded: ejected at {card['eject']}, not inside {DEG_FAULT}")
+    check(card["uneject"] is not None and card["uneject"] > f1,
+          f"degraded: re-admitted at {card['uneject']}, not after {f1}")
+    check((card["state"], card["weight"], card["drained"])
+          == (H.CLOSED, 1.0, 0),
+          f"degraded: the sick lane ends {card['state']}, weight "
+          f"{card['weight']}, drained bit {card['drained']}")
+    check(card["version"] == card["commits"] > 0,
+          f"degraded: version {card['version']} != daemon commits "
+          f"{card['commits']}")
+    check(card["done"] == card["submitted"] and not card["dropped"]
+          and not card["stranded"] and card["load"] == 0,
+          f"degraded: {card['done']} of {card['submitted']} completed, "
+          f"{card['dropped']} dropped, {card['stranded']} stranded, "
+          f"load {card['load']}")
+    check(min(card["launches"].values()) > 0,
+          f"degraded: kernels not launched: {card['launches']}")
+    short = degraded_run(*args, dev, epoch=DEG_SHORT_EPOCH)
+    cpu = degraded_run(*args, "cpu")
+    for k in ("eject", "uneject", "commits", "version", "events", "logs",
+              "samples", "done"):
+        check(card[k] == cpu[k], f"degraded: {k} differs between the card "
+              "and the CPU")
+    check(len(card["ewmas"]) == len(cpu["ewmas"]) and all(
+        (a == b).all() for a, b in zip(card["ewmas"], cpu["ewmas"])),
+        "degraded: the EWMAs differ between the card and the CPU")
+    med = statistics.median(card["tick_ms"])
+    commit = ", ".join(f"{e:.4f} + tick {t:.4f}"
+                       for e, t in card["commit_ms"])
+    acts = lambda run, epoch: ", ".join(
+        f"{e[1]} at tick {e[0] * epoch - 1}" for e in run["events"])
+    return (f"degraded: productpage over {I_LANES} lanes x {SLOTS} slots, "
+            f"{DEG_ARRIVALS} arrivals/tick, lane {I_LANES - 1} "
+            f"{DEG_FACTOR}x slow over ticks {f0}-{f1}, an epoch every "
+            f"{DEG_EPOCH} ticks (cooldown {(f1 - f0) // DEG_EPOCH}): ejected at tick {card['eject']}, "
+            f"re-admitted at {card['uneject']}; {card['commits']} daemon "
+            f"commits = version {card['version']} (0 operator); "
+            f"{card['done']} of {card['submitted']} completed in "
+            f"{card['ticks']} ticks, ep_load back to 0; p99 admit_to_done "
+            f"healthy / degraded / recovered "
+            + " / ".join(str(p) for p in card["p99"]) + " ticks (daemon: "
+            + acts(card, DEG_EPOCH) + f"; with {DEG_SHORT_EPOCH}-tick "
+            f"epochs on the card: " + acts(short, DEG_SHORT_EPOCH)
+            + f", ending {short['state']}); card = "
+            f"CPU on eject, re-admit, commits, commit logs, latency samples "
+            f"and the EWMAs bit-exact at all {len(card['ewmas'])} epochs; "
+            "kernels: " + " ".join(f"{k}={v}" for k, v in
+                                   card["launches"].items()),
+            f"degraded timing: an epoch without a commit host ms "
+            f"{statistics.median(card['epoch_ms']):.4f} (median of "
+            f"{len(card['epoch_ms'])}: one EWMA read, the breakers); with "
+            f"its commit (host ms, epoch + the tick before): {commit}; "
+            f"median tick {med:.4f} ms", card["launches"])
+
+
+def chaos_run(torch, RT, CT, TM, interpose, SL, TR, W, policies, ops, cfg,
+              dev, times=None):
+    """One run of the chaos scenario on ``dev``: ServeLoop attached through
+    a RemoteConsumer on a lossy channel (the reference chaos leg's
+    settings, its arrival rate and request count scaled from 4 lanes to
+    I_LANES), a WEIGHTED cluster of all lanes, the operator schedule, a
+    slow lane, a replica crashed and restarted; then a flush."""
+    dev = torch.device(dev)
+    sick, scale = I_LANES - 1, I_LANES // 4
+    cp = CT.ControlPlane([RT.ServiceConfig("svc", [RT.Rule(0, None, "pool")])],
+                         [RT.Cluster("pool", list(range(I_LANES)),
+                                     policy=RT.POLICY_WEIGHTED)],
+                         lease_epochs=3)
+    seed = CHAOS_SEED
+    chan = TR.LossyChannel(seed=seed, p_drop=0.15, p_dup=0.10, delay_min=1,
+                           delay_max=4,
+                           faults=[TR.ChannelFault(22, 58, dst="ingress-0")])
+    hub = TR.Transport(cp, chan, retry_base=1, retry_cap=8, seed=seed + 1)
+    rc = hub.consumer("ingress-0")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    eng = interpose.Engine(cfg, I_LANES, SLOTS, CHAOS_MAX_LEN, eos=-1,
+                           device=dev)
+    eng.draws = host_draws(torch, policies, dev, 2)
+    loop = SL.ServeLoop(eng, params, rc, admit_batch=ADMIT_R,
+                        dtype=torch.float32, fault=SL.FaultInjector([
+                            SL.Fault(sick, "slow", factor=8, start=20,
+                                     end=78)]))
+    if times is not None:                  # the heartbeat's host cost
+        pump = rc.pump
+
+        def timed_pump(tick):
+            t0 = time.perf_counter()
+            pump(tick)
+            times["pump"].append((time.perf_counter() - t0) * 1e3)
+        rc.pump = timed_pump
+    replica = hub.consumer("replica-1")
+    wl = W.Workload(W.PoissonArrivals(rate=1.0 * scale, seed=seed),
+                    n_requests=130 * scale, vocab=cfg.vocab)
+    schedule = [W.Op(6, "canary", args={"instance": 1, "pct": 40.0}),
+                W.Op(24, "drain", args={"instance": sick}),
+                W.Op(40, "set_weight", args={"instance": 0, "weight": 1.4}),
+                W.Op(72, "canary", args={"instance": 2, "pct": 50.0}),
+                W.Op(88, "undrain", args={"instance": sick, "weight": 1.0})]
+    driver = W.ScenarioDriver([cp], schedule, max_instances=I_LANES)
+    rid = 0
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    sync(torch, dev)
+    for t in range(CHAOS_TICKS):
+        driver.apply(t)
+        if (t + 1) % 6 == 0:
+            cp.advance_epoch()
+        if t == 44:
+            replica.crash()
+        if t == 76:
+            replica.restart()
+        hub.pump(t)
+        for r in wl.wave(t, rid):
+            loop.submit(SL.Request(req_id=r, service=0,
+                                   headers={"user": f"user{r % 997}"},
+                                   prompt_token=3 + r % (cfg.vocab - 3)))
+            rid += 1
+        t0 = time.perf_counter()
+        loop.tick()
+        if times is not None:
+            times["tick"].append((time.perf_counter() - t0) * 1e3)
+        replica.pump(t)
+    flush = 0
+    while flush < 120:
+        t = CHAOS_TICKS + flush
+        hub.pump(t)
+        loop.tick()
+        replica.pump(t)
+        flush += 1
+        if not (loop.n_queued or loop.inflight) \
+                and hub.report()["converged"]:
+            break
+    sync(torch, dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("admit_commit", "complete",
+                                             "decode_attention")}
+    rep = TR.assert_converged(cp, hub.consumers)
+    done, since = loop.done, "submit_tick"   # the chaos row's latency
+    healthy = p99_window(W, done, 4, 20, since)
+    recovered = p99_window(W, done, 110, CHAOS_TICKS + flush, since)
+    cs, pub = chan.stats(), hub.publisher.stats()
+    row = W.chaos_row(
+        "chaos", "xlb", seed=seed, n_requests=rid, completed=len(done),
+        dropped=len(loop.dropped), ticks=CHAOS_TICKS, flush_ticks=flush,
+        versions=cp.version, consumers=len(hub.consumers),
+        resyncs=sum(c.resyncs for c in hub.consumers),
+        crashes=sum(c.crashes for c in hub.consumers),
+        converged=bool(rep["converged"]), healthy_p99_ticks=healthy,
+        chaos_p99_ticks=p99_window(W, done, 20, 110, since),
+        recovered_p99_ticks=recovered,
+        recovery_ratio=recovered / healthy if healthy else float("nan"),
+        msgs_sent=cs["sent"], msgs_dropped=cs["dropped"],
+        msgs_duped=cs["duped"], msgs_delivered=cs["delivered"],
+        msgs_partitioned=cs["partitioned"],
+        stale=sum(c.stale for c in hub.consumers),
+        held=sum(c.held for c in hub.consumers),
+        rejected=sum(c.rejected for c in hub.consumers),
+        plan_sends=sum(s["plan_sends"] for s in pub.values()),
+        snap_sends=sum(s["snap_sends"] for s in pub.values()),
+        ops=len(schedule), txns=driver.txns, rate=float(scale))
+    return {"row": json.dumps(row), "channel": cs, "publisher": pub,
+            "histories": [list(c.history) for c in hub.consumers],
+            "log": driver.log, "replica_resyncs": replica.resyncs,
+            "samples": {k: v.tolist()
+                        for k, v in loop.latency_samples().items()},
+            "launches": launches, "loop": loop}
+
+
+def phase_chaos(torch, RT, CT, TM, interpose, SL, TR, W, policies, ops, cfg,
+                control_tick_ms, dev="cuda"):
+    """The chaos scenario on the card, checked, then the same on the CPU:
+    the same channel stats, consumer histories, scenario log and row."""
+    args = (torch, RT, CT, TM, interpose, SL, TR, W, policies, ops, cfg)
+    times = {"pump": [], "tick": []}
+    card = chaos_run(*args, dev, times)
+    row = json.loads(card["row"])
+    check(row["converged"], "chaos: the transport did not converge")
+    check(card["replica_resyncs"] == 1,
+          f"chaos: the replica took {card['replica_resyncs']} resyncs")
+    check(row["completed"] == row["n_requests"] and not row["dropped"],
+          f"chaos: {row['completed']} of {row['n_requests']} completed, "
+          f"{row['dropped']} dropped")
+    check(min(card["launches"].values()) > 0,
+          f"chaos: kernels not launched: {card['launches']}")
+    loop = card.pop("loop")
+    load = loop.routing.ep_load
+    reads = []
+    for _ in range(50):                     # the heartbeat's ep_load read
+        t0 = time.perf_counter()
+        load.cpu()
+        reads.append((time.perf_counter() - t0) * 1e3)
+    cpu = chaos_run(*args, "cpu")
+    cpu.pop("loop")
+    for k in ("row", "channel", "publisher", "histories", "log",
+              "samples"):
+        check(card[k] == cpu[k], f"chaos: {k} differs between the card "
+              "and the CPU")
+    return (f"chaos: ServeLoop on {I_LANES} x {SLOTS} slots (max_len "
+            f"{CHAOS_MAX_LEN}) attached through a RemoteConsumer on a lossy "
+            f"channel (seed {CHAOS_SEED}, drop 0.15, dup 0.10, delay 1-4, "
+            f"ingress-0 partitioned over ticks 22-58), replica-1 crashed at "
+            f"44 and restarted at 76, canary / drain / set_weight / canary "
+            f"/ undrain, lane {I_LANES - 1} 8x slow over 20-78: converged, "
+            f"one replica resync; card = CPU on the row, channel stats, "
+            f"publisher stats, histories, scenario log and latency "
+            f"samples; row " + card["row"] + "; kernels: "
+            + " ".join(f"{k}={v}" for k, v in card["launches"].items()),
+            f"chaos timing: median tick {statistics.median(times['tick']):.4f}"
+            f" ms (the control phase's: {control_tick_ms:.4f}); the "
+            f"consumer's pump per tick (plans in, the heartbeat with its "
+            f"ep_load read out) median host ms "
+            f"{statistics.median(times['pump']):.4f}; one ep_load read "
+            f"alone (.cpu() of 512 int32) median host ms "
+            f"{statistics.median(reads):.4f}", card["launches"])
+
+
+def phase_sanitize(torch, RT, TM, interpose, SL, INV, policies, ops, cfg,
+                   dev="cuda"):
+    """The main path's traffic for SAN_TICKS ticks, plain and then with
+    XLB_SANITIZE=1 (every admit and complete guard and the loop law on the
+    card): no law fires, both runs end in the same state; then a planted
+    violation (a completion ctx whose load_after is off by one) must
+    raise naming release-conservation."""
+    import os
+    dev = torch.device(dev)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    calls, last = {"admit": 0, "complete": 0, "loop": 0}, {}
+    guard, assert_host = ops.guard, SL.assert_host
+
+    def counted_guard(scope, ctx):
+        calls[scope] += 1
+        last[scope] = ctx
+        guard(scope, ctx)
+
+    def counted_host(scope, ctx):
+        calls[scope] += 1
+        assert_host(scope, ctx)
+
+    def run(sanitized):
+        routing, ids = routing_config(RT, dev)
+        eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
+        eng.draws = host_draws(torch, policies, dev, 3)
+        loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
+                            dtype=torch.float32, backoff_cap=4)
+        reqs = [make_request(SL, cfg, ids, i)
+                for i in range(SAN_TICKS * ARRIVALS_PER_TICK)]
+        ms = []
+        old = os.environ.get("XLB_SANITIZE")
+        os.environ["XLB_SANITIZE"] = "1" if sanitized else "0"
+        try:
+            sync(torch, dev)
+            for t in range(SAN_TICKS):
+                for r in reqs[t * ARRIVALS_PER_TICK:
+                              (t + 1) * ARRIVALS_PER_TICK]:
+                    loop.submit(r)
+                t0 = time.perf_counter()
+                loop.tick()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            if old is None:
+                del os.environ["XLB_SANITIZE"]
+            else:
+                os.environ["XLB_SANITIZE"] = old
+        sync(torch, dev)
+        return loop, ms
+
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    plain, plain_ms = run(False)
+    ops.guard, SL.assert_host = counted_guard, counted_host
+    try:
+        check(calls == {"admit": 0, "complete": 0, "loop": 0},
+              "sanitize: a guard ran with XLB_SANITIZE=0")
+        san, san_ms = run(True)
+    finally:
+        ops.guard, SL.assert_host = guard, assert_host
+    launches = {k: ops.LAUNCHES[k] for k in ("admit_commit", "complete",
+                                             "decode_attention")}
+    check(calls["complete"] == calls["loop"] == SAN_TICKS
+          and calls["admit"] > 0,
+          f"sanitize: guards ran {calls} in {SAN_TICKS} ticks")
+    for f in ("ep_load", "ep_inflight_ewma", "ep_tput_ewma"):
+        check(torch.equal(getattr(san.routing, f), getattr(plain.routing, f)),
+              f"sanitize: {f} differs from the plain run")
+    check(len(san.done) == len(plain.done)
+          and san.latency_samples()["req_id"].tolist()
+          == plain.latency_samples()["req_id"].tolist(),
+          "sanitize: the sanitized run completed other requests")
+    check(min(launches.values()) > 0,
+          f"sanitize: kernels not launched: {launches}")
+    ctx = dict(last["complete"])
+    bad = ctx["load_after"].clone()
+    bad[0] += 1
+    try:
+        INV.guard("complete", dict(ctx, load_after=bad))
+    except AssertionError as e:
+        planted = str(e)
+    else:
+        planted = None
+    check(planted is not None and "release-conservation" in planted,
+          f"sanitize: the planted violation did not raise: {planted!r}")
+    return (f"sanitize: the main path's traffic for {SAN_TICKS} ticks with "
+            f"XLB_SANITIZE=1: {calls['admit']} admit guards, "
+            f"{calls['complete']} complete guards and {calls['loop']} loop "
+            f"laws on the card, none fired; the same loads, EWMAs and "
+            f"completions as the plain run ({len(san.done)} done); the "
+            f"planted off-by-one release raised: {planted}; median tick "
+            f"sanitized {statistics.median(san_ms):.4f} ms vs plain "
+            f"{statistics.median(plain_ms):.4f} ms (one host sync per "
+            f"guard); kernels: "
+            + " ".join(f"{k}={v}" for k, v in launches.items()), launches)
 
 
 # --------------------------------------------------------------------------- #
@@ -1606,6 +2073,10 @@ def main() -> int:
     from repro_torch.launch import prefill_decode as PDL
     from repro_torch.models import model as TM
     from repro_torch.runtime import serve_loop as SL
+    from repro_torch.runtime import transport as TR
+    from repro_torch import workload as W
+    from repro_torch.analysis import invariants as INV
+    from repro_torch.core import health as H
 
     gpu = gpu_line()
     print(gpu)
@@ -1639,10 +2110,22 @@ def main() -> int:
     print(line)
     for line in phase_engines(torch, RT, TM, B, SL, cfg):
         print(line)
-    line, ctiming, control_launches = phase_control(
+    line, ctiming, control_launches, control_tick_ms = phase_control(
         torch, RT, CT, TM, interpose, SL, ops, cfg)
     print(line)
     print(ctiming)
+    line, dtiming, degraded_launches = phase_degraded(
+        torch, RT, CT, TM, interpose, SL, H, W, policies, ops, cfg)
+    print(line)
+    print(dtiming)
+    line, xtiming, chaos_launches = phase_chaos(
+        torch, RT, CT, TM, interpose, SL, TR, W, policies, ops, cfg,
+        control_tick_ms)
+    print(line)
+    print(xtiming)
+    line, sanitize_launches = phase_sanitize(torch, RT, TM, interpose, SL,
+                                             INV, policies, ops, cfg)
+    print(line)
     llm_launches, prefill_kernels = {}, {}
     for arch in ("minitron-4b", "mamba2-2.7b"):
         line, got, names = phase_llm(torch, ops, TM, PDL, get_config(arch))
@@ -1658,8 +2141,13 @@ def main() -> int:
           + " (admit_commit, complete and decode_attention[xlb] on the main "
           "path; route_match, relay_slots and admit in the staged phase; "
           "flash_attention and decode_attention in minitron-4b's, ssd_scan "
-          "in mamba2-2.7b's); in the control phase: " + " ".join(
-              f"{k}={v}" for k, v in control_launches.items()))
+          "in mamba2-2.7b's); " + "; ".join(
+              f"in the {name} phase: " + " ".join(
+                  f"{k}={v}" for k, v in got.items())
+              for name, got in (("control", control_launches),
+                                ("degraded", degraded_launches),
+                                ("chaos", chaos_launches),
+                                ("sanitizer", sanitize_launches))))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {"admit_commit": (src + "admit.cu",

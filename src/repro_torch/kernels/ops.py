@@ -5,6 +5,12 @@ the hand-written kernel (``csrc/``) or raises; on the CPU it runs the
 plain PyTorch version.  There is no fallback from one to the other.
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
 that its main path went through the kernels.
+
+Under ``XLB_SANITIZE=1`` ``admit``, ``admit_commit`` and ``complete`` run
+the conservation laws of ``analysis/invariants.py`` on their outputs
+(``guard``: the laws on the tensors' device, one host sync per call) and
+raise on the first violation, on the tick that broke it.  With the
+variable unset they add no op and no sync.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.invariants import guard, sanitize_enabled
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.kernels import completion as _cp
 from repro_torch.kernels import decode_attention as _da
@@ -93,9 +100,14 @@ def admit(reqs: RequestBatch, routing, free_mask, rnd, gumbel) -> AdmitResult:
                              reqs.msg_bytes, None, routing, free_mask, None,
                              rnd, gumbel)
         LAUNCHES["admit"] += 1
-        return res
-    return _rm.admit(reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes,
-                     routing, free_mask, rnd, gumbel)
+    else:
+        res = _rm.admit(reqs.req_id, reqs.svc, reqs.features,
+                        reqs.msg_bytes, routing, free_mask, rnd, gumbel)
+    if sanitize_enabled():
+        guard("admit", dict(load_before=routing.ep_load,
+                            load_after=res.ep_load, ok=res.ok,
+                            held=res.held, endpoint=res.endpoint))
+    return res
 
 
 def admit_commit(reqs: RequestBatch, routing, pool: PoolState, rnd,
@@ -113,10 +125,19 @@ def admit_commit(reqs: RequestBatch, routing, pool: PoolState, rnd,
         res = _rm.admit_commit(reqs.req_id, reqs.svc, reqs.features,
                                reqs.msg_bytes, reqs.token, routing, *fields,
                                pool.active, rnd, gumbel)
-    return AdmitCommitOut(
+    out = AdmitCommitOut(
         *res[:13], PoolState(res.pool_req_id, res.pool_endpoint,
                              res.pool_svc, res.pool_length, res.pool_token,
                              res.pool_active))
+    if sanitize_enabled():
+        guard("admit", dict(load_before=routing.ep_load,
+                            load_after=out.ep_load, ok=out.ok,
+                            held=out.held, endpoint=out.endpoint,
+                            instance=out.instance, slot=out.slot,
+                            req_id=reqs.req_id,
+                            pool_req_id=out.pool.req_id,
+                            pool_active=out.pool.active))
+    return out
 
 
 def _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma):
@@ -139,11 +160,17 @@ def complete(pool: PoolState, nxt, ep_load, rx_bytes, ep_inflight_ewma=None,
         LAUNCHES["complete"] += 1
     else:
         res = _cp.complete(*args, eos=eos, max_len=max_len)
-    return CompleteOut(
+    out = CompleteOut(
         PoolState(res.req_id, res.endpoint, res.svc, res.length, res.token,
                   res.active),
         res.done, res.ep_load, res.rx_bytes, res.done_cnt,
         res.inflight_ewma, res.tput_ewma)
+    if sanitize_enabled():
+        guard("complete", dict(load_before=ep_load, load_after=out.ep_load,
+                               done_cnt=out.done_cnt, done=out.done,
+                               active_after=out.pool.active,
+                               req_id_after=out.pool.req_id))
+    return out
 
 
 def route_match(svc, features, routing) -> tuple[torch.Tensor, torch.Tensor]:

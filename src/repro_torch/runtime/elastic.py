@@ -1,0 +1,53 @@
+"""Elastic scaling of a serving fleet through the ControlPlane (twin of
+``repro/runtime/elastic.py``, its ``scale_fleet``).
+
+``scale_fleet`` is the serving-side elastic event of the live-ops
+scenarios: grow or shrink one cluster to a target endpoint count in a
+single ControlPlane transaction.  Scale-up revives draining endpoints
+before allocating fresh instance lanes; scale-down drains gracefully (the
+reaper removes the rows once their in-flight load clears).  Resharding a
+state across devices waits for the port's sharding layer.
+"""
+
+from __future__ import annotations
+
+
+def scale_fleet(cp, cluster: str, target: int, *, max_instances: int,
+                weight: float = 1.0) -> list[tuple]:
+    """Scale ``cluster`` to ``target`` serving endpoints in ONE transaction.
+
+    Scale-up first lifts pending drains (a just-scaled-down instance comes
+    back without a table splice), then adds endpoints on unused instance
+    lanes — never past ``max_instances``, the engine pool's lane capacity.
+    Scale-down drains the highest-numbered serving instances (graceful:
+    weight 0 + drained bit now, row reaped when its load clears).  Returns
+    the action list [("undrain"|"add"|"drain", instance), ...]."""
+    if not 1 <= target <= max_instances:
+        raise ValueError(f"target {target} outside [1, {max_instances}] "
+                         f"(pool instance-lane capacity)")
+    acts: list[tuple] = []
+    with cp.transaction():
+        members = cp.cluster_members(cluster)
+        draining = sorted(i for _, i in members
+                          if cp.drain_reason(cluster, i) is not None)
+        serving = sorted(i for _, i in members if i not in draining)
+        if target > len(serving):
+            need = target - len(serving)
+            for i in draining[:need]:
+                cp.undrain_endpoint(cluster, i, weight=weight)
+                acts.append(("undrain", i))
+            need -= len(acts)
+            used = {i for _, i in members}
+            fresh = [i for i in range(max_instances) if i not in used]
+            if need > len(fresh):
+                raise ValueError(
+                    f"cannot scale {cluster!r} to {target}: only "
+                    f"{len(fresh)} free instance lanes of {max_instances}")
+            for i in fresh[:need]:
+                cp.add_endpoint(cluster, i, weight=weight)
+                acts.append(("add", i))
+        elif target < len(serving):
+            for i in serving[target - len(serving):]:
+                cp.drain_endpoint(cluster, i)
+                acts.append(("drain", i))
+    return acts

@@ -9,8 +9,14 @@ the active count); the sidecar baselines hand those back as host numpy.
 
 A loop built on a ``ControlPlane`` boots from its snapshot, attaches as a
 consumer (every commit is spliced into the live engine state through
-``apply_refresh``) and heartbeats its lease once a tick.  Fault injection
-and the ``XLB_SANITIZE`` loop law of the reference are not ported yet.
+``apply_refresh``) and heartbeats its lease once a tick.  A loop built on
+a ``transport.RemoteConsumer`` boots from the consumer's snapshot and
+pumps it once a tick instead: plans arrive over its lossy channel, and
+the heartbeat with the live ``ep_load`` goes back the same way.
+
+A ``FaultInjector`` rolls back the progress of held instances before the
+step (the degraded-backend model the health daemon must detect), and
+under ``XLB_SANITIZE=1`` every tick ends with the queue-conservation law.
 """
 
 from __future__ import annotations
@@ -24,10 +30,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.invariants import assert_host, sanitize_enabled
 from repro_torch.core import control
 from repro_torch.core.balancer import Balancer, RequestBatch
 from repro_torch.core.routing_table import N_FEATURES, RoutingState, fnv1a
 from repro_torch.device import resolve_device
+from repro_torch.runtime import transport
 
 
 @dataclasses.dataclass
@@ -57,6 +65,90 @@ class DrainReport(NamedTuple):
     held_first: int = 0   # DISTINCT requests ever re-queued
 
 
+# --------------------------------------------------------------------------- #
+# Fault injection: the degraded-scenario harness
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class Fault:
+    """One injected endpoint fault, in engine ticks.
+
+    Faults act on *progress*, not on routing: on a held tick the
+    instance's active slots have their decode position rolled back by
+    one, so the step nets to zero.  Requests pile up, occupancy rises,
+    completions stop: a slow or wedged backend as the datapath sees it,
+    visible only to the occupancy / throughput EWMAs of the completion
+    kernel.
+
+      slow   — the instance makes net progress on 1 tick in ``factor``
+      stall  — no progress at all while the fault is active
+      flap   — alternates ``period`` stalled ticks / ``period`` healthy
+               ticks (the breaker-hysteresis stressor)
+    """
+
+    instance: int
+    kind: str = "slow"          # slow | stall | flap
+    factor: int = 10
+    start: int = 0
+    end: int | None = None      # None = never clears
+    period: int = 8             # flap half-cycle, in ticks
+
+    def holds(self, tick: int) -> bool:
+        """Does this fault hold the instance's progress at ``tick``?"""
+        if tick < self.start or (self.end is not None and tick >= self.end):
+            return False
+        if self.kind == "stall":
+            return True
+        if self.kind == "slow":
+            return (tick - self.start) % self.factor != 0
+        if self.kind == "flap":
+            return ((tick - self.start) // self.period) % 2 == 0
+        raise ValueError(f"unknown fault kind {self.kind!r}")
+
+
+class FaultInjector:
+    """Applies a set of :class:`Fault` schedules to a live pool.
+
+    ``apply`` runs on the host between engine ticks and rolls back
+    ``pool.length`` on the held instances' active slots (floored at 0):
+    on a tensor pool as one functional update on the pool's own device
+    (no host round trip of ``length``), on a sidecar's numpy pool in
+    place.  With nothing held it returns the pool it was given."""
+
+    def __init__(self, faults):
+        self.faults = list(faults)
+
+    def active(self, tick: int) -> list[int]:
+        return [f.instance for f in self.faults if f.holds(tick)]
+
+    def clear_tick(self) -> int | None:
+        """Last tick at which any fault clears (None if one never does)."""
+        ends = [f.end for f in self.faults]
+        return None if any(e is None for e in ends) else max(ends, default=0)
+
+    def apply(self, pool, tick: int):
+        # a fault naming a lane outside the live instance window (a
+        # schedule written for a larger fleet) is inert
+        I = pool.length.shape[0]
+        held = [i for i in self.active(tick) if 0 <= i < I]
+        if not held:
+            return pool
+        if isinstance(pool.length, np.ndarray):
+            for i in held:
+                m = pool.active[i] & (pool.length[i] > 0)
+                pool.length[i, m] -= 1
+            return pool
+        lanes = np.zeros((I,), bool)
+        lanes[held] = True
+        # one upload of the lane mask (the pageable source is staged before
+        # the copy call returns, so no host sync)
+        lanes = torch.from_numpy(lanes).to(pool.length.device,
+                                           non_blocking=True)
+        hold = lanes[:, None] & pool.active & (pool.length > 0)
+        return pool._replace(length=pool.length - hold.to(torch.int32))
+
+
 def parse_features(headers: dict[str, str]) -> np.ndarray:
     """Host ingress 'protocol parse': hash selected header fields into the
     feature vector the router matches on."""
@@ -73,19 +165,29 @@ class ServeLoop:
     device (the engine's default is the card)."""
 
     def __init__(self, balancer: Balancer, params,
-                 routing: RoutingState | control.ControlPlane,
+                 routing: RoutingState | control.ControlPlane
+                 | transport.RemoteConsumer,
                  admit_batch: int = 8, dtype=torch.float32,
                  max_retries: int = 64, backoff_base: int = 1,
-                 backoff_cap: int = 16, backoff_seed: int = 0):
+                 backoff_cap: int = 16, backoff_seed: int = 0,
+                 fault: FaultInjector | None = None):
         resolve_device(balancer.device)
         self.balancer = balancer
         self.params = params
         self.admit_batch = admit_batch
         self.cp = None
+        self.remote = None
         if isinstance(routing, control.ControlPlane):
             cp, routing = routing, routing.snapshot()
             cp.attach(self)
             self.cp = cp
+        elif isinstance(routing, transport.RemoteConsumer):
+            # attached through the plan transport: the consumer pumps its
+            # lossy channel each tick and calls apply_refresh here; the
+            # loop boots at the consumer's snapshot
+            rc, routing = routing, routing.boot_routing
+            rc.bind(self)
+            self.remote = rc
         self.state = balancer.init_state(routing, dtype=dtype)
         self.serve_step = balancer.make_jitted(donate=False)
         self.queue: collections.deque[Request] = collections.deque()
@@ -102,7 +204,8 @@ class ServeLoop:
         self._waiting: list[tuple[int, int, Request]] = []   # backoff heap
         self._wseq = 0
         self.ticks = 0
-        self.submitted = 0
+        self.fault = fault                  # optional FaultInjector
+        self.submitted = 0                  # all-time submit() count
 
     # ------------------------------------------------------------------ #
     # control-plane seam
@@ -191,6 +294,12 @@ class ServeLoop:
         """One engine step: admit waiting requests + decode every lane."""
         if self.cp is not None:
             self.cp.heartbeat(self)          # liveness lease
+        elif self.remote is not None:        # transport-attached: plans in,
+            self.remote.pump(self.ticks)     # heartbeat + load report out
+        if self.fault is not None:           # roll progress back BEFORE
+            pool = self.fault.apply(self.state.pool, self.ticks)  # the step
+            if pool is not self.state.pool:
+                self.state = self.state._replace(pool=pool)
         self._release_matured()
         reqs, taken = self._next_admission()
         self.state, out = self.serve_step(self.params, self.state, reqs)
@@ -227,6 +336,11 @@ class ServeLoop:
                 r.retries += 1
                 self._backoff(r)
         self.ticks += 1
+        if sanitize_enabled():
+            assert_host("loop", dict(
+                submitted=self.submitted, done=len(self.done),
+                dropped=len(self.dropped), queued=self.n_queued,
+                inflight=len(self.inflight)))
         return {"active": int(host[3 * n]), "queued": self.n_queued,
                 "done": len(self.done), "dropped": len(self.dropped)}
 

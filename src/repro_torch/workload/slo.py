@@ -1,0 +1,107 @@
+"""SLO tail reporting (twin of ``repro/workload/slo.py``): percentile
+tables from per-request tick samples, and the scenario and chaos rows.
+
+Latency samples are *engine ticks* (admit tick → done tick), the
+deterministic clock every scenario runs on: the same seed reproduces the
+same row bit for bit, on the CPU and on the card alike.  Wall-clock
+numbers never enter a row.
+
+``scenario_row`` and ``chaos_row`` build rows that validate against the
+schemas of :mod:`repro_torch.analysis.invariants`; a malformed row fails
+the run that produced it.  ``append_scenario_row`` stamps a row and
+appends it to a JSON-lines file, by default the port's own
+``BENCH_TREND_torch.jsonl`` in the working directory.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+
+from repro_torch.analysis.invariants import validate_row
+
+PCTS = (50.0, 99.0, 99.9)
+TREND_FILE = "BENCH_TREND_torch.jsonl"
+
+
+def percentiles(samples) -> dict:
+    """p50/p99/p999 (+ mean, n) of a latency sample set, NaN when empty."""
+    xs = np.asarray(list(samples), np.float64)
+    if xs.size == 0:
+        return {"n": 0, "mean": float("nan"), "p50": float("nan"),
+                "p99": float("nan"), "p999": float("nan")}
+    p50, p99, p999 = (float(np.percentile(xs, p)) for p in PCTS)
+    return {"n": int(xs.size), "mean": float(xs.mean()),
+            "p50": p50, "p99": p99, "p999": p999}
+
+
+def scenario_row(scenario: str, mode: str, *, depth: int, seed: int,
+                 arrivals: str, n_requests: int, completed: int,
+                 dropped: int, ticks: int, samples, **extra) -> dict:
+    """Build a canonical (deterministic, schema-valid) scenario row from
+    raw end-to-end tick samples.  Extra fields must be in the optional
+    schema — unknown keys are a validation error, not silent baggage."""
+    p = percentiles(samples)
+    row = {"bench": "scenario", "scenario": scenario, "mode": mode,
+           "depth": int(depth), "seed": int(seed), "arrivals": arrivals,
+           "n_requests": int(n_requests), "completed": int(completed),
+           "dropped": int(dropped), "ticks": int(ticks),
+           "p50_ticks": p["p50"], "p99_ticks": p["p99"],
+           "p999_ticks": p["p999"], "mean_ticks": p["mean"]}
+    row.update(extra)
+    validate_scenario_row(row)
+    return row
+
+
+def validate_scenario_row(row: dict) -> None:
+    """Raise ValueError on any schema violation (missing/extra/mistyped
+    fields, impossible counts, unordered percentiles)."""
+    validate_row(row, "scenario")
+
+
+def chaos_row(scenario: str, mode: str, *, seed: int, **fields) -> dict:
+    """Build a validated ``bench="chaos"`` row (the transport-chaos
+    scenario's result)."""
+    row = {"bench": "chaos", "scenario": scenario, "mode": mode,
+           "seed": int(seed)}
+    row.update(fields)
+    validate_chaos_row(row)
+    return row
+
+
+def validate_chaos_row(row: dict) -> None:
+    """Raise ValueError on any chaos-row schema violation.  A
+    non-converged run still validates: the row records the truth."""
+    validate_row(row, "chaos")
+
+
+_VALIDATORS = {"scenario": validate_scenario_row,
+               "chaos": validate_chaos_row}
+
+
+def _git_commit() -> str:
+    try:
+        return subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                              capture_output=True, text=True,
+                              timeout=10).stdout.strip() or "unknown"
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+def append_scenario_row(row: dict, path: str = TREND_FILE) -> dict:
+    """Validate, stamp (ts, commit), and append one row (scenario or
+    chaos — dispatched on ``bench``) to ``path``.  Returns the stamped
+    row."""
+    validator = _VALIDATORS.get(row.get("bench"))
+    if validator is None:
+        raise ValueError(f"no validator for bench {row.get('bench')!r}")
+    validator(row)
+    stamped = {"ts": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+               "commit": _git_commit()}
+    stamped.update(row)
+    with open(path, "a") as f:
+        f.write(json.dumps(stamped) + "\n")
+    return stamped

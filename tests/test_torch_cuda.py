@@ -660,3 +660,91 @@ def test_serve_loop_drains_across_a_mid_drain_commit_on_the_card(dev):
     assert len(loop.done) == 64
     assert not bool(loop.routing.ep_load.any())
     torch.cuda.synchronize()
+
+
+def test_fault_injector_and_shaper_on_the_card_match_the_cpu(dev):
+    """The progress rollback on a card pool: one functional update on the
+    card equal to the CPU's; the same pool back when nothing is held."""
+    from repro_torch.runtime.serve_loop import Fault, FaultInjector
+    from repro_torch.workload import LognormalServiceTimes, ServiceTimeShaper
+    pool, _ = _pool(64, 16, 3, "cpu", busy=0.7)
+    pool = pool._replace(length=pool.length.clamp(0, 5))
+    inj = FaultInjector([Fault(3, "stall"), Fault(7, "slow", factor=2),
+                         Fault(99, "stall")])
+    for t in (0, 1):
+        got = inj.apply(pool.__class__(*[x.to(dev) for x in pool]), t)
+        assert got.length.device.type == "cuda"
+        assert torch.equal(got.length.cpu(), inj.apply(pool, t).length)
+    idle = FaultInjector([Fault(3, "stall", start=50)])
+    card = pool.__class__(*[x.to(dev) for x in pool])
+    assert idle.apply(card, 0) is card
+    law = LognormalServiceTimes(seed=9, median=6.0, sigma=0.5, cap=16)
+    a, b = ServiceTimeShaper(law, 2), ServiceTimeShaper(law, 2)
+    for t in range(4):
+        got = a.apply(card, t)
+        want = b.apply(pool, t)
+        assert torch.equal(got.length.cpu(), want.length)
+        card, pool = got, want
+
+
+def test_guards_on_the_card(dev):
+    """The sanitizer's laws on card tensors: the kernels' outputs pass,
+    a planted off-by-one release raises naming its law."""
+    from repro_torch.analysis.invariants import guard
+    routing = _routing(dev, 1)
+    reqs, rnd, gum = _batch(256, 1, dev)
+    out = ops.admit_commit(reqs, routing, PoolState.init(64, 16, dev), rnd,
+                           gum)
+    guard("admit", dict(load_before=routing.ep_load, load_after=out.ep_load,
+                        ok=out.ok, held=out.held, endpoint=out.endpoint,
+                        instance=out.instance, slot=out.slot,
+                        req_id=reqs.req_id, pool_req_id=out.pool.req_id,
+                        pool_active=out.pool.active))
+    nxt = torch.randint(0, 97, (64, 16), dtype=torch.int32, device=dev)
+    res = ops.complete(out.pool, nxt, out.ep_load,
+                       torch.zeros(64, dtype=torch.int32, device=dev),
+                       eos=5, max_len=8)
+    ctx = dict(load_before=out.ep_load, load_after=res.ep_load,
+               done_cnt=res.done_cnt, done=res.done,
+               active_after=res.pool.active, req_id_after=res.pool.req_id)
+    guard("complete", ctx)
+    with pytest.raises(AssertionError, match="release-conservation"):
+        guard("complete", dict(ctx, load_after=res.ep_load + 1))
+
+
+def test_health_and_transport_read_card_state(dev):
+    """The daemon's EWMA read, the heartbeat's load vote, a snapshot
+    resync and a convergence report over a sink whose tables live on the
+    card: the same results as over the CPU copy."""
+    from repro_torch.core.control import ControlPlane
+    from repro_torch.core.health import HealthPolicy
+    from repro_torch.runtime import transport as tr
+    cp = ControlPlane([RT.ServiceConfig("s", [RT.Rule(0, None, "pool")])],
+                      [RT.Cluster("pool", list(range(4)))])
+    live = cp.snapshot()
+    infl = torch.zeros(512)
+    infl[:4] = torch.tensor([4.0, 4.0, 4.0, 40.0])
+    live = live._replace(ep_inflight_ewma=infl, ep_tput_ewma=(infl > 0)
+                         .float(), ep_load=torch.arange(512,
+                                                        dtype=torch.int32))
+    acts = []
+    for routing in (live, live.to(dev)):
+        c = ControlPlane([RT.ServiceConfig("s", [RT.Rule(0, None, "pool")])],
+                         [RT.Cluster("pool", list(range(4)))])
+        pol = HealthPolicy(c)
+        acts.append([pol.epoch(routing) for _ in range(3)])
+    assert acts[0] == acts[1] and acts[1][1] == [("eject", "pool", 3)]
+    hub = tr.Transport(cp, tr.LossyChannel(delay_min=0))
+    rc = hub.consumer("n0", sink=tr.RoutingView(live.to(dev)))
+    rc.pump(0)
+    hb = hub.channel.recv(tr.CP_NODE, 0)[-1]
+    assert np.array_equal(hb["ep_load"], live.ep_load.numpy())
+    cp.add_endpoint("pool", instance=9)
+    plan = tr.snapshot_plan(cp.packed_snapshot(), live.to(dev))
+    want = tr.snapshot_plan(cp.packed_snapshot(), live)
+    assert np.array_equal(plan.ep_src, want.ep_src)
+    for t in range(1, 4):
+        hub.pump(t)
+        rc.pump(t)
+    assert rc.routing.ep_load.device.type == "cuda"
+    assert hub.report()["converged"] and rc.version == cp.version

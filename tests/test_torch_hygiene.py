@@ -19,7 +19,9 @@ from repro_torch.kernels import (_build, completion, decode_attention, ops,
                                  ssd_scan)
 from repro_torch.launch import prefill_decode, serve
 from repro_torch.models import model
-from repro_torch.runtime.serve_loop import ServeLoop
+from repro_torch.core.control import ControlPlane
+from repro_torch.runtime import transport
+from repro_torch.runtime.serve_loop import Fault, FaultInjector, ServeLoop
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -46,7 +48,10 @@ def test_port_never_imports_jax_or_the_reference():
     assert {"kernels/decode_attention.py", "kernels/flash_attention.py",
             "kernels/ssd_scan.py", "models/ssm.py", "models/transformer.py",
             "configs/minitron_4b.py", "configs/mamba2_2_7b.py",
-            "launch/prefill_decode.py", "convert.py"} <= names
+            "launch/prefill_decode.py", "convert.py", "core/health.py",
+            "runtime/transport.py", "runtime/elastic.py",
+            "workload/generators.py", "workload/scenarios.py",
+            "workload/slo.py", "analysis/invariants.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -90,6 +95,15 @@ def test_serve_loop_and_launcher_raise_without_gpu(no_gpu):
     eng.device = torch.device("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeLoop(eng, {}, routing)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeLoop(eng, {}, routing,
+                  fault=FaultInjector([Fault(0, "stall")]))
+    cp = ControlPlane([ServiceConfig("s", [Rule(0, None, "p")])],
+                      [Cluster("p", [0, 1], POLICY_RR)])
+    rc = transport.Transport(cp).consumer("ingress-0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeLoop(eng, {}, rc)
+    assert rc.sink is not None and not isinstance(rc.sink, ServeLoop)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--requests", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
