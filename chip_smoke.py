@@ -50,6 +50,16 @@ Phases (each prints one line; any failure exits non-zero):
      admit and complete guard and the loop law on the card), no law fires
      and the state equals the plain run's; a planted off-by-one release
      must raise naming its law;
+   then sharded admission and completion (``kernels/shard_admit.py``) at
+   M = 1, 2 and 4 shards of one card: ``ops.admit_commit_sharded`` at the
+   serving shape, a ragged batch and with an idle ingress host (a shard
+   of padding rows, which launches nothing), ``ops.complete_sharded`` at
+   the serving shape, each bit-exact against the unsharded wrapper on the
+   same card tensors and against the CPU, with its call ms and the device
+   ms of B3 at width R/M, B4 and B1; then ENGINE_REQUESTS requests through
+   ``ServeLoop`` over ``Engine(shards=4)``, equal to shards=1 on the card
+   and to shards=4 on the CPU in every count, tick and routing bit, timed
+   beside the unsharded drain, with the B1, B3 and B4 launches per tick;
 6. the model stack at full width and depth in bf16, with weights from a
    CUDA generator: minitron-4b (prefill through ``flash_attention``,
    decode through ``decode_attention``) and mamba2-2.7b (prefill through
@@ -67,8 +77,9 @@ Phases (each prints one line; any failure exits non-zero):
 8. the kernel launch counts: ``admit_commit``, ``complete`` and
    ``decode_attention`` on the main path (and in each serving phase after
    it), ``route_match``, ``relay_slots`` and ``admit`` in the staged
-   phase, ``flash_attention``, ``decode_attention`` and ``ssd_scan`` in
-   the model phases.
+   phase, ``admit``, ``complete`` and ``route_match`` in the sharded
+   drain (added to those), ``flash_attention``, ``decode_attention`` and
+   ``ssd_scan`` in the model phases.
 
 Phase 2 also holds the float kernels against their plain versions at the
 paths' shapes (decode attention at minitron-4b's and the serving model's,
@@ -179,6 +190,8 @@ DEG_FACTOR, DEG_EPOCH, DEG_SHORT_EPOCH = 10, 36, 6
 CHAOS_SEED, CHAOS_TICKS, CHAOS_MAX_LEN = 23, 170, 3
 # the sanitizer phase: ticks of the main path's traffic, plain and sanitized
 SAN_TICKS = 40
+# the sharded phase: the mesh widths, the seed of its drains' draws
+SHARDS, SHARD_SEED = (1, 2, 4), 11
 
 
 def fail(msg: str) -> None:
@@ -2046,6 +2059,249 @@ def phase_sanitize(torch, RT, TM, interpose, SL, INV, policies, ops, cfg,
 
 
 # --------------------------------------------------------------------------- #
+# phase 5, continued: sharded admission and completion
+# --------------------------------------------------------------------------- #
+
+
+def out_pairs(a, b):
+    """(field, a's, b's) over an AdmitCommitOut / CompleteOut pair, the
+    pool's fields included, for ``max_abs_err``."""
+    pairs = []
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if f == "pool":
+            pairs += [(f"pool.{g}", getattr(x, g), getattr(y, g))
+                      for g in x._fields]
+        else:
+            pairs.append((f, x, y))
+    return pairs
+
+
+def to_cpu(out):
+    """An AdmitCommitOut / CompleteOut with every tensor on the CPU."""
+    return out._replace(pool=type(out.pool)(*[t.cpu() for t in out.pool]),
+                        **{f: getattr(out, f).cpu()
+                           for f in out._fields if f != "pool"})
+
+
+def sharded_drain(torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev,
+                  shards, timed=False):
+    """ENGINE_REQUESTS routable main-path requests through ServeLoop over
+    Engine(shards=``shards``) on ``dev`` (eos -1: completion depends only
+    on the length, so the card and the CPU finish the same requests on the
+    same ticks), draws from one seeded CPU generator.  Returns (the drain's
+    record, its timing, its kernel launches)."""
+    routing, ids = routing_config(RT, dev)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    kw = {} if shards == 1 else dict(
+        shards=shards, shard_mesh=MS.make_shard_mesh(shards, device=dev))
+    eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, eos=-1, device=dev,
+                           **kw)
+    eng.draws = host_draws(torch, policies, dev, SHARD_SEED)
+    loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
+                        dtype=torch.float32, backoff_cap=4)
+    reqs = [make_request(SL, cfg, ids, N_UNROUTABLE + i)
+            for i in range(ENGINE_REQUESTS)]
+    events = {"admit": [], "complete": [], "tick": []}
+
+    def timed_call(name, fn):
+        def wrapper(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            events[name].append((s, e))
+            return out
+        return wrapper
+
+    names = ("admit_commit", "complete") if shards == 1 else \
+        ("admit_commit_sharded", "complete_sharded")
+    originals = [getattr(ops, n) for n in names]
+    tick = loop.tick
+    if timed:
+        for n, part, fn in zip(names, ("admit", "complete"), originals):
+            setattr(ops, n, timed_call(part, fn))
+        tick = timed_call("tick", loop.tick)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    nxt = 0
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    try:
+        while (nxt < len(reqs) or loop.n_queued or loop.inflight) \
+                and loop.ticks < 2000:
+            for r in reqs[nxt:nxt + ARRIVALS_PER_TICK]:
+                loop.submit(r)
+            nxt += ARRIVALS_PER_TICK
+            tick()
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        for n, fn in zip(names, originals):
+            setattr(ops, n, fn)
+    launches = {k: ops.LAUNCHES[k] for k in ("admit", "admit_commit",
+                                             "complete", "route_match",
+                                             "decode_attention")}
+    check(len(loop.done) == len(reqs),
+          f"sharded drain (M={shards}, {dev}): {len(loop.done)} of "
+          f"{len(reqs)} requests completed")
+    check(not bool(loop.routing.ep_load.any())
+          and not bool(loop.state.pool.active.any()),
+          f"sharded drain (M={shards}, {dev}): not drained")
+    lists = lambda t: {f: getattr(t, f).tolist() for f in t._fields}  # noqa
+    record = {
+        "done": [(r.req_id, r.retries, r.submit_tick, r.admit_tick,
+                  r.done_tick) for r in loop.done],
+        "tokens": [r.tokens for r in loop.done],
+        "dropped": [r.req_id for r in loop.dropped],
+        "ticks": loop.ticks, "held_first": loop.held_first,
+        "routing": lists(loop.routing), "metrics": lists(loop.state.metrics),
+        "pool": {f: v for f, v in lists(loop.state.pool).items()
+                 if f != "token"}}
+    med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+           for k, v in events.items() if v}
+    return record, dict(wall=wall, med=med, arrival_ticks=len(
+        events["admit"])), launches
+
+
+def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
+                  cfg, b3_ms, dev="cuda"):
+    """Sharded admission and completion (``kernels/shard_admit.py``) on the
+    card at each M of SHARDS: ``ops.admit_commit_sharded`` at the serving
+    shape, a ragged batch and with an idle ingress host (a quarter of
+    padding rows), and ``ops.complete_sharded`` at the serving shape, each
+    bit-exact against the unsharded wrapper on the same card tensors and
+    against the sharded plain versions on the CPU, timed; then a drain of
+    ENGINE_REQUESTS requests through ServeLoop over Engine(shards=4) on
+    the card against shards=1 on the card and shards=4 on the CPU (every
+    count, tick and routing bit; the tokens too between the card runs)."""
+    dev = torch.device(dev)
+    routing0, _ = routing_config(RT, "cpu")
+    lines, timing = [], {}
+    cases = [("serving", ADMIT_R, I_LANES, SLOTS), ("ragged", 300, 8, 4),
+             ("idle", ADMIT_R, I_LANES, SLOTS)]
+    for label, R, I, C in cases:
+        routing, reqs, pool, rnd, gum = admit_inputs(
+            torch, RT, routing0, R, I, C, seed=R, dev=dev)
+        if label == "idle":                 # shard 1 of 4 holds padding only
+            reqs[0] = reqs[0].clone()
+            reqs[0][R // 4:R // 2] = -1
+        batch, pstate = B.RequestBatch(*reqs), B.PoolState(*pool)
+        unsharded = lambda: ops.admit_commit(  # noqa: E731
+            batch, routing, pstate, rnd, gum)
+        want = unsharded()
+        unsharded_ms = cuda_ms(torch, unsharded)
+        cargs = (B.RequestBatch(*[t.cpu() for t in reqs]), routing.to("cpu"),
+                 B.PoolState(*[t.cpu() for t in pool]), rnd.cpu(), gum.cpu())
+        for M in SHARDS:
+            mesh = MS.make_shard_mesh(M, device=dev)
+            live = SA.live_shards(reqs[0], M)
+            call = lambda: ops.admit_commit_sharded(  # noqa: E731
+                batch, routing, pstate, rnd, gum, mesh=mesh, live=live)
+            n0 = dict(ops.LAUNCHES)
+            got = call()
+            sync(torch, dev)
+            n = {k: ops.LAUNCHES[k] - n0[k] for k in n0}
+            check(n["admit"] == sum(live) and n["route_match"] == 1
+                  and n["admit_commit"] == 0,
+                  f"sharded admit[{label} M={M}]: launches {n}, "
+                  f"live shards {live}")
+            check(label != "idle" or M != 4 or live == [True, False, True,
+                                                        True],
+                  f"sharded admit[idle M=4]: live shards {live}")
+            err = max_abs_err(torch, out_pairs(got, want))
+            cpu = ops.admit_commit_sharded(
+                *cargs, mesh=MS.make_shard_mesh(M, device="cpu"))
+            err_cpu = max_abs_err(torch, out_pairs(to_cpu(got), cpu))
+            line = (f"sharded admit_commit[{label} R={R} I={I} C={C} M={M}] "
+                    f"max_abs_err={err} vs admit_commit on the card, "
+                    f"{err_cpu} vs the CPU; launches admit={n['admit']} "
+                    f"route_match={n['route_match']}; ok={int(got.ok.sum())}"
+                    f" held={int(got.held)} no_route={int(got.no_route)}")
+            if label != "idle":
+                prof = profile_calls(torch, call)
+                b3 = kernel_time(prof, "admit_kernel")[0]
+                b4 = kernel_time(prof, "route_kernel")[0]
+                check(b3 is not None and b4 is not None,
+                      f"sharded admit[{label} M={M}]: the profiler saw no "
+                      "admission or route kernel")
+                t = dict(call_ms=cuda_ms(torch, call),
+                         b3_ms=b3 / sum(live), b4_ms=b4)
+                timing[f"admit[{label},M={M}]"] = t
+                line += (f"; call ms {t['call_ms']:.4f} (unsharded "
+                         f"{unsharded_ms:.4f}), B3 device ms per "
+                         f"launch at width R/M = {-(-R // M)}: "
+                         f"{t['b3_ms']:.5f}, B4 {b4:.5f}")
+            lines.append(line)
+
+    args = complete_inputs(torch, RT, dev)
+    pstate = B.PoolState(*args[:6])
+    want = ops.complete(pstate, *args[6:], eos=1, max_len=MAX_LEN)
+    cpu_args = [t.cpu() for t in args]
+    for M in SHARDS:
+        mesh = MS.make_shard_mesh(M, device=dev)
+        call = lambda: ops.complete_sharded(  # noqa: E731
+            pstate, *args[6:], mesh=mesh, eos=1, max_len=MAX_LEN)
+        n0 = ops.LAUNCHES["complete"]
+        got = call()
+        sync(torch, dev)
+        check(ops.LAUNCHES["complete"] - n0 == M,
+              f"sharded complete M={M}: {ops.LAUNCHES['complete'] - n0} "
+              "launches")
+        err = max_abs_err(torch, out_pairs(got, want))
+        cpu = ops.complete_sharded(
+            B.PoolState(*cpu_args[:6]), *cpu_args[6:],
+            mesh=MS.make_shard_mesh(M, device="cpu"), eos=1, max_len=MAX_LEN)
+        err_cpu = max_abs_err(torch, out_pairs(to_cpu(got), cpu))
+        b1 = kernel_time(profile_calls(torch, call), "complete_kernel")[0]
+        check(b1 is not None, f"sharded complete M={M}: no kernel seen")
+        t = dict(call_ms=cuda_ms(torch, call), b1_ms=b1 / M)
+        timing[f"complete[M={M}]"] = t
+        lines.append(
+            f"sharded complete[I={I_LANES} C={SLOTS} M={M}] max_abs_err="
+            f"{err} vs complete on the card (EWMAs included), {err_cpu} vs "
+            f"the CPU; done={int(got.done.sum())}; call ms "
+            f"{t['call_ms']:.4f}, B1 device ms per launch at "
+            f"({I_LANES // M}, {SLOTS}): {t['b1_ms']:.5f}")
+
+    run = lambda d, m, timed=False: sharded_drain(  # noqa: E731
+        torch, RT, TM, interpose, SL, MS, policies, ops, cfg, d, m, timed)
+    one, t1, _ = run(dev, 1, True)
+    four, t4, launches = run(dev, 4, True)
+    four_cpu, _, _ = run(torch.device("cpu"), 4)
+    check(four == one, "sharded drain: shards=4 on the card differs from "
+          "shards=1 on the card")
+    untok = lambda r: {k: v for k, v in r.items() if k != "tokens"}  # noqa
+    check(untok(four) == untok(four_cpu), "sharded drain: shards=4 on the "
+          "card differs from shards=4 on the CPU")
+    check(min(launches[k] for k in ("admit", "complete", "route_match")) > 0
+          and launches["admit_commit"] == 0,
+          f"sharded drain: kernels not launched as the sharded path does: "
+          f"{launches}")
+    arr = t4["arrival_ticks"]
+    n_req = ENGINE_REQUESTS
+    for M, rec, t in ((1, one, t1), (4, four, t4)):
+        med = t["med"]
+        lines.append(
+            f"sharded drain M={M}: {n_req} requests in {rec['ticks']} ticks, "
+            f"{t['wall']:.3f} s = {n_req / t['wall']:.1f} req/s; median ms "
+            f"per tick {med['tick']:.4f}, admit {med['admit']:.4f}, complete "
+            f"{med['complete']:.4f} (events); held_first "
+            f"{rec['held_first']}")
+    lines.append(
+        f"sharded drain: shards=4 equals shards=1 on the card (every count, "
+        f"tick, token and routing bit) and shards=4 on the CPU; launches "
+        f"per arrival tick ({arr} of {four['ticks']}): B3 "
+        f"{launches['admit'] / arr:.3f}, B4 {launches['route_match'] / arr:.3f};"
+        f" B1 per tick {launches['complete'] / four['ticks']:.3f}; B3 at the "
+        f"serving shape unsharded (width C = {SLOTS}): {b3_ms}")
+    return lines, timing, {k: launches[k] for k in ("admit", "complete",
+                                                    "route_match")}
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -2077,6 +2333,8 @@ def main() -> int:
     from repro_torch import workload as W
     from repro_torch.analysis import invariants as INV
     from repro_torch.core import health as H
+    from repro_torch.kernels import shard_admit as SA
+    from repro_torch.launch import mesh as MS
 
     gpu = gpu_line()
     print(gpu)
@@ -2126,6 +2384,11 @@ def main() -> int:
     line, sanitize_launches = phase_sanitize(torch, RT, TM, interpose, SL,
                                              INV, policies, ops, cfg)
     print(line)
+    slines, stiming, sharded_launches = phase_sharded(
+        torch, RT, B, ops, interpose, SL, TM, MS, SA, policies, cfg,
+        timing["admit"]["ms"])
+    for line in slines:
+        print(line)
     llm_launches, prefill_kernels = {}, {}
     for arch in ("minitron-4b", "mamba2-2.7b"):
         line, got, names = phase_llm(torch, ops, TM, PDL, get_config(arch))
@@ -2135,11 +2398,14 @@ def main() -> int:
     for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
         print(line)
     launches = {**main_launches, **staged_launches, **llm_launches}
+    for k, v in sharded_launches.items():       # the sharded drain's
+        launches[k] += v
     print("kernels: " + " ".join(
         f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
                                 main_launches["decode_attention"]}.items())
           + " (admit_commit, complete and decode_attention[xlb] on the main "
-          "path; route_match, relay_slots and admit in the staged phase; "
+          "path; route_match, relay_slots and admit in the staged phase, "
+          "and admit, complete and route_match in the sharded drain too; "
           "flash_attention and decode_attention in minitron-4b's, ssd_scan "
           "in mamba2-2.7b's); " + "; ".join(
               f"in the {name} phase: " + " ".join(
@@ -2147,7 +2413,8 @@ def main() -> int:
               for name, got in (("control", control_launches),
                                 ("degraded", degraded_launches),
                                 ("chaos", chaos_launches),
-                                ("sanitizer", sanitize_launches))))
+                                ("sanitizer", sanitize_launches),
+                                ("sharded drain", sharded_launches))))
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {"admit_commit": (src + "admit.cu",
@@ -2199,6 +2466,14 @@ def main() -> int:
                 kernels[-1]["xlb_shape"] = {
                     k: xlb[k] for k in ("ms", "kernel", "library_ms",
                                         "library_device_ms")}
+            if name in sharded_launches:       # and in the sharded drain
+                key, part = {"admit": ("admit[serving,M={}]", "b3_ms"),
+                             "route_match": ("admit[serving,M={}]", "b4_ms"),
+                             "complete": ("complete[M={}]", "b1_ms")}[name]
+                kernels[-1]["launches_sharded_drain"] = \
+                    sharded_launches[name]
+                kernels[-1]["sharded_ms"] = {
+                    str(M): stiming[key.format(M)][part] for M in SHARDS}
             if name == "flash_attention":      # as minitron's prefill ran it
                 kernels[-1]["kernel"] = prefill_kernels["minitron-4b"]
             if name == "ssd_scan":             # as mamba's prefill ran it

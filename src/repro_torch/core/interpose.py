@@ -10,6 +10,13 @@ tick runs two things:
     close path (done detect, load release, rx metrics, slot free, health
     EWMAs) as one kernel launch (``ops.complete``).
 
+With ``shards`` > 1 both run sharded over the axis ``shard_axis`` of
+``shard_mesh`` (``ops.admit_commit_sharded`` / ``ops.complete_sharded``):
+the batch splits ``(R/M,)``, the pool ``(I/M,)`` (shard m owns rows
+``[m·I/M, (m+1)·I/M)`` of the one (I, C) pool), bit-exact against the
+unsharded engine on the same batches.  The decode step runs over the whole
+pool either way.
+
 State tensors are replaced, not mutated, except the KV cache, which the
 decode writes in place.  The engine runs on the card unless the caller
 asks for the CPU (``device="cpu"``), where every kernel wrapper runs its
@@ -28,7 +35,7 @@ from repro_torch.core import control, policies
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.core.routing_table import FlowMetrics, RoutingState
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, shard_admit
 from repro_torch.models import model as M
 
 
@@ -57,8 +64,29 @@ class Engine:
     max_len: int
     eos: int = 1
     device: Any = "cuda"
+    # sharded admission and completion: with shards > 1 the admit batch
+    # splits (R/M,) and the pool (I/M,) over ``shard_axis`` of
+    # ``shard_mesh`` (launch/mesh.py::make_shard_mesh), the kernels run per
+    # shard and one collective pass reconciles.  Requires n_instances %
+    # shards == 0 and a mesh of exactly ``shards`` along the axis.
+    shards: int = 1
+    shard_mesh: Any = None
+    shard_axis: str = "shard"
 
     def __post_init__(self):
+        if self.shards > 1:
+            if self.shard_mesh is None:
+                raise ValueError("shards > 1 needs a shard_mesh "
+                                 "(launch/mesh.py::make_shard_mesh)")
+            mesh_m = self.shard_mesh.shape[self.shard_axis]
+            if mesh_m != self.shards:
+                raise ValueError(
+                    f"shards={self.shards} but shard_mesh axis "
+                    f"{self.shard_axis!r} is {mesh_m}-way — the datapath "
+                    "would silently shard at the mesh width")
+            if self.n_instances % self.shards:
+                raise ValueError(f"n_instances ({self.n_instances}) must "
+                                 f"divide over {self.shards} shards")
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             # the reference decodes in full f32; TF32 would drift the logits
@@ -90,10 +118,19 @@ class Engine:
                             token=d[:, 2], msg_bytes=d[:, 3])
 
     # ------------------------------------------------------------------ #
-    def admit(self, state: EngineState, reqs: RequestBatch) -> EngineState:
+    def admit(self, state: EngineState, reqs: RequestBatch,
+              live=None) -> EngineState:
+        """One admission.  ``live`` (sharded engines):
+        ``shard_admit.live_shards`` of the batch as the host built it;
+        None reads it from ``reqs``."""
         rstate, metrics = state.routing, state.metrics
         rnd, gumbel = self.draws(reqs.req_id.shape[0])
-        res = ops.admit_commit(reqs, rstate, state.pool, rnd, gumbel)
+        if self.shards > 1:
+            res = ops.admit_commit_sharded(
+                reqs, rstate, state.pool, rnd, gumbel, mesh=self.shard_mesh,
+                axis=self.shard_axis, live=live)
+        else:
+            res = ops.admit_commit(reqs, rstate, state.pool, rnd, gumbel)
         rstate = rstate._replace(ep_load=res.ep_load, rr_cursor=res.rr_cursor,
                                  aff_key=res.aff_key, aff_ep=res.aff_ep)
         metrics = metrics._replace(
@@ -112,11 +149,14 @@ class Engine:
                                       pool.token.reshape(B, 1),
                                       pool.length.reshape(B), state.cache)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(I, C)
-        res = ops.complete(pool, nxt, state.routing.ep_load,
-                           state.metrics.rx_bytes,
-                           state.routing.ep_inflight_ewma,
-                           state.routing.ep_tput_ewma,
-                           eos=self.eos, max_len=self.max_len)
+        args = (pool, nxt, state.routing.ep_load, state.metrics.rx_bytes,
+                state.routing.ep_inflight_ewma, state.routing.ep_tput_ewma)
+        if self.shards > 1:
+            res = ops.complete_sharded(*args, mesh=self.shard_mesh,
+                                       axis=self.shard_axis, eos=self.eos,
+                                       max_len=self.max_len)
+        else:
+            res = ops.complete(*args, eos=self.eos, max_len=self.max_len)
         rstate = state.routing._replace(ep_load=res.ep_load,
                                         ep_inflight_ewma=res.ep_inflight_ewma,
                                         ep_tput_ewma=res.ep_tput_ewma)
@@ -131,14 +171,17 @@ class Engine:
         """One serving tick: admit (on ticks with arrivals) + decode step.
 
         PyTorch runs eagerly, so this is a plain callable.  The "any
-        arrivals" gate is decided from the batch as the caller built it:
-        give it the host batch (CPU tensors) and the gate costs no device
-        sync; ``upload`` then copies the batch over once.  ``donate`` is
+        arrivals" gate, and on a sharded engine which shards have
+        arrivals, are decided from the batch as the caller built it: give
+        it the host batch (CPU tensors) and they cost no device sync;
+        ``upload`` then copies the batch over once.  ``donate`` is
         accepted for the ``Balancer`` protocol; nothing is donated."""
 
         def serve_step(params, state: EngineState, reqs: RequestBatch):
             if bool((reqs.req_id >= 0).any()):
-                state = self.admit(state, self.upload(reqs))
+                live = (shard_admit.live_shards(reqs.req_id, self.shards)
+                        if self.shards > 1 else None)
+                state = self.admit(state, self.upload(reqs), live)
             return self.step(params, state)
 
         return serve_step

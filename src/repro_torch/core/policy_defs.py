@@ -459,26 +459,32 @@ class PolicyDef:
 
     name: str
     enum: int
+    shard_merge: str                     # 'cursor' | 'waterfill' | 'none'
     kernel_offset: Callable[[Any], Any]  # plain tile path → window offsets
     staged_offset: Callable[[Any], Any]  # staged chain → window offsets
     host_pick: Callable                  # sidecar numpy → absolute endpoint
 
 
 REGISTRY: tuple[PolicyDef, ...] = (
-    PolicyDef("rr", POLICY_RR, _rr_kernel, _rr_staged, _rr_host),
-    PolicyDef("random", POLICY_RANDOM, _random_kernel, _random_staged,
-              _random_host),
-    PolicyDef("least_request", POLICY_LEAST_REQUEST, _lr_kernel, _lr_staged,
-              _lr_host),
-    PolicyDef("weighted", POLICY_WEIGHTED, _wt_kernel, _wt_staged,
+    PolicyDef("rr", POLICY_RR, "cursor", _rr_kernel, _rr_staged, _rr_host),
+    PolicyDef("random", POLICY_RANDOM, "cursor", _random_kernel,
+              _random_staged, _random_host),
+    PolicyDef("least_request", POLICY_LEAST_REQUEST, "waterfill", _lr_kernel,
+              _lr_staged, _lr_host),
+    PolicyDef("weighted", POLICY_WEIGHTED, "none", _wt_kernel, _wt_staged,
               _wt_host),
-    PolicyDef("maglev", POLICY_MAGLEV, _maglev_kernel, _maglev_staged,
-              _maglev_host),
-    PolicyDef("affinity", POLICY_AFFINITY, _affinity_kernel,
+    PolicyDef("maglev", POLICY_MAGLEV, "none", _maglev_kernel,
+              _maglev_staged, _maglev_host),
+    PolicyDef("affinity", POLICY_AFFINITY, "none", _affinity_kernel,
               _affinity_staged, _affinity_host),
 )
 
 BY_ENUM: dict[int, PolicyDef] = {p.enum: p for p in REGISTRY}
+
+#: enums whose shard merge rule needs the water-fill load carry-in
+#: (``kernels/shard_admit.py::waterfill_lr``)
+WATERFILL_ENUMS: tuple[int, ...] = tuple(
+    p.enum for p in REGISTRY if p.shard_merge == "waterfill")
 
 # import-time guards: the registry is dense over 0..N-1 and its names agree
 # with POLICY_NAMES, so drift between the enum and the hooks fails here

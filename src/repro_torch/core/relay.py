@@ -5,6 +5,9 @@ A p-sock relays a message straight into the TX queue of the chosen
 i-sock; on the device that is a capacity-bounded counting-sort dispatch:
 payload rows move to their destination's buffer slot in one scatter.
 
+Across a shard mesh (``sharded_apply``) the relay hop is an explicit
+``all_to_all`` over the mesh's axis.
+
 Three interchangeable dispatch methods (the tests cross-check them):
   * ``sort``    - counting-sort positions + scatter.  Default.
   * ``cumsum``  - one-hot cumsum positions (GShard-style rank).
@@ -29,8 +32,11 @@ class RelayMeta(NamedTuple):
 
     idx: torch.Tensor        # (N,) destination id per payload row
     slot: torch.Tensor       # (N,) i32 slot within the destination pool
-    ok: torch.Tensor         # (N,) bool row fit inside capacity
+    ok: torch.Tensor         # (N,) bool row fit inside capacity (per-SOURCE
+    #                          quota under sharded_apply)
     load: torch.Tensor       # (E,) i32 rows destined per backend, pre-drop
+    #                          (GLOBAL, summed over the shards, from
+    #                          sharded_apply)
     overflow_frac: torch.Tensor  # () f32 fraction of rows dropped
 
 
@@ -134,3 +140,59 @@ def relay_combine_einsum(buf, d_onehot, weights=None):
     if weights is not None:
         out = out * weights[:, None].to(out.dtype)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# Instance-parallel relay: an explicit all_to_all over a shard mesh
+# --------------------------------------------------------------------------- #
+
+
+def sharded_apply(xs, idxs, weights, n_dest: int, capacity: int, mesh,
+                  axis: str, backend_fn, backend_params):
+    """Relay every shard's rows over the mesh axis ``axis`` to the owners
+    of their destinations, apply ``backend_fn(params_j, pool)`` on each
+    owner j, and relay the results back: the reference's ``shard_map``
+    body, driven by one controller over the M shards.
+
+    ``xs``: per-shard rows (M, N_loc, D) (or a list of M (N_loc, D));
+    ``idxs``: per-shard global destination ids (M, N_loc); ``weights``:
+    per-shard (M, N_loc) scales or None; ``backend_params``: per-shard
+    parameters, shard j's for its ``n_dest // M`` destinations (destination
+    b lives on shard ``b // (n_dest // M)``); ``n_dest % M == 0``.  The
+    backend gets (n_dest // M, M * capacity, D) and returns
+    (n_dest // M, M * capacity, D').  Returns (out (M, N_loc, D'), meta).
+
+    Meta across the shards: ``idx``/``slot``/``ok`` are per-source (M,
+    N_loc): each source shard owns ``capacity`` slots at every destination,
+    so a row is dropped against its own shard's quota (a destination
+    absorbs up to ``M * capacity`` rows in all); ``overflow_frac`` is the
+    mean of the per-source drop fractions; ``load`` is the GLOBAL pre-drop
+    row count per destination, as single-shard dispatch on the
+    concatenated rows gives it."""
+    M = mesh.shape[axis]
+    if n_dest % M:
+        raise ValueError(f"n_dest ({n_dest}) must divide over the {M}-way "
+                         f"mesh axis {axis!r}")
+    E_loc = n_dest // M
+    # local dispatch into per-destination pools, per-source capacity
+    bufs, metas = zip(*(relay_dispatch(x, i, n_dest, capacity)
+                        for x, i in zip(xs, idxs)))
+    # relay hop: shard m's pools (M, E_loc, C, D) split by owner; owner j
+    # receives (M, E_loc, C, D), its leading axis the source shard
+    recv = mesh.all_to_all([b.reshape(M, E_loc, capacity, -1)
+                            for b in bufs])
+    outs = [backend_fn(p, r.transpose(0, 1).reshape(E_loc, M * capacity, -1))
+            for p, r in zip(backend_params, recv)]
+    # reverse relay: owner j's results (E_loc, M*C, D') split by source
+    back = mesh.all_to_all([o.reshape(E_loc, M, capacity, -1)
+                            .transpose(0, 1) for o in outs])
+    load = mesh.psum([m.load for m in metas])
+    overflow = mesh.psum([m.overflow_frac for m in metas]) / M
+    ws = [None] * M if weights is None else weights
+    out = mesh.all_gather([
+        relay_combine(b.reshape(n_dest, capacity, -1),
+                      m._replace(load=load, overflow_frac=overflow), w)
+        for b, m, w in zip(back, metas, ws)])
+    stack = lambda f: mesh.all_gather([getattr(m, f) for m in metas])
+    return out, RelayMeta(stack("idx"), stack("slot"), stack("ok"), load,
+                          overflow)

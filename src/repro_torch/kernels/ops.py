@@ -6,11 +6,16 @@ plain PyTorch version.  There is no fallback from one to the other.
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
 that its main path went through the kernels.
 
+The sharded wrappers (``admit_commit_sharded``, ``complete_sharded``)
+count the launches of the kernels they run per shard under those kernels'
+names.
+
 Under ``XLB_SANITIZE=1`` ``admit``, ``admit_commit`` and ``complete`` run
 the conservation laws of ``analysis/invariants.py`` on their outputs
 (``guard``: the laws on the tensors' device, one host sync per call) and
 raise on the first violation, on the tick that broke it.  With the
-variable unset they add no op and no sync.
+variable unset they add no op and no sync.  The sharded wrappers have no
+guard, as the reference's have none.
 """
 
 from __future__ import annotations
@@ -140,6 +145,25 @@ def admit_commit(reqs: RequestBatch, routing, pool: PoolState, rnd,
     return out
 
 
+def admit_commit_sharded(reqs: RequestBatch, routing, pool: PoolState, rnd,
+                         gumbel, *, mesh, axis: str = "shard",
+                         live=None) -> AdmitCommitOut:
+    """``admit_commit`` sharded over the mesh axis ``axis``
+    (``launch/mesh.py::ShardMesh``): the batch splits ``(R/M,)``, the pool
+    ``(I/M,)``, the routing tables replicate, each shard runs the
+    admission kernel without the commit (one launch per shard that holds a
+    valid row, counted under ``"admit"``, and one route-match launch for
+    the batch), and one collective pass reconciles the state the datapath
+    owns; bit-exact against ``admit_commit`` on the same batch
+    (``kernels/shard_admit.py``).  ``live``: ``shard_admit.live_shards``
+    of the batch as the host built it (None reads it from ``reqs``)."""
+    from repro_torch.kernels import shard_admit as _sa
+    res = _sa.admit_commit_sharded(
+        reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes, reqs.token,
+        routing, *pool, rnd, gumbel, mesh=mesh, axis=axis, live=live)
+    return AdmitCommitOut(*res[:13], PoolState(*res[13:]))
+
+
 def _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma):
     E = ep_load.shape[0]
     z = lambda: torch.zeros((E,), dtype=torch.float32, device=ep_load.device)
@@ -171,6 +195,26 @@ def complete(pool: PoolState, nxt, ep_load, rx_bytes, ep_inflight_ewma=None,
                                active_after=out.pool.active,
                                req_id_after=out.pool.req_id))
     return out
+
+
+def complete_sharded(pool: PoolState, nxt, ep_load, rx_bytes,
+                     ep_inflight_ewma=None, ep_tput_ewma=None, *, mesh,
+                     axis: str = "shard", eos: int,
+                     max_len: int) -> CompleteOut:
+    """``complete`` sharded over the mesh axis ``axis``: the pool splits
+    ``(I/M,)``, the (E,)/(S,) tables replicate, the completion kernel runs
+    on each slice (one launch per shard, counted under ``"complete"``),
+    and the per-shard integer folds are psum-reconciled before ONE shared
+    ``health_update`` on the global counts, so the EWMAs are bit-exact
+    against ``complete`` on the whole pool (``kernels/shard_admit.py``)."""
+    from repro_torch.kernels import shard_admit as _sa
+    ewl, ewt = _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma)
+    res = _sa.complete_sharded(*pool, nxt, ep_load, rx_bytes, ewl, ewt,
+                               mesh=mesh, axis=axis, eos=eos,
+                               max_len=max_len)
+    return CompleteOut(PoolState(*res[:6]), res.done, res.ep_load,
+                       res.rx_bytes, res.done_cnt, res.inflight_ewma,
+                       res.tput_ewma)
 
 
 def route_match(svc, features, routing) -> tuple[torch.Tensor, torch.Tensor]:

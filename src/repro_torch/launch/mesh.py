@@ -1,0 +1,84 @@
+"""The shard mesh of the sharded datapath (twin of ``make_shard_mesh`` in
+``repro/launch/mesh.py``).
+
+The reference drives its mesh from one program (``shard_map``): one
+controller runs every shard and the collectives are ``all_gather``,
+``psum`` and ``all_to_all`` inside that program.  The port does the same
+from one process: a ``ShardMesh`` names the axis and its width M, the one
+device every shard lives on, and the three collectives as plain functions
+over the M per-shard values.  Per-shard values are a list of M tensors, or
+one tensor whose leading dimension is the shard axis.
+
+Shards over several devices are not part of this layer (ROADMAP.md,
+queue 1: shards over several GPUs); a mesh over more than one raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _stacked(xs) -> torch.Tensor:
+    return xs if isinstance(xs, torch.Tensor) else torch.stack(list(xs))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardMesh:
+    """A 1-D mesh: ``shape[axis] == M`` shards, all on ``device``."""
+
+    shape: dict
+    device: torch.device
+
+    @staticmethod
+    def all_gather(xs) -> torch.Tensor:
+        """Every shard's value, stacked: (M, ...)."""
+        return _stacked(xs)
+
+    @staticmethod
+    def psum(xs) -> torch.Tensor:
+        """The sum over the shards, in the values' own dtype (an int32 sum
+        wraps as the reference's does)."""
+        x = _stacked(xs)
+        return x.sum(dim=0, dtype=x.dtype)
+
+    @staticmethod
+    def all_to_all(xs) -> torch.Tensor:
+        """``jax.lax.all_to_all(x, split_axis=0, concat_axis=0,
+        tiled=False)``: shard m's value is (M, ...), its chunk j goes to
+        shard j, and shard j stacks what it receives by source.  Returns
+        the received values (M, M, ...), ``out[j][m] = xs[m][j]``."""
+        return _stacked(xs).transpose(0, 1)
+
+
+def make_shard_mesh(shards: int, axis: str = "shard",
+                    device="cuda") -> ShardMesh:
+    """A ``shards``-way mesh over axis ``axis`` for the sharded admission
+    datapath (``ops.admit_commit_sharded``, ``ops.complete_sharded``).
+
+    ``device`` is the one device of every shard (``"cuda"`` by default,
+    ``"cpu"`` for the plain versions); a sequence of devices, one per
+    shard as ``jax.devices()`` gives them, must name only one."""
+    if shards < 1:
+        raise ValueError(f"a shard mesh needs at least one shard, "
+                         f"got {shards}")
+    devs = {_indexed(d) for d in (device if isinstance(device, (list, tuple))
+                                  else [device])}
+    if len(devs) != 1:
+        raise ValueError(
+            f"a shard mesh over {len(devs)} devices: the port drives every "
+            "shard on one device (shards over several GPUs are ROADMAP.md "
+            "queue 1 item 14)")
+    return ShardMesh({axis: shards}, devs.pop())
+
+
+def _indexed(device) -> torch.device:
+    """``device`` resolved, a CUDA device with its index, so that it
+    compares equal to the device of a tensor on it."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

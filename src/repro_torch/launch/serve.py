@@ -1,13 +1,14 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --engine
 xlb|istio|cilium --policy least_request --instances 4 --slots 4
---requests 32 --max-len 24 [--device cuda|cpu]``.
+--requests 32 --max-len 24 [--shards M] [--device cuda|cpu]``.
 
 Boots the chosen engine (XLB or one of the sidecar baselines) with the
 full-width ``xlb-service-model`` (random weights from a seed), one
 service routed to one cluster over the instances under the chosen
 policy, built by a ``ControlPlane`` that the loop attaches to, and drives a synthetic request stream through the
-continuous-batching loop.  Runs on the card unless ``--device cpu`` is
-given.
+continuous-batching loop.  ``--shards M`` shards the XLB engine's
+admission batch and pool over an M-way shard mesh, all shards on the one
+device.  Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from repro_torch.core.control import ControlPlane
 from repro_torch.core.routing_table import (POLICY_NAMES, Cluster, Rule,
                                             ServiceConfig)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.models import model as M
 from repro_torch.runtime.serve_loop import Request, ServeLoop
 
@@ -38,9 +40,24 @@ def main(argv=None) -> int:
     ap.add_argument("--policy", default="least_request",
                     choices=sorted(POLICY_NAMES),
                     help="load-balancing policy of the serving cluster")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="shard the admission batch + pool over an M-way "
+                    "shard mesh (xlb engine only), every shard on --device")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
+    kw = {}
+    if args.shards > 1:
+        if args.engine != "xlb":
+            raise SystemExit("--shards needs the in-graph engine "
+                             "(--engine xlb); the sidecar baselines route "
+                             "on the host")
+        if args.instances % args.shards:
+            raise SystemExit(f"--instances {args.instances} must divide "
+                             f"over --shards {args.shards}")
+        kw = dict(shards=args.shards,
+                  shard_mesh=make_shard_mesh(args.shards,
+                                             device=args.device))
     device = resolve_device(args.device)
     cfg = XLB_SERVICE_MODEL
     params = M.init_params(cfg, torch.Generator().manual_seed(0),
@@ -50,7 +67,7 @@ def main(argv=None) -> int:
         [Cluster("pool", endpoints=list(range(args.instances)),
                  policy=POLICY_NAMES[args.policy])])
     eng = make_balancer(args.engine, cfg, args.instances, args.slots,
-                        args.max_len, device=device)
+                        args.max_len, device=device, **kw)
     loop = ServeLoop(eng, params, cp, admit_batch=8, dtype=torch.float32)
 
     t0 = time.perf_counter()
@@ -61,9 +78,12 @@ def main(argv=None) -> int:
     rep = loop.drain()
     wall = time.perf_counter() - t0
     lat = [r.t_done - r.t_submit for r in rep.done] or [float("nan")]
-    print(f"{cfg.name} [{args.engine}, {device}]: {len(rep.done)} requests "
-          f"in {wall:.2f}s ({len(rep.done)/wall:.1f} req/s), avg latency "
-          f"{1e3*np.mean(lat):.1f} ms, p99 {1e3*np.percentile(lat, 99):.1f} ms")
+    shards = f", {args.shards} shards" if args.shards > 1 else ""
+    print(f"{cfg.name} [{args.engine}, {device}{shards}]: {len(rep.done)} "
+          f"requests in {wall:.2f}s ({len(rep.done)/wall:.1f} req/s), avg "
+          "latency "
+          f"{1e3*np.mean(lat):.1f} ms, p99 "
+          f"{1e3*np.percentile(lat, 99):.1f} ms")
     if rep.queued or rep.inflight or rep.dropped:
         print(f"drain left: queued={rep.queued} inflight={rep.inflight} "
               f"dropped={len(rep.dropped)}")

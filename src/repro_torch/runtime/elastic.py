@@ -5,8 +5,11 @@
 scenarios: grow or shrink one cluster to a target endpoint count in a
 single ControlPlane transaction.  Scale-up revives draining endpoints
 before allocating fresh instance lanes; scale-down drains gracefully (the
-reaper removes the rows once their in-flight load clears).  Resharding a
-state across devices waits for the port's sharding layer.
+reaper removes the rows once their in-flight load clears).  The
+reference's ``reshard_params``, ``reshard_tree`` and
+``validate_divisibility`` move a model's parameters between DP/FSDP/TP
+meshes (``sharding/specs.py::MeshSpec``): they come with the port's model
+sharding (ROADMAP.md queue 1 item 12), not with the sharded datapath.
 """
 
 from __future__ import annotations

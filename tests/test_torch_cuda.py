@@ -748,3 +748,70 @@ def test_health_and_transport_read_card_state(dev):
         rc.pump(t)
     assert rc.routing.ep_load.device.type == "cuda"
     assert hub.report()["converged"] and rc.version == cp.version
+
+
+# --------------------------------------------------------------------------- #
+# sharded admission and completion on the card
+# --------------------------------------------------------------------------- #
+
+
+def _equal_fields(got, want, ctx):
+    for f in want._fields:
+        w, g = getattr(want, f), getattr(got, f)
+        if f == "pool":
+            _equal_fields(g, w, f"{ctx} pool")
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), f"{ctx} {f}"
+
+
+# the serving shape, a ragged batch, and an idle ingress host (a shard of
+# padding rows, which launches nothing)
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("case", ["serving", "ragged", "idle_shard"])
+def test_sharded_admission_matches_unsharded_on_the_card(dev, case, M):
+    from repro_torch.kernels import shard_admit
+    from repro_torch.launch.mesh import make_shard_mesh
+    R, I, C = {"serving": (256, 64, 16), "ragged": (300, 16, 4),
+               "idle_shard": (256, 64, 16)}[case]
+    routing = _routing(dev, R)
+    reqs, rnd, gum = _batch(R, R + M, dev)
+    if case == "idle_shard":
+        rid = reqs.req_id.clone()
+        rid[R // M:2 * R // M] = -1
+        reqs = reqs._replace(req_id=rid)
+    pool, _ = _pool(I, C, R, dev)
+    live = shard_admit.live_shards(reqs.req_id, M)
+    assert (case == "idle_shard") == (not all(live))
+    n0 = dict(ops.LAUNCHES)
+    k = ops.admit_commit_sharded(reqs, routing, pool, rnd, gum,
+                                 mesh=make_shard_mesh(M))
+    assert ops.LAUNCHES["admit"] - n0["admit"] == sum(live)
+    assert ops.LAUNCHES["route_match"] - n0["route_match"] == 1
+    assert ops.LAUNCHES["admit_commit"] == n0["admit_commit"]
+    _equal_fields(k, ops.admit_commit(reqs, routing, pool, rnd, gum),
+                  f"{case} M={M} vs unsharded")
+    cpu = lambda t: t.cpu()                                  # noqa: E731
+    c = ops.admit_commit_sharded(
+        RequestBatch(*map(cpu, reqs)), routing.to("cpu"),
+        PoolState(*map(cpu, pool)), cpu(rnd), cpu(gum),
+        mesh=make_shard_mesh(M, device="cpu"))
+    on_cpu = k._replace(pool=PoolState(*map(cpu, k.pool)),
+                        **{f: cpu(getattr(k, f)) for f in k._fields[:-1]})
+    _equal_fields(on_cpu, c, f"{case} M={M} vs the CPU")
+    assert int(k.ok.sum()) > 0 and int(k.held) > 0
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("I,C", [(64, 16), (8, 6)])
+def test_sharded_completion_matches_unsharded_on_the_card(dev, I, C, M):
+    """EWMA bits included: B1's epilogue unsharded, ``health_update`` in
+    torch ops after the psum sharded."""
+    from repro_torch.launch.mesh import make_shard_mesh
+    args = [t.to(dev) for t in _complete_args(I, C, 512, 64, I + M)]
+    n0 = ops.LAUNCHES["complete"]
+    k = ops.complete_sharded(PoolState(*args[:6]), *args[6:],
+                             mesh=make_shard_mesh(M), eos=1, max_len=8)
+    assert ops.LAUNCHES["complete"] == n0 + M
+    _equal_fields(k, ops.complete(PoolState(*args[:6]), *args[6:], eos=1,
+                                  max_len=8), f"complete M={M}")
+    assert int(k.done_cnt.sum()) > 0
