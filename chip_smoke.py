@@ -56,10 +56,21 @@ Phases (each prints one line; any failure exits non-zero):
    of padding rows, which launches nothing), ``ops.complete_sharded`` at
    the serving shape, each bit-exact against the unsharded wrapper on the
    same card tensors and against the CPU, with its call ms and the device
-   ms of B3 at width R/M, B4 and B1; then ENGINE_REQUESTS requests through
-   ``ServeLoop`` over ``Engine(shards=4)``, equal to shards=1 on the card
-   and to shards=4 on the CPU in every count, tick and routing bit, timed
-   beside the unsharded drain, with the B1, B3 and B4 launches per tick;
+   ms of B3 (in its all-free mode) at width R/M, B4 and B1, and the F4
+   shape (I_LANES lanes, R = 4096 over 4 shards: B3 at W = 1024, where a
+   staged mask would not fit a block) bit-exact against the unsharded
+   wrapper; then ENGINE_REQUESTS requests through ``ServeLoop`` over
+   ``Engine(shards=4)``, equal to shards=1 on the card and to shards=4 on
+   the CPU in every count, tick and routing bit, timed beside the
+   unsharded drain, with the B1, B3 and B4 launches per tick; then the
+   chained-service path (``workload/hops.py``, ``workload/chain.py``): a
+   depth-3 chain of the full-width serving model (64 x 16 a hop, one
+   least-request cluster, admit batch 256, 512 Poisson requests at the
+   main path's rate) on istio, cilium and xlb, xlb with shards=2 and an
+   xlb live-ops leg (the reference chain bench's canary and scale ops,
+   weighted), each equal to its CPU run in every count and tick, every
+   request complete and ``ep_load`` zero on every hop, xlb's p99 at most
+   each sidecar's and shards=2 equal to the unsharded row;
 6. the model stack at full width and depth in bf16, with weights from a
    CUDA generator: minitron-4b (prefill through ``flash_attention``,
    decode through ``decode_attention``) and mamba2-2.7b (prefill through
@@ -74,12 +85,19 @@ Phases (each prints one line; any failure exits non-zero):
    user runs ``prefill_decode --smoke``, with finite logits and every
    attention or SSD call through its kernel; then prefill and one decode
    step of each on the card against the CPU (f32, rtol = atol = 1e-4);
+   then ``launch/serve.py --arch`` at full width for xlb-service-model,
+   minitron-4b and mamba2-2.7b (every request served), and an arch not
+   ported yet refused with ``NotImplementedError``;
 8. the kernel launch counts: ``admit_commit``, ``complete`` and
    ``decode_attention`` on the main path (and in each serving phase after
    it), ``route_match``, ``relay_slots`` and ``admit`` in the staged
    phase, ``admit``, ``complete`` and ``route_match`` in the sharded
    drain (added to those), ``flash_attention``, ``decode_attention`` and
-   ``ssd_scan`` in the model phases.
+   ``ssd_scan`` in the model phases;
+9. ``python -m repro_torch.analysis`` with its kernels section in a
+   subprocess: under compute-sanitizer's memcheck and racecheck where
+   the sanitizer can attach to the card, else against the kernels'
+   bounds-checking build; it must exit 0.
 
 Phase 2 also holds the float kernels against their plain versions at the
 paths' shapes (decode attention at minitron-4b's and the serving model's,
@@ -192,6 +210,20 @@ CHAOS_SEED, CHAOS_TICKS, CHAOS_MAX_LEN = 23, 170, 3
 SAN_TICKS = 40
 # the sharded phase: the mesh widths, the seed of its drains' draws
 SHARDS, SHARD_SEED = (1, 2, 4), 11
+# B3 in the sharded admission with the staged all-free mask, before its
+# all-free mode: device ms per launch at width R/M = 256 / 128 / 64
+# (PERF.md §5, on an NVIDIA H100 80GB HBM3 at 700 W); and F4's
+# shape, where the staged mask passes the 227 KB a block may have: I_LANES
+# lanes, R = 4096 over 4 shards (W = 1024)
+B3_STAGED_MS = {1: 0.04199, 2: 0.02455, 4: 0.01464}
+F4_R, F4_M = 4096, 4
+# the chain phase: hops, requests, arrivals a tick (the main path's rate),
+# decode steps a request holds a slot at each hop, the seed of the
+# arrivals and of the engines' draws
+CHAIN_DEPTH, CHAIN_REQUESTS, CHAIN_RATE, CHAIN_TOKENS = 3, 512, 34.0, 8
+CHAIN_SEED = 11
+# the archs serve --arch runs at full width
+SERVE_ARCHS = ("xlb-service-model", "minitron-4b", "mamba2-2.7b")
 
 
 def fail(msg: str) -> None:
@@ -2235,6 +2267,37 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
                          f"launch at width R/M = {-(-R // M)}: "
                          f"{t['b3_ms']:.5f}, B4 {b4:.5f}")
             lines.append(line)
+    lines.append(
+        "sharded B3 in its all-free mode (no mask staged), device ms per "
+        "launch at width R/M = " + " / ".join(
+            f"{-(-ADMIT_R // M)}: {timing[f'admit[serving,M={M}]']['b3_ms']:.5f}"
+            for M in SHARDS) + " (with the staged mask, PERF.md §5: "
+        + " / ".join(str(B3_STAGED_MS[M]) for M in SHARDS) + ")")
+
+    # F4: at I_LANES lanes and R/M = 1024 the staged all-free mask passed
+    # the shared memory a block may have, and the sharded admission raised
+    routing, reqs, pool, rnd, gum = admit_inputs(
+        torch, RT, routing0, F4_R, I_LANES, SLOTS, seed=F4_R, dev=dev)
+    batch, pstate = B.RequestBatch(*reqs), B.PoolState(*pool)
+    mesh = MS.make_shard_mesh(F4_M, device=dev)
+    call = lambda: ops.admit_commit_sharded(  # noqa: E731
+        batch, routing, pstate, rnd, gum, mesh=mesh)
+    n0 = dict(ops.LAUNCHES)
+    got = call()
+    sync(torch, dev)
+    n = {k: ops.LAUNCHES[k] - n0[k] for k in n0}
+    check(n["admit"] == F4_M, f"sharded F4: launches {n}")
+    err = max_abs_err(torch, out_pairs(
+        got, ops.admit_commit(batch, routing, pstate, rnd, gum)))
+    b3 = kernel_time(profile_calls(torch, call), "admit_kernel")[0]
+    check(b3 is not None, "sharded F4: the profiler saw no admission kernel")
+    timing["admit[F4]"] = dict(call_ms=cuda_ms(torch, call), b3_ms=b3 / F4_M)
+    lines.append(
+        f"sharded F4: admit_commit_sharded[I={I_LANES} R={F4_R} M={F4_M}, "
+        f"B3 all-free at W={F4_R // F4_M}] max_abs_err={err} vs "
+        f"admit_commit on the card; ok={int(got.ok.sum())} "
+        f"held={int(got.held)}; call ms {timing['admit[F4]']['call_ms']:.4f}"
+        f", B3 device ms per launch {timing['admit[F4]']['b3_ms']:.5f}")
 
     args = complete_inputs(torch, RT, dev)
     pstate = B.PoolState(*args[:6])
@@ -2302,6 +2365,246 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
 
 
 # --------------------------------------------------------------------------- #
+# phase 5, continued: the chain of services
+# --------------------------------------------------------------------------- #
+
+
+def chain_ops(W):
+    """The live-ops leg's operations: the reference chain bench's (a canary
+    at hop 1 on instance 1 at 75 % at tick 6; hop 2 scaled to half its
+    fleet at tick 10 and back at 16), its 2 lanes scaled to I_LANES."""
+    return [W.Op(6, "canary", hop=1, args={"instance": 1, "pct": 75.0}),
+            W.Op(10, "scale", hop=2, args={"target": I_LANES // 2}),
+            W.Op(16, "scale", hop=2, args={"target": I_LANES})]
+
+
+def chain_run(torch, W, HP, RT, interpose, policies, cfg, params, dev, mode,
+              shards=1, live=False):
+    """One depth-CHAIN_DEPTH chain through ``HP.run_chain_scenario`` on
+    ``dev``: every hop the full-width serving model over I_LANES lanes x
+    SLOTS slots behind ``HP.build_cp(I_LANES)`` (one least-request
+    cluster; weighted in the live-ops leg), admit batch ADMIT_R, Poisson
+    arrivals at the main path's rate, eos -1.  Each xlb engine draws from
+    its own seeded CPU generator, so the card and the CPU runs draw the
+    same bits.  Returns (row, tick records, timing)."""
+    seeds = iter(range(1000))
+    post = interpose.Engine.__post_init__
+
+    def seeded(self):
+        post(self)
+        self.draws = host_draws(torch, policies, self.device,
+                                CHAIN_SEED + next(seeds))
+
+    stamps, busy = [], [0, 0.0]
+    plain_busy = HP.Service.busy
+
+    def timed_busy(self):
+        t = time.perf_counter()
+        v = plain_busy.fget(self)
+        busy[0] += 1
+        busy[1] += time.perf_counter() - t
+        return v
+
+    interpose.Engine.__post_init__ = seeded
+    HP.Service.busy = property(timed_busy)
+    try:
+        out = HP.run_chain_scenario(
+            mode, depth=CHAIN_DEPTH, workload=W.Workload(
+                W.PoissonArrivals(rate=CHAIN_RATE, seed=CHAIN_SEED),
+                n_requests=CHAIN_REQUESTS, vocab=cfg.vocab),
+            ops=chain_ops(W) if live else None,
+            label="chain_liveops" if live else "chain",
+            n_instances=I_LANES, slots=SLOTS, tokens_per_req=CHAIN_TOKENS,
+            admit_batch=ADMIT_R, policy=(RT.POLICY_WEIGHTED if live else
+                                         RT.POLICY_LEAST_REQUEST),
+            shards=shards, cfg=cfg, params=params, device=dev,
+            on_tick=lambda t: stamps.append(time.perf_counter()))
+    finally:
+        interpose.Engine.__post_init__ = post
+        HP.Service.busy = plain_busy
+    res, row = out["result"], out["row"]
+    check(row["completed"] == row["n_requests"] == CHAIN_REQUESTS
+          and row["dropped"] == 0,
+          f"chain {mode} (shards {shards}, live {live}, {dev}): "
+          f"{row['completed']} of {row['n_requests']} completed, "
+          f"{row['dropped']} dropped")
+    for k, h in enumerate(out["hops"]):
+        check(not bool(torch.as_tensor(h.routing.ep_load).any()),
+              f"chain {mode} ({dev}): ep_load of hop {k} not back to zero")
+    record = {f: getattr(res, f) for f in (
+        "completed", "dropped", "ticks", "submit_tick", "done_tick",
+        "hop_submit", "hop_done", "n_submitted")}
+    gaps = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    return row, record, dict(wall=res.wall_s,
+                             tick_ms=statistics.median(gaps),
+                             busy_calls=busy[0], busy_s=busy[1])
+
+
+def phase_chain(torch, W, HP, RT, interpose, policies, cfg, dev="cuda"):
+    """The chained-service path (``workload/hops.py`` + ``workload/
+    chain.py``): the depth-CHAIN_DEPTH chain on istio, cilium and xlb,
+    xlb with shards=2, and the xlb live-ops leg, each on the card and again
+    on the CPU, where every count and tick must be equal; the reference's
+    chain gate (xlb's p99 at most each sidecar's)."""
+    dev = torch.device(dev)
+    params = model_params(torch, cfg, dev)
+    cpu_params = _to(torch, params, torch.device("cpu"))
+    run = lambda d, p, mode, **kw: chain_run(  # noqa: E731
+        torch, W, HP, RT, interpose, policies, cfg, p, d, mode, **kw)
+    lines, rows = [], {}
+    for mode, kw in (("istio", {}), ("cilium", {}), ("xlb", {}),
+                     ("xlb shards=2", dict(shards=2)),
+                     ("xlb live-ops", dict(live=True))):
+        kind = mode.split()[0]
+        row, rec, t = run(dev, params, kind, **kw)
+        cpu_row, cpu_rec, _ = run(torch.device("cpu"), cpu_params, kind,
+                                  **kw)
+        check(json.dumps(row) == json.dumps(cpu_row) and rec == cpu_rec,
+              f"chain {mode}: the card's row or tick records differ from "
+              f"the CPU's: {row} vs {cpu_row}")
+        rows[mode] = (row, rec)
+        busy = (f"; busy {1e3 * t['busy_s'] / t['busy_calls']:.4f} ms a "
+                f"read ({t['busy_calls']} reads)" if kind == "xlb" else "")
+        lines.append(
+            f"chain {mode}: {row['completed']} requests through "
+            f"{CHAIN_DEPTH} hops ({I_LANES} x {SLOTS} each) in "
+            f"{row['ticks']} ticks, {t['wall']:.3f} s = "
+            f"{row['completed'] / t['wall']:.1f} req/s; median global tick "
+            f"{t['tick_ms']:.4f} ms (host clock); p50 / p99 "
+            f"{row['p50_ticks']} / {row['p99_ticks']} ticks, per hop p99 "
+            f"{row['per_hop_p99_ticks']}; txns {row['txns']}{busy}; equal "
+            "to the CPU run in every count and tick")
+    flat, sharded = rows["xlb"], rows["xlb shards=2"]
+    srow = dict(sharded[0])
+    check(srow.pop("shards", None) == 2
+          and json.dumps(srow) == json.dumps(flat[0])
+          and sharded[1] == flat[1],
+          "chain: xlb shards=2 differs from the unsharded xlb chain")
+    check(rows["xlb live-ops"][0]["txns"] == 3,
+          f"chain live-ops: {rows['xlb live-ops'][0]['txns']} transactions")
+    p99 = {m: rows[m][0]["p99_ticks"] for m in ("istio", "cilium", "xlb")}
+    check(p99["xlb"] <= p99["istio"] and p99["xlb"] <= p99["cilium"],
+          f"chain gate: xlb p99 {p99['xlb']} above a sidecar's {p99}")
+    lines.append(f"chain gate: depth {CHAIN_DEPTH} p99 ticks " + " ".join(
+        f"{m}={v}" for m, v in p99.items()) + "; xlb shards=2 equals "
+        "unsharded xlb in every count and tick")
+    return lines
+
+
+def model_params(torch, cfg, dev):
+    """``cfg``'s weights from a generator on ``dev`` seeded with 0, in
+    f32."""
+    from repro_torch.models import model as TM
+    return TM.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                          torch.float32, dev)
+
+
+# --------------------------------------------------------------------------- #
+# phase 6b: serve --arch at full width
+# --------------------------------------------------------------------------- #
+
+
+def phase_serve_arch(torch, serve):
+    """``serve.main(["--arch", a, "--device", "cuda"])`` for each arch the
+    port serves, at full width (free the earlier phases' models first:
+    minitron-4b in f32 is about 16 GB); an arch whose family is not ported
+    must raise NotImplementedError."""
+    import contextlib
+    import gc
+    import io
+    lines = []
+    for arch in SERVE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            n = serve.main(["--arch", arch, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        check(n == 32, f"serve --arch {arch}: {n} of 32 requests")
+        first = buf.getvalue().splitlines()[0]
+        lines.append(f"serve --arch {arch}: {first}; main() {wall:.2f} s "
+                     "with the weights' init; peak memory "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    try:
+        serve.main(["--arch", "granite-20b", "--device", "cuda"])
+        fail("serve --arch granite-20b did not raise")
+    except NotImplementedError as e:
+        lines.append(f"serve --arch granite-20b: NotImplementedError ({e})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: the analysis gate with the kernels' bounds check
+# --------------------------------------------------------------------------- #
+
+
+def sanitizer_attaches(path: str) -> tuple[bool, str]:
+    """Whether compute-sanitizer can instrument a CUDA program here: a
+    one-line torch program under memcheck must run clean."""
+    probe = [path, "--tool", "memcheck", sys.executable, "-c",
+             "import torch; print(torch.ones(4, device='cuda').sum().item())"]
+    try:
+        p = subprocess.run(probe, capture_output=True, text=True, timeout=240)
+    except subprocess.TimeoutExpired:
+        return False, "the probe timed out"
+    out = p.stdout + p.stderr
+    ok = p.returncode == 0 and "ERROR SUMMARY: 0 errors" in out
+    return ok, (out.strip().splitlines() or [""])[-1]
+
+
+def phase_analysis(torch):
+    """``python -m repro_torch.analysis`` with its kernels section, in a
+    subprocess: under compute-sanitizer's memcheck and racecheck where the
+    sanitizer can attach to the card, else against the kernels'
+    bounds-checking build.  It must exit 0."""
+    import os
+    import shutil
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    gate = [sys.executable, "-m", "repro_torch.analysis", "--report"]
+    path = shutil.which("compute-sanitizer")
+    runs = []
+    if path:
+        ok, why = sanitizer_attaches(path)
+        if ok:
+            runs = [("compute-sanitizer memcheck", [
+                path, "--tool", "memcheck", *gate, "--kernel-build",
+                "plain"]), ("compute-sanitizer racecheck", [
+                    path, "--tool", "racecheck", *gate, "--kernel-build",
+                    "plain"])]
+        tool = (f"compute-sanitizer is on PATH ({path}) but "
+                + ("attaches" if ok else f"cannot attach here ({why})"))
+    else:
+        tool = "compute-sanitizer is not on PATH"
+    if not runs:
+        runs = [("the bounds-checking build (-DXLB_BOUNDS_CHECK)", gate)]
+    lines = [f"analysis: {tool}; the kernels section runs under {runs[0][0]}"
+             + (" and racecheck" if len(runs) > 1 else "")]
+    for name, cmd in runs:
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        out = p.stdout + p.stderr
+        OUT.mkdir(exist_ok=True)
+        (OUT / f"analysis_{len(lines)}.txt").write_text(out)
+        summary = [ln for ln in out.splitlines()
+                   if "ERROR SUMMARY" in ln or ln.startswith(("[", "verif",
+                                                              "FAIL"))]
+        check(p.returncode == 0, f"analysis under {name}: exit "
+              f"{p.returncode}: " + " | ".join(summary[-12:]))
+        if name.startswith("compute-sanitizer"):
+            check("ERROR SUMMARY: 0 errors" in out,
+                  f"analysis under {name}: " + " | ".join(summary[-3:]))
+        lines.append(f"analysis under {name}: exit 0 in {wall:.1f} s "
+                     "(build included); " + " | ".join(summary))
+    return lines
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -2335,6 +2638,8 @@ def main() -> int:
     from repro_torch.core import health as H
     from repro_torch.kernels import shard_admit as SA
     from repro_torch.launch import mesh as MS
+    from repro_torch.launch import serve
+    from repro_torch.workload import hops as HP
 
     gpu = gpu_line()
     print(gpu)
@@ -2389,6 +2694,8 @@ def main() -> int:
         timing["admit"]["ms"])
     for line in slines:
         print(line)
+    for line in phase_chain(torch, W, HP, RT, interpose, policies, cfg):
+        print(line)
     llm_launches, prefill_kernels = {}, {}
     for arch in ("minitron-4b", "mamba2-2.7b"):
         line, got, names = phase_llm(torch, ops, TM, PDL, get_config(arch))
@@ -2396,6 +2703,8 @@ def main() -> int:
         llm_launches.update(got)
         prefill_kernels[arch] = names
     for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
+        print(line)
+    for line in phase_serve_arch(torch, serve):
         print(line)
     launches = {**main_launches, **staged_launches, **llm_launches}
     for k, v in sharded_launches.items():       # the sharded drain's
@@ -2505,6 +2814,8 @@ def main() -> int:
                   f"{RELAY_BEFORE_MS[N, nd]}), bound "
                   f"ms {bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, "
                   f"call ms {t['call_ms']}, on {gpu}")
+    for line in phase_analysis(torch):
+        print(line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,13 @@ a plain C interface, loaded with ``ctypes``.  The library is built at
 first use into ``build/repro_torch/`` at the root of the checkout (listed
 in ``.gitignore``) and rebuilt when a source's hash changes.  A failed
 build raises; nothing falls back to the plain PyTorch versions.
+
+``use_bounds_check()``, called before the first launch of a process, or
+``XLB_BOUNDS_CHECK=1`` in its environment, selects the bounds-checking
+variant instead: the same sources built with
+``-DXLB_BOUNDS_CHECK`` (``csrc/bounds.cuh``: every computed index of
+global and shared memory checked on the device; an index out of range
+traps the launch) into ``build/repro_torch_bounds/``.
 """
 
 from __future__ import annotations
@@ -27,10 +34,12 @@ SOURCES = ("admit.cu", "complete.cu", "route.cu", "relay.cu",
            "decode_attention.cu", "flash_attention.cu", "ssd_scan.cu",
            "launch_floor.cu")
 HEADERS = ("match.cuh", "float_io.cuh",   # included; part of the hash
-           "hopper.cuh")
+           "hopper.cuh", "bounds.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+BOUNDS_DIR = BUILD_DIR.parent / "repro_torch_bounds"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BOUNDS_FLAGS = ("-DXLB_BOUNDS_CHECK",)
 
 #: shared memory a launch gets without opting in (48 KB)
 SMEM_DEFAULT = 48 * 1024
@@ -53,13 +62,15 @@ SIGNATURES = {
                  + [_P] * 4 + [_I]              # endpoint tables, E
                  + [_P, _P, _I]                 # rr cursor, maglev, T
                  + [_P, _P, _I]                 # affinity cache, A
-                 + [_P, _I, _I]                 # slot mask, I, C
+                 + [_P, _I, _I]                 # slot mask (null: all
+                                                # free), I, C
                  + [_P] * 5                     # incoming pool
                  + [_P] * 5                     # per-request outputs
                  + [_P] * 7                     # carried-state outputs
                  + [_P] * 6                     # committed pool
                  + [_I, _P],                    # commit flag, stream
-    "xlb_admit_smem_bytes": [_I] * 8,           # E, CL, S, NR, A, I, C, F
+    "xlb_admit_smem_bytes": [_I] * 9,           # E, CL, S, NR, A, I, C, F,
+                                                # all-free flag
     "xlb_admit_init": [],
     "xlb_route": [_P, _P, _I, _I]               # svc, features, R, F
                  + [_P] * 5 + [_I, _I]          # svc + rule tables, S, NR
@@ -92,6 +103,9 @@ RESTYPES = {"xlb_error_string": ctypes.c_char_p,
 
 _lib: ctypes.CDLL | None = None
 _ready: set[int] = set()    # device indices the library was set up on
+#: the bounds-checking variant is selected (``use_bounds_check``, or
+#: ``XLB_BOUNDS_CHECK=1`` in the environment of the process)
+bounds_check = os.environ.get("XLB_BOUNDS_CHECK") == "1"
 _sms: dict[int, int] = {}   # device index -> streaming multiprocessors
 #: seconds the last build took (0.0 when an existing library was loaded)
 build_seconds = 0.0
@@ -109,8 +123,22 @@ def _nvcc() -> str:
     return nvcc
 
 
+def use_bounds_check() -> None:
+    """Build and load the bounds-checking variant in this process (before
+    its first launch: a loaded library cannot be swapped)."""
+    global bounds_check
+    if _lib is not None and not bounds_check:
+        raise RuntimeError("the kernel library is already loaded; select "
+                           "the bounds-checking variant before any launch")
+    bounds_check = True
+
+
+def _flags() -> tuple:
+    return NVCC_FLAGS + (BOUNDS_FLAGS if bounds_check else ())
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -140,7 +168,7 @@ def _build(target: Path) -> None:
     tmp.mkdir(parents=True, exist_ok=True)
     try:
         objs = [tmp / (Path(s).stem + ".o") for s in SOURCES]
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+        log = _run_all([[nvcc, *_flags(), "-c", str(CSRC / s), "-o", str(o)]
                         for s, o in zip(SOURCES, objs)])
         so = tmp / target.name
         log += _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
@@ -159,7 +187,8 @@ def library(device: torch.device | None = None) -> ctypes.CDLL:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA kernels need a CUDA device; torch "
                                "finds none")
-        target = BUILD_DIR / f"libxlb_kernels_{_digest()}.so"
+        target = (BOUNDS_DIR if bounds_check else BUILD_DIR) \
+            / f"libxlb_kernels_{_digest()}.so"
         t0 = time.perf_counter()
         if not target.exists():
             target.parent.mkdir(parents=True, exist_ok=True)

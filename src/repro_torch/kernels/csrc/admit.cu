@@ -59,6 +59,11 @@
 // the serving sizes stay rolled), and the prologue issues every global
 // load before any store, so that one DRAM round trip serves all the
 // tables.
+// All-free mode (B3 in the sharded admission): the caller passes no free
+// mask and the pool's width W in C.  Every instance then has W free slots
+// and the k-th is slot k, so a row's slot is its arrival rank on its
+// instance and nothing of the pool is staged: 3 I W bytes of shared memory
+// and their staging loop fall away (the mask and the free-slot lists).
 // Write-backs go after a barrier, with integer shared-memory atomics
 // (order-free, so bit-exact).  Pool cells have one writer each: the slot
 // allocator hands out the k-th free slot of an instance to the request of
@@ -69,12 +74,15 @@
 #include <cuda_runtime.h>
 #include <climits>
 #include <cmath>
+#include <type_traits>
 
+#include "bounds.cuh"
 #include "match.cuh"
 
 namespace {
 
 using xlb::clampi;
+using xlb::Span;
 using u64 = unsigned long long;
 
 constexpr int kTile = 256;       // rows per tile == threads per block
@@ -86,31 +94,35 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRandom = 1, kLeast = 2, kWeighted = 3, kMaglev = 4,
               kAffinity = 5;
 
+// Span<T>: T* in the normal build, a pointer with its extent in the
+// bounds-checking one (bounds.cuh).
+using CI = Span<const int>;
+using I32 = Span<int>;
 struct Args {
-  const int *rid, *svc, *feats, *bytes, *rnd;
-  const float* gum;
-  const int* tok;
+  CI rid, svc, feats, bytes, rnd;
+  Span<const float> gum;
+  CI tok;
   int R, F;
-  const int *rs, *rc, *rf, *rv, *rcl;
+  CI rs, rc, rf, rv, rcl;
   int S, NR;
-  const int *cs, *cc, *cp;
+  CI cs, cc, cp;
   int CL;
-  const int* einst;
-  const float* ew;
-  const int *ed, *load0;
+  CI einst;
+  Span<const float> ew;
+  CI ed, load0;
   int E;
-  const int *cur0, *mg;
+  CI cur0, mg;
   int T;
-  const int *affk0, *affe0;
+  CI affk0, affe0;
   int A;
-  const bool* free;   // (I, C) true = free slot (commit: !pool active)
+  Span<const bool> free;  // (I, C) true = free slot (commit: !pool
+                          // active); null: an all-free pool (commit-free)
   int I, C;
-  const int *preq0, *pep0, *psvc0, *plen0, *ptok0;
-  int *cluster, *ep, *inst, *slot, *ok;
-  int *load_out, *cur_out, *sreq_out, *stx_out, *cnt_out, *affk_out,
-      *affe_out;
-  int *preq, *pep, *psvc, *plen, *ptok;
-  bool* pact;
+  CI preq0, pep0, psvc0, plen0, ptok0;
+  I32 cluster, ep, inst, slot, ok;
+  I32 load_out, cur_out, sreq_out, stx_out, cnt_out, affk_out, affe_out;
+  I32 preq, pep, psvc, plen, ptok;
+  Span<bool> pact;
 };
 
 // Byte offsets of the shared-memory arrays (8-byte arrays first, then 4-,
@@ -122,7 +134,7 @@ struct Layout {
       wload, feat;                                      // 4 bytes
   long long lr_c, fslot;                                // u16
   long long drained, freem;                             // u8
-  long long total;
+  long long end, total;                                 // end: unpadded
 };
 
 __host__ __device__ inline long long take(long long& at, long long n,
@@ -132,8 +144,12 @@ __host__ __device__ inline long long take(long long& at, long long n,
   return o;
 }
 
+// all_free: the pool is known to be all free (B3's sharded mode), so
+// neither the free mask nor the free-slot lists are staged.
 __host__ __device__ inline Layout layout(int E, int CL, int S, int NR, int A,
-                                         int I, int C, int F) {
+                                         int I, int C, int F,
+                                         bool all_free) {
+  const long long IC = all_free ? 0 : (long long)I * C;
   Layout l;
   long long o = 0;
   l.emask = take(o, CL, 8);
@@ -166,60 +182,68 @@ __host__ __device__ inline Layout layout(int E, int CL, int S, int NR, int A,
   l.wload = take(o, kWarps * kWE, 4);
   l.feat = take(o, (long long)kTile * (F + 1), 4);
   l.lr_c = take(o, (long long)kWE * CL, 2);
-  l.fslot = take(o, (long long)I * C, 2);
+  l.fslot = take(o, IC, 2);
   l.drained = take(o, E, 1);
-  l.freem = take(o, (long long)I * C, 1);
+  l.freem = take(o, IC, 1);
+  l.end = o;
   l.total = (o + 15) / 16 * 16;
   return l;
 }
 
 struct Shared {
-  u64 *emask, *lr_mask, *wkey;
-  int *load, *held, *einst;
-  float* logw;
-  int *cur, *cs, *cc, *cp, *need, *histc, *icnt, *nfree, *histi, *sreq,
-      *stx, *rs, *rc, *rf, *rv, *rcl, *affk, *affe, *wmin, *cnt, *wload,
-      *feat;
-  unsigned short *lr_c, *fslot;
-  unsigned char *drained, *freem;
+  Span<u64> emask, lr_mask, wkey;
+  I32 load, held, einst;
+  Span<float> logw;
+  I32 cur, cs, cc, cp, need, histc, icnt, nfree, histi, sreq, stx, rs, rc,
+      rf, rv, rcl, affk, affe, wmin, cnt, wload, feat;
+  Span<unsigned short> lr_c, fslot;
+  Span<unsigned char> drained, freem;
 };
 
+// Each array from its offset to the next one's (the order of `layout`).
 __device__ Shared carve(unsigned char* base, const Layout& l) {
-  auto at = [&](long long off) { return base + off; };
+  auto at = [&](auto* type, long long off, long long next) {
+    using T = std::remove_pointer_t<decltype(type)>;
+    XLB_SMEM(off, next - off);
+    return XLB_SPAN(reinterpret_cast<T*>(base + off),
+                    (next - off) / (long long)sizeof(T));
+  };
+  u64* U = nullptr;
+  int* N = nullptr;
   Shared s;
-  s.emask = reinterpret_cast<u64*>(at(l.emask));
-  s.lr_mask = reinterpret_cast<u64*>(at(l.lr_mask));
-  s.wkey = reinterpret_cast<u64*>(at(l.wkey));
-  s.load = reinterpret_cast<int*>(at(l.load));
-  s.held = reinterpret_cast<int*>(at(l.held));
-  s.einst = reinterpret_cast<int*>(at(l.einst));
-  s.logw = reinterpret_cast<float*>(at(l.logw));
-  s.cur = reinterpret_cast<int*>(at(l.cur));
-  s.cs = reinterpret_cast<int*>(at(l.cs));
-  s.cc = reinterpret_cast<int*>(at(l.cc));
-  s.cp = reinterpret_cast<int*>(at(l.cp));
-  s.need = reinterpret_cast<int*>(at(l.need));
-  s.histc = reinterpret_cast<int*>(at(l.histc));
-  s.icnt = reinterpret_cast<int*>(at(l.icnt));
-  s.nfree = reinterpret_cast<int*>(at(l.nfree));
-  s.histi = reinterpret_cast<int*>(at(l.histi));
-  s.sreq = reinterpret_cast<int*>(at(l.sreq));
-  s.stx = reinterpret_cast<int*>(at(l.stx));
-  s.rs = reinterpret_cast<int*>(at(l.rs));
-  s.rc = reinterpret_cast<int*>(at(l.rc));
-  s.rf = reinterpret_cast<int*>(at(l.rf));
-  s.rv = reinterpret_cast<int*>(at(l.rv));
-  s.rcl = reinterpret_cast<int*>(at(l.rcl));
-  s.affk = reinterpret_cast<int*>(at(l.affk));
-  s.affe = reinterpret_cast<int*>(at(l.affe));
-  s.wmin = reinterpret_cast<int*>(at(l.wmin));
-  s.cnt = reinterpret_cast<int*>(at(l.cnt));
-  s.wload = reinterpret_cast<int*>(at(l.wload));
-  s.feat = reinterpret_cast<int*>(at(l.feat));
-  s.lr_c = reinterpret_cast<unsigned short*>(at(l.lr_c));
-  s.fslot = reinterpret_cast<unsigned short*>(at(l.fslot));
-  s.drained = at(l.drained);
-  s.freem = at(l.freem);
+  s.emask = at(U, l.emask, l.lr_mask);
+  s.lr_mask = at(U, l.lr_mask, l.wkey);
+  s.wkey = at(U, l.wkey, l.load);
+  s.load = at(N, l.load, l.held);
+  s.held = at(N, l.held, l.einst);
+  s.einst = at(N, l.einst, l.logw);
+  s.logw = at((float*)nullptr, l.logw, l.cur);
+  s.cur = at(N, l.cur, l.cs);
+  s.cs = at(N, l.cs, l.cc);
+  s.cc = at(N, l.cc, l.cp);
+  s.cp = at(N, l.cp, l.need);
+  s.need = at(N, l.need, l.histc);
+  s.histc = at(N, l.histc, l.icnt);
+  s.icnt = at(N, l.icnt, l.nfree);
+  s.nfree = at(N, l.nfree, l.histi);
+  s.histi = at(N, l.histi, l.sreq);
+  s.sreq = at(N, l.sreq, l.stx);
+  s.stx = at(N, l.stx, l.rs);
+  s.rs = at(N, l.rs, l.rc);
+  s.rc = at(N, l.rc, l.rf);
+  s.rf = at(N, l.rf, l.rv);
+  s.rv = at(N, l.rv, l.rcl);
+  s.rcl = at(N, l.rcl, l.affk);
+  s.affk = at(N, l.affk, l.affe);
+  s.affe = at(N, l.affe, l.wmin);
+  s.wmin = at(N, l.wmin, l.cnt);
+  s.cnt = at(N, l.cnt, l.wload);
+  s.wload = at(N, l.wload, l.feat);
+  s.feat = at(N, l.feat, l.lr_c);
+  s.lr_c = at((unsigned short*)nullptr, l.lr_c, l.fslot);
+  s.fslot = at((unsigned short*)nullptr, l.fslot, l.drained);
+  s.drained = at((unsigned char*)nullptr, l.drained, l.freem);
+  s.freem = at((unsigned char*)nullptr, l.freem, l.end);
   return s;
 }
 
@@ -261,8 +285,8 @@ __device__ __forceinline__ int kth_bit(u64 m, int k) {
 // the ranked order.
 __device__ void build_lr(const Shared& sh, const Args& a, int cl, int lane,
                          int warp) {
-  u64* key = sh.wkey + warp * kWE;     // keys, then the ranked lanes
-  int* lv = sh.wload + warp * kWE;     // the ranked loads
+  const Span<u64> key = sh.wkey + warp * kWE;   // keys, then the ranked
+  const I32 lv = sh.wload + warp * kWE;         // lanes; the ranked loads
   const int start = sh.cs[cl];
   const u64 eok = sh.emask[cl];
   u64 mine[2];
@@ -324,15 +348,16 @@ __device__ void build_lr(const Shared& sh, const Args& a, int cl, int lane,
 // -inf and can never be taken.  Branch-free: lanes of a warp whose rows
 // take different lanes do not diverge.  The row's Gumbel values were
 // prefetched into L1 right after the match.
-__device__ __forceinline__ int weighted(const float* gum, const float* logw,
-                                        u64 eok, int estart, int E) {
+__device__ __forceinline__ int weighted(Span<const float> gum,
+                                        Span<float> logw, u64 eok,
+                                        int estart, int E) {
   const int n = kWE - __clzll(eok);
   int best_j = 0;
   float best = -INFINITY;
 #pragma unroll 4
   for (int j = 0; j < n; ++j) {
     const float s = ((eok >> j) & 1ull)
-                        ? logw[clampi(estart + j, 0, E - 1)] + __ldg(gum + j)
+                        ? logw[clampi(estart + j, 0, E - 1)] + __ldg(&gum[j])
                         : -INFINITY;
     const bool take = (j == 0) | (!isnan(best) & (isnan(s) | (s > best)));
     best = take ? s : best;
@@ -346,20 +371,21 @@ __device__ __forceinline__ int weighted(const float* gum, const float* logw,
 template <int kU, typename T>
 struct Slab {
   T v[kU];
-  __device__ __forceinline__ void load(const T* src, int n, int tid) {
+  template <typename P>
+  __device__ __forceinline__ void load(P src, int n, int tid) {
 #pragma unroll
     for (int u = 0; u < kU; ++u)
       if (u * kTile + tid < n) v[u] = src[u * kTile + tid];
   }
-  template <typename D, typename Fn>
-  __device__ __forceinline__ void store(D* dst, int n, int tid,
+  template <typename P, typename Fn>
+  __device__ __forceinline__ void store(P dst, int n, int tid,
                                         Fn fn) const {
 #pragma unroll
     for (int u = 0; u < kU; ++u)
       if (u * kTile + tid < n) dst[u * kTile + tid] = fn(v[u]);
   }
   // features: flat index k to row k / F of a row stride of F + 1
-  __device__ __forceinline__ void store_feat(int* dst, int n, int F,
+  __device__ __forceinline__ void store_feat(I32 dst, int n, int F,
                                              int tid) const {
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
@@ -372,10 +398,10 @@ struct Slab {
 // Rows [base, base + kTile) of the features into shared memory, rows
 // padded to F + 1 ints (no bank conflicts when each thread walks its row);
 // the loads of up to 8 ints a thread in flight together.
-__device__ __forceinline__ void stage_features(int* feat, const Args& a,
+__device__ __forceinline__ void stage_features(I32 feat, const Args& a,
                                                int base, int tid) {
   const int n = min(kTile, a.R - base) * a.F;
-  const int* src = a.feats + (long long)base * a.F;
+  const CI src = a.feats + (long long)base * a.F;
   Slab<8, int> v;
   v.load(src, n, tid);
   v.store_feat(feat, n, a.F, tid);
@@ -398,11 +424,15 @@ struct Row {
   }
 };
 
-template <bool kCommit>
+// kAllFree (commit-free only): the pool is all free with width C = W, so
+// instance i's k-th free slot is slot k, a row's slot is its arrival rank
+// on its instance, and `free` is not read (it is null).
+template <bool kCommit, bool kAllFree = false>
 __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
+  static_assert(!(kCommit && kAllFree), "the commit reads its pool");
   extern __shared__ __align__(16) unsigned char smem[];
-  const Shared sh =
-      carve(smem, layout(a.E, a.CL, a.S, a.NR, a.A, a.I, a.C, a.F));
+  const Shared sh = carve(
+      smem, layout(a.E, a.CL, a.S, a.NR, a.A, a.I, a.C, a.F, kAllFree));
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const unsigned lower = (1u << lane) - 1u;
   const int IC = a.I * a.C, FP = a.F + 1;
@@ -435,9 +465,9 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
   v_rf.load(a.rf, a.NR, tid);
   v_rv.load(a.rv, a.NR, tid);
   v_rcl.load(a.rcl, a.NR, tid);
-  v_free.load(a.free, IC, tid);
+  if (!kAllFree) v_free.load(a.free, IC, tid);
   if (kCommit) {
-    const int* p0[5] = {a.preq0, a.pep0, a.psvc0, a.plen0, a.ptok0};
+    const CI p0[5] = {a.preq0, a.pep0, a.psvc0, a.plen0, a.ptok0};
 #pragma unroll
     for (int f = 0; f < 5; ++f) v_pool[f].load(p0[f], IC, tid);
   }
@@ -463,8 +493,9 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
   v_rf.store(sh.rf, a.NR, tid, ident);
   v_rv.store(sh.rv, a.NR, tid, ident);
   v_rcl.store(sh.rcl, a.NR, tid, ident);
-  v_free.store(sh.freem, IC, tid,
-               [](bool f) { return (unsigned char)f; });
+  if (!kAllFree)
+    v_free.store(sh.freem, IC, tid,
+                 [](bool f) { return (unsigned char)f; });
   v_feat.store_feat(sh.feat, nfeat, a.F, tid);
 #pragma unroll 1
   for (int k = tid; k < a.E; k += kTile) sh.held[k] = 0;
@@ -513,16 +544,17 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
     sh.rcl[k] = a.rcl[k];
   }
 #pragma unroll 1
-  for (int k = 4 * kTile + tid; k < IC; k += kTile) sh.freem[k] = a.free[k];
+  for (int k = 4 * kTile + tid; !kAllFree && k < IC; k += kTile)
+    sh.freem[k] = a.free[k];
 #pragma unroll 1
   for (int k = 8 * kTile + tid; k < nfeat; k += kTile)
     sh.feat[k + k / a.F] = a.feats[k];
   if (kCommit) {                  // the pool rides through; admits overwrite
-    int* p1[5] = {a.preq, a.pep, a.psvc, a.plen, a.ptok};
+    const I32 p1[5] = {a.preq, a.pep, a.psvc, a.plen, a.ptok};
 #pragma unroll
     for (int f = 0; f < 5; ++f) v_pool[f].store(p1[f], IC, tid, ident);
     v_free.store(a.pact, IC, tid, [](bool f) { return !f; });
-    const int* p0[5] = {a.preq0, a.pep0, a.psvc0, a.plen0, a.ptok0};
+    const CI p0[5] = {a.preq0, a.pep0, a.psvc0, a.plen0, a.ptok0};
 #pragma unroll 1
     for (int k = 4 * kTile + tid; k < IC; k += kTile) {
 #pragma unroll
@@ -554,7 +586,7 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
   }
   // a thread per instance: its free slots in order
 #pragma unroll 1
-  for (int i = tid; i < a.I; i += kTile) {
+  for (int i = tid; !kAllFree && i < a.I; i += kTile) {
     int n = 0;
 #pragma unroll 4
     for (int c = 0; c < a.C; ++c)
@@ -566,7 +598,7 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
   for (int base = 0; base < a.R; base += kTile) {
     const int r = base + tid;
     const bool inb = r < a.R;
-    const int* row = sh.feat + tid * FP;
+    const I32 row = sh.feat + tid * FP;
 
     // ---- content match, flow key, and the hooks' global reads ----------
     const Row in = row_in;              // this tile's request columns
@@ -595,10 +627,11 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
     const int mg_t = routable && (policy == kMaglev || policy == kAffinity)
                          ? a.mg[(long long)cl * a.T + fmodi(fkey, a.T)]
                          : 0;
-    const float* gum = a.gum + (long long)r * kWE;
+    const Span<const float> gum = a.gum + (long long)r * kWE;
     if (routable && policy == kWeighted) {   // its two 128-byte lines
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(gum));
-      asm volatile("prefetch.global.L1 [%0];" ::"l"(gum + 32));
+      const float* g = xlb::raw(gum);
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(g));
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(g + 32));
     }
 
     // in-warp cluster rank; each warp's count per cluster for the others
@@ -655,7 +688,7 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
         // smallest ticket: its level is that of the largest lv with
         // C_lv <= rho, and it is the ((rho - C_lv) mod (lv + 1))-th of
         // the lv + 1 lanes at or below it, in lane order
-        const unsigned short* c = sh.lr_c + cl * kWE;
+        const Span<unsigned short> c = sh.lr_c + cl * kWE;
         int lv = 0;
 #pragma unroll
         for (int step = kWE / 2; step > 0; step >>= 1)
@@ -688,8 +721,9 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
 #pragma unroll
     for (int w = 0; w < kWarps - 1; ++w)
       rank_i += w < warp ? sh.histi[w * a.I + instc] : 0;
-    const bool ok = routable && rank_i < sh.nfree[instc];
-    const int slot = ok ? sh.fslot[instc * a.C + rank_i] : -1;
+    const bool ok = routable && rank_i < (kAllFree ? a.C : sh.nfree[instc]);
+    const int slot =
+        !ok ? -1 : kAllFree ? rank_i : sh.fslot[instc * a.C + rank_i];
     const bool held = routable && !ok;
     if (inb) {
       a.cluster[r] = valid ? cluster : -1;
@@ -767,8 +801,9 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
 }  // namespace
 
 extern "C" int xlb_admit_smem_bytes(int E, int CL, int S, int NR, int A,
-                                    int I, int C, int F) {
-  const long long bytes = layout(E, CL, S, NR, A, I, C, F).total;
+                                    int I, int C, int F, int all_free) {
+  const long long bytes =
+      layout(E, CL, S, NR, A, I, C, F, all_free != 0).total;
   return bytes > INT_MAX ? INT_MAX : (int)bytes;
 }
 
@@ -776,7 +811,7 @@ extern "C" const char* xlb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Opts both instantiations in to all the shared memory a block of the
+// Opts the three instantiations in to all the shared memory a block of the
 // current device may have; called once per device before the first launch.
 extern "C" int xlb_admit_init() {
   int dev = 0, optin = 0;
@@ -790,6 +825,10 @@ extern "C" int xlb_admit_init() {
                                optin);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(admit_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(admit_kernel<false, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
   return (int)err;
@@ -812,15 +851,35 @@ extern "C" int xlb_admit(
     int* affk, int* affe,
     int* preq, int* pep, int* psvc, int* plen, int* ptok, bool* pact,
     int commit, void* stream) {
-  Args a{rid, svc, feats, bytes, rnd, gum, tok, R, F, rs, rc, rf, rv, rcl,
-         S, NR, cs, cc, cp, CL, einst, ew, ed, load0, E, cur0, mg, T,
-         affk0, affe0, A, free, I, C, preq0, pep0, psvc0, plen0, ptok0,
-         cluster, ep, inst, slot, ok, load_out, cur_out, sreq, stx, cnt,
-         affk, affe, preq, pep, psvc, plen, ptok, pact};
-  const int smem = xlb_admit_smem_bytes(E, CL, S, NR, A, I, C, F);
+  // a null free mask: the all-free mode of the commit-free kernel
+  const bool all_free = free == nullptr;
+  if (all_free && commit) return (int)cudaErrorInvalidValue;
+  const long long IC = (long long)I * C;
+  Args a{XLB_SPAN(rid, R), XLB_SPAN(svc, R), XLB_SPAN(feats, (long long)R * F),
+         XLB_SPAN(bytes, R), XLB_SPAN(rnd, R),
+         XLB_SPAN(gum, (long long)R * kWE), XLB_SPAN(tok, tok ? R : 0), R, F,
+         XLB_SPAN(rs, S), XLB_SPAN(rc, S), XLB_SPAN(rf, NR), XLB_SPAN(rv, NR),
+         XLB_SPAN(rcl, NR), S, NR, XLB_SPAN(cs, CL), XLB_SPAN(cc, CL),
+         XLB_SPAN(cp, CL), CL, XLB_SPAN(einst, E), XLB_SPAN(ew, E),
+         XLB_SPAN(ed, E), XLB_SPAN(load0, E), E, XLB_SPAN(cur0, CL),
+         XLB_SPAN(mg, (long long)CL * T), T, XLB_SPAN(affk0, A),
+         XLB_SPAN(affe0, A), A, XLB_SPAN(free, free ? IC : 0), I, C,
+         XLB_SPAN(preq0, commit ? IC : 0), XLB_SPAN(pep0, commit ? IC : 0),
+         XLB_SPAN(psvc0, commit ? IC : 0), XLB_SPAN(plen0, commit ? IC : 0),
+         XLB_SPAN(ptok0, commit ? IC : 0), XLB_SPAN(cluster, R),
+         XLB_SPAN(ep, R), XLB_SPAN(inst, R), XLB_SPAN(slot, R),
+         XLB_SPAN(ok, R), XLB_SPAN(load_out, E), XLB_SPAN(cur_out, CL),
+         XLB_SPAN(sreq, S), XLB_SPAN(stx, S), XLB_SPAN(cnt, 2),
+         XLB_SPAN(affk, A), XLB_SPAN(affe, A),
+         XLB_SPAN(preq, commit ? IC : 0), XLB_SPAN(pep, commit ? IC : 0),
+         XLB_SPAN(psvc, commit ? IC : 0), XLB_SPAN(plen, commit ? IC : 0),
+         XLB_SPAN(ptok, commit ? IC : 0), XLB_SPAN(pact, commit ? IC : 0)};
+  const int smem = xlb_admit_smem_bytes(E, CL, S, NR, A, I, C, F, all_free);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (commit)
     admit_kernel<true><<<1, kTile, smem, st>>>(a);
+  else if (all_free)
+    admit_kernel<false, true><<<1, kTile, smem, st>>>(a);
   else
     admit_kernel<false><<<1, kTile, smem, st>>>(a);
   return (int)cudaGetLastError();

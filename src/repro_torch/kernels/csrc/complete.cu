@@ -35,6 +35,8 @@
 
 #include <cuda_runtime.h>
 
+#include "bounds.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -48,48 +50,53 @@ constexpr int kSmemDefault = 48 * 1024;
 __device__ __forceinline__ void load2(int (&x)[kCells], const int* p, int i0,
                                       int n, bool vec) {
   if (vec) {
+    XLB_CHECK(i0 + kCells - 1, n);
     const int2 v = __ldg(reinterpret_cast<const int2*>(p + i0));
     x[0] = v.x;
     x[1] = v.y;
   } else {
 #pragma unroll
-    for (int j = 0; j < kCells; ++j) x[j] = i0 + j < n ? p[i0 + j] : 0;
+    for (int j = 0; j < kCells; ++j)
+      x[j] = i0 + j < n ? p[XLB_IX(i0 + j, n)] : 0;
   }
 }
 
 __device__ __forceinline__ void load2(bool (&x)[kCells], const bool* p,
                                       int i0, int n, bool vec) {
   if (vec) {
+    XLB_CHECK(i0 + kCells - 1, n);
     const unsigned short v =
         __ldg(reinterpret_cast<const unsigned short*>(p + i0));
     x[0] = v & 0xFF;
     x[1] = v >> 8;
   } else {
 #pragma unroll
-    for (int j = 0; j < kCells; ++j) x[j] = i0 + j < n && p[i0 + j];
+    for (int j = 0; j < kCells; ++j) x[j] = i0 + j < n && p[XLB_IX(i0 + j, n)];
   }
 }
 
 __device__ __forceinline__ void store2(int* p, const int (&x)[kCells], int i0,
                                        int n, bool vec) {
   if (vec) {
+    XLB_CHECK(i0 + kCells - 1, n);
     *reinterpret_cast<int2*>(p + i0) = make_int2(x[0], x[1]);
   } else {
 #pragma unroll
     for (int j = 0; j < kCells; ++j)
-      if (i0 + j < n) p[i0 + j] = x[j];
+      if (i0 + j < n) p[XLB_IX(i0 + j, n)] = x[j];
   }
 }
 
 __device__ __forceinline__ void store2(bool* p, const bool (&x)[kCells],
                                        int i0, int n, bool vec) {
   if (vec) {
+    XLB_CHECK(i0 + kCells - 1, n);
     *reinterpret_cast<unsigned short*>(p + i0) =
         (unsigned short)(x[0] | x[1] << 8);
   } else {
 #pragma unroll
     for (int j = 0; j < kCells; ++j)
-      if (i0 + j < n) p[i0 + j] = x[j];
+      if (i0 + j < n) p[XLB_IX(i0 + j, n)] = x[j];
   }
 }
 
@@ -124,11 +131,11 @@ __global__ void __launch_bounds__(kThreads) complete_kernel(
 #pragma unroll
   for (int j = 0; j < kOwn; ++j) {
     const int k = tid + j * kThreads;
-    l0[j] = k < E ? load0[k] : 0;
-    a0[j] = k < E ? ewl0[k] : 0.f;
-    b0[j] = k < E ? ewt0[k] : 0.f;
+    l0[j] = k < E ? load0[XLB_IX(k, E)] : 0;
+    a0[j] = k < E ? ewl0[XLB_IX(k, E)] : 0.f;
+    b0[j] = k < E ? ewt0[XLB_IX(k, E)] : 0.f;
   }
-  const int r0 = tid < S ? rx0[tid] : 0;
+  const int r0 = tid < S ? rx0[XLB_IX(tid, S)] : 0;
 
   const int units = (n + kCells - 1) / kCells;
   Cells c;
@@ -144,7 +151,8 @@ __global__ void __launch_bounds__(kThreads) complete_kernel(
     load2(c.act, pact, i0, n, vec);   // false past n: no fold
   };
   load_unit(tid);
-  for (int k = tid; k < E + S; k += kThreads) smem[k] = 0;
+  XLB_SMEM(0, sizeof(int) * ((long long)E + S));
+  for (int k = tid; k < E + S; k += kThreads) smem[XLB_IX(k, E + S)] = 0;
   __syncthreads();
 
   for (int v = tid; v < units; v += kThreads) {
@@ -164,9 +172,10 @@ __global__ void __launch_bounds__(kThreads) complete_kernel(
       tok[j] = a ? c.nx[j] : c.tok[j];
       act[j] = a && !d;
       done[j] = d;
-      if (d && c.ep[j] >= 0 && c.ep[j] < E) atomicAdd(&dec[c.ep[j]], 1);
+      if (d && c.ep[j] >= 0 && c.ep[j] < E)
+        atomicAdd(&dec[XLB_IX(c.ep[j], E)], 1);
       const int svc = c.sv[j] < 0 ? 0 : c.sv[j];
-      if (a && svc < S) atomicAdd(&rx[svc], 1);     // svc >= S drops
+      if (a && svc < S) atomicAdd(&rx[XLB_IX(svc, S)], 1);  // svc >= S drops
     }
     store2(oreq, req, i0, n, vec);
     store2(oep, ep, i0, n, vec);
@@ -179,6 +188,7 @@ __global__ void __launch_bounds__(kThreads) complete_kernel(
   __syncthreads();
 
   auto finish = [&](int k, int l, float a, float b) {
+    XLB_CHECK(k, E);
     const int d = dec[k];
     load_out[k] = l - d;
     done_cnt[k] = d;
@@ -194,9 +204,9 @@ __global__ void __launch_bounds__(kThreads) complete_kernel(
   }
   for (int k = tid + kOwn * kThreads; k < E; k += kThreads)
     finish(k, load0[k], ewl0[k], ewt0[k]);
-  if (tid < S) rx_out[tid] = r0 + kRxBytesPerToken * rx[tid];
+  if (tid < S) rx_out[tid] = r0 + kRxBytesPerToken * rx[XLB_IX(tid, S)];
   for (int k = tid + kThreads; k < S; k += kThreads)
-    rx_out[k] = rx0[k] + kRxBytesPerToken * rx[k];
+    rx_out[k] = rx0[k] + kRxBytesPerToken * rx[XLB_IX(k, S)];
 }
 
 bool aligned(const void* p, uintptr_t bytes) {

@@ -43,6 +43,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "bounds.cuh"
 #include "float_io.cuh"
 
 namespace {
@@ -67,6 +68,10 @@ struct DecodeArgs {
   long long vsb, vss, vsk;       // v cache
   int split_len, n_split;
   float scale;
+#ifdef XLB_BOUNDS_CHECK
+  long long nq, nk, nv, nout, npart;   // extents in elements
+  int B;
+#endif
 };
 
 // 16 bytes of the cache's type, widened to f32.
@@ -106,6 +111,7 @@ __global__ void __launch_bounds__(kThreads, GP <= 3 ? 4 : 2)
   const int b = bk / a.K, kh = bk % a.K;
   const int split = blockIdx.y, G = a.G;
 
+  XLB_CHECK(b, a.B);
   int n_valid = a.lengths[b] + 1 < a.S ? a.lengths[b] + 1 : a.S;
   const bool all_masked = n_valid <= 0;
   if (all_masked) n_valid = a.S;
@@ -123,9 +129,11 @@ __global__ void __launch_bounds__(kThreads, GP <= 3 ? 4 : 2)
     float qv[GP][VEC], acc[GP][VEC], m[GP], l[GP];
 #pragma unroll
     for (int g = 0; g < GP; ++g) {
-      const T* qh = q + b * a.qsb + (kh * G + g0 + g) * a.qsh + sub * VEC;
+      const long long qo = b * a.qsb + (kh * G + g0 + g) * a.qsh + sub * VEC;
+      const T* qh = q + qo;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
+        if (g < gn) XLB_CHECK(qo + e, a.nq);
         qv[g][e] = g < gn ? to_f32(qh[e]) : 0.f;
         acc[g][e] = 0.f;
       }
@@ -140,6 +148,12 @@ __global__ void __launch_bounds__(kThreads, GP <= 3 ? 4 : 2)
       for (int u = 0; u < kUnroll; ++u) {
         const int key = base + u * NG + stream;
         ok[u] = key < end;
+        if (ok[u]) {
+          XLB_CHECK(b * a.ksb + kh * a.ksk + sub * VEC + key * a.kss + VEC - 1,
+                    a.nk);
+          XLB_CHECK(b * a.vsb + kh * a.vsk + sub * VEC + key * a.vss + VEC - 1,
+                    a.nv);
+        }
         kr[u] = ok[u] ? __ldg(kbase + key * kstep) : make_uint4(0, 0, 0, 0);
         vr[u] = ok[u] ? __ldg(vbase + key * vstep) : make_uint4(0, 0, 0, 0);
       }
@@ -212,8 +226,11 @@ __global__ void __launch_bounds__(kThreads, GP <= 3 ? 4 : 2)
       for (int g = 0; g < GP; ++g)
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
-          if (lane < LG && g < gn)
+          if (lane < LG && g < gn) {
+            XLB_CHECK(((long long)b * a.H + kh * G + g0 + g) * HD + sub * VEC +
+                          e, a.nout);
             out[g * HD + e] = from_f32<T>(acc[g][e] / fmaxf(l[g], 1e-30f));
+          }
       continue;
     }
     if (lane < LG) {
@@ -242,9 +259,12 @@ __global__ void __launch_bounds__(kThreads, GP <= 3 ? 4 : 2)
         o += acc_s[w][g][d] * wt;
       }
       if (a.n_split == 1) {
-        static_cast<T*>(a.out)[((long long)b * a.H + kh * G + g0 + g) * HD +
-                               d] = from_f32<T>(o / fmaxf(lsum, 1e-30f));
+        static_cast<T*>(a.out)[XLB_IX(
+            ((long long)b * a.H + kh * G + g0 + g) * HD + d, a.nout)] =
+            from_f32<T>(o / fmaxf(lsum, 1e-30f));
       } else {
+        XLB_CHECK((part * G + g0 + g) * HD + d, a.npart * HD);
+        XLB_CHECK((part * G + g0 + g) * 2 + 1, a.npart * 2);
         a.part_acc[(part * G + g0 + g) * HD + d] = o;
         if (d == 0) {
           a.part_ml[(part * G + g0 + g) * 2] = mx;
@@ -278,6 +298,7 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   for (int e = 0; e < V; ++e) acc[e] = 0.f;
   for (int i = warp; i < a.n_split; i += kMergeWarps) {
     const long long part = ((long long)bk * a.n_split + i) * G + g;
+    XLB_CHECK(part, a.npart);
     const float mi = a.part_ml[part * 2], li = a.part_ml[part * 2 + 1];
     const float* pa = a.part_acc + part * HD + lane * V;
     const float mx = fmaxf(m, mi), w = expf(m - mx), wi = expf(mi - mx);
@@ -307,7 +328,8 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
       lsum += l_s[w] * wt;
       o += acc_s[w][d] * wt;
     }
-    static_cast<T*>(a.out)[((long long)b * a.H + kh * G + g) * HD + d] =
+    static_cast<T*>(a.out)[XLB_IX(((long long)b * a.H + kh * G + g) * HD + d,
+                                  a.nout)] =
         from_f32<T>(o / fmaxf(lsum, 1e-30f));
   }
 }
@@ -366,6 +388,15 @@ extern "C" int xlb_decode_attention(
   DecodeArgs a{q,   k,   v,   lengths, out, part_acc, part_ml, B * K,
                H,   K,   H / K, S, qsb, qsh, ksb, kss, ksk, vsb, vss, vsk,
                split_len, n_split, scale};
+#ifdef XLB_BOUNDS_CHECK
+  // the last element of each strided view, plus one
+  a.nq = (B - 1) * qsb + (H - 1) * qsh + hd;
+  a.nk = (B - 1) * ksb + (S - 1) * kss + (K - 1) * ksk + hd;
+  a.nv = (B - 1) * vsb + (S - 1) * vss + (K - 1) * vsk + hd;
+  a.nout = (long long)B * H * hd;
+  a.npart = n_split > 1 ? (long long)B * K * n_split * (H / K) : 0;
+  a.B = B;
+#endif
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == xlb::kF32) return launch_hd<float>(a, hd, st);
   if (dtype == xlb::kBF16) return launch_hd<__nv_bfloat16>(a, hd, st);

@@ -78,6 +78,7 @@
 #include <cuda_bf16.h>
 #include <cmath>
 
+#include "bounds.cuh"
 #include "float_io.cuh"
 #include "hopper.cuh"
 
@@ -100,10 +101,13 @@ struct FlashArgs {
   long long vsb, vss, vsh;
   long long osb, oss, osh;
   float scale;
+#ifdef XLB_BOUNDS_CHECK
+  long long nq, nk, nv, no;   // extents in elements
+#endif
 };
 
 template <int HD>
-constexpr int smem_bytes() {
+__host__ __device__ constexpr int smem_bytes() {
   return (int)sizeof(float) *
          (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1));
 }
@@ -125,9 +129,12 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int S = a.S;
 
+  XLB_SMEM(0, smem_bytes<HD>());
   const T* qb = q + b * a.qsb + h * a.qsh;
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
+    if (q0 + r < S)
+      XLB_CHECK(b * a.qsb + h * a.qsh + (long long)(q0 + r) * a.qss + d, a.nq);
     q_s[r * (HD + 1) + d] =
         q0 + r < S ? to_f32(qb[(long long)(q0 + r) * a.qss + d]) : 0.f;
   }
@@ -150,6 +157,10 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
       const int t = i / HD, d = i % HD;
       const bool in = k0 + t < S;
       const long long s = k0 + t;
+      if (in) {
+        XLB_CHECK(b * a.ksb + kh * a.ksh + s * a.kss + d, a.nk);
+        XLB_CHECK(b * a.vsb + kh * a.vsh + s * a.vss + d, a.nv);
+      }
       k_s[t * (HD + 1) + d] = in ? to_f32(kb[s * a.kss + d]) : 0.f;
       v_s[t * HD + d] = in ? to_f32(vb[s * a.vss + d]) : 0.f;
     }
@@ -229,8 +240,11 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
     if (r < S) {
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int c = 0; c < kC; ++c)
+      for (int c = 0; c < kC; ++c) {
+        XLB_CHECK(b * a.osb + h * a.osh + (long long)r * a.oss + tx + 16 * c,
+                  a.no);
         ob[(long long)r * a.oss + tx + 16 * c] = from_f32<T>(acc[i][c] / den);
+      }
     }
   }
 }
@@ -408,6 +422,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int k_end = a.causal ? q_last + 1 : S;
   const int n = (k_end + kBK - 1) / kBK;      // K/V tiles
 
+  // the tiles and barriers end inside the launch's dynamic shared memory
+  XLB_SMEM(v_empty + 8 * kStages - xlb::smem_u32(smem_raw) - 1, 1);
   if (tid == 0) {
     xlb::mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
@@ -532,10 +548,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int j = 0; j < HD / 2; j += 2) {
     const int i = (j >> 1) & 1, row = row_lo + 8 * i;
-    if (row < S)
+    if (row < S) {
+      XLB_CHECK(b * a.osb + h * a.osh + (long long)row * a.oss +
+                    8 * (j / 4) + col_lane + 1, a.no);
       *reinterpret_cast<__nv_bfloat162*>(
           ob + (long long)row * a.oss + 8 * (j / 4) + col_lane) =
           __floats2bfloat162_rn(o[j] * inv[i], o[j + 1] * inv[i]);
+    }
   }
 }
 
@@ -631,5 +650,12 @@ extern "C" int xlb_flash_attention(
     return (int)cudaErrorInvalidValue;
   FlashArgs a{q, k, v, out, S, H, K, H / K, causal, qsb, qss, qsh, ksb, kss,
               ksh, vsb, vss, vsh, osb, oss, osh, scale};
+#ifdef XLB_BOUNDS_CHECK
+  // the last element of each strided view, plus one
+  a.nq = (B - 1) * qsb + (S - 1) * qss + (H - 1) * qsh + hd;
+  a.nk = (B - 1) * ksb + (S - 1) * kss + (K - 1) * ksh + hd;
+  a.nv = (B - 1) * vsb + (S - 1) * vss + (K - 1) * vsh + hd;
+  a.no = (B - 1) * osb + (S - 1) * oss + (H - 1) * osh + hd;
+#endif
   return launch_hd(a, B, hd, dtype, static_cast<cudaStream_t>(stream));
 }

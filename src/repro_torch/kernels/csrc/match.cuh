@@ -21,8 +21,10 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// Feature column f of one request row of F features.
-__device__ __forceinline__ int feature(const int* row, int F, int f) {
+// Feature column f of one request row of F features.  P: a pointer, or a
+// Span of the bounds-checking build (bounds.cuh).
+template <typename P>
+__device__ __forceinline__ int feature(P row, int F, int f) {
   if (f < 0) f += F;
   if (f < 0 || f >= F) return INT_MIN;
   return row[f];
@@ -32,10 +34,9 @@ __device__ __forceinline__ int feature(const int* row, int F, int f) {
 // [0, S)) that the row matches; -1 when none does.  rs/rc: per-service
 // rule window start/count; rf/rv/rcl: the NR rules' feature column,
 // expected value and cluster.
-__device__ __forceinline__ int match_rule(const int* row, int F, int svc,
-                                          const int* rs, const int* rc,
-                                          const int* rf, const int* rv,
-                                          const int* rcl, int NR) {
+template <typename P, typename Q>
+__device__ __forceinline__ int match_rule(P row, int F, int svc, Q rs, Q rc,
+                                          Q rf, Q rv, Q rcl, int NR) {
   const int start = rs[svc], count = rc[svc];
   for (int t = 0; t < kRules && t < count; ++t) {
     const int ix = clampi(start + t, 0, NR - 1);

@@ -37,6 +37,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bounds.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -55,12 +57,22 @@ __device__ __forceinline__ int byte_sum(unsigned long long w) {
   return (int)((lo * 0x0101010101010101ull) >> 56) + (int)(w >> 56);
 }
 
+// Span: a pointer, or with its extent in the bounds-checking build
+// (bounds.cuh).
+using CI = xlb::Span<const int>;
+using I32 = xlb::Span<int>;
+
 __global__ void __launch_bounds__(kTile)
-relay_kernel(const int* __restrict__ idx, int N, int n_dest,
-             int* __restrict__ slot, int* __restrict__ load) {
-  extern __shared__ unsigned long long words[];   // (n_dest,) per-warp bytes
-  int* base = reinterpret_cast<int*>(words + n_dest);   // (n_dest,)
-  unsigned char* bytes = reinterpret_cast<unsigned char*>(words);
+relay_kernel(CI XLB_RESTRICT idx, int N, int n_dest, I32 XLB_RESTRICT slot,
+             I32 XLB_RESTRICT load) {
+  extern __shared__ unsigned long long smem_words[];
+  XLB_SMEM(0, (long long)kSmemPerDest * n_dest);
+  // (n_dest,) per-warp group sizes, a byte per warp; (n_dest,) bases
+  const xlb::Span<unsigned long long> words = XLB_SPAN(smem_words, n_dest);
+  const I32 base = XLB_SPAN(reinterpret_cast<int*>(smem_words + n_dest),
+                            n_dest);
+  const xlb::Span<unsigned char> bytes = XLB_SPAN(
+      reinterpret_cast<unsigned char*>(smem_words), 8LL * n_dest);
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int nblk = gridDim.x, b = blockIdx.x;
   const int ntiles = (N + kTile - 1) / kTile;
@@ -111,11 +123,13 @@ relay_kernel(const int* __restrict__ idx, int N, int n_dest,
   // blocks' through distributed shared memory.
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                          // every block's totals are in
-  int* pre = reinterpret_cast<int*>(words);   // the bytes are free now
+  const I32 pre = XLB_SPAN(reinterpret_cast<int*>(smem_words),
+                           2LL * n_dest);     // the bytes are free now
   for (int k = tid; k < n_dest; k += kTile) {
     int lower = 0, all = 0;
     for (int j = 0; j < nblk; ++j) {
-      const int v = *cluster.map_shared_rank(base + k, j);
+      const int v =
+          *cluster.map_shared_rank(xlb::raw(base) + XLB_IX(k, n_dest), j);
       lower += j < b ? v : 0;
       all += v;
     }
@@ -141,7 +155,9 @@ extern "C" int xlb_relay(const int* idx, int N, int n_dest, int* slot,
   const int ntiles = (N + kTile - 1) / kTile;
   const int nblk = ntiles < kMaxBlocks ? ntiles : kMaxBlocks;
   if (nblk == 1) {
-    relay_kernel<<<1, kTile, smem, st>>>(idx, N, n_dest, slot, load);
+    relay_kernel<<<1, kTile, smem, st>>>(XLB_SPAN(idx, N), N, n_dest,
+                                         XLB_SPAN(slot, N),
+                                         XLB_SPAN(load, n_dest));
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -156,7 +172,8 @@ extern "C" int xlb_relay(const int* idx, int N, int n_dest, int* slot,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, relay_kernel, idx, N, n_dest,
-                                       slot, load);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, relay_kernel, XLB_SPAN(idx, N), N, n_dest, XLB_SPAN(slot, N),
+      XLB_SPAN(load, n_dest));
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }

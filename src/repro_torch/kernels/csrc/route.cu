@@ -44,11 +44,13 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "bounds.cuh"
 #include "match.cuh"
 
 namespace {
 
 using xlb::clampi;
+using CI = xlb::Span<const int>;
 
 constexpr int kWarps = 8;         // requests (one warp each) per block
 constexpr int kBlock = 32 * kWarps;
@@ -60,15 +62,15 @@ constexpr unsigned kFull = 0xffffffffu;
 static_assert(kWE == 64, "the argmin holds two window lanes per lane");
 static_assert(xlb::kRules <= 32, "one rule per lane");
 
-struct Tables {
-  const int* rs;     // (S,) rule window start per service
-  const int* rc;     // (S,) rule window count per service
-  const int* rf;     // (NR,) feature column per rule
-  const int* rv;     // (NR,) expected value per rule
-  const int* rcl;    // (NR,) destination cluster per rule
-  const int* cs;     // (CL,) endpoint window start per cluster
-  const int* cc;     // (CL,) endpoint window count per cluster
-  const int* load;   // (E,) outstanding requests per endpoint
+struct Tables {       // Span: bounds.cuh
+  CI rs;     // (S,) rule window start per service
+  CI rc;     // (S,) rule window count per service
+  CI rf;     // (NR,) feature column per rule
+  CI rv;     // (NR,) expected value per rule
+  CI rcl;    // (NR,) destination cluster per rule
+  CI cs;     // (CL,) endpoint window start per cluster
+  CI cc;     // (CL,) endpoint window count per cluster
+  CI load;   // (E,) outstanding requests per endpoint
   int S, NR, CL, E;
 };
 
@@ -77,7 +79,7 @@ struct Held {
   int lo, hi;
 };
 
-__device__ __forceinline__ Held hold(const int* t, int n, int lane) {
+__device__ __forceinline__ Held hold(CI t, int n, int lane) {
   return {lane < n ? t[lane] : 0, lane + 32 < n ? t[lane + 32] : 0};
 }
 
@@ -89,13 +91,13 @@ __device__ __forceinline__ int row_of(Held h, int i) {
 }
 
 __global__ void __launch_bounds__(kBlock)
-route_kernel(const int* __restrict__ svc, const int* __restrict__ feats,
-             int R, int F, Tables t, int* __restrict__ cluster_out,
-             int* __restrict__ ep_out) {
+route_kernel(CI XLB_RESTRICT svc, CI XLB_RESTRICT feats, int R, int F,
+             Tables t, xlb::Span<int> XLB_RESTRICT cluster_out,
+             xlb::Span<int> XLB_RESTRICT ep_out) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= R) return;                            // uniform over the warp
-  const int* row = feats + (long long)r * F;
+  const CI row = feats + (long long)r * F;
   // prologue: every load that depends on no other
   const int s_raw = svc[r];
   const int fw = lane < F ? row[lane] : INT_MIN;
@@ -159,8 +161,12 @@ extern "C" int xlb_route(const int* svc, const int* feats, int R, int F,
                          const int* load, int E, int* cluster, int* ep,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Tables t{rs, rc, rf, rv, rcl, cs, cc, load, S, NR, CL, E};
+  const Tables t{XLB_SPAN(rs, S),   XLB_SPAN(rc, S),    XLB_SPAN(rf, NR),
+                 XLB_SPAN(rv, NR),  XLB_SPAN(rcl, NR),  XLB_SPAN(cs, CL),
+                 XLB_SPAN(cc, CL),  XLB_SPAN(load, E),  S, NR, CL, E};
   const int blocks = (R + kWarps - 1) / kWarps;
-  route_kernel<<<blocks, kBlock, 0, st>>>(svc, feats, R, F, t, cluster, ep);
+  route_kernel<<<blocks, kBlock, 0, st>>>(
+      XLB_SPAN(svc, R), XLB_SPAN(feats, (long long)R * F), R, F, t,
+      XLB_SPAN(cluster, R), XLB_SPAN(ep, R));
   return (int)cudaGetLastError();
 }

@@ -65,6 +65,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "bounds.cuh"
 #include "float_io.cuh"
 #include "hopper.cuh"
 
@@ -93,10 +94,15 @@ struct SSDArgs {
   __nv_bfloat16* hprev;          // (B, nh, nc, hd, N) h_{c-1} in bf16
   float4* scores;                // (B, nc, kSub, kSub) tiles of C B^T in
                                  // fragment order, when shared
+#ifdef XLB_BOUNDS_CHECK
+  // extents in elements: x, a, B, C (strided views), y, h_last, and the
+  // scratch from acum on, in floats
+  long long nx, na, nb, ncc, ny, nhl, nscr;
+#endif
 };
 
 template <int HD, int N>
-constexpr int f32_smem_bytes() {
+__host__ __device__ constexpr int f32_smem_bytes() {
   return (int)sizeof(float) * (kT * HD + kT * (N + 1) + kT * N +
                                kT * (kT + 1) + HD * (N + 1) + 2 * kT);
 }
@@ -123,12 +129,16 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(SSDArgs a) {
   T* yb = static_cast<T*>(a.y) + ((long long)b * a.S * a.nh + h) * HD;
   const long long ys = (long long)a.nh * HD;
 
+  XLB_SMEM(0, (f32_smem_bytes<HD, N>()));
   for (int i = tid; i < HD * (N + 1); i += kThreads) h_s[i] = 0.f;
 
   for (int t0 = 0; t0 < a.S; t0 += kT) {
     __syncthreads();                       // the last tile's readers are done
     for (int i = tid; i < kT * HD; i += kThreads) {
       const int r = i / HD, p = i % HD;
+      if (t0 + r < a.S)
+        XLB_CHECK(b * a.xsb + h * a.xsh + (long long)(t0 + r) * a.xss + p,
+                  a.nx);
       x_s[i] = t0 + r < a.S ? to_f32(xb[(long long)(t0 + r) * a.xss + p])
                             : 0.f;
     }
@@ -136,9 +146,15 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(SSDArgs a) {
       const int r = i / N, n = i % N;
       const bool in = t0 + r < a.S;
       const long long s = t0 + r;
+      if (in) {
+        XLB_CHECK(b * a.bsb + h * a.bsh + s * a.bss + n, a.nb);
+        XLB_CHECK(b * a.csb + h * a.csh + s * a.css + n, a.ncc);
+      }
       b_s[r * (N + 1) + n] = in ? to_f32(bb[s * a.bss + n]) : 0.f;
       c_s[i] = in ? to_f32(cb[s * a.css + n]) : 0.f;
     }
+    if (tid < kT && t0 + tid < a.S)
+      XLB_CHECK(b * a.asb + h * a.ash + (long long)(t0 + tid) * a.ass, a.na);
     if (tid < kT)
       w_s[tid] = t0 + tid < a.S ? ab[(long long)(t0 + tid) * a.ass] : 0.f;
     __syncthreads();
@@ -227,9 +243,12 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(SSDArgs a) {
       if (t0 + r < a.S) {
         const float e = expf(acum[r]);
 #pragma unroll
-        for (int p = 0; p < kP; ++p)
+        for (int p = 0; p < kP; ++p) {
+          XLB_CHECK(((long long)b * a.S * a.nh + h) * HD +
+                        (long long)(t0 + r) * ys + tx + 16 * p, a.ny);
           yb[(long long)(t0 + r) * ys + tx + 16 * p] =
               from_f32<T>(yd[i][p] + e * yo[i][p]);
+        }
       }
     }
     __syncthreads();                       // every read of h is done
@@ -264,8 +283,10 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(SSDArgs a) {
   }
   __syncthreads();
   float* hl = a.h_last + (long long)bh * HD * N;
-  for (int i = tid; i < HD * N; i += kThreads)
+  for (int i = tid; i < HD * N; i += kThreads) {
+    XLB_CHECK((long long)bh * HD * N + i, a.nhl);
     hl[i] = h_s[(i / N) * (N + 1) + i % N];
+  }
 }
 
 
@@ -311,15 +332,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // zero-filled and read nothing (`safe` is any readable address).  The
 // caller commits and waits.
 template <int COLS, int ROWS>
+// base, n: the tensor src points into and its extent in elements, checked
+// in the bounds-checking build (0 otherwise: unused)
 __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
                                           long long rs, long long valid,
-                                          const bf16* safe, int tid) {
+                                          const bf16* safe, int tid,
+                                          const void* base, long long n) {
   constexpr int kV = COLS / 8;
   static_assert(ROWS * kV % kPass == 0, "whole rounds of 16-byte copies");
 #pragma unroll
   for (int it = 0; it < ROWS * kV / kPass; ++it) {
     const int i = tid + it * kPass, r = i / kV, q = i % kV;
     const bool ok = r < valid;
+    if (ok)
+      XLB_CHECK(src + r * rs + 8 * q + 7 - static_cast<const bf16*>(base), n);
     xlb::cp_async16(smem_u32(dst + r * (COLS + kPad) + 8 * q),
                     ok ? src + r * rs + 8 * q : safe, ok);
   }
@@ -328,9 +354,12 @@ __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
 // a_s <- the running sum of a over the chunk's kQ rows from row s0 (a = 0
 // past S); ends on a barrier.
 __device__ void chunk_cumsum(float* a_s, const float* ab, long long ass,
-                             long long s0, int S, int tid) {
-  for (int i = tid; i < kQ; i += kPass)
+                             long long s0, int S, int tid, const float* base,
+                             long long n) {
+  for (int i = tid; i < kQ; i += kPass) {
+    if (s0 + i < S) XLB_CHECK(ab + (s0 + i) * ass - base, n);
     a_s[i] = s0 + i < S ? ab[(s0 + i) * ass] : 0.f;
+  }
   __syncthreads();
   if (tid < 32) {
     constexpr int kE = kQ / 32;
@@ -389,7 +418,7 @@ struct StateTiles {
 constexpr int kSplit = 3;
 
 template <int HD, int N>
-constexpr int state_smem() {
+__host__ __device__ constexpr int state_smem() {
   return 2 * kQ * 4 + 2 * kR * (HD + kPad) * 2 + 2 * kR * (N + kPad) * 2;
 }
 
@@ -417,17 +446,20 @@ __global__ void __launch_bounds__(kPass) ssd_chunk_state(SSDArgs a) {
   auto fetch = [&](int kt) {                // tile kt into buffer kt % 2
     const long long r0 = s0 + kt * kR;
     copy_rows<HD, kR>(xs + (kt % 2) * kR * (HD + kPad), xb + r0 * a.xss,
-                      a.xss, a.S - r0, xb, tid);
+                      a.xss, a.S - r0, xb, tid, a.x, XLB_ARG(a.nx));
     copy_rows<N, kR>(bs + (kt % 2) * kR * (N + kPad), bb + r0 * a.bss,
-                     a.bss, a.S - r0, bb, tid);
+                     a.bss, a.S - r0, bb, tid, a.b, XLB_ARG(a.nb));
     xlb::cp_async_commit();
   };
+  XLB_SMEM(0, (state_smem<HD, N>()));
   fetch(0);
   fetch(1);
-  chunk_cumsum(a_s, a.a + b * a.asb + h * a.ash, a.ass, s0, a.S, tid);
+  chunk_cumsum(a_s, a.a + b * a.asb + h * a.ash, a.ass, s0, a.S, tid, a.a,
+               XLB_ARG(a.na));
   float* acum = a.acum + (bh * a.nc + c) * kQ;
   const float a_last = a_s[kQ - 1];
   for (int i = tid; i < kQ; i += kPass) {
+    XLB_CHECK(acum + i - a.acum, a.nscr);
     acum[i] = a_s[i];
     w_s[i] = expf(a_last - a_s[i]);
   }
@@ -505,6 +537,7 @@ __global__ void __launch_bounds__(kPass) ssd_chunk_state(SSDArgs a) {
 #pragma unroll
     for (int j = 0; j < W::NT; ++j) {
       const int p = (wm * W::MT + i) * 16 + g, n = (wn * W::NT + j) * 8 + 2 * tq;
+      XLB_CHECK(st + (p + 8) * N + n + 1 - a.acum, a.nscr);
       *reinterpret_cast<float2*>(st + p * N + n) =
           make_float2(acc[i][j][0], acc[i][j][1]);
       *reinterpret_cast<float2*>(st + (p + 8) * N + n) =
@@ -513,7 +546,9 @@ __global__ void __launch_bounds__(kPass) ssd_chunk_state(SSDArgs a) {
 }
 
 template <int N>
-constexpr int scores_smem() { return 2 * kR * (N + kPad) * 2; }
+__host__ __device__ constexpr int scores_smem() {
+  return 2 * kR * (N + kPad) * 2;
+}
 
 // float4 offset of score tile (t, j) of chunk c of sequence b: 1024 each
 __device__ __forceinline__ long long score_tile(int b, int nc, int c, int t,
@@ -539,10 +574,13 @@ __global__ void __launch_bounds__(kPass) ssd_scores(SSDArgs a) {
   const long long rt = (long long)c * kQ + t * kR;
   const long long rj = (long long)c * kQ + j * kR;
   if (rt >= a.S) return;
+  XLB_SMEM(0, scores_smem<N>());
   const bf16* cb = static_cast<const bf16*>(a.c) + b * a.csb;
   const bf16* bb = static_cast<const bf16*>(a.b) + b * a.bsb;
-  copy_rows<N, kR>(cs, cb + rt * a.css, a.css, a.S - rt, cb, tid);
-  copy_rows<N, kR>(bs, bb + rj * a.bss, a.bss, a.S - rj, bb, tid);
+  copy_rows<N, kR>(cs, cb + rt * a.css, a.css, a.S - rt, cb, tid, a.c,
+                   XLB_ARG(a.ncc));
+  copy_rows<N, kR>(bs, bb + rj * a.bss, a.bss, a.S - rj, bb, tid, a.b,
+                   XLB_ARG(a.nb));
   xlb::cp_async_commit();
   xlb::cp_async_wait(0);
   __syncthreads();
@@ -554,8 +592,11 @@ __global__ void __launch_bounds__(kPass) ssd_scores(SSDArgs a) {
   scores_tile<N>(sc, cs, bs, warp, lane);
   float4* out = a.scores + score_tile(b, a.nc, c, t, j) + warp * 256 + lane;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 8; ++n) {
+    XLB_CHECK(reinterpret_cast<const float*>(out + 32 * n) + 3 - a.acum,
+              a.nscr);
     out[32 * n] = make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
+  }
 }
 
 // Pass 3: h_c = exp(A_c) h_{c-1} + s_c over the chunks in order, four
@@ -579,6 +620,11 @@ __global__ void __launch_bounds__(kStateThreads) ssd_state_pass(SSDArgs a) {
 #pragma unroll
     for (int i = 0; i < kBatch; ++i)
       if (c0 + i < a.nc) {
+        XLB_CHECK(st + (long long)(c0 + i) * HD * N + 3 - a.acum, a.nscr);
+        XLB_CHECK(tot + (long long)(c0 + i) * kQ - a.acum, a.nscr);
+        XLB_CHECK(reinterpret_cast<const float*>(
+                      hp + (long long)(c0 + i) * HD * N + 3) - a.acum,
+                  a.nscr);
         s[i] = *reinterpret_cast<const float4*>(st + (long long)(c0 + i) * HD * N);
         d[i] = tot[(long long)(c0 + i) * kQ];
       }
@@ -592,6 +638,7 @@ __global__ void __launch_bounds__(kStateThreads) ssd_state_pass(SSDArgs a) {
                         dc * h.z + s[i].z, dc * h.w + s[i].w);
       }
   }
+  XLB_CHECK(bh * HD * N + e + 3, a.nhl);
   *reinterpret_cast<float4*>(a.h_last + bh * HD * N + e) = h;
 }
 
@@ -601,7 +648,7 @@ __global__ void __launch_bounds__(kStateThreads) ssd_state_pass(SSDArgs a) {
 constexpr int kGSplit = 2;
 
 template <int HD, int N, bool kShared>
-constexpr int scan_smem() {
+__host__ __device__ constexpr int scan_smem() {
   return kQ * 4 + kQ * (HD + kPad) * 2 + HD * (N + kPad) * 2 +
          kR * (N + kPad) * 2 + (kShared ? 0 : kQ * (N + kPad) * 2);
 }
@@ -615,6 +662,7 @@ constexpr int scan_smem() {
 template <int HD, int N, bool kShared>
 __global__ void __launch_bounds__(kPass) ssd_chunk_scan(SSDArgs a) {
   extern __shared__ __align__(16) unsigned char pass_smem[];
+  XLB_SMEM(0, (scan_smem<HD, N, kShared>()));
   float* ac = reinterpret_cast<float*>(pass_smem);    // (kQ,) A in log2 units
   bf16* xs = reinterpret_cast<bf16*>(ac + kQ);        // (kQ, HD + kPad)
   bf16* hs = xs + kQ * (HD + kPad);                   // (HD, N + kPad) h_prev
@@ -630,18 +678,21 @@ __global__ void __launch_bounds__(kPass) ssd_chunk_scan(SSDArgs a) {
   for (int t = 0; t < kSub; ++t) {
     const long long r0 = s0 + t * kR;
     copy_rows<HD, kR>(xs + t * kR * (HD + kPad), xb + r0 * a.xss, a.xss,
-                      a.S - r0, xb, tid);
+                      a.S - r0, xb, tid, a.x, XLB_ARG(a.nx));
     if constexpr (!kShared)
       copy_rows<N, kR>(bs + t * kR * (N + kPad), bb + r0 * a.bss, a.bss,
-                       a.S - r0, bb, tid);
+                       a.S - r0, bb, tid, a.b, XLB_ARG(a.nb));
     if (t == 0) {
       const bf16* hp = a.hprev + (bh * a.nc + c) * HD * N;
-      copy_rows<N, HD>(hs, hp, N, HD, hp, tid);
-      copy_rows<N, kR>(cs, cb + r0 * a.css, a.css, a.S - r0, cb, tid);
+      copy_rows<N, HD>(hs, hp, N, HD, hp, tid, a.acum,
+                       XLB_ARG(2 * a.nscr));   // bf16 units of the scratch
+      copy_rows<N, kR>(cs, cb + r0 * a.css, a.css, a.S - r0, cb, tid, a.c,
+                       XLB_ARG(a.ncc));
     }
     xlb::cp_async_commit();
   }
   const float* acum = a.acum + (bh * a.nc + c) * kQ;
+  XLB_CHECK(acum + kQ - 1 - a.acum, a.nscr);
   for (int i = tid; i < kQ; i += kPass) ac[i] = acum[i] * kLog2e;
   const int g = lane >> 2, tq = lane & 3, j8 = lane >> 3, r8 = lane & 7;
   const long long ys = (long long)a.nh * HD;          // y is (B, S, nh, HD)
@@ -660,7 +711,11 @@ __global__ void __launch_bounds__(kPass) ssd_chunk_scan(SSDArgs a) {
                          warp * 256 + lane;
       auto load_scores = [&](float4 (&sv)[8], int jt) {
 #pragma unroll
-        for (int n = 0; n < 8; ++n) sv[n] = sp[jt * 1024 + 32 * n];
+        for (int n = 0; n < 8; ++n) {
+          XLB_CHECK(reinterpret_cast<const float*>(sp + jt * 1024 + 32 * n) +
+                        3 - a.acum, a.nscr);
+          sv[n] = sp[jt * 1024 + 32 * n];
+        }
       };
       float4 sv[8], nx[8];
       if constexpr (kShared) load_scores(sv, 0);
@@ -766,6 +821,10 @@ __global__ void __launch_bounds__(kPass) ssd_chunk_scan(SSDArgs a) {
       for (int i = 0; i < HD / 8; ++i) {
         const int p = 8 * i + 2 * tq;
         if (r0 < rows)
+          XLB_CHECK(yb + r0 * ys + p + 1 - static_cast<bf16*>(a.y), a.ny);
+        if (r1 < rows)
+          XLB_CHECK(yb + r1 * ys + p + 1 - static_cast<bf16*>(a.y), a.ny);
+        if (r0 < rows)
           *reinterpret_cast<__nv_bfloat162*>(yb + r0 * ys + p) =
               __floats2bfloat162_rn(acc[i][0], acc[i][1]);
         if (r1 < rows)
@@ -776,7 +835,8 @@ __global__ void __launch_bounds__(kPass) ssd_chunk_scan(SSDArgs a) {
     if (t + 1 < kSub) {
       __syncthreads();                        // every read of C's buffer
       const long long r0 = s0 + (t + 1) * kR;
-      copy_rows<N, kR>(cs, cb + r0 * a.css, a.css, a.S - r0, cb, tid);
+      copy_rows<N, kR>(cs, cb + r0 * a.css, a.css, a.S - r0, cb, tid, a.c,
+                       XLB_ARG(a.ncc));
       xlb::cp_async_commit();
     }
   }
@@ -874,6 +934,16 @@ extern "C" int xlb_ssd_scan(
                                     (long long)B * nh * a.nc * hd * n);
   a.scores = reinterpret_cast<float4*>(a.states +
                                        (long long)B * nh * a.nc * hd * n * 3 / 2);
+#ifdef XLB_BOUNDS_CHECK
+  // the last element of each strided view, plus one
+  a.nx = (B - 1) * xsb + (S - 1) * xss + (nh - 1) * xsh + hd;
+  a.na = (B - 1) * asb + (S - 1) * ass + (nh - 1) * ash + 1;
+  a.nb = (B - 1) * bsb + (S - 1) * bss + (nh - 1) * bsh + n;
+  a.ncc = (B - 1) * csb + (S - 1) * css + (nh - 1) * csh + n;
+  a.ny = (long long)B * S * nh * hd;
+  a.nhl = (long long)B * nh * hd * n;
+  a.nscr = xlb_ssd_scratch_floats(B, S, nh, hd, n, dtype, bsh, csh);
+#endif
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return launch_n<16>(a, B, n, dtype, st);

@@ -10,7 +10,8 @@ the tile size.
 
 ``admit`` / ``admit_commit`` here are the plain PyTorch versions;
 ``admit_cuda`` launches ``csrc/admit.cu`` (one template, ``commit`` a
-compile-time flag; O(1) work per row: ranks by warp match, least request
+compile-time flag, and a commit-free mode against an all-free pool for the
+sharded admission; O(1) work per row: ranks by warp match, least request
 from per-cluster ticket tables, tables staged in shared memory).
 ``route_match`` is the stateless building block
 (rule match + least-request argmin, no drain mask, no counters) and
@@ -116,9 +117,11 @@ def _match(svc_c, feats, t):
 
 
 def _admit_plain(req_id, svc, features, msg_bytes, token, state, free,
-                 pool, rnd, gumbel, block_r: int):
+                 pool, rnd, gumbel, block_r: int, pool_shape=None):
     """Shared body of ``admit`` (pool None) and ``admit_commit``.
-    ``free``: (I, C) bool, True = free slot."""
+    ``free``: (I, C) bool, True = free slot; None (``admit`` only): an
+    all-free pool of ``pool_shape`` (I, W), where a row's slot is its
+    arrival rank on its instance."""
     dev = features.device
     i64 = lambda x: x.to(torch.int64)
     t = dict(rs=i64(state.svc_rule_start), rc=i64(state.svc_rule_count),
@@ -131,7 +134,7 @@ def _admit_plain(req_id, svc, features, msg_bytes, token, state, free,
     R = features.shape[0]
     S, CL, E = t["rs"].shape[0], cs.shape[0], ed.shape[0]
     A = state.aff_key.shape[0]
-    I, C = free.shape
+    I, C = free.shape if free is not None else pool_shape
     WE = MAX_EPS_PER_CLUSTER
 
     loads, cur = i64(state.ep_load), i64(state.rr_cursor)
@@ -147,9 +150,10 @@ def _admit_plain(req_id, svc, features, msg_bytes, token, state, free,
     feats_all, bytes_all = i64(features), i64(msg_bytes)
     fkey_all = policy_defs.flow_hash(features)
     rnd_all, gum_all = i64(rnd), gumbel.to(torch.float32)
-    free_i = free.to(torch.int64)
-    fprefix = torch.cumsum(free_i, dim=1)
-    n_free = fprefix[:, C - 1]
+    if free is not None:
+        free_i = free.to(torch.int64)
+        fprefix = torch.cumsum(free_i, dim=1)
+        n_free = fprefix[:, C - 1]
     outs = {k: torch.full((R,), -1, dtype=torch.int64, device=dev)
             for k in ("cluster", "ep", "inst", "slot")}
     ok_out = torch.zeros((R,), dtype=torch.int64, device=dev)
@@ -198,9 +202,15 @@ def _admit_plain(req_id, svc, features, msg_bytes, token, state, free,
         instc = inst.clamp(0, I - 1)
 
         rank_i = icnt[instc] + _seg_rank(instc, routable)
-        ok = routable & (rank_i < n_free[instc])
-        hit = (free_i[instc] > 0) & (fprefix[instc] == (rank_i + 1)[:, None])
-        slot = torch.where(ok, torch.argmax(hit.to(torch.int32), dim=1), -1)
+        if free is None:       # all free: the k-th free slot is slot k
+            ok = routable & (rank_i < C)
+            slot = torch.where(ok, rank_i, -1)
+        else:
+            ok = routable & (rank_i < n_free[instc])
+            hit = (free_i[instc] > 0) \
+                & (fprefix[instc] == (rank_i + 1)[:, None])
+            slot = torch.where(ok, torch.argmax(hit.to(torch.int32), dim=1),
+                               -1)
         held = routable & ~ok
         outs["cluster"][sl], outs["ep"][sl] = cluster, ep
         outs["inst"][sl], outs["slot"][sl] = inst, slot
@@ -235,16 +245,20 @@ def _admit_plain(req_id, svc, features, msg_bytes, token, state, free,
 
 
 def admit(req_id, svc, features, msg_bytes, state, free_mask, rnd, gumbel,
-          *, block_r: int = TILE) -> AdmitResult:
+          *, block_r: int = TILE, pool_shape=None) -> AdmitResult:
     """Plain PyTorch admission over a request batch (no pool write-back).
 
     req_id/svc/msg_bytes/rnd: (R,) int (req_id < 0 = padding; rnd = host
     PRNG draws for the random policy); features: (R, F) int;
     gumbel: (R, MAX_EPS_PER_CLUSTER) f32; state: RoutingState;
-    free_mask: (I, C), nonzero = free slot.
+    free_mask: (I, C), nonzero = free slot, or None with ``pool_shape``
+    (I, W): an all-free pool, the same function as an all-ones mask.
     """
+    free = None if free_mask is None else free_mask != 0
+    if free is None and pool_shape is None:
+        raise ValueError("an all-free admission needs pool_shape=(I, W)")
     return _admit_plain(req_id, svc, features, msg_bytes, None, state,
-                        free_mask != 0, None, rnd, gumbel, block_r)
+                        free, None, rnd, gumbel, block_r, pool_shape)
 
 
 def admit_commit(req_id, svc, features, msg_bytes, token, state,
@@ -264,12 +278,14 @@ _SMEM: dict[tuple, int] = {}
 
 
 def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
-               rnd, gumbel):
+               rnd, gumbel, *, pool_shape=None):
     """Launch ``csrc/admit.cu`` on the tensors' CUDA device.
 
     ``free`` is the (I, C) free mask (bool, or int with nonzero = free) in
-    both modes.  ``pool`` None: the commit-free kernel, and the result an
-    ``AdmitResult``.  Otherwise ``pool`` is the five incoming (I, C) int
+    both modes.  ``free`` None with ``pool_shape`` (I, W) and ``pool``
+    None: the all-free mode of the commit-free kernel, which stages no
+    mask (a row's slot is its arrival rank on its instance).  ``pool``
+    None: the commit-free kernel, and the result an ``AdmitResult``.  Otherwise ``pool`` is the five incoming (I, C) int
     fields, the committed pool is active where ``free`` is not or where a
     request was admitted, and the result an ``AdmitCommitResult``.  Inputs
     that are contiguous and of the kernel's type are passed as they are;
@@ -278,8 +294,12 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
     fails.  The caller skips empty batches.
     """
     commit = pool is not None
+    all_free = free is None
+    if all_free and (commit or pool_shape is None):
+        raise ValueError("the all-free mode is commit-free and needs "
+                         "pool_shape=(I, W)")
     R, F = features.shape
-    I, C = free.shape
+    I, C = pool_shape if all_free else free.shape
     S = state.svc_rule_start.shape[0]
     NR = state.rule_field.shape[0]
     CL = state.cluster_ep_count.shape[0]
@@ -290,11 +310,11 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
         raise ValueError("empty batch: the caller passes it through")
     if gumbel.shape != (R, MAX_EPS_PER_CLUSTER):
         raise ValueError(f"gumbel must be {(R, MAX_EPS_PER_CLUSTER)}")
-    if C > 0xFFFF:
+    if C > 0xFFFF and not all_free:
         raise ValueError(f"admit keeps slot numbers in 16 bits; C = {C}")
-    dev = free.device
+    dev = features.device
     lib = _build.library(dev)
-    key = (E, CL, S, NR, A, I, C, F)
+    key = (E, CL, S, NR, A, I, C, F, int(all_free))
     smem = _SMEM.get(key)
     if smem is None:
         smem = _SMEM[key] = lib.xlb_admit_smem_bytes(*key)
@@ -313,10 +333,12 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
     rest = [as_i32(x) for x in (state.ep_drained, state.ep_load,
                                 state.rr_cursor, state.maglev_table,
                                 state.aff_key, state.aff_ep)]
-    fm = free if free.dtype == torch.bool else free != 0
-    fm = fm if fm.is_contiguous() else fm.contiguous()
+    masks = []
+    if not all_free:
+        fm = free if free.dtype == torch.bool else free != 0
+        masks = [fm if fm.is_contiguous() else fm.contiguous()]
     pool_in = [as_i32(p) for p in pool] if commit else []
-    _build.check_device(dev, *reqs, *tabs, ew, *rest, fm, *pool_in,
+    _build.check_device(dev, *reqs, *tabs, ew, *rest, *masks, *pool_in,
                         *([tok] if commit else []))
     shapes = [(n,) for n in [R] * 5 + [E, CL, S, S, 2, A, A]] \
         + ([(I, C)] * 5 if commit else [])
@@ -334,7 +356,7 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
         p(cs), p(cc), p(cp), CL,
         p(einst), p(ew), p(ed), p(load0), E,
         p(cur0), p(mg), T, p(affk0), p(affe0), A,
-        p(fm), I, C,
+        p(masks[0]) if masks else None, I, C,
         *maybe(pool_in, 5), *[p(x) for x in per_req],
         *[p(x) for x in carried], *maybe(pool_out, 6),
         int(commit), _build.stream(dev))

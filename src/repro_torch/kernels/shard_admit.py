@@ -4,7 +4,8 @@ fleet (twin of ``repro/kernels/shard_admit.py``).
 The admission batch splits ``(R/M,)`` over a mesh axis and the pool
 ``(I/M,)``; the routing tables are replicated.  Each shard runs the
 admission kernel without the commit (B3, ``csrc/admit.cu``) against an
-all-free mask, then ONE collective pass reconciles.  The result is
+all-free pool (its all-free mode: no mask staged), then ONE collective
+pass reconciles.  The result is
 bit-exact against single-shard ``admit_commit`` on the concatenated batch
 under the shard-major merge rule: shard 0's rows come first, shard 1's
 follow, as if one host had ingested the concatenation (the reference's
@@ -17,7 +18,7 @@ the preceding shards' per-cluster routable counts:
   * least-request loads advance by a water-fill (``waterfill_lr``): the
     loads after k sequential admissions to a cluster depend only on k;
   * random and weighted read per-row draws, split with the rows;
-  * slots: against an all-free mask the kernel's ``slot`` IS the local
+  * slots: against an all-free pool the kernel's ``slot`` IS the local
     arrival rank per instance; global ranks (the preceding shards' counts
     plus the local rank) are matched against the true free mask, which
     also decides the held rows.
@@ -175,15 +176,18 @@ def _pad(x, n: int, fill: int):
                                     device=x.device)])
 
 
-def _admit_shard(rid, sv, feats, mb, st, free, rnd, gum) -> AdmitResult:
-    """B3 on one shard's rows: the admission kernel without the commit on
-    the card, its plain version on the CPU."""
+def _admit_shard(rid, sv, feats, mb, st, shape, rnd, gum) -> AdmitResult:
+    """B3 on one shard's rows against an all-free pool of ``shape``
+    (I, W): the admission kernel without the commit, in its all-free mode
+    (nothing of the pool staged), on the card; its plain version on the
+    CPU."""
     if rid.is_cuda:
-        res = _rm.admit_cuda(rid, sv, feats, mb, None, st, free, None, rnd,
-                             gum)
+        res = _rm.admit_cuda(rid, sv, feats, mb, None, st, None, None, rnd,
+                             gum, pool_shape=shape)
         ops.LAUNCHES["admit"] += 1
         return res
-    return _rm.admit(rid, sv, feats, mb, st, free, rnd, gum)
+    return _rm.admit(rid, sv, feats, mb, st, None, rnd, gum,
+                     pool_shape=shape)
 
 
 def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
@@ -247,10 +251,9 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
         [ep_load0[None], waterfill_lr(state, prev_cl[1:], k_max=R)])
     adj_cur = state.rr_cursor.to(I32) + prev_cl        # raw carry; mod at emit
 
-    # ---- phase 3: the admission kernel per shard (all-free mask) -------- #
-    # n_free = R_loc >= any local instance count, so nothing is held in the
+    # ---- phase 3: the admission kernel per shard (all-free pool) -------- #
+    # width R_loc >= any local instance count, so nothing is held in the
     # kernel and its slot is the local per-instance arrival rank
-    free_all = torch.ones((I, R_loc), dtype=torch.bool, device=dev)
     neg = torch.full((R_loc,), -1, dtype=I32, device=dev)
     z = torch.zeros((R_loc,), dtype=I32, device=dev)
     zs = torch.zeros((S,), dtype=I32, device=dev)
@@ -265,7 +268,7 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
         r = _admit_shard(rid[sl], svc[sl], features[sl], msg_bytes[sl],
                          state._replace(ep_load=adj_load[m],
                                         rr_cursor=adj_cur[m]),
-                         free_all, rnd[sl], gumbel[sl])
+                         (I, R_loc), rnd[sl], gumbel[sl])
         per.append((r.endpoint, r.instance, r.slot, r.ok, r.ep_load,
                     r.svc_requests, r.svc_tx_bytes, r.no_route, r.aff_key,
                     r.aff_ep))
@@ -274,7 +277,7 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
                                          for f in zip(*per))
 
     # ---- phase 4: global slot allocation + psum reconciliation ---------- #
-    rt = lok > 0                               # == routable (all-free mask)
+    rt = lok > 0                               # == routable (all-free pool)
     instc = instance.clamp(0, I - 1).to(I64)
     local_rank = torch.where(rt, lslot, 0)
     cnt_i = _bincount(torch.where(rt, instc, I), I)      # (M, I)

@@ -1,14 +1,19 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --engine
+"""Serving launcher: ``python -m repro_torch.launch.serve --arch
+xlb-service-model|minitron-4b|mamba2-2.7b [--smoke] --engine
 xlb|istio|cilium --policy least_request --instances 4 --slots 4
 --requests 32 --max-len 24 [--shards M] [--device cuda|cpu]``.
 
 Boots the chosen engine (XLB or one of the sidecar baselines) with the
-full-width ``xlb-service-model`` (random weights from a seed), one
-service routed to one cluster over the instances under the chosen
-policy, built by a ``ControlPlane`` that the loop attaches to, and drives a synthetic request stream through the
-continuous-batching loop.  ``--shards M`` shards the XLB engine's
+chosen architecture at full width, or at the reference's reduced config
+with ``--smoke`` (the config the reference serves), random weights from a
+generator seeded with 0 on the device; one service routed to one cluster
+over the instances under the chosen policy, built by a ``ControlPlane``
+that the loop attaches to; and drives a synthetic request stream through
+the continuous-batching loop.  ``--shards M`` shards the XLB engine's
 admission batch and pool over an M-way shard mesh, all shards on the one
-device.  Runs on the card unless ``--device cpu`` is given.
+device.  Runs on the card unless ``--device cpu`` is given.  An
+encoder-decoder arch is refused as the reference refuses it; an arch
+whose family the port does not have yet raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import XLB_SERVICE_MODEL
+from repro_torch.configs import (ASSIGNED_ARCHS, ENCDEC_ARCHS, get_config,
+                                  smoke_config)
 from repro_torch.core.balancer import ENGINE_KINDS, make_balancer
 from repro_torch.core.control import ControlPlane
 from repro_torch.core.routing_table import (POLICY_NAMES, Cluster, Rule,
@@ -30,8 +36,28 @@ from repro_torch.models import model as M
 from repro_torch.runtime.serve_loop import Request, ServeLoop
 
 
+def arch_config(arch: str, smoke: bool):
+    """The config ``serve`` runs for ``arch``: full width, or the
+    reference's reduced config with ``smoke``."""
+    if arch in ENCDEC_ARCHS:
+        raise SystemExit("enc-dec serving needs prompt frames; use the "
+                         "dry-run decode cells for whisper")
+    try:
+        cfg = get_config(arch)
+    except KeyError:
+        raise NotImplementedError(
+            f"{arch}: its config and family are not ported yet (ROADMAP.md "
+            "item 12); serve takes xlb-service-model, minitron-4b and "
+            "mamba2-2.7b") from None
+    return smoke_config(cfg) if smoke else cfg
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="xlb-service-model",
+                    choices=ASSIGNED_ARCHS + ["xlb-service-model"])
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reference's reduced config of the arch")
     ap.add_argument("--engine", default="xlb", choices=ENGINE_KINDS)
     ap.add_argument("--instances", type=int, default=4)
     ap.add_argument("--slots", type=int, default=4)
@@ -46,6 +72,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
+    cfg = arch_config(args.arch, args.smoke)
     kw = {}
     if args.shards > 1:
         if args.engine != "xlb":
@@ -59,8 +86,7 @@ def main(argv=None) -> int:
                   shard_mesh=make_shard_mesh(args.shards,
                                              device=args.device))
     device = resolve_device(args.device)
-    cfg = XLB_SERVICE_MODEL
-    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+    params = M.init_params(cfg, torch.Generator(device).manual_seed(0),
                            dtype=torch.float32, device=device)
     cp = ControlPlane(
         [ServiceConfig("svc", rules=[Rule(0, None, "pool")])],

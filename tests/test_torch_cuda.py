@@ -815,3 +815,140 @@ def test_sharded_completion_matches_unsharded_on_the_card(dev, I, C, M):
     _equal_fields(k, ops.complete(PoolState(*args[:6]), *args[6:], eos=1,
                                   max_len=8), f"complete M={M}")
     assert int(k.done_cnt.sum()) > 0
+
+
+# --------------------------------------------------------------------------- #
+# B3's all-free mode (the sharded admission's kernel)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("W", [1, 64, 256, 1024, 4096])
+def test_admit_all_free_mode_matches_plain(dev, W):
+    """The commit-free kernel against an all-free pool of width W, staging
+    nothing of it, bit-exact against the plain version in the same mode,
+    against the plain version given an explicit all-ones (I, W) mask, and,
+    where the staged mask fits a block (W <= 256), against the kernel
+    given that mask.  The batch holds out-of-range services and weighted
+    rows with NaN Gumbel values; at W = 1 most routable rows are held."""
+    R, I = 512, 64
+    routing = _routing(dev, W)
+    reqs, rnd, gum = _batch(R, W + 2, dev)
+    reqs = _rows_to(reqs, 3, torch.arange(R)[::2], dev)   # c3: weighted
+    svc = reqs.svc.clone()
+    svc[1::7], svc[3::7] = -3, 1000
+    gum = gum.clone()
+    gum[::6, 0] = float("nan")
+    gum[2::6, :] = float("nan")
+    reqs = reqs._replace(svc=svc)
+    args = (reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes)
+    n0 = ops.LAUNCHES["admit"]
+    k = route_match.admit_cuda(*args, None, routing, None, None, rnd, gum,
+                               pool_shape=(I, W))
+    assert ops.LAUNCHES["admit"] == n0              # counted by its callers
+    cpu = [t.cpu() for t in (*args, rnd, gum)]
+    rcpu = routing.to("cpu")
+    p = route_match.admit(*cpu[:4], rcpu, None, *cpu[4:], pool_shape=(I, W))
+    ones = torch.ones((I, W), dtype=torch.int32)
+    m = route_match.admit(*cpu[:4], rcpu, ones, *cpu[4:])
+    for f in route_match.AdmitResult._fields:
+        assert torch.equal(getattr(k, f).cpu(), getattr(p, f)), f
+        assert torch.equal(getattr(p, f), getattr(m, f)), f
+    if W <= 256:
+        k2 = route_match.admit_cuda(*args, None, routing, ones.bool().to(dev),
+                                    None, rnd, gum)
+        for f in route_match.AdmitResult._fields:
+            assert torch.equal(getattr(k, f), getattr(k2, f)), f
+    assert int(k.ok.sum()) > 0
+    assert W > 1 or int(k.held) > 0
+
+
+@pytest.mark.parametrize("M", [1, 4])
+def test_sharded_admission_at_width_1024_matches_unsharded(dev, M):
+    """F4: at I = 64 and R/M = 1024 the sharded admission used to stage a
+    (64, 1024) all-free mask in B3's shared memory, past the 227 KB a
+    block may have, and raised.  In the all-free mode it stages none and
+    equals the unsharded wrapper bit for bit."""
+    from repro_torch.launch.mesh import make_shard_mesh
+    R, I, C = 1024 * M, 64, 16
+    routing = _routing(dev, R)
+    reqs, rnd, gum = _batch(R, R + 7, dev)
+    pool, _ = _pool(I, C, R, dev, busy=0.3)
+    n0 = ops.LAUNCHES["admit"]
+    k = ops.admit_commit_sharded(reqs, routing, pool, rnd, gum,
+                                 mesh=make_shard_mesh(M))
+    assert ops.LAUNCHES["admit"] - n0 == M
+    _equal_fields(k, ops.admit_commit(reqs, routing, pool, rnd, gum),
+                  f"M={M} R/M=1024")
+    assert int(k.ok.sum()) > 0 and int(k.held) > 0
+
+
+# --------------------------------------------------------------------------- #
+# the chain and the analysis gate on the card
+# --------------------------------------------------------------------------- #
+
+
+def test_depth2_xlb_chain_on_the_card_matches_the_cpu(dev):
+    """A depth-2 xlb chain of the full-width serving model (16 lanes x 8
+    slots a hop) on the card: the same row and tick records as the CPU
+    run; each hop's engine draws from one seeded CPU generator."""
+    import json
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core import interpose, policies
+    from repro_torch.models import model as M
+    from repro_torch.workload import PoissonArrivals, Workload, hops
+
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, "cpu")
+
+    def run(d):
+        post, n = interpose.Engine.__post_init__, iter(range(9))
+
+        def seeded(self):
+            post(self)
+            gen = torch.Generator().manual_seed(next(n))
+            self.draws = lambda R: [t.to(self.device)
+                                    for t in policies.draws(gen, R)]
+        interpose.Engine.__post_init__ = seeded
+        try:
+            out = hops.run_chain_scenario(
+                "xlb", depth=2, workload=Workload(
+                    PoissonArrivals(rate=6.0, seed=3), n_requests=96,
+                    vocab=cfg.vocab),
+                n_instances=16, slots=8, tokens_per_req=4, admit_batch=64,
+                policy=RT.POLICY_WEIGHTED, cfg=cfg,
+                params=params if d == "cpu" else _to_dev(params, dev),
+                device=d)
+        finally:
+            interpose.Engine.__post_init__ = post
+        res = out["result"]
+        return out["row"], (res.ticks, res.submit_tick, res.done_tick,
+                            res.hop_submit, res.hop_done)
+
+    card, cpu = run(dev), run("cpu")
+    assert json.dumps(card[0]) == json.dumps(cpu[0]) and card[1] == cpu[1]
+    assert card[0]["completed"] == 96
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_analysis_kernels_section_exits_zero_on_the_card():
+    """``python -m repro_torch.analysis`` with its kernels section against
+    the bounds-checking build, in a process of its own."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = Path(__file__).resolve().parents[1]
+    p = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=900,
+                       env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    assert p.returncode == 0, p.stdout[-4000:] + p.stderr[-4000:]
+    assert "bounds-checking build" in p.stdout
+    assert "verified: all sections clean" in p.stdout

@@ -51,7 +51,9 @@ def test_port_never_imports_jax_or_the_reference():
             "launch/prefill_decode.py", "convert.py", "core/health.py",
             "runtime/transport.py", "runtime/elastic.py",
             "workload/generators.py", "workload/scenarios.py",
-            "workload/slo.py", "analysis/invariants.py"} <= names
+            "workload/slo.py", "analysis/invariants.py",
+            "workload/hops.py", "workload/chain.py", "analysis/lint.py",
+            "analysis/__main__.py", "analysis/kernel_sweep.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []

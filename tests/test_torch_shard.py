@@ -10,6 +10,8 @@ kernel versions.
   cases; every field against the reference's single-shard
   ``ops.admit_commit`` on the same batch and against the shard-major
   oracle ``ref.admit_sharded_ref``.
+* B3's all-free mode (what each shard runs) against the plain version
+  given an all-ones mask, and against the reference's ``ops.admit``.
 * ``complete_sharded`` against the reference's ``ops.complete``, EWMA
   bits included; ``waterfill_lr`` against the reference's on random
   loads, per shard row and with its search cut to ``k_max``.
@@ -51,6 +53,7 @@ from repro_torch.core import interpose as TI
 from repro_torch.core import relay as TRelay
 from repro_torch.core.balancer import PoolState, RequestBatch, make_balancer
 from repro_torch.kernels import ops, shard_admit
+from repro_torch.kernels import route_match as rm
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.models import model as TM
@@ -157,6 +160,44 @@ def test_admit_commit_sharded_matches_reference(name, M):
         assert int((got.aff_ep >= 0).sum()) > 0       # the cache filled
     if name.startswith("m1"):
         assert int(got.held) > 0
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+@pytest.mark.parametrize("name", list(ADMIT_CASES))
+def test_admit_all_free_mode_matches_an_all_ones_mask(name, M):
+    """B3's all-free mode, as the sharded admission calls it (each shard's
+    rows against an all-free pool of width R/M), equals the plain version
+    given an explicit all-ones (I, R/M) mask in every field; at M = 4 the
+    first shard's rows also equal the reference's commit-free
+    ``ops.admit`` given that mask."""
+    st, reqs, rnd, gum, pool, _, _ = _admit_case(name)
+    R = reqs.req_id.shape[0]
+    I = pool.req_id.shape[0]
+    R_loc = -(-R // M)
+    routing = _routing(st)
+    for m in range(M):
+        sl = slice(m * R_loc, min((m + 1) * R_loc, R))
+        args = [_t(a)[sl] for a in (reqs.req_id, reqs.svc, reqs.features,
+                                    reqs.msg_bytes)]
+        draws = [_t(rnd)[sl], _t(gum)[sl]]
+        if args[0].shape[0] == 0:
+            continue
+        got = rm.admit(*args, routing, None, *draws, pool_shape=(I, R_loc))
+        ones = torch.ones((I, R_loc), dtype=torch.int32)
+        want = rm.admit(*args, routing, ones, *draws)
+        for f in rm.AdmitResult._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), \
+                f"{name} M={M} shard {m} {f}"
+        if M == 4 and m == 0:
+            jreqs = jax.tree.map(lambda a: a[sl], reqs)
+            ref = JOps.admit(jreqs, st, jnp.ones((I, R_loc), jnp.int32),
+                             rnd[sl], gum[sl])
+            for f in rm.AdmitResult._fields:
+                np.testing.assert_array_equal(
+                    getattr(got, f).numpy(), np.asarray(getattr(ref, f)),
+                    err_msg=f"{name} shard 0 vs the reference {f}")
+    with pytest.raises(ValueError, match="pool_shape"):
+        rm.admit(*args, routing, None, *draws)
 
 
 def test_admit_commit_sharded_empty_batch_passes_the_pool_through():
