@@ -5,6 +5,16 @@ NVIDIA GPU: ``python3 chip_smoke.py`` from the root of a checkout.
 Phases (each prints one line; any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi) and the kernel build;
+   then the autotuner (``kernels/tune.py``): ``plan_admit`` swept on the
+   card at the serving shape (R 256 over 64 x 16: tiles 64 and 256), at R
+   4096 (64, 256, 1024) and at R 128, each candidate's device ms, the plan
+   and the candidates dropped; B2 and B3 in each mode (commit, masked,
+   all-free) at each tile against the plain version at the same block_r,
+   on a batch whose affinity cache differs between tiles (two flows, each
+   in two AFFINITY clusters); each tile's device ms at R 256 and 4096; the
+   pins (XLB_BLOCK_R, XLB_AUTOTUNE=0) obeyed.  Every later timed window
+   starts after its shape's sweep, and every CPU leg of a card-against-CPU
+   comparison plans as the card did (``cpu_plans``);
 2. each kernel, called through its public wrapper in ``kernels/ops.py``,
    against its plain PyTorch version on the same card tensors, bit-exact
    on every integer output and both f32 EWMAs: ``admit_commit`` and ``admit``
@@ -72,28 +82,34 @@ Phases (each prints one line; any failure exits non-zero):
    request complete and ``ep_load`` zero on every hop, xlb's p99 at most
    each sidecar's and shards=2 equal to the unsharded row;
 6. the model stack at full width and depth in bf16, with weights from a
-   CUDA generator: minitron-4b (prefill through ``flash_attention``,
-   decode through ``decode_attention``) and mamba2-2.7b (prefill through
-   ``ssd_scan``, recurrent decode), each prefilling 2 x 4096 tokens and
-   decoding 32 greedy steps (prefill ms, ms per decode step, tokens/s,
-   peak memory), with finite logits, and decode after a shorter prefill
-   against the last logits of the full prefill: relative error < 1e-3 in
-   f32 (the weights cast up), and in bf16 under a fixed limit per
-   architecture that a planted decode fault must exceed;
-7. the reduced (smoke) configs of minitron-4b and mamba2-2.7b (head dim
-   16; mamba's state 16) through the launcher's ``main`` on the card, as a
-   user runs ``prefill_decode --smoke``, with finite logits and every
-   attention or SSD call through its kernel; then prefill and one decode
-   step of each on the card against the CPU (f32, rtol = atol = 1e-4);
-   then ``launch/serve.py --arch`` at full width for xlb-service-model,
-   minitron-4b and mamba2-2.7b (every request served), and an arch not
-   ported yet refused with ``NotImplementedError``;
+   CUDA generator: minitron-4b, granite-20b (MQA, G = 48), internlm2-20b,
+   yi-34b and chameleon-34b (vlm: a dense decoder) (prefill through
+   ``flash_attention``, decode through ``decode_attention``) and
+   mamba2-2.7b (prefill through ``ssd_scan``, recurrent decode), each
+   prefilling 2 x 4096 tokens and decoding 32 greedy steps (prefill ms,
+   ms per decode step, tokens/s, peak memory; B6's device ms a launch
+   inside the model), with finite logits, and decode after a shorter
+   prefill against the last logits of the full prefill: relative error <
+   1e-3 in f32 (the weights cast up, where they fit beside the bf16 ones:
+   minitron-4b and mamba2-2.7b), and in bf16 under a fixed limit per
+   architecture that a planted decode fault must exceed; each model is
+   freed before the next is built;
+7. the reduced (smoke) configs of minitron-4b, mamba2-2.7b and the four
+   dense and vlm archs (head dim 16; mamba's state 16) through the
+   launcher's ``main`` on the card, as a user runs ``prefill_decode
+   --smoke``, with finite logits and every attention or SSD call through
+   its kernel; then prefill and one decode step of each on the card
+   against the CPU (f32, rtol = atol = 1e-4); then ``launch/serve.py
+   --arch`` at full width for xlb-service-model, minitron-4b and
+   mamba2-2.7b and with ``--smoke`` for the four dense and vlm archs
+   (every request served), and arctic-480b (moe, not ported yet) refused
+   with ``NotImplementedError``;
 8. the kernel launch counts: ``admit_commit``, ``complete`` and
    ``decode_attention`` on the main path (and in each serving phase after
    it), ``route_match``, ``relay_slots`` and ``admit`` in the staged
    phase, ``admit``, ``complete`` and ``route_match`` in the sharded
    drain (added to those), ``flash_attention``, ``decode_attention`` and
-   ``ssd_scan`` in the model phases;
+   ``ssd_scan`` in the model phases (summed over the archs);
 9. ``python -m repro_torch.analysis`` with its kernels section in a
    subprocess: under compute-sanitizer's memcheck and racecheck where
    the sanitizer can attach to the card, else against the kernels'
@@ -128,7 +144,9 @@ without one, or without the port's sources beside this file.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -157,9 +175,17 @@ LLM_BATCH, LLM_PROMPT, LLM_STEPS = 2, 4096, 32
 # in f32 sound runs read 5.1e-6 (minitron-4b) and 1.4e-5 (mamba2-2.7b); in
 # bf16 minitron-4b reads 1.7e-2 against tests/test_smoke_archs.py's 5e-2,
 # and mamba2-2.7b 6.4e-2, as bf16 rounding grows over its 64 layers (its
-# bf16 prefill alone is 5.5e-2 from the f32 one)
+# bf16 prefill alone is 5.5e-2 from the f32 one); granite-20b,
+# internlm2-20b, yi-34b and chameleon-34b read 1.95e-2 to 2.03e-2 in bf16,
+# and with the planted fault 0.199 to 0.255 (an H100 80GB HBM3 at 700 W)
 LLM_REL_TOL_F32 = 1e-3
-LLM_REL_TOL_BF16 = {"minitron-4b": 5e-2, "mamba2-2.7b": 1e-1}
+LLM_REL_TOL_BF16 = {"minitron-4b": 5e-2, "mamba2-2.7b": 1e-1,
+                    "granite-20b": 5e-2, "internlm2-20b": 5e-2,
+                    "yi-34b": 5e-2, "chameleon-34b": 5e-2}
+# the f32 leg of that check casts the weights up beside the bf16 ones: run
+# it where they fit (minitron-4b's 5.1 B parameters are 20 GB in f32;
+# granite-20b's 28.2 B would be 113 GB)
+F32_LEG_MAX_PARAMS = 8e9
 PLANT_KEYS = 256    # two key splits of csrc/decode_attention.cu
 # the SSD's kernels (csrc/ssd_scan.cu) and the passes of its bf16 build
 # with B and C shared by the heads, as mamba2-2.7b calls it
@@ -222,8 +248,16 @@ F4_R, F4_M = 4096, 4
 # arrivals and of the engines' draws
 CHAIN_DEPTH, CHAIN_REQUESTS, CHAIN_RATE, CHAIN_TOKENS = 3, 512, 34.0, 8
 CHAIN_SEED = 11
-# the archs serve --arch runs at full width
+# the tune phase: the affinity batch's rows and its two flows' rows (each
+# pair in one 256-row tile but two 64-row ones, or in one 1024-row tile
+# but two 256-row ones)
+TUNE_R, TUNE_PAIRS = 1040, ((20, 100), (30, 700))
+# the dense and vlm archs of the model phase (full width, bf16)
+DENSE_ARCHS = ("granite-20b", "internlm2-20b", "yi-34b", "chameleon-34b")
+# the archs serve --arch runs at full width, and those it serves at the
+# reduced config (their f32 serving weights pass one card)
 SERVE_ARCHS = ("xlb-service-model", "minitron-4b", "mamba2-2.7b")
+SERVE_SMOKE_ARCHS = DENSE_ARCHS
 
 
 def fail(msg: str) -> None:
@@ -391,7 +425,8 @@ def launch_floor(torch, lib, n: int = 2000):
     return device, s.elapsed_time(e) / n
 
 
-def admit_work(torch, RT, PD, routing, rid, svc, feats, free, res, commit):
+def admit_work(torch, RT, PD, routing, rid, svc, feats, free, res, commit,
+               tile=256):
     """(bytes, operations) the admission kernel needs for this batch and
     its result: each input element it reads once, each output element
     written once.  Of the tables it reads only what the batch indexes
@@ -440,9 +475,9 @@ def admit_work(torch, RT, PD, routing, rid, svc, feats, free, res, commit):
     # warp match and up to 8 warp counts, twice), the k-th set bit (6
     # popcount steps), the Gumbel argmax of weighted rows, and per tile a
     # (load, lane) ranking of the 64 lanes of each least-request cluster
-    # with rows in it
+    # with rows in it, of ``tile`` rows
     lr = routable & (pol == RT.POLICY_LEAST_REQUEST)
-    tiles = torch.arange(R, device=cl.device) // 256
+    tiles = torch.arange(R, device=cl.device) // tile
     lr_tables = int((tiles[lr] * CL + cl[lr]).unique().numel())
     ops = (R * (2 * F + RT.MAX_RULES_PER_SVC + 2 * 9 + 6)
            + 2 * WE * int(wt.sum()) + 4 * WE * WE * lr_tables)
@@ -494,6 +529,217 @@ def serving_config(RT):
     services.append(RT.ServiceConfig("closed",
                                      [RT.Rule(0, "/never", "pol0")]))
     return services, clusters
+
+
+# --------------------------------------------------------------------------- #
+# phase 1b: the autotuner and the admission kernel's tiles
+# --------------------------------------------------------------------------- #
+
+
+def tune_config(RT):
+    """``serving_config`` plus a second AFFINITY cluster (lanes 56..63)
+    behind service "svc5b" (id 8), whose rules match what svc5's do: a
+    flow sent to both services lands in two affinity clusters, so the
+    cache keeps the first writer of a tile and the last tile's writer
+    (the reference's kernel does the same; ROADMAP.md §3)."""
+    services, clusters = serving_config(RT)
+    services.append(RT.ServiceConfig("svc5b", [RT.Rule(0, "/api/5", "pol5b"),
+                                               RT.Rule(1, None, "pol5b")]))
+    clusters.append(RT.Cluster("pol5b", list(range(56, 64)),
+                               policy=RT.POLICY_AFFINITY))
+    return services, clusters
+
+
+def affinity_batch(torch, RT, PD, dev):
+    """TUNE_R rows of ``admit_inputs`` over ``tune_config``, with the two
+    flows of TUNE_PAIRS planted: each pair's rows carry one flow, the
+    first to svc5 (pol5), the second to svc5b (pol5b); no other row's flow
+    shares a pair's cache slot.  (routing, reqs, pool, rnd, gum, slots)."""
+    routing0, _ = RT.build_state(*tune_config(RT), "cpu")
+    routing, reqs, pool, rnd, gum = admit_inputs(
+        torch, RT, routing0, TUNE_R, I_LANES, SLOTS, seed=5, dev="cpu")
+    rid, svc, feats = reqs[0], reqs[1], reqs[2]
+    A = routing.aff_key.shape[0]
+    for k, (a, b) in enumerate(TUNE_PAIRS):
+        flow = torch.tensor([RT.fnv1a("/api/5")]
+                            + [7_000_000 + 10 * k + j for j in range(7)],
+                            dtype=torch.int32)
+        feats[a], feats[b] = flow, flow
+        svc[a], svc[b] = 5, 8
+        rid[a], rid[b] = a, b
+    pair_rows = [r for pr in TUNE_PAIRS for r in pr]
+    slots = [int(PD.flow_hash(feats[a:a + 1])[0]) % A for a, _ in TUNE_PAIRS]
+    others = torch.ones(TUNE_R, dtype=torch.bool)
+    others[pair_rows] = False
+    while True:                  # move other flows off the pairs' slots
+        hit = others & torch.isin(PD.flow_hash(feats).long() % A,
+                                  torch.tensor(slots))
+        if not bool(hit.any()):
+            break
+        feats[hit, 7] += 1
+    to = lambda xs: [x.to(dev) for x in xs]            # noqa: E731
+    return (routing.to(dev), to(reqs), to(pool), rnd.to(dev), gum.to(dev),
+            slots)
+
+
+def sweep_line(tune, entry) -> str:
+    key, best, timings, dropped = entry
+    kind, _, _, R, I, C = key
+    return (f"tune: plan_admit[{kind} R={R} pool={I}x{C}] swept on the "
+            "card (B2 commit / B3 masked, CUDA events, min of 3 trials of "
+            "3 calls): "
+            + ", ".join(f"block_r={b} {1e3 * t:.5f} ms"
+                        for b, t in sorted(timings.items()))
+            + f"; chosen block_r={best}; dropped: "
+            + ("; ".join(f"{b}: {why}" for b, why in dropped.items())
+               or "none"))
+
+
+def phase_tune(torch, RT, PD, B, ops, rm, tune, dev="cuda"):
+    """``kernels/tune.py`` on the card: ``plan_admit`` swept at the serving
+    shape (R 256 over 64 x 16: candidates 64 and 256) and at R 4096 (64,
+    256 and 1024), both kernels, and at R/2 (the sharded and chained
+    shards=2 width), so that no timed window of a later phase holds a
+    sweep; B2 and B3 in each mode (commit, masked, all-free) at each tile
+    against the plain version at the same block_r, on a batch whose
+    affinity cache depends on the tile; each tile's device ms at R 256
+    and 4096; the pins (XLB_BLOCK_R, XLB_AUTOTUNE=0) obeyed."""
+    dev = torch.device(dev)
+    tune.clear_cache()
+    lines, timing = [], {}
+    for R, commit in ((ADMIT_R, True), (ADMIT_R, False), (4096, True),
+                      (4096, False), (ADMIT_R // 2, True)):
+        n = len(tune._log)
+        tune.plan_admit(R, (I_LANES, SLOTS), commit=commit, device=dev)
+        check(len(tune._log) == n + 1, f"tune: no sweep at R={R}")
+        key, best, timings, dropped = tune._log[-1]
+        want = set(tune._admit_candidates(R))
+        check(set(timings) == want and not dropped,
+              f"tune: R={R} timed {sorted(timings)} (want {sorted(want)}),"
+              f" dropped {dropped}")
+        check(all(0 < t < 1e-2 for t in timings.values()),
+              f"tune: R={R} timings {timings}")
+        lines.append(sweep_line(tune, tune._log[-1]))
+    # the sweep's own work, per candidate: 10 launches of the kernel
+    routing, reqs, pool, rnd, gum, slots = affinity_batch(torch, RT, PD, dev)
+    batch, pstate = B.RequestBatch(*reqs), B.PoolState(*pool)
+    fields, act = pool[:5], pool[5]
+    free = act == 0
+    args = (reqs[0], reqs[1], reqs[2], reqs[4])
+    A = routing.aff_key.shape[0]
+    by_tile, errs = {}, []
+    for b in rm.TILES:
+        k = ops.admit_commit(batch, routing, pstate, rnd, gum, block_r=b)
+        p = rm.admit_commit(*args[:3], args[3], reqs[3], routing, *fields,
+                            act, rnd, gum, block_r=b)
+        k2 = ops.admit(batch, routing, free, rnd, gum, block_r=b)
+        p2 = rm.admit(*args, routing, free, rnd, gum, block_r=b)
+        k3 = rm.admit_cuda(*args, None, routing, None, None, rnd, gum,
+                           block_r=b, pool_shape=(I_LANES, SLOTS))
+        p3 = rm.admit(*args, routing, None, rnd, gum, block_r=b,
+                      pool_shape=(I_LANES, SLOTS))
+        torch.cuda.synchronize()
+        errs.append(max(
+            max_abs_err(torch, [*zip(rm.AdmitResult._fields, k[:13], p[:13]),
+                                *zip(B.PoolState._fields, k.pool, p[13:])]),
+            max_abs_err(torch, zip(rm.AdmitResult._fields, k2, p2)),
+            max_abs_err(torch, zip(rm.AdmitResult._fields, k3, p3))))
+        ak, ae = k.aff_key.cpu(), k.aff_ep.cpu()
+        lanes = [int(routing.ep_instance[int(ae[s])]) for s in slots]
+        check(all(int(ak[s]) >= 0 for s in slots),
+              f"tune: block_r={b}: a pair's flow is not in the cache")
+        by_tile[b] = ["pol5" if ln < 56 else "pol5b" for ln in lanes]
+        check(int(k.held) > 0 and int(k.no_route) > 0,
+              f"tune: block_r={b}: no held or NO_ROUTE rows")
+    want = {64: ["pol5b", "pol5b"], 256: ["pol5", "pol5b"],
+            1024: ["pol5", "pol5"]}
+    check(by_tile == want, f"tune: the affinity cache by tile {by_tile}, "
+          f"want {want}")
+    lines.append(
+        f"tune: B2 commit, B3 masked and B3 all-free at block_r "
+        f"{'/'.join(map(str, rm.TILES))} on R={TUNE_R} rows over "
+        f"{I_LANES}x{SLOTS} (flows {TUNE_PAIRS} each in pol5 then pol5b), "
+        f"each against the plain version at the same block_r: max_abs_err "
+        f"{'/'.join(str(e) for e in errs)}; the cache keeps, for the two "
+        f"flows: {by_tile} (first writer of a tile, later tile wins)")
+
+    # the pins on the card: XLB_BLOCK_R, then XLB_AUTOTUNE=0
+    n = len(tune._log)
+    os.environ[tune.ENV_BLOCK_R] = "64"
+    try:
+        pin = tune.plan_admit(TUNE_R, (I_LANES, SLOTS), commit=True,
+                              device=dev)
+        k = ops.admit_commit(batch, routing, pstate, rnd, gum)
+    finally:
+        del os.environ[tune.ENV_BLOCK_R]
+    os.environ[tune.ENV_AUTOTUNE] = "0"
+    try:
+        off = tune.plan_admit(2048, (I_LANES, SLOTS), device=dev)
+        k0 = ops.admit_commit(batch, routing, pstate, rnd, gum)
+    finally:
+        del os.environ[tune.ENV_AUTOTUNE]
+    p64 = rm.admit_commit(*args[:3], args[3], reqs[3], routing, *fields,
+                          act, rnd, gum, block_r=64)
+    p256 = rm.admit_commit(*args[:3], args[3], reqs[3], routing, *fields,
+                           act, rnd, gum, block_r=256)
+    max_abs_err(torch, [*zip(rm.AdmitResult._fields, k[:13], p64[:13])])
+    max_abs_err(torch, [*zip(rm.AdmitResult._fields, k0[:13], p256[:13])])
+    check(pin[0] == 64 and off[0] == 256 and len(tune._log) == n,
+          f"tune: pins not obeyed: XLB_BLOCK_R=64 gave {pin}, "
+          f"XLB_AUTOTUNE=0 gave {off}, sweeps {len(tune._log) - n}")
+    lines.append("tune: pins on the card: XLB_BLOCK_R=64 plans 64 and "
+                 "admit_commit equals the plain version at 64; "
+                 "XLB_AUTOTUNE=0 plans min(256, R) and equals it at 256; "
+                 "neither swept")
+
+    # each tile's device ms (profiler) at R 256 and 4096 over the serving
+    # routing
+    routing0, _ = routing_config(RT, "cpu")
+    for R in (ADMIT_R, 4096):
+        routing, reqs, pool, rnd, gum = admit_inputs(
+            torch, RT, routing0, R, I_LANES, SLOTS, seed=R, dev=dev)
+        batch, pstate = B.RequestBatch(*reqs), B.PoolState(*pool)
+        free = pool[5] == 0
+        for b in rm.TILES:
+            for name, call in (
+                    ("admit_commit", lambda: ops.admit_commit(
+                        batch, routing, pstate, rnd, gum, block_r=b)),
+                    ("admit", lambda: ops.admit(batch, routing, free, rnd,
+                                                gum, block_r=b))):
+                timing[(name, R, b)] = kernel_ms(torch, call, "admit_kernel")
+        lines.append(
+            f"tune: device ms per launch at R={R} over {I_LANES}x{SLOTS} "
+            "(profiler): " + "; ".join(
+                f"block_r={b}: B2 {timing[('admit_commit', R, b)]:.5f}, B3 "
+                f"{timing[('admit', R, b)]:.5f}" for b in rm.TILES))
+    return lines, timing
+
+
+def cpu_plans():
+    """A context for the CPU leg of a card-against-CPU comparison: it plans
+    as the card did.  Every admission plan the card has made is copied to
+    the CPU's key of the same shape, and XLB_AUTOTUNE=0 keeps the CPU from
+    sweeping a shape of its own (one the card never planned takes the
+    static default, as on the card), so no equality rests on two sweeps
+    agreeing."""
+    import contextlib
+    from repro_torch.kernels import tune
+
+    @contextlib.contextmanager
+    def ctx():
+        for key, b in list(tune._cache.items()):
+            if key[1] == "cuda":
+                tune._cache[(key[0], "cpu", *key[2:])] = b
+        old = os.environ.get(tune.ENV_AUTOTUNE)
+        os.environ[tune.ENV_AUTOTUNE] = "0"
+        try:
+            yield
+        finally:
+            if old is None:
+                del os.environ[tune.ENV_AUTOTUNE]
+            else:
+                os.environ[tune.ENV_AUTOTUNE] = old
+    return ctx()
 
 
 # --------------------------------------------------------------------------- #
@@ -581,7 +827,9 @@ def relay_inputs(torch, N, nd, dev):
 
 def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
     """Each kernel through its public wrapper in ``kernels/ops.py`` against
-    its plain PyTorch version on the same card tensors, bit-exact."""
+    its plain PyTorch version on the same card tensors, bit-exact (the
+    admission at the tile the wrapper planned, ``kernels/tune.py``)."""
+    from repro_torch.kernels import tune
     dev = torch.device(dev)
     routing0, _ = routing_config(RT, "cpu")
     rows, timing = [], {}
@@ -594,8 +842,11 @@ def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
         batch = B.RequestBatch(rid, svc, feats, tok, msgb)
         pstate = B.PoolState(*fields, act)
         commit = lambda: ops.admit_commit(batch, routing, pstate, rnd, gum)
+        br_c = tune.plan_admit(R, (I, C), commit=True, device=dev)[0]
+        br_a = tune.plan_admit(R, (I, C), device=dev)[0]
         plain_c = lambda: rm.admit_commit(rid, svc, feats, msgb, tok,
-                                          routing, *fields, act, rnd, gum)
+                                          routing, *fields, act, rnd, gum,
+                                          block_r=br_c)
         k, p = commit(), plain_c()
         torch.cuda.synchronize()
         err_c = max_abs_err(torch, [
@@ -608,22 +859,24 @@ def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
         free = (torch.rand((I, C), device=dev) < 0.6).int() * 2
         admit = lambda: ops.admit(batch, routing, free, rnd, gum)
         plain_a = lambda: rm.admit(rid, svc, feats, msgb, routing, free,
-                                   rnd, gum)
+                                   rnd, gum, block_r=br_a)
         k2, p2 = admit(), plain_a()
         torch.cuda.synchronize()
         err_a = max_abs_err(torch, zip(rm.AdmitResult._fields, k2, p2))
-        rows.append(f"admit_commit[{label} R={R} I={I} C={C}] "
-                    f"max_abs_err={err_c} ok={int(k.ok.sum())} "
-                    f"held={int(k.held)} no_route={int(k.no_route)}; "
-                    f"admit max_abs_err={err_a}")
+        rows.append(f"admit_commit[{label} R={R} I={I} C={C}] (planned "
+                    f"block_r={br_c}) max_abs_err={err_c} "
+                    f"ok={int(k.ok.sum())} held={int(k.held)} "
+                    f"no_route={int(k.no_route)}; admit (block_r={br_a}) "
+                    f"max_abs_err={err_a}")
         if label == "serving":
-            for name, call, plain, res, mask, c, err in (
+            for name, call, plain, res, mask, c, err, br in (
                     ("admit_commit", commit, plain_c, p, act == 0, True,
-                     err_c),
-                    ("admit", admit, plain_a, p2, free, False, err_a)):
+                     err_c, br_c),
+                    ("admit", admit, plain_a, p2, free, False, err_a,
+                     br_a)):
                 nb, nops = admit_work(torch, RT, PD, routing, rid, svc,
-                                      feats, mask, res, c)
-                timing[name] = dict(
+                                      feats, mask, res, c, br)
+                timing[name] = dict(block_r=br,
                     ms=kernel_ms(torch, call, "admit_kernel"),
                     call_ms=cuda_ms(torch, call),
                     plain_ms=cuda_ms(torch, plain, reps=5, warm=1),
@@ -1018,6 +1271,35 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
           f"{cfg.name}: non-finite decode logits")
     peak = torch.cuda.max_memory_allocated(dev)    # init, prefill, decode
 
+    # B6 inside the model: one decode step at the last position of the
+    # run, under the profiler (the cache's contents do not change its work)
+    b6 = ""
+    if not cfg.attn_free:
+        cache = TM.init_cache(cfg, LLM_BATCH, LLM_PROMPT + LLM_STEPS,
+                              params["embed"].dtype, dev)
+        pos = LLM_PROMPT + LLM_STEPS - 1
+        lengths = torch.full((LLM_BATCH,), pos, dtype=torch.int32,
+                             device=dev)
+        tok = tokens[:, :1]
+        counts: dict = {}
+        TM.decode_step(cfg, params, tok, lengths, cache)
+        _, step_ev = device_events(torch, lambda: TM.decode_step(
+            cfg, params, tok, lengths, cache), counts)
+        b6_us, b6_names = kernel_time(step_ev, "decode_")
+        kc = cache["blocks"]["self"]["k"][0]
+        q = torch.empty((LLM_BATCH, cfg.n_heads, cfg.head_dim),
+                        dtype=kc.dtype, device=dev)
+        nb, nops = decode_work(q, kc, lengths)
+        b6_bound = max(nb / MEM_BPS, nops / BF16_OPS_PS) * 1e3
+        step_busy = sum(step_ev.values()) / 1e3
+        b6 = (f"; B6 inside the model (G = {cfg.n_heads // cfg.n_kv_heads}"
+              f", one decode step at position {pos}, profiler): "
+              f"{b6_us / 1e3 / L:.5f} ms a launch ({b6_names}; {L} "
+              f"launches a step, {b6_us / 1e3:.4f} ms of the step's "
+              f"{step_busy:.4f} ms device busy), bound {b6_bound:.5f} ms "
+              f"({nb} B)")
+        del cache
+
     # consistency, as tests/test_smoke_archs.py checks it (in f32): the
     # full prefill's last logits against a shorter prefill plus
     # teacher-forced decode of the rest (mamba: a prefill that is a
@@ -1027,17 +1309,22 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
                                     split)
     _, bad_dec = consistency(torch, TM, ops, cfg, params, tokens, split,
                              plant=True)
-    p32 = _tree(params, lambda t: t.float())
-    f32_full, f32_dec = consistency(torch, TM, ops, cfg, p32, tokens, split)
-    del p32
-    for name, t in (("bf16 prefill", f16_full), ("bf16 decode", f16_dec),
-                    ("f32 prefill", f32_full), ("f32 decode", f32_dec)):
+    for name, t in (("bf16 prefill", f16_full), ("bf16 decode", f16_dec)):
         check(bool(torch.isfinite(t).all()), f"{cfg.name}: non-finite "
               f"{name} logits")
-    rel32 = rel_err(f32_dec, f32_full)
-    check(rel32 < LLM_REL_TOL_F32, f"{cfg.name}: f32 decode after a "
-          f"{split}-token prefill vs the full prefill: rel {rel32:.3e} >= "
-          f"{LLM_REL_TOL_F32}")
+    f32_leg = n_params <= F32_LEG_MAX_PARAMS
+    if f32_leg:
+        p32 = _tree(params, lambda t: t.float())
+        f32_full, f32_dec = consistency(torch, TM, ops, cfg, p32, tokens,
+                                        split)
+        del p32
+        for name, t in (("f32 prefill", f32_full), ("f32 decode", f32_dec)):
+            check(bool(torch.isfinite(t).all()), f"{cfg.name}: non-finite "
+                  f"{name} logits")
+        rel32 = rel_err(f32_dec, f32_full)
+        check(rel32 < LLM_REL_TOL_F32, f"{cfg.name}: f32 decode after a "
+              f"{split}-token prefill vs the full prefill: rel {rel32:.3e} "
+              f">= {LLM_REL_TOL_F32}")
     tol16 = LLM_REL_TOL_BF16[cfg.name]
     rel16 = rel_err(f16_dec, f16_full)
     check(rel16 < tol16, f"{cfg.name}: bf16 decode after a {split}-token "
@@ -1048,24 +1335,32 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
              f"decode attention drops the newest {PLANT_KEYS} keys")
     check(planted >= tol16, f"{cfg.name}: the bf16 gate does not see a "
           f"planted fault ({fault}): rel {planted:.3e} < {tol16}")
-    floor16, dist16 = rel_err(f16_full, f32_full), rel_err(f16_dec, f32_full)
+    if f32_leg:
+        f32_part = (f"{rel32:.3e} in f32 (< {LLM_REL_TOL_F32}), ")
+        vs32 = (f"; bf16 vs f32 logits: prefill "
+                f"{rel_err(f16_full, f32_full):.3e}, decode "
+                f"{rel_err(f16_dec, f32_full):.3e}")
+    else:
+        f32_part = (f"f32 not run ({4 * n_params / 1e9:.1f} GB of f32 "
+                    "weights beside the bf16 ones pass the card), ")
+        vs32 = ""
     per_step = res["decode_s"] / LLM_STEPS
     line = (f"model {cfg.name}: {n_params / 1e9:.3f} B parameters "
-            f"({cfg.n_layers} layers, bf16), init {init_s:.2f} s; prefill "
+            f"({cfg.n_layers} layers, full depth; bf16), init "
+            f"{init_s:.2f} s; prefill "
             f"{LLM_BATCH} x {LLM_PROMPT} tokens {1e3 * res['prefill_s']:.3f}"
             f" ms ({LLM_BATCH * LLM_PROMPT / res['prefill_s']:.1f} tokens/s)"
             f"; {LLM_STEPS} decode steps {1e3 * per_step:.3f} ms per step "
             f"= {LLM_BATCH / per_step:.1f} tokens/s (host clock, "
             f"synchronised); peak memory {peak / 2**30:.2f} GiB; decode "
             f"after a {split}-token prefill vs the full prefill: rel "
-            f"{rel32:.3e} in f32 (< {LLM_REL_TOL_F32}), {rel16:.3e} in "
-            f"bf16 (< {tol16}), with a planted fault ({fault}) {planted:.3e}"
-            f" (>= {tol16}); bf16 vs f32 logits: prefill {floor16:.3e}, "
-            f"decode {dist16:.3e}; launches "
+            f"{f32_part}{rel16:.3e} in bf16 (< {tol16}), with a planted "
+            f"fault ({fault}) {planted:.3e} (>= {tol16}){vs32}; launches "
             + " ".join(f"{k}={v}" for k, v in launches.items())
             + f"; profiled prefill: device busy {busy_ms:.3f} ms, of which "
-            f"{kernels} {kernel_us / 1e3:.3f} ms")
+            f"{kernels} {kernel_us / 1e3:.3f} ms" + b6)
     del params, res
+    gc.collect()
     torch.cuda.empty_cache()
     return line, launches, kernels
 
@@ -1128,15 +1423,16 @@ def _leaves(tree):
 
 
 def phase_smoke_configs(torch, ops, TM, launcher, configs, dev="cuda"):
-    """``prefill_decode --smoke`` of minitron-4b and mamba2-2.7b on the
-    card through the launcher's ``main`` (weights from a CUDA generator):
+    """``prefill_decode --smoke`` of minitron-4b, mamba2-2.7b and the dense
+    and vlm archs (DENSE_ARCHS) on the card through the launcher's
+    ``main`` (weights from a CUDA generator):
     finite logits, and the kernel launches of that run counted from zero;
     then prefill and one decode step of each smoke config on the card
     against the CPU with the same weights (f32, rtol = atol = 1e-4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lines = []
-    for arch in ("minitron-4b", "mamba2-2.7b"):
+    for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS:
         cfg = configs.smoke_config(configs.get_config(arch))
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
@@ -1290,7 +1586,11 @@ def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
     med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
            for k, v in events.items() if v}
     lat = loop.latency_samples()
-    line = (f"serve: {len(done)} requests completed, {len(dropped)} "
+    from repro_torch.kernels import tune
+    plan = tune.plan_admit(ADMIT_R, (I_LANES, SLOTS), commit=True,
+                           device=dev)[0]
+    line = (f"serve: admission at the tuned block_r={plan}; "
+            f"{len(done)} requests completed, {len(dropped)} "
             f"unroutable dropped after {attempts} attempts, "
             f"{loop.ticks} ticks in {total:.3f} s; the last routable one "
             f"after {wall:.3f} s = {len(done) / wall:.1f} req/s; "
@@ -1794,7 +2094,8 @@ def phase_degraded(torch, RT, CT, TM, interpose, SL, H, W, policies, ops,
     check(min(card["launches"].values()) > 0,
           f"degraded: kernels not launched: {card['launches']}")
     short = degraded_run(*args, dev, epoch=DEG_SHORT_EPOCH)
-    cpu = degraded_run(*args, "cpu")
+    with cpu_plans():
+        cpu = degraded_run(*args, "cpu")
     for k in ("eject", "uneject", "commits", "version", "events", "logs",
               "samples", "done"):
         check(card[k] == cpu[k], f"degraded: {k} differs between the card "
@@ -1967,7 +2268,8 @@ def phase_chaos(torch, RT, CT, TM, interpose, SL, TR, W, policies, ops, cfg,
         t0 = time.perf_counter()
         load.cpu()
         reads.append((time.perf_counter() - t0) * 1e3)
-    cpu = chaos_run(*args, "cpu")
+    with cpu_plans():
+        cpu = chaos_run(*args, "cpu")
     cpu.pop("loop")
     for k in ("row", "channel", "publisher", "histories", "log",
               "samples"):
@@ -2244,8 +2546,9 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
                                                         True],
                   f"sharded admit[idle M=4]: live shards {live}")
             err = max_abs_err(torch, out_pairs(got, want))
-            cpu = ops.admit_commit_sharded(
-                *cargs, mesh=MS.make_shard_mesh(M, device="cpu"))
+            with cpu_plans():
+                cpu = ops.admit_commit_sharded(
+                    *cargs, mesh=MS.make_shard_mesh(M, device="cpu"))
             err_cpu = max_abs_err(torch, out_pairs(to_cpu(got), cpu))
             line = (f"sharded admit_commit[{label} R={R} I={I} C={C} M={M}] "
                     f"max_abs_err={err} vs admit_commit on the card, "
@@ -2333,7 +2636,8 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
         torch, RT, TM, interpose, SL, MS, policies, ops, cfg, d, m, timed)
     one, t1, _ = run(dev, 1, True)
     four, t4, launches = run(dev, 4, True)
-    four_cpu, _, _ = run(torch.device("cpu"), 4)
+    with cpu_plans():
+        four_cpu, _, _ = run(torch.device("cpu"), 4)
     check(four == one, "sharded drain: shards=4 on the card differs from "
           "shards=1 on the card")
     untok = lambda r: {k: v for k, v in r.items() if k != "tokens"}  # noqa
@@ -2457,8 +2761,9 @@ def phase_chain(torch, W, HP, RT, interpose, policies, cfg, dev="cuda"):
                      ("xlb live-ops", dict(live=True))):
         kind = mode.split()[0]
         row, rec, t = run(dev, params, kind, **kw)
-        cpu_row, cpu_rec, _ = run(torch.device("cpu"), cpu_params, kind,
-                                  **kw)
+        with cpu_plans():
+            cpu_row, cpu_rec, _ = run(torch.device("cpu"), cpu_params, kind,
+                                      **kw)
         check(json.dumps(row) == json.dumps(cpu_row) and rec == cpu_rec,
               f"chain {mode}: the card's row or tick records differ from "
               f"the CPU's: {row} vs {cpu_row}")
@@ -2505,33 +2810,36 @@ def model_params(torch, cfg, dev):
 
 
 def phase_serve_arch(torch, serve):
-    """``serve.main(["--arch", a, "--device", "cuda"])`` for each arch the
-    port serves, at full width (free the earlier phases' models first:
-    minitron-4b in f32 is about 16 GB); an arch whose family is not ported
-    must raise NotImplementedError."""
+    """``serve.main(["--arch", a, "--device", "cuda"])`` for each arch of
+    SERVE_ARCHS at full width (free the earlier phases' models first:
+    minitron-4b in f32 is about 16 GB) and of SERVE_SMOKE_ARCHS with
+    ``--smoke`` (the reduced config the reference's serve runs: their f32
+    weights pass one card); an arch whose family is not ported must raise
+    NotImplementedError."""
     import contextlib
-    import gc
     import io
     lines = []
-    for arch in SERVE_ARCHS:
+    for arch, extra in ([(a, []) for a in SERVE_ARCHS]
+                        + [(a, ["--smoke"]) for a in SERVE_SMOKE_ARCHS]):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            n = serve.main(["--arch", arch, "--device", "cuda"])
+            n = serve.main(["--arch", arch, "--device", "cuda", *extra])
         wall = time.perf_counter() - t0
-        check(n == 32, f"serve --arch {arch}: {n} of 32 requests")
+        check(n == 32, f"serve --arch {arch} {extra}: {n} of 32 requests")
         first = buf.getvalue().splitlines()[0]
-        lines.append(f"serve --arch {arch}: {first}; main() {wall:.2f} s "
-                     "with the weights' init; peak memory "
+        lines.append(f"serve --arch {arch}{' --smoke' * bool(extra)}: "
+                     f"{first}; main() {wall:.2f} s with the weights' init; "
+                     "peak memory "
                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     try:
-        serve.main(["--arch", "granite-20b", "--device", "cuda"])
-        fail("serve --arch granite-20b did not raise")
+        serve.main(["--arch", "arctic-480b", "--smoke", "--device", "cuda"])
+        fail("serve --arch arctic-480b did not raise")
     except NotImplementedError as e:
-        lines.append(f"serve --arch granite-20b: NotImplementedError ({e})")
+        lines.append(f"serve --arch arctic-480b: NotImplementedError ({e})")
     gc.collect()
     torch.cuda.empty_cache()
     return lines
@@ -2640,6 +2948,12 @@ def main() -> int:
     from repro_torch.launch import mesh as MS
     from repro_torch.launch import serve
     from repro_torch.workload import hops as HP
+    from repro_torch.kernels import tune
+
+    # the run plans its admissions itself: no pin from the environment
+    for name in (tune.ENV_AUTOTUNE, tune.ENV_BLOCK_R, tune.ENV_BLOCK_I,
+                 tune.ENV_FOLD):
+        os.environ.pop(name, None)
 
     gpu = gpu_line()
     print(gpu)
@@ -2650,6 +2964,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc "
           f"{_build.build_seconds:.1f} s), log in chiprun_out/build_log.txt")
 
+    tune_lines, tune_timing = phase_tune(torch, RT, PD, B, ops, rm, tune)
+    for line in tune_lines:
+        print(line)
     rows, timing = phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib)
     frows, ftiming = phase_float_kernels(torch, ops, da, fa, ssd)
     for t in ftiming.values():
@@ -2697,10 +3014,11 @@ def main() -> int:
     for line in phase_chain(torch, W, HP, RT, interpose, policies, cfg):
         print(line)
     llm_launches, prefill_kernels = {}, {}
-    for arch in ("minitron-4b", "mamba2-2.7b"):
+    for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS:
         line, got, names = phase_llm(torch, ops, TM, PDL, get_config(arch))
         print(line)
-        llm_launches.update(got)
+        for k, v in got.items():
+            llm_launches[k] = llm_launches.get(k, 0) + v
         prefill_kernels[arch] = names
     for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
         print(line)
@@ -2715,8 +3033,9 @@ def main() -> int:
           + " (admit_commit, complete and decode_attention[xlb] on the main "
           "path; route_match, relay_slots and admit in the staged phase, "
           "and admit, complete and route_match in the sharded drain too; "
-          "flash_attention and decode_attention in minitron-4b's, ssd_scan "
-          "in mamba2-2.7b's); " + "; ".join(
+          "flash_attention and decode_attention in the model phase's "
+          "minitron-4b and " + ", ".join(DENSE_ARCHS) + ", ssd_scan in "
+          "mamba2-2.7b's); " + "; ".join(
               f"in the {name} phase: " + " ".join(
                   f"{k}={v}" for k, v in got.items())
               for name, got in (("control", control_launches),
@@ -2783,6 +3102,11 @@ def main() -> int:
                     sharded_launches[name]
                 kernels[-1]["sharded_ms"] = {
                     str(M): stiming[key.format(M)][part] for M in SHARDS}
+            if name in ("admit_commit", "admit"):   # the tuned plan, tiles
+                kernels[-1]["block_r"] = t["block_r"]
+                kernels[-1]["tiles_ms"] = {
+                    f"R={R},block_r={b}": tune_timing[(name, R, b)]
+                    for R in (ADMIT_R, 4096) for b in rm.TILES}
             if name == "flash_attention":      # as minitron's prefill ran it
                 kernels[-1]["kernel"] = prefill_kernels["minitron-4b"]
             if name == "ssd_scan":             # as mamba's prefill ran it
@@ -2792,7 +3116,8 @@ def main() -> int:
         t = timing[name]
         print(f"admit redesign: {label} {name} device ms {t['ms']} at the "
               f"serving shape (R {ADMIT_R}, {I_LANES} x {SLOTS} pool, six "
-              f"policies; before the redesign: {ADMIT_BEFORE_MS[name]}), "
+              f"policies, the planned block_r={t['block_r']}; before the "
+              f"redesign: {ADMIT_BEFORE_MS[name]}), "
               f"bound ms {bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, "
               f"call ms {t['call_ms']}, on {gpu}")
     for R in (ADMIT_R, 4096):

@@ -6,6 +6,7 @@ In place of the reference's jaxpr interval analysis (which proves each
 Pallas gather in bounds) the card runs each kernel once on inputs that
 reach its edges: out-of-range services and endpoints, drained lanes,
 stale Maglev entries, NaN Gumbel rows, held rows, ragged batches, the
+admission kernel at each tile it is built for (64, 256 and 1024 rows), the
 sharded widths (B3's all-free mode at W = 1024, past what a staged mask
 fits), B5's thread-block cluster, B6 at G = 48 and hd 16, B7 and B8 at
 hd 16.  What checks the bounds is the build (``_build.use_bounds_check``:
@@ -197,19 +198,23 @@ def _sweep_admission(sw, dev, small):
                                                       R, dev)
         fields = (pool.req_id, pool.endpoint, pool.svc, pool.length,
                   pool.token)
-        sw.run(f"admit_commit[{label}]",
-               lambda: ops.admit_commit(reqs, routing, pool, rnd, gum),
-               lambda: route_match.admit_commit(
-                   reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes,
-                   reqs.token, routing, *fields, pool.active, rnd, gum),
-               _admit_checks(routing, I, C))
         free = pool.active == 0
-        sw.run(f"admit[{label}]",
-               lambda: ops.admit(reqs, routing, free, rnd, gum),
-               lambda: route_match.admit(
-                   reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes,
-                   routing, free, rnd, gum),
-               _admit_checks(routing, I, C))
+        for b in route_match.TILES:   # every build of the kernel's tile
+            sw.run(f"admit_commit[{label},block_r={b}]",
+                   lambda: ops.admit_commit(reqs, routing, pool, rnd, gum,
+                                            block_r=b),
+                   lambda: route_match.admit_commit(
+                       reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes,
+                       reqs.token, routing, *fields, pool.active, rnd, gum,
+                       block_r=b),
+                   _admit_checks(routing, I, C))
+            sw.run(f"admit[{label},block_r={b}]",
+                   lambda: ops.admit(reqs, routing, free, rnd, gum,
+                                     block_r=b),
+                   lambda: route_match.admit(
+                       reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes,
+                       routing, free, rnd, gum, block_r=b),
+                   _admit_checks(routing, I, C))
         if label == "ragged":
             continue
         # the sharded widths; at R = 4096 over 4 shards B3 runs its

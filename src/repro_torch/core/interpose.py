@@ -64,6 +64,10 @@ class Engine:
     max_len: int
     eos: int = 1
     device: Any = "cuda"
+    # kernel tuning overrides; None = the tuned plan (kernels/tune.py)
+    block_r: int | None = None
+    block_i: int | None = None
+    fold: str | None = None
     # sharded admission and completion: with shards > 1 the admit batch
     # splits (R/M,) and the pool (I/M,) over ``shard_axis`` of
     # ``shard_mesh`` (launch/mesh.py::make_shard_mesh), the kernels run per
@@ -128,9 +132,11 @@ class Engine:
         if self.shards > 1:
             res = ops.admit_commit_sharded(
                 reqs, rstate, state.pool, rnd, gumbel, mesh=self.shard_mesh,
-                axis=self.shard_axis, live=live)
+                axis=self.shard_axis, live=live, block_r=self.block_r,
+                fold=self.fold)
         else:
-            res = ops.admit_commit(reqs, rstate, state.pool, rnd, gumbel)
+            res = ops.admit_commit(reqs, rstate, state.pool, rnd, gumbel,
+                                   block_r=self.block_r, fold=self.fold)
         rstate = rstate._replace(ep_load=res.ep_load, rr_cursor=res.rr_cursor,
                                  aff_key=res.aff_key, aff_ep=res.aff_ep)
         metrics = metrics._replace(
@@ -151,12 +157,14 @@ class Engine:
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(I, C)
         args = (pool, nxt, state.routing.ep_load, state.metrics.rx_bytes,
                 state.routing.ep_inflight_ewma, state.routing.ep_tput_ewma)
+        tuning = dict(block_i=self.block_i, fold=self.fold)
         if self.shards > 1:
             res = ops.complete_sharded(*args, mesh=self.shard_mesh,
                                        axis=self.shard_axis, eos=self.eos,
-                                       max_len=self.max_len)
+                                       max_len=self.max_len, **tuning)
         else:
-            res = ops.complete(*args, eos=self.eos, max_len=self.max_len)
+            res = ops.complete(*args, eos=self.eos, max_len=self.max_len,
+                               **tuning)
         rstate = state.routing._replace(ep_load=res.ep_load,
                                         ep_inflight_ewma=res.ep_inflight_ewma,
                                         ep_tput_ewma=res.ep_tput_ewma)

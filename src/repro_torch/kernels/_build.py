@@ -68,9 +68,10 @@ SIGNATURES = {
                  + [_P] * 5                     # per-request outputs
                  + [_P] * 7                     # carried-state outputs
                  + [_P] * 6                     # committed pool
-                 + [_I, _P],                    # commit flag, stream
-    "xlb_admit_smem_bytes": [_I] * 9,           # E, CL, S, NR, A, I, C, F,
-                                                # all-free flag
+                 + [_I, _I, _P],                # commit flag, tile rows,
+                                                # stream
+    "xlb_admit_smem_bytes": [_I] * 10,          # E, CL, S, NR, A, I, C, F,
+                                                # all-free flag, tile rows
     "xlb_admit_init": [],
     "xlb_route": [_P, _P, _I, _I]               # svc, features, R, F
                  + [_P] * 5 + [_I, _I]          # svc + rule tables, S, NR

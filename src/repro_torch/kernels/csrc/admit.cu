@@ -16,13 +16,22 @@
 // (ep_load, rr cursors, per-instance slot cursors, the affinity cache),
 // and inside a tile every row's rank depends on the rows before it.
 //
-// Design: ONE block of kTile = 256 threads (8 warps) walks the batch in
-// tiles of kTile rows, a thread per row, with every carried counter in
-// shared memory - the translation of the Pallas kernel's sequential grid
-// with VMEM scratch.  The 256-row tile is part of the semantics: every
-// policy hook reads the tile-start snapshot of the counters, the in-tile
-// ranks are stable arrival-order ranks, and in the affinity cache the
-// first writer of a tile wins.  What keeps each row's work O(1):
+// Design: ONE block of kTile threads walks the batch in tiles of kTile
+// rows, a thread per row, with every carried counter in shared memory -
+// the translation of the Pallas kernel's sequential grid with VMEM
+// scratch.  The tile is part of the semantics: every policy hook reads the
+// tile-start snapshot of the counters, the in-tile ranks are stable
+// arrival-order ranks, and in the affinity cache the first writer of a
+// tile wins.  So the tile is the reference's block_r, a template
+// parameter built for each size the autotuner may choose (64, 256 and
+// 1024 rows; kernels/tune.py).  A 1024-row tile is 1024 threads (32
+// warps), not 256 threads walking four rows each: every step below (the
+// warp match, the per-warp histograms, the first writer by atomicMin of
+// the row) then holds for any tile unchanged, where four rows a thread
+// would need a second rank level inside each thread and the snapshot
+// reads and folds of four rows in flight.  What that costs is registers:
+// __launch_bounds__(1024, 1) leaves a thread 64 of them (PERF.md §6 has
+// the spills of each build).  What keeps each row's work O(1):
 //   * the small tables are staged into shared memory once per launch with
 //     coalesced loads (rules, services, clusters, ep_instance, the drain
 //     bits, log(w + 1e-9) per endpoint), and derived once from them: a
@@ -85,8 +94,8 @@ using xlb::clampi;
 using xlb::Span;
 using u64 = unsigned long long;
 
-constexpr int kTile = 256;       // rows per tile == threads per block
-constexpr int kWarps = kTile / 32;
+// kTile (a template parameter): rows per tile == threads per block, built
+// for 64, 256 and 1024 (route_match.TILES; xlb_admit dispatches)
 constexpr int kWE = 64;          // MAX_EPS_PER_CLUSTER
 constexpr int kBig = 1 << 30;    // sentinel load of an ineligible lane
 constexpr unsigned kFull = 0xffffffffu;
@@ -145,11 +154,13 @@ __host__ __device__ inline long long take(long long& at, long long n,
 }
 
 // all_free: the pool is known to be all free (B3's sharded mode), so
-// neither the free mask nor the free-slot lists are staged.
+// neither the free mask nor the free-slot lists are staged.  tile: rows
+// per tile (its warps' histograms and the staged features grow with it).
 __host__ __device__ inline Layout layout(int E, int CL, int S, int NR, int A,
-                                         int I, int C, int F,
-                                         bool all_free) {
+                                         int I, int C, int F, bool all_free,
+                                         int tile) {
   const long long IC = all_free ? 0 : (long long)I * C;
+  const int kWarps = tile / 32;
   Layout l;
   long long o = 0;
   l.emask = take(o, CL, 8);
@@ -180,7 +191,7 @@ __host__ __device__ inline Layout layout(int E, int CL, int S, int NR, int A,
   l.wmin = take(o, A, 4);
   l.cnt = take(o, 2, 4);
   l.wload = take(o, kWarps * kWE, 4);
-  l.feat = take(o, (long long)kTile * (F + 1), 4);
+  l.feat = take(o, (long long)tile * (F + 1), 4);
   l.lr_c = take(o, (long long)kWE * CL, 2);
   l.fslot = take(o, IC, 2);
   l.drained = take(o, E, 1);
@@ -280,9 +291,10 @@ __device__ __forceinline__ int kth_bit(u64 m, int k) {
 // by one warp: the 64 window lanes ranked by (load, lane), an ineligible
 // lane at kBig; at rank k, C_k = the tickets below the k-th smallest load
 // (k L_k minus the sum of the k smaller loads, clamped at kTile: a rank in
-// the tile is below it) and the mask of the k + 1 smallest lanes.  The
-// ranking is one compare a pair; the sums and masks are warp scans over
-// the ranked order.
+// the tile is below it; the reference clamps at block_r) and the mask of
+// the k + 1 smallest lanes.  The ranking is one compare a pair; the sums
+// and masks are warp scans over the ranked order.
+template <int kTile>
 __device__ void build_lr(const Shared& sh, const Args& a, int cl, int lane,
                          int warp) {
   const Span<u64> key = sh.wkey + warp * kWE;   // keys, then the ranked
@@ -366,9 +378,18 @@ __device__ __forceinline__ int weighted(Span<const float> gum,
   return best_j;
 }
 
+// Entries a thread loads of a table in the prologue: the 256-row build's
+// count `base`, scaled to keep the same entries in flight per block, and
+// at most twice it (registers).
+__host__ __device__ constexpr int slab(int tile, int base) {
+  return base * 256 / tile < 1          ? 1
+         : base * 256 / tile > 2 * base ? 2 * base
+                                        : base * 256 / tile;
+}
+
 // Up to kU entries a thread of one table, held in registers between the
-// loads and the stores.
-template <int kU, typename T>
+// loads and the stores; entry u of thread t is entry u * kTile + t.
+template <int kTile, int kU, typename T>
 struct Slab {
   T v[kU];
   template <typename P>
@@ -397,12 +418,14 @@ struct Slab {
 
 // Rows [base, base + kTile) of the features into shared memory, rows
 // padded to F + 1 ints (no bank conflicts when each thread walks its row);
-// the loads of up to 8 ints a thread in flight together.
+// the loads of up to 8 ints a thread (a row of N_FEATURES) in flight
+// together.
+template <int kTile>
 __device__ __forceinline__ void stage_features(I32 feat, const Args& a,
                                                int base, int tid) {
   const int n = min(kTile, a.R - base) * a.F;
   const CI src = a.feats + (long long)base * a.F;
-  Slab<8, int> v;
+  Slab<kTile, 8, int> v;
   v.load(src, n, tid);
   v.store_feat(feat, n, a.F, tid);
 #pragma unroll 1
@@ -427,12 +450,17 @@ struct Row {
 // kAllFree (commit-free only): the pool is all free with width C = W, so
 // instance i's k-th free slot is slot k, a row's slot is its arrival rank
 // on its instance, and `free` is not read (it is null).
-template <bool kCommit, bool kAllFree = false>
+template <int kTile, bool kCommit, bool kAllFree>
 __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
   static_assert(!(kCommit && kAllFree), "the commit reads its pool");
+  constexpr int kWarps = kTile / 32;
+  // prologue entries a thread of the (E,)/(A,), (CL,)/(S,)/(NR,) and
+  // (I, C) tables
+  constexpr int kUE = slab(kTile, 2), kUC = slab(kTile, 1),
+                kUP = slab(kTile, 4);
   extern __shared__ __align__(16) unsigned char smem[];
-  const Shared sh = carve(
-      smem, layout(a.E, a.CL, a.S, a.NR, a.A, a.I, a.C, a.F, kAllFree));
+  const Shared sh = carve(smem, layout(a.E, a.CL, a.S, a.NR, a.A, a.I, a.C,
+                                       a.F, kAllFree, kTile));
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const unsigned lower = (1u << lane) - 1u;
   const int IC = a.I * a.C, FP = a.F + 1;
@@ -443,12 +471,13 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
   // request columns is issued before any store: a store to global memory
   // ahead of a load would keep the load waiting for it.  Larger tables
   // finish in the loops after.
-  Slab<2, int> v_load, v_einst, v_ed, v_affk, v_affe;
-  Slab<2, float> v_ew;
-  Slab<1, int> v_cur, v_cs, v_cc, v_cp, v_rs, v_rc, v_rf, v_rv, v_rcl;
-  Slab<4, int> v_pool[5];
-  Slab<4, bool> v_free;
-  Slab<8, int> v_feat;
+  Slab<kTile, kUE, int> v_load, v_einst, v_ed, v_affk, v_affe;
+  Slab<kTile, kUE, float> v_ew;
+  Slab<kTile, kUC, int> v_cur, v_cs, v_cc, v_cp, v_rs, v_rc, v_rf, v_rv,
+      v_rcl;
+  Slab<kTile, kUP, int> v_pool[5];
+  Slab<kTile, kUP, bool> v_free;
+  Slab<kTile, 8, int> v_feat;
   Row row_in;
   v_load.load(a.load0, a.E, tid);
   v_einst.load(a.einst, a.E, tid);
@@ -514,37 +543,37 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
   if (tid < 2) sh.cnt[tid] = 0;
   // the rest of tables larger than the slabs
 #pragma unroll 1
-  for (int k = 2 * kTile + tid; k < a.E; k += kTile) {
+  for (int k = kUE * kTile + tid; k < a.E; k += kTile) {
     sh.load[k] = a.load0[k];
     sh.einst[k] = a.einst[k];
     sh.drained[k] = a.ed[k] != 0;
     sh.logw[k] = logf(a.ew[k] + 1e-9f);
   }
 #pragma unroll 1
-  for (int k = 2 * kTile + tid; k < a.A; k += kTile) {
+  for (int k = kUE * kTile + tid; k < a.A; k += kTile) {
     sh.affk[k] = a.affk0[k];
     sh.affe[k] = a.affe0[k];
   }
 #pragma unroll 1
-  for (int k = kTile + tid; k < a.CL; k += kTile) {
+  for (int k = kUC * kTile + tid; k < a.CL; k += kTile) {
     sh.cur[k] = a.cur0[k];
     sh.cs[k] = a.cs[k];
     sh.cc[k] = a.cc[k];
     sh.cp[k] = a.cp[k];
   }
 #pragma unroll 1
-  for (int k = kTile + tid; k < a.S; k += kTile) {
+  for (int k = kUC * kTile + tid; k < a.S; k += kTile) {
     sh.rs[k] = a.rs[k];
     sh.rc[k] = a.rc[k];
   }
 #pragma unroll 1
-  for (int k = kTile + tid; k < a.NR; k += kTile) {
+  for (int k = kUC * kTile + tid; k < a.NR; k += kTile) {
     sh.rf[k] = a.rf[k];
     sh.rv[k] = a.rv[k];
     sh.rcl[k] = a.rcl[k];
   }
 #pragma unroll 1
-  for (int k = 4 * kTile + tid; !kAllFree && k < IC; k += kTile)
+  for (int k = kUP * kTile + tid; !kAllFree && k < IC; k += kTile)
     sh.freem[k] = a.free[k];
 #pragma unroll 1
   for (int k = 8 * kTile + tid; k < nfeat; k += kTile)
@@ -556,7 +585,7 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
     v_free.store(a.pact, IC, tid, [](bool f) { return !f; });
     const CI p0[5] = {a.preq0, a.pep0, a.psvc0, a.plen0, a.ptok0};
 #pragma unroll 1
-    for (int k = 4 * kTile + tid; k < IC; k += kTile) {
+    for (int k = kUP * kTile + tid; k < IC; k += kTile) {
 #pragma unroll
       for (int f = 0; f < 5; ++f) p1[f][k] = p0[f][k];
       a.pact[k] = !a.free[k];
@@ -649,7 +678,7 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
         while (b) {
           const int c = c0 + __ffs(b) - 1;
           b &= b - 1;
-          if (seen++ % kWarps == warp) build_lr(sh, a, c, lane, warp);
+          if (seen++ % kWarps == warp) build_lr<kTile>(sh, a, c, lane, warp);
         }
       }
       __syncthreads();
@@ -772,7 +801,7 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
       if (n_miss) atomicAdd(&sh.cnt[0], __popc(n_miss));
     }
     if (base + kTile < a.R) {
-      stage_features(sh.feat, a, base + kTile, tid);
+      stage_features<kTile>(sh.feat, a, base + kTile, tid);
       row_in.load<kCommit>(a, tid, base + kTile);
     }
     __syncthreads();
@@ -798,12 +827,40 @@ __global__ void __launch_bounds__(kTile, 1) admit_kernel(Args a) {
   }
 }
 
+// The three modes of one tile's build: commit, masked, all-free.
+template <int kTile>
+cudaError_t set_optin(int optin) {
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(admit_kernel<kTile, true, false>,
+                                         attr, optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(admit_kernel<kTile, false, false>, attr,
+                               optin);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(admit_kernel<kTile, false, true>, attr,
+                               optin);
+  return err;
+}
+
+template <int kTile>
+void launch(const Args& a, int smem, cudaStream_t st, bool commit,
+            bool all_free) {
+  if (commit)
+    admit_kernel<kTile, true, false><<<1, kTile, smem, st>>>(a);
+  else if (all_free)
+    admit_kernel<kTile, false, true><<<1, kTile, smem, st>>>(a);
+  else
+    admit_kernel<kTile, false, false><<<1, kTile, smem, st>>>(a);
+}
+
 }  // namespace
 
+// Bytes of dynamic shared memory one launch at tile `tile` takes.
 extern "C" int xlb_admit_smem_bytes(int E, int CL, int S, int NR, int A,
-                                    int I, int C, int F, int all_free) {
+                                    int I, int C, int F, int all_free,
+                                    int tile) {
   const long long bytes =
-      layout(E, CL, S, NR, A, I, C, F, all_free != 0).total;
+      layout(E, CL, S, NR, A, I, C, F, all_free != 0, tile).total;
   return bytes > INT_MAX ? INT_MAX : (int)bytes;
 }
 
@@ -811,26 +868,18 @@ extern "C" const char* xlb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Opts the three instantiations in to all the shared memory a block of the
-// current device may have; called once per device before the first launch.
+// Opts the nine instantiations (three tiles, three modes) in to all the
+// shared memory a block of the current device may have; called once per
+// device before the first launch.
 extern "C" int xlb_admit_init() {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(admit_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(admit_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(admit_kernel<false, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
+  if (err == cudaSuccess) err = set_optin<64>(optin);
+  if (err == cudaSuccess) err = set_optin<256>(optin);
+  if (err == cudaSuccess) err = set_optin<1024>(optin);
   return (int)err;
 }
 
@@ -850,7 +899,7 @@ extern "C" int xlb_admit(
     int* load_out, int* cur_out, int* sreq, int* stx, int* cnt,
     int* affk, int* affe,
     int* preq, int* pep, int* psvc, int* plen, int* ptok, bool* pact,
-    int commit, void* stream) {
+    int commit, int tile, void* stream) {
   // a null free mask: the all-free mode of the commit-free kernel
   const bool all_free = free == nullptr;
   if (all_free && commit) return (int)cudaErrorInvalidValue;
@@ -874,13 +923,21 @@ extern "C" int xlb_admit(
          XLB_SPAN(preq, commit ? IC : 0), XLB_SPAN(pep, commit ? IC : 0),
          XLB_SPAN(psvc, commit ? IC : 0), XLB_SPAN(plen, commit ? IC : 0),
          XLB_SPAN(ptok, commit ? IC : 0), XLB_SPAN(pact, commit ? IC : 0)};
-  const int smem = xlb_admit_smem_bytes(E, CL, S, NR, A, I, C, F, all_free);
+  const int smem =
+      xlb_admit_smem_bytes(E, CL, S, NR, A, I, C, F, all_free, tile);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (commit)
-    admit_kernel<true><<<1, kTile, smem, st>>>(a);
-  else if (all_free)
-    admit_kernel<false, true><<<1, kTile, smem, st>>>(a);
-  else
-    admit_kernel<false><<<1, kTile, smem, st>>>(a);
+  switch (tile) {   // rows per tile: one of the builds, else refused
+    case 64:
+      launch<64>(a, smem, st, commit, all_free);
+      break;
+    case 256:
+      launch<256>(a, smem, st, commit, all_free);
+      break;
+    case 1024:
+      launch<1024>(a, smem, st, commit, all_free);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

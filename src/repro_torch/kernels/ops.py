@@ -10,6 +10,12 @@ The sharded wrappers (``admit_commit_sharded``, ``complete_sharded``)
 count the launches of the kernels they run per shard under those kernels'
 names.
 
+The admission and completion wrappers take the reference's tuning
+arguments: ``block_r`` (rows per tile, which also decides the first
+affinity writer of a tile), ``block_i`` and ``fold``, each ``None`` for
+the plan of ``kernels/tune.py`` (pins, cache, or a sweep at the first use
+of a shape on the tensors' device).
+
 Under ``XLB_SANITIZE=1`` ``admit``, ``admit_commit`` and ``complete`` run
 the conservation laws of ``analysis/invariants.py`` on their outputs
 (``guard``: the laws on the tensors' device, one host sync per call) and
@@ -32,6 +38,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import relay_dispatch as _rd
 from repro_torch.kernels import route_match as _rm
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import tune
 from repro_torch.kernels.route_match import AdmitResult
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
@@ -95,19 +102,26 @@ def _empty_admit(routing):
             zs, zs, zero, zero, routing.aff_key, routing.aff_ep)
 
 
-def admit(reqs: RequestBatch, routing, free_mask, rnd, gumbel) -> AdmitResult:
+def admit(reqs: RequestBatch, routing, free_mask, rnd, gumbel, *,
+          block_r: int | None = None,
+          fold: str | None = None) -> AdmitResult:
     """Admission datapath without the pool write-back: match → balance →
-    slot-allocate → metrics.  ``free_mask`` (I, C), nonzero = free."""
+    slot-allocate → metrics.  ``free_mask`` (I, C), nonzero = free.
+    ``block_r`` / ``fold`` default to the tuned plan."""
+    block_r, fold = tune.plan_admit(reqs.req_id.shape[0], free_mask.shape,
+                                    block_r=block_r, fold=fold,
+                                    device=reqs.req_id.device)
     if reqs.req_id.shape[0] == 0:         # empty batch: nothing to admit
         return AdmitResult(*_empty_admit(routing))
     if _on_cuda(reqs.req_id):
         res = _rm.admit_cuda(reqs.req_id, reqs.svc, reqs.features,
                              reqs.msg_bytes, None, routing, free_mask, None,
-                             rnd, gumbel)
+                             rnd, gumbel, block_r=block_r)
         LAUNCHES["admit"] += 1
     else:
         res = _rm.admit(reqs.req_id, reqs.svc, reqs.features,
-                        reqs.msg_bytes, routing, free_mask, rnd, gumbel)
+                        reqs.msg_bytes, routing, free_mask, rnd, gumbel,
+                        block_r=block_r)
     if sanitize_enabled():
         guard("admit", dict(load_before=routing.ep_load,
                             load_after=res.ep_load, ok=res.ok,
@@ -116,20 +130,25 @@ def admit(reqs: RequestBatch, routing, free_mask, rnd, gumbel) -> AdmitResult:
 
 
 def admit_commit(reqs: RequestBatch, routing, pool: PoolState, rnd,
-                 gumbel) -> AdmitCommitOut:
+                 gumbel, *, block_r: int | None = None,
+                 fold: str | None = None) -> AdmitCommitOut:
     """Fused admission + in-kernel pool commit (no post-pass scatters)."""
+    block_r, fold = tune.plan_admit(reqs.req_id.shape[0], pool.req_id.shape,
+                                    block_r=block_r, fold=fold, commit=True,
+                                    device=reqs.req_id.device)
     if reqs.req_id.shape[0] == 0:         # empty batch: pool passes through
         return AdmitCommitOut(*_empty_admit(routing), pool)
     fields = (pool.req_id, pool.endpoint, pool.svc, pool.length, pool.token)
     if _on_cuda(reqs.req_id):
         res = _rm.admit_cuda(reqs.req_id, reqs.svc, reqs.features,
                              reqs.msg_bytes, reqs.token, routing,
-                             pool.active == 0, fields, rnd, gumbel)
+                             pool.active == 0, fields, rnd, gumbel,
+                             block_r=block_r)
         LAUNCHES["admit_commit"] += 1
     else:
         res = _rm.admit_commit(reqs.req_id, reqs.svc, reqs.features,
                                reqs.msg_bytes, reqs.token, routing, *fields,
-                               pool.active, rnd, gumbel)
+                               pool.active, rnd, gumbel, block_r=block_r)
     out = AdmitCommitOut(
         *res[:13], PoolState(res.pool_req_id, res.pool_endpoint,
                              res.pool_svc, res.pool_length, res.pool_token,
@@ -147,7 +166,8 @@ def admit_commit(reqs: RequestBatch, routing, pool: PoolState, rnd,
 
 def admit_commit_sharded(reqs: RequestBatch, routing, pool: PoolState, rnd,
                          gumbel, *, mesh, axis: str = "shard",
-                         live=None) -> AdmitCommitOut:
+                         live=None, block_r: int | None = None,
+                         fold: str | None = None) -> AdmitCommitOut:
     """``admit_commit`` sharded over the mesh axis ``axis``
     (``launch/mesh.py::ShardMesh``): the batch splits ``(R/M,)``, the pool
     ``(I/M,)``, the routing tables replicate, each shard runs the
@@ -156,11 +176,18 @@ def admit_commit_sharded(reqs: RequestBatch, routing, pool: PoolState, rnd,
     the batch), and one collective pass reconciles the state the datapath
     owns; bit-exact against ``admit_commit`` on the same batch
     (``kernels/shard_admit.py``).  ``live``: ``shard_admit.live_shards``
-    of the batch as the host built it (None reads it from ``reqs``)."""
+    of the batch as the host built it (None reads it from ``reqs``).  The
+    plan is made at the per-shard width R/M, as the reference's is."""
     from repro_torch.kernels import shard_admit as _sa
+    M = mesh.shape[axis]
+    R_loc = -(-max(reqs.req_id.shape[0], 1) // M)
+    block_r, fold = tune.plan_admit(R_loc, pool.req_id.shape,
+                                    block_r=block_r, fold=fold, commit=True,
+                                    device=reqs.req_id.device)
     res = _sa.admit_commit_sharded(
         reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes, reqs.token,
-        routing, *pool, rnd, gumbel, mesh=mesh, axis=axis, live=live)
+        routing, *pool, rnd, gumbel, mesh=mesh, axis=axis, live=live,
+        block_r=block_r)
     return AdmitCommitOut(*res[:13], PoolState(*res[13:]))
 
 
@@ -172,9 +199,15 @@ def _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma):
 
 
 def complete(pool: PoolState, nxt, ep_load, rx_bytes, ep_inflight_ewma=None,
-             ep_tput_ewma=None, *, eos: int, max_len: int) -> CompleteOut:
+             ep_tput_ewma=None, *, eos: int, max_len: int,
+             block_i: int | None = None,
+             fold: str | None = None) -> CompleteOut:
     """Fused completion: done detect → load release → rx metrics → free →
-    health EWMA update (None EWMAs → cold-start zeros)."""
+    health EWMA update (None EWMAs → cold-start zeros).  ``block_i`` /
+    ``fold`` are planned and recorded; every value runs the same launch
+    (``kernels/tune.py``)."""
+    tune.plan_complete(pool.req_id.shape, block_i=block_i, fold=fold,
+                       device=nxt.device)
     ewl, ewt = ep_inflight_ewma, ep_tput_ewma
     if ewl is None or ewt is None:
         ewl, ewt = _ewma_defaults(ep_load, ewl, ewt)
@@ -199,8 +232,9 @@ def complete(pool: PoolState, nxt, ep_load, rx_bytes, ep_inflight_ewma=None,
 
 def complete_sharded(pool: PoolState, nxt, ep_load, rx_bytes,
                      ep_inflight_ewma=None, ep_tput_ewma=None, *, mesh,
-                     axis: str = "shard", eos: int,
-                     max_len: int) -> CompleteOut:
+                     axis: str = "shard", eos: int, max_len: int,
+                     block_i: int | None = None,
+                     fold: str | None = None) -> CompleteOut:
     """``complete`` sharded over the mesh axis ``axis``: the pool splits
     ``(I/M,)``, the (E,)/(S,) tables replicate, the completion kernel runs
     on each slice (one launch per shard, counted under ``"complete"``),
@@ -208,6 +242,10 @@ def complete_sharded(pool: PoolState, nxt, ep_load, rx_bytes,
     ``health_update`` on the global counts, so the EWMAs are bit-exact
     against ``complete`` on the whole pool (``kernels/shard_admit.py``)."""
     from repro_torch.kernels import shard_admit as _sa
+    M = mesh.shape[axis]
+    I, C = pool.req_id.shape
+    tune.plan_complete((max(I // max(M, 1), 1), C), block_i=block_i,
+                       fold=fold, device=nxt.device)
     ewl, ewt = _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma)
     res = _sa.complete_sharded(*pool, nxt, ep_load, rx_bytes, ewl, ewt,
                                mesh=mesh, axis=axis, eos=eos,

@@ -9,10 +9,11 @@ in-tile ranks are stable arrival-order ranks, so results do not depend on
 the tile size.
 
 ``admit`` / ``admit_commit`` here are the plain PyTorch versions;
-``admit_cuda`` launches ``csrc/admit.cu`` (one template, ``commit`` a
-compile-time flag, and a commit-free mode against an all-free pool for the
-sharded admission; O(1) work per row: ranks by warp match, least request
-from per-cluster ticket tables, tables staged in shared memory).
+``admit_cuda`` launches ``csrc/admit.cu`` (one template, the tile and
+``commit`` compile-time parameters, built at each of ``TILES``, and a
+commit-free mode against an all-free pool for the sharded admission; O(1)
+work per row: ranks by warp match, least request from per-cluster ticket
+tables, tables staged in shared memory).
 ``route_match`` is the stateless building block
 (rule match + least-request argmin, no drain mask, no counters) and
 ``route_match_cuda`` launches ``csrc/route.cu``; both kernels share the
@@ -33,8 +34,11 @@ from repro_torch.core.routing_table import (MAX_EPS_PER_CLUSTER,
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import as_f32, as_i32
 
-#: tile rows of the CUDA kernel (``kTile`` in csrc/admit.cu)
+#: the default tile rows (``kernels/tune.py``'s static plan)
 TILE = 256
+#: the tiles ``csrc/admit.cu`` is built for (its ``kTile``): every
+#: candidate of the autotuner's sweep
+TILES = (64, 256, 1024)
 #: shared memory one block may opt in to on sm_90 (227 KB)
 SMEM_OPTIN = 232448
 _INT32_MIN = -2**31
@@ -273,12 +277,43 @@ def admit_commit(req_id, svc, features, msg_bytes, token, state,
                         pool_active == 0, pool, rnd, gumbel, block_r)
 
 
-#: bytes of shared memory per admission launch, by its table sizes
+#: bytes of shared memory per admission launch, by its table sizes and tile
 _SMEM: dict[tuple, int] = {}
 
 
+def kernel_tile(block_r: int, R: int) -> int:
+    """The tile of ``csrc/admit.cu`` that walks ``R`` rows in tiles of
+    ``block_r``: ``block_r`` where it is one of ``TILES``; where
+    ``block_r >= R`` the batch is one tile, which any tile of at least
+    ``R`` rows walks the same, so the smallest such.  Raises
+    ``ValueError`` for any other ``block_r`` (the plain versions take it;
+    the kernel is not built for it)."""
+    if block_r in TILES:
+        return block_r
+    if 0 < R <= block_r:
+        fit = [t for t in TILES if t >= R]
+        if fit:
+            return fit[0]
+    raise ValueError(f"the admission kernel walks tiles of {TILES} rows "
+                     f"(or one tile of at most {TILES[-1]}); block_r = "
+                     f"{block_r} over {R} rows is none of them")
+
+
+def admit_smem_bytes(state, I: int, C: int, F: int, all_free: bool,
+                     tile: int, device) -> int:
+    """Bytes of shared memory one launch of ``csrc/admit.cu`` at ``tile``
+    takes for ``state``'s tables over an (I, C) pool (cached)."""
+    key = (state.ep_load.shape[0], state.cluster_ep_count.shape[0],
+           state.svc_rule_start.shape[0], state.rule_field.shape[0],
+           state.aff_key.shape[0], I, C, F, int(all_free), tile)
+    smem = _SMEM.get(key)
+    if smem is None:
+        smem = _SMEM[key] = _build.library(device).xlb_admit_smem_bytes(*key)
+    return smem
+
+
 def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
-               rnd, gumbel, *, pool_shape=None):
+               rnd, gumbel, *, block_r: int = TILE, pool_shape=None):
     """Launch ``csrc/admit.cu`` on the tensors' CUDA device.
 
     ``free`` is the (I, C) free mask (bool, or int with nonzero = free) in
@@ -289,9 +324,13 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
     fields, the committed pool is active where ``free`` is not or where a
     request was admitted, and the result an ``AdmitCommitResult``.  Inputs
     that are contiguous and of the kernel's type are passed as they are;
-    all int32 outputs are views of one allocation.  Raises if the shapes
-    do not fit the kernel, the library cannot be built or the launch
-    fails.  The caller skips empty batches.
+    all int32 outputs are views of one allocation.  ``block_r``: the rows
+    of a tile, as in the plain versions; ``kernel_tile`` picks the build
+    (it raises ``ValueError`` for a ``block_r`` no build walks).  Raises
+    if the shapes do not fit the kernel (a launch past ``SMEM_OPTIN``
+    bytes of shared memory raises ``ValueError`` before it is made), the
+    library cannot be built or the launch fails.  The caller skips empty
+    batches.
     """
     commit = pool is not None
     all_free = free is None
@@ -312,15 +351,15 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
         raise ValueError(f"gumbel must be {(R, MAX_EPS_PER_CLUSTER)}")
     if C > 0xFFFF and not all_free:
         raise ValueError(f"admit keeps slot numbers in 16 bits; C = {C}")
+    tile = kernel_tile(block_r, R)
     dev = features.device
     lib = _build.library(dev)
-    key = (E, CL, S, NR, A, I, C, F, int(all_free))
-    smem = _SMEM.get(key)
-    if smem is None:
-        smem = _SMEM[key] = lib.xlb_admit_smem_bytes(*key)
+    smem = admit_smem_bytes(state, I, C, F, all_free, tile, dev)
     if smem > SMEM_OPTIN:
-        raise ValueError(f"admit needs {smem} B of shared memory for "
-                         f"tables of sizes {key}; a block has {SMEM_OPTIN} B")
+        raise ValueError(
+            f"admit at tile {tile} needs {smem} B of shared memory for "
+            f"tables of sizes (E, CL, S, NR, A, I, C, F) = "
+            f"{(E, CL, S, NR, A, I, C, F)}; a block has {SMEM_OPTIN} B")
     reqs = [as_i32(req_id), as_i32(svc), as_i32(features), as_i32(msg_bytes),
             as_i32(rnd), as_f32(gumbel)]
     tok = as_i32(token) if commit else None
@@ -359,7 +398,7 @@ def admit_cuda(req_id, svc, features, msg_bytes, token, state, free, pool,
         p(masks[0]) if masks else None, I, C,
         *maybe(pool_in, 5), *[p(x) for x in per_req],
         *[p(x) for x in carried], *maybe(pool_out, 6),
-        int(commit), _build.stream(dev))
+        int(commit), tile, _build.stream(dev))
     _build.check(err, "admit_commit" if commit else "admit")
     cnt = carried[4]
     head = (*per_req, *carried[:4], cnt[0], cnt[1], carried[5], carried[6])

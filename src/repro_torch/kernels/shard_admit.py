@@ -176,25 +176,26 @@ def _pad(x, n: int, fill: int):
                                     device=x.device)])
 
 
-def _admit_shard(rid, sv, feats, mb, st, shape, rnd, gum) -> AdmitResult:
+def _admit_shard(rid, sv, feats, mb, st, shape, rnd, gum,
+                 block_r: int) -> AdmitResult:
     """B3 on one shard's rows against an all-free pool of ``shape``
     (I, W): the admission kernel without the commit, in its all-free mode
-    (nothing of the pool staged), on the card; its plain version on the
-    CPU."""
+    (nothing of the pool staged), in tiles of ``block_r`` rows, on the
+    card; its plain version on the CPU."""
     if rid.is_cuda:
         res = _rm.admit_cuda(rid, sv, feats, mb, None, st, None, None, rnd,
-                             gum, pool_shape=shape)
+                             gum, block_r=block_r, pool_shape=shape)
         ops.LAUNCHES["admit"] += 1
         return res
     return _rm.admit(rid, sv, feats, mb, st, None, rnd, gum,
-                     pool_shape=shape)
+                     block_r=block_r, pool_shape=shape)
 
 
 def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
                          pool_req_id, pool_endpoint, pool_svc, pool_length,
                          pool_token, pool_active, rnd, gumbel, *, mesh,
-                         axis: str = "shard",
-                         live=None) -> AdmitCommitResult:
+                         axis: str = "shard", live=None,
+                         block_r: int = _rm.TILE) -> AdmitCommitResult:
     """``admit_commit`` sharded ``(R/M,)`` over the mesh axis ``axis``.
 
     Same flat contract as ``route_match.admit_commit``; instance ``i`` of
@@ -202,8 +203,9 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
     bit-exact against single-shard ``admit_commit`` on the same batch.  A
     ragged batch pads to a multiple of M with inert ``req_id = -1`` rows.
     ``live``: ``live_shards`` of the batch as the host built it (None
-    computes it here).  Requires ``I % M == 0`` and every tensor on the
-    mesh's device."""
+    computes it here).  Each shard's kernel walks tiles of
+    ``min(block_r, R/M)`` rows, as the reference's does.  Requires
+    ``I % M == 0`` and every tensor on the mesh's device."""
     I, C = pool_req_id.shape
     M = _check_mesh(mesh, axis, I, features)
     pool = [p.to(I32) for p in (pool_req_id, pool_endpoint, pool_svc,
@@ -268,7 +270,8 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
         r = _admit_shard(rid[sl], svc[sl], features[sl], msg_bytes[sl],
                          state._replace(ep_load=adj_load[m],
                                         rr_cursor=adj_cur[m]),
-                         (I, R_loc), rnd[sl], gumbel[sl])
+                         (I, R_loc), rnd[sl], gumbel[sl],
+                         min(block_r, R_loc))
         per.append((r.endpoint, r.instance, r.slot, r.ok, r.ep_load,
                     r.svc_requests, r.svc_tx_bytes, r.no_route, r.aff_key,
                     r.aff_ep))

@@ -1,7 +1,7 @@
 """Prefill-then-decode launcher for the model stack: ``python -m
 repro_torch.launch.prefill_decode --arch minitron-4b --batch 2 --prompt
 4096 --steps 32 [--device cuda|cpu] [--smoke]``; ``--arch`` is one of
-``ARCHS``.
+``ARCHS`` (the dense, vlm and ssm families).
 
 The port's counterpart of ``launch/dryrun.py::build_prefill_step`` and
 ``build_decode_step`` in the reference, run for real: it builds the
@@ -26,7 +26,8 @@ from repro_torch.models import model as M
 
 
 #: the architectures the launcher builds (the families the port runs)
-ARCHS = ("minitron-4b", "mamba2-2.7b", "xlb-service-model")
+ARCHS = ("minitron-4b", "mamba2-2.7b", "xlb-service-model", "granite-20b",
+         "internlm2-20b", "yi-34b", "chameleon-34b")
 
 
 def _sync(device: torch.device) -> None:

@@ -1,7 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch
-xlb-service-model|minitron-4b|mamba2-2.7b [--smoke] --engine
-xlb|istio|cilium --policy least_request --instances 4 --slots 4
---requests 32 --max-len 24 [--shards M] [--device cuda|cpu]``.
+xlb-service-model|minitron-4b|mamba2-2.7b|granite-20b|internlm2-20b|
+yi-34b|chameleon-34b [--smoke] --engine xlb|istio|cilium --policy
+least_request --instances 4 --slots 4 --requests 32 --max-len 24
+[--shards M] [--device cuda|cpu]``.
 
 Boots the chosen engine (XLB or one of the sidecar baselines) with the
 chosen architecture at full width, or at the reference's reduced config
@@ -13,7 +14,10 @@ the continuous-batching loop.  ``--shards M`` shards the XLB engine's
 admission batch and pool over an M-way shard mesh, all shards on the one
 device.  Runs on the card unless ``--device cpu`` is given.  An
 encoder-decoder arch is refused as the reference refuses it; an arch
-whose family the port does not have yet raises ``NotImplementedError``.
+whose family the port does not have yet (moe, hybrid) raises
+``NotImplementedError`` from ``models/model.py::init_params``.  The
+serving weights are f32, so the 20-34 B archs fit one card only with
+``--smoke`` (granite-20b alone is about 113 GB in f32).
 """
 
 from __future__ import annotations
@@ -42,13 +46,7 @@ def arch_config(arch: str, smoke: bool):
     if arch in ENCDEC_ARCHS:
         raise SystemExit("enc-dec serving needs prompt frames; use the "
                          "dry-run decode cells for whisper")
-    try:
-        cfg = get_config(arch)
-    except KeyError:
-        raise NotImplementedError(
-            f"{arch}: its config and family are not ported yet (ROADMAP.md "
-            "item 12); serve takes xlb-service-model, minitron-4b and "
-            "mamba2-2.7b") from None
+    cfg = get_config(arch)
     return smoke_config(cfg) if smoke else cfg
 
 

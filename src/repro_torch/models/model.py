@@ -1,6 +1,7 @@
-"""Model factory for serving (twin of the dense and ssm parts of
+"""Model factory for serving (twin of the dense, vlm and ssm parts of
 ``repro/models/model.py``): seeded init, cache init, prefill and one
-decode step.
+decode step.  ``vlm`` (chameleon-34b) is a dense decoder, as in the
+reference: its VQ image tokens arrive inside the text vocabulary.
 """
 
 from __future__ import annotations
@@ -15,17 +16,41 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import Params, dense_init, embed_init, rms_norm
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_LAYER_INIT = {"dense": tfm._init_attn_layer, "ssm": tfm._init_mamba_layer}
+_LAYER_INIT = {"dense": tfm._init_attn_layer, "vlm": tfm._init_attn_layer,
+               "ssm": tfm._init_mamba_layer}
 
 
 def _dtype(cfg: ModelConfig, dtype):
     return dtype if dtype is not None else _DTYPES[cfg.dtype]
 
 
-def _stack(layers: list):
-    if isinstance(layers[0], dict):
-        return {k: _stack([l[k] for l in layers]) for k in layers[0]}
-    return torch.stack(layers)
+def _stacked(cfg: ModelConfig, layer, generator, dtype, device):
+    """``cfg.n_layers`` draws of ``layer`` stacked on a leading axis, each
+    leaf allocated once at (L, ...) and filled layer by layer: a
+    full-width init holds the stack and one layer, never two copies of the
+    blocks.  The draws keep their order (layer by layer, leaf by leaf)."""
+    L = cfg.n_layers
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((L,) + t.shape, dtype=t.dtype, device=t.device)
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k, v in src.items():
+                put(dst[k], v, i)
+        else:
+            dst[i].copy_(src)
+
+    blocks = None
+    for i in range(L):
+        lp = layer(generator, cfg, dtype, device)
+        if blocks is None:
+            blocks = alloc(lp)
+        put(blocks, lp, i)
+        del lp
+    return blocks
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
@@ -36,7 +61,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
     the same weights on any device, a CUDA one keeps a full-width init on
     the card.  On the card unless ``device="cpu"``; raises without a GPU."""
     if cfg.family not in _LAYER_INIT:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            "(ROADMAP.md item 12); the port runs "
+            + ", ".join(sorted(_LAYER_INIT)))
     device = resolve_device(device)
     dtype = _dtype(cfg, dtype)
     D, Vp = cfg.d_model, cfg.vocab_padded
@@ -45,8 +73,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
         "embed": embed_init((Vp, D), generator, dtype, device),
         "head": dense_init((D, Vp), generator, dtype, device),
         "norm_f": torch.ones((D,), dtype=dtype, device=device),
-        "blocks": _stack([layer(generator, cfg, dtype, device)
-                          for _ in range(cfg.n_layers)]),
+        "blocks": _stacked(cfg, layer, generator, dtype, device),
     }
 
 

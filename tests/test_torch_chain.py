@@ -335,7 +335,9 @@ def test_service_refusals_and_defaults():
 
 
 @pytest.mark.parametrize("arch", ["xlb-service-model", "minitron-4b",
-                                  "mamba2-2.7b"])
+                                  "mamba2-2.7b", "granite-20b",
+                                  "internlm2-20b", "yi-34b",
+                                  "chameleon-34b"])
 def test_serve_arch_smoke_matches_reference_count(arch, capsys):
     argv = ["--arch", arch, "--instances", "2", "--slots", "2",
             "--requests", "6", "--max-len", "5"]
@@ -348,7 +350,7 @@ def test_serve_arch_smoke_matches_reference_count(arch, capsys):
 def test_serve_arch_refusals():
     with pytest.raises(SystemExit, match="enc-dec serving needs prompt"):
         tserve.main(["--arch", "whisper-large-v3", "--device", "cpu"])
-    for arch in ("granite-20b", "deepseek-v2-236b", "jamba-v0.1-52b"):
+    for arch in ("arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
             tserve.main(["--arch", arch, "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit):            # argparse: not a choice

@@ -66,40 +66,45 @@ def _pool(I, C, seed, dev, busy=0.5):
                        for _ in range(5)], act), g
 
 
-def _check_admit(reqs, routing, pool, rnd, gum, free):
-    """Both kernels through ops against their plain versions, bit-exact on
-    every output; returns the plain commit result."""
+def _check_admit(reqs, routing, pool, rnd, gum, free, block_r=256):
+    """Both kernels through ops against their plain versions at the same
+    ``block_r``, bit-exact on every output; returns the plain commit
+    result."""
     n0 = ops.LAUNCHES["admit_commit"]
-    k = ops.admit_commit(reqs, routing, pool, rnd, gum)
+    k = ops.admit_commit(reqs, routing, pool, rnd, gum, block_r=block_r)
     assert ops.LAUNCHES["admit_commit"] == n0 + 1
     p = route_match.admit_commit(reqs.req_id, reqs.svc, reqs.features,
                                  reqs.msg_bytes, reqs.token, routing,
-                                 *pool[:5], pool.active, rnd, gum)
+                                 *pool[:5], pool.active, rnd, gum,
+                                 block_r=block_r)
     for f in route_match.AdmitResult._fields:
         assert torch.equal(getattr(k, f), getattr(p, f)), f
     for f, pf in zip(PoolState._fields, route_match.AdmitCommitResult
                      ._fields[13:]):
         assert torch.equal(getattr(k.pool, f), getattr(p, pf)), f
     n0 = ops.LAUNCHES["admit"]
-    k2 = ops.admit(reqs, routing, free, rnd, gum)
+    k2 = ops.admit(reqs, routing, free, rnd, gum, block_r=block_r)
     assert ops.LAUNCHES["admit"] == n0 + 1
     p2 = route_match.admit(reqs.req_id, reqs.svc, reqs.features,
-                           reqs.msg_bytes, routing, free, rnd, gum)
+                           reqs.msg_bytes, routing, free, rnd, gum,
+                           block_r=block_r)
     for f in route_match.AdmitResult._fields:
         assert torch.equal(getattr(k2, f), getattr(p2, f)), f
     torch.cuda.synchronize()
     return p
 
 
-# 4096 rows: 16 tiles carrying the counters from one to the next
+# 4096 rows: 16 tiles of 256 (64 of 64, 4 of 1024) carrying the counters
+# from one to the next; every tile the kernel is built for
+@pytest.mark.parametrize("block_r", [64, 256, 1024])
 @pytest.mark.parametrize("R,I,C", [(256, 64, 16), (300, 16, 4), (7, 2, 2),
                                    (4096, 64, 16)])
-def test_admit_kernels_match_plain(dev, R, I, C):
+def test_admit_kernels_match_plain(dev, R, I, C, block_r):
     routing = _routing(dev, R)
     reqs, rnd, gum = _batch(R, R + 1, dev)
     pool, g = _pool(I, C, R, dev)
     free = (torch.rand((I, C), generator=g) < 0.6).int().to(dev) * 3
-    _check_admit(reqs, routing, pool, rnd, gum, free)
+    _check_admit(reqs, routing, pool, rnd, gum, free, block_r)
 
 
 def _rows_to(reqs, svc, rows, dev):
@@ -111,13 +116,15 @@ def _rows_to(reqs, svc, rows, dev):
     return reqs._replace(svc=s.to(dev), features=f.to(dev))
 
 
+@pytest.mark.parametrize("block_r", [64, 256, 1024])
 @pytest.mark.parametrize("case", ["least_request_all_rows", "full_pool",
                                   "rogue_svc", "stale_maglev",
                                   "affinity_same_flow", "nan_gumbel"])
-def test_admit_kernels_match_plain_at_the_edges(dev, case):
-    """The policies' corner cases, each bit-exact in both modes: a tile
-    whose 256 rows all go to one least-request cluster (in-tile ranks up
-    to 255 on the water-fill), a full pool (every routable row held),
+def test_admit_kernels_match_plain_at_the_edges(dev, case, block_r):
+    """The policies' corner cases, each bit-exact in both modes at every
+    tile: a tile whose rows all go to one least-request cluster (in-tile
+    ranks up to block_r - 1 on the water-fill; at 1024 rows the batch of
+    512 is one tile), a full pool (every routable row held),
     svc < 0 and svc >= S, Maglev entries past the window, on a drained
     lane or empty, two rows of one flow in an affinity cluster (the first
     writer wins; a live flow of another key is not evicted), and NaN in
@@ -176,12 +183,100 @@ def test_admit_kernels_match_plain_at_the_edges(dev, case):
         gum[2::6, :] = float("nan")
         gum[3::6, 1] = float("inf")
     free = (torch.rand((I, C), generator=g) < 0.6).to(dev)
-    p = _check_admit(reqs, routing, pool, rnd, gum, free)
+    p = _check_admit(reqs, routing, pool, rnd, gum, free, block_r)
     pol = routing.cluster_policy[p.cluster[p.cluster >= 0].long()]
     if case == "least_request_all_rows":
         assert set(pol.tolist()) == {2} and bool((p.cluster >= 0).all())
     if case == "full_pool":
         assert int(p.ok.sum()) == 0 and int(p.held) > 0
+
+
+def test_admit_refuses_a_block_r_it_is_not_built_for(dev):
+    """The plain versions walk any block_r; the kernel walks 64, 256 or
+    1024 rows a tile (or one tile at least the batch).  Another explicit
+    block_r raises ValueError naming the tiles, and nothing launches."""
+    R, I, C = 256, 64, 16
+    routing = _routing(dev, 1)
+    reqs, rnd, gum = _batch(R, 2, dev)
+    pool, _ = _pool(I, C, 3, dev)
+    n0 = dict(ops.LAUNCHES)
+    for block_r in (100, 128, 32):
+        with pytest.raises(ValueError, match=r"\(64, 256, 1024\)"):
+            ops.admit_commit(reqs, routing, pool, rnd, gum, block_r=block_r)
+        with pytest.raises(ValueError, match=r"\(64, 256, 1024\)"):
+            ops.admit(reqs, routing, pool.active == 0, rnd, gum,
+                      block_r=block_r)
+    assert dict(ops.LAUNCHES) == n0
+    # block_r at least the batch is one tile: the smallest build holding it
+    free = pool.active == 0
+    a = ops.admit(reqs, routing, free, rnd, gum, block_r=300)
+    b = route_match.admit(reqs.req_id, reqs.svc, reqs.features,
+                          reqs.msg_bytes, routing, free, rnd, gum,
+                          block_r=300)
+    for f in route_match.AdmitResult._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_sweep_on_the_card_times_each_tile(dev, monkeypatch):
+    """With autotune on, the first plan of a shape times B2 (or B3) at
+    every candidate on the card, caches the fastest and logs each
+    candidate's time; the pins and XLB_AUTOTUNE=0 time nothing."""
+    from repro_torch.kernels import tune
+    monkeypatch.setenv(tune.ENV_AUTOTUNE, "1")
+    monkeypatch.delenv(tune.ENV_BLOCK_R, raising=False)
+    tune.clear_cache()
+    n0 = dict(ops.LAUNCHES)
+    for commit in (True, False):
+        br, _ = tune.plan_admit(4096, (64, 16), commit=commit, device=dev)
+        key, best, timings, dropped = tune._log[-1]
+        assert key[:2] == ("admit_commit" if commit else "admit", "cuda")
+        assert br == best and set(timings) == {64, 256, 1024}
+        assert all(0 < t < 1e-2 for t in timings.values()) and not dropped
+        assert tune.plan_admit(4096, (64, 16), commit=commit,
+                               device=dev)[0] == br
+    assert len(tune._log) == 2 and dict(ops.LAUNCHES) == n0
+    monkeypatch.setenv(tune.ENV_BLOCK_R, "64")
+    assert tune.plan_admit(2048, (64, 16), device=dev)[0] == 64
+    monkeypatch.delenv(tune.ENV_BLOCK_R)
+    monkeypatch.setenv(tune.ENV_AUTOTUNE, "0")
+    assert tune.plan_admit(2048, (64, 16), device=dev)[0] == 256
+    assert len(tune._log) == 2
+    tune.clear_cache()
+
+
+def test_sweep_drops_a_tile_past_the_shared_memory_optin(dev, monkeypatch):
+    """At I = 64 and a width C where the 256-row build's shared memory fits
+    the 227 KB opt-in and the 1024-row build's does not, the sweep drops
+    1024 (its launch raises before it is made) and plans among the rest;
+    an explicit block_r = 1024 there raises ValueError."""
+    from repro_torch.kernels import tune
+    monkeypatch.setenv(tune.ENV_AUTOTUNE, "1")
+    monkeypatch.delenv(tune.ENV_BLOCK_R, raising=False)
+    tune.clear_cache()
+    routing = _routing(dev, 1)
+    I, F = 64, RT.N_FEATURES
+    smem = lambda C, t: route_match.admit_smem_bytes(   # noqa: E731
+        routing, I, C, F, False, t, dev)
+    C = next(c for c in range(16, 4096, 16)
+             if smem(c, 256) <= route_match.SMEM_OPTIN < smem(c, 1024))
+    R = 2048
+    br, _ = tune.plan_admit(R, (I, C), device=dev)
+    key, best, timings, dropped = tune._log[-1]
+    assert set(timings) == {64, 256} and br in (64, 256)
+    assert list(dropped) == [1024] and "tile 1024" in dropped[1024]
+    reqs, rnd, gum = _batch(R, 5, dev)
+    free = torch.ones((I, C), dtype=torch.bool, device=dev)
+    n0 = ops.LAUNCHES["admit"]
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.admit(reqs, routing, free, rnd, gum, block_r=1024)
+    assert ops.LAUNCHES["admit"] == n0
+    k = ops.admit(reqs, routing, free, rnd, gum, block_r=256)
+    p = route_match.admit(reqs.req_id, reqs.svc, reqs.features,
+                          reqs.msg_bytes, routing, free, rnd, gum,
+                          block_r=256)
+    for f in route_match.AdmitResult._fields:
+        assert torch.equal(getattr(k, f), getattr(p, f)), f
+    tune.clear_cache()
 
 
 def _complete_args(I, C, E, S, seed, case="random"):
@@ -822,10 +917,12 @@ def test_sharded_completion_matches_unsharded_on_the_card(dev, I, C, M):
 # --------------------------------------------------------------------------- #
 
 
+@pytest.mark.parametrize("block_r", [64, 256, 1024])
 @pytest.mark.parametrize("W", [1, 64, 256, 1024, 4096])
-def test_admit_all_free_mode_matches_plain(dev, W):
+def test_admit_all_free_mode_matches_plain(dev, W, block_r):
     """The commit-free kernel against an all-free pool of width W, staging
-    nothing of it, bit-exact against the plain version in the same mode,
+    nothing of it, at each tile, bit-exact against the plain version in
+    the same mode,
     against the plain version given an explicit all-ones (I, W) mask, and,
     where the staged mask fits a block (W <= 256), against the kernel
     given that mask.  The batch holds out-of-range services and weighted
@@ -843,19 +940,20 @@ def test_admit_all_free_mode_matches_plain(dev, W):
     args = (reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes)
     n0 = ops.LAUNCHES["admit"]
     k = route_match.admit_cuda(*args, None, routing, None, None, rnd, gum,
-                               pool_shape=(I, W))
+                               block_r=block_r, pool_shape=(I, W))
     assert ops.LAUNCHES["admit"] == n0              # counted by its callers
     cpu = [t.cpu() for t in (*args, rnd, gum)]
     rcpu = routing.to("cpu")
-    p = route_match.admit(*cpu[:4], rcpu, None, *cpu[4:], pool_shape=(I, W))
+    p = route_match.admit(*cpu[:4], rcpu, None, *cpu[4:], block_r=block_r,
+                          pool_shape=(I, W))
     ones = torch.ones((I, W), dtype=torch.int32)
-    m = route_match.admit(*cpu[:4], rcpu, ones, *cpu[4:])
+    m = route_match.admit(*cpu[:4], rcpu, ones, *cpu[4:], block_r=block_r)
     for f in route_match.AdmitResult._fields:
         assert torch.equal(getattr(k, f).cpu(), getattr(p, f)), f
         assert torch.equal(getattr(p, f), getattr(m, f)), f
     if W <= 256:
         k2 = route_match.admit_cuda(*args, None, routing, ones.bool().to(dev),
-                                    None, rnd, gum)
+                                    None, rnd, gum, block_r=block_r)
         for f in route_match.AdmitResult._fields:
             assert torch.equal(getattr(k, f), getattr(k2, f)), f
     assert int(k.ok.sum()) > 0

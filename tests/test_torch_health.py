@@ -430,8 +430,8 @@ def test_random_policy_drain_with_faults_against_admit_ref(weights,
     seen = []
     real = ops.admit_commit
 
-    def record(reqs, routing, pool, rnd, gumbel):
-        out = real(reqs, routing, pool, rnd, gumbel)
+    def record(reqs, routing, pool, rnd, gumbel, **tuning):
+        out = real(reqs, routing, pool, rnd, gumbel, **tuning)
         seen.append((reqs, routing, pool, rnd, gumbel, out))
         return out
 

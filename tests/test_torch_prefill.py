@@ -1,9 +1,11 @@
 """The port's serving path of the model stack (prefill, then decode)
-against the JAX reference, for the reduced configs of minitron-4b (dense
-GQA: prefill through ``ops.flash_attention``, decode through
-``ops.decode_attention``) and mamba2-2.7b (SSD prefill through
-``ops.ssd_scan``, recurrent decode), with the reference's weights carried
-across as numpy.  On the CPU the wrappers run their plain versions.
+against the JAX reference, for the reduced configs of minitron-4b,
+granite-20b (MQA), internlm2-20b, yi-34b (rope theta 5e6) and
+chameleon-34b (vlm: a dense decoder) (dense GQA: prefill through
+``ops.flash_attention``, decode through ``ops.decode_attention``) and
+mamba2-2.7b (SSD prefill through ``ops.ssd_scan``, recurrent decode), with
+the reference's weights carried across as numpy.  On the CPU the wrappers
+run their plain versions.
 
 Tolerance: f32 logits, KV caches and SSM states within rtol = atol = 1e-4
 (summation order differs between XLA:CPU and torch).  Prompts of 31, 32
@@ -23,10 +25,13 @@ from repro_torch import convert
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.launch import prefill_decode
 from repro_torch.models import model as TM
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import dense_init, embed_init
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CPU = torch.device("cpu")
-ARCHS = ("minitron-4b", "mamba2-2.7b", "xlb-service-model")
+ARCHS = ("minitron-4b", "mamba2-2.7b", "xlb-service-model", "granite-20b",
+         "internlm2-20b", "yi-34b", "chameleon-34b")
 B, STEPS = 2, 3
 
 
@@ -132,3 +137,33 @@ def test_launcher_runs_on_the_cpu(arch, capsys):
                          "--batch", "2", "--prompt", "32", "--steps", "3"])
     out = capsys.readouterr().out
     assert "prefill" in out and "tokens/s" in out
+
+
+def test_init_fills_the_stack_as_stacking_did():
+    """``init_params`` allocates each stacked leaf once and fills it layer
+    by layer; from the same CPU generator it gives exactly the tensors that
+    drawing every layer and then stacking them gave."""
+    for arch in ("internlm2-20b", "mamba2-2.7b"):
+        cfg = smoke_config(get_config(arch))
+        got = TM.init_params(cfg, torch.Generator().manual_seed(5),
+                             torch.float32, CPU)
+        gen = torch.Generator().manual_seed(5)
+        D, Vp = cfg.d_model, cfg.vocab_padded
+        embed = embed_init((Vp, D), gen, torch.float32, CPU)
+        head = dense_init((D, Vp), gen, torch.float32, CPU)
+        init = (tfm._init_mamba_layer if cfg.attn_free
+                else tfm._init_attn_layer)
+        layers = [init(gen, cfg, torch.float32, CPU)
+                  for _ in range(cfg.n_layers)]
+        stack = lambda ls: ({k: stack([l[k] for l in ls]) for k in ls[0]}
+                            if isinstance(ls[0], dict) else torch.stack(ls))
+        want = {"embed": embed, "head": head, "blocks": stack(layers)}
+        for name in ("embed", "head"):
+            assert torch.equal(got[name], want[name]), (arch, name)
+        flat = lambda t, p="": ([(p, t)] if torch.is_tensor(t) else
+                                [x for k, v in t.items()
+                                 for x in flat(v, f"{p}/{k}")])
+        g, w = flat(got["blocks"]), flat(want["blocks"])
+        assert [n for n, _ in g] == [n for n, _ in w]
+        for (n, a), (_, b) in zip(g, w):
+            assert a.shape == b.shape and torch.equal(a, b), (arch, n)
