@@ -21,8 +21,10 @@ Phases (each prints one line; any failure exits non-zero):
    over all six policies, drains, held rows and a ragged batch, at the
    serving shape and a small pool; ``complete`` with warm EWMAs;
    ``route_match`` at R = 256 and 4096; ``relay_slots`` at the staged
-   chain's shapes, at N = 4096, at a ragged N and with 4096 rows on one
-   destination; plus the decode model on
+   chain's shapes, at N = 4096, at a ragged N, with 4096 rows on one
+   destination and at the MoE prefills' shapes (2 x 4096 tokens, top-k
+   of the experts: arctic-480b N 16384 over 128, deepseek-v2-236b 49152
+   over 160, jamba-v0.1-52b 16384 over 16); plus the decode model on
    the card against the CPU within rtol = atol = 1e-4;
 3. the main path: ``ServeLoop`` over the port's ``Engine`` at the full
    width of ``xlb-service-model`` with 64 instance lanes x 16 slots (1024
@@ -81,35 +83,49 @@ Phases (each prints one line; any failure exits non-zero):
    weighted), each equal to its CPU run in every count and tick, every
    request complete and ``ep_load`` zero on every hop, xlb's p99 at most
    each sidecar's and shards=2 equal to the unsharded row;
-6. the model stack at full width and depth in bf16, with weights from a
-   CUDA generator: minitron-4b, granite-20b (MQA, G = 48), internlm2-20b,
+6. the model stack at full width in bf16, with weights from a CUDA
+   generator: minitron-4b, granite-20b (MQA, G = 48), internlm2-20b,
    yi-34b and chameleon-34b (vlm: a dense decoder) (prefill through
    ``flash_attention``, decode through ``decode_attention``) and
-   mamba2-2.7b (prefill through ``ssd_scan``, recurrent decode), each
-   prefilling 2 x 4096 tokens and decoding 32 greedy steps (prefill ms,
-   ms per decode step, tokens/s, peak memory; B6's device ms a launch
-   inside the model), with finite logits, and decode after a shorter
-   prefill against the last logits of the full prefill: relative error <
-   1e-3 in f32 (the weights cast up, where they fit beside the bf16 ones:
-   minitron-4b and mamba2-2.7b), and in bf16 under a fixed limit per
-   architecture that a planted decode fault must exceed; each model is
-   freed before the next is built;
-7. the reduced (smoke) configs of minitron-4b, mamba2-2.7b and the four
-   dense and vlm archs (head dim 16; mamba's state 16) through the
-   launcher's ``main`` on the card, as a user runs ``prefill_decode
-   --smoke``, with finite logits and every attention or SSD call through
-   its kernel; then prefill and one decode step of each on the card
-   against the CPU (f32, rtol = atol = 1e-4); then ``launch/serve.py
-   --arch`` at full width for xlb-service-model, minitron-4b and
-   mamba2-2.7b and with ``--smoke`` for the four dense and vlm archs
-   (every request served), and arctic-480b (moe, not ported yet) refused
-   with ``NotImplementedError``;
+   mamba2-2.7b (prefill through ``ssd_scan``, recurrent decode) at full
+   depth; then arctic-480b (2 of 35 layers), deepseek-v2-236b (8 of 60:
+   MLA in plain torch, a dense first layer) and jamba-v0.1-52b (16 of 32:
+   two periods, B8 at N 16), the depth cut to what one card holds
+   (MOE_CUTS), their MoE dispatch taking its slots from ``relay_slots``
+   once a MoE layer a prefill and a decode step; each prefilling 2 x 4096
+   tokens and decoding 32 greedy steps (prefill ms, ms per decode step,
+   tokens/s, peak memory under 80 GiB; B5, B7 and B8's device ms a launch
+   inside the profiled prefill, B5 and B6's inside one profiled decode
+   step beside the step's device time and its weight-read bound; the MoE
+   prefill's ``overflow_frac`` and expert loads at capacity factor 1.25),
+   with finite logits, and decode after a shorter prefill against the
+   last logits of the full prefill: relative error < 1e-3 in f32 (the
+   weights cast up, where they fit beside the bf16 ones: minitron-4b and
+   mamba2-2.7b), and in bf16 under a fixed limit per architecture that a
+   planted decode fault must exceed (the MoE archs: drop-free, on 8
+   prompts of 256 tokens, holding those whose router top-k set flips in
+   no layer; the faults: every routed row dropped, and where there is GQA
+   attention half the keys); the largest kernels of each profiled
+   prefill; each model is freed before the next is built;
+7. the reduced (smoke) configs of minitron-4b, mamba2-2.7b, the four
+   dense and vlm archs and the three moe and hybrid ones (head dim 16;
+   mamba's state 16) through the launcher's ``main`` on the card, as a
+   user runs ``prefill_decode --smoke``, with finite logits and every
+   attention, SSD and MoE dispatch through its kernel; then prefill and
+   one decode step of each on the card against the CPU (f32, rtol = atol
+   = 1e-4); then ``launch/serve.py --arch`` at full width for
+   xlb-service-model, minitron-4b and mamba2-2.7b and with ``--smoke`` for
+   the four dense and vlm archs and the three moe and hybrid ones (every
+   request served), and whisper-large-v3 (audio, not ported yet):
+   ``init_params`` raises ``NotImplementedError`` naming ROADMAP item 12
+   and ``serve`` exits as the reference does;
 8. the kernel launch counts: ``admit_commit``, ``complete`` and
    ``decode_attention`` on the main path (and in each serving phase after
    it), ``route_match``, ``relay_slots`` and ``admit`` in the staged
    phase, ``admit``, ``complete`` and ``route_match`` in the sharded
-   drain (added to those), ``flash_attention``, ``decode_attention`` and
-   ``ssd_scan`` in the model phases (summed over the archs);
+   drain (added to those), ``flash_attention``, ``decode_attention``,
+   ``ssd_scan`` and ``relay_slots`` (the MoE layers x (1 + steps) of each
+   run) in the model phases (summed over the archs);
 9. ``python -m repro_torch.analysis`` with its kernels section in a
    subprocess: under compute-sanitizer's memcheck and racecheck where
    the sanitizer can attach to the card, else against the kernels'
@@ -117,7 +133,8 @@ Phases (each prints one line; any failure exits non-zero):
 
 Phase 2 also holds the float kernels against their plain versions at the
 paths' shapes (decode attention at minitron-4b's and the serving model's,
-flash attention at minitron-4b's prefill, the SSD scan at mamba2-2.7b's),
+flash attention at minitron-4b's prefill, the SSD scan at mamba2-2.7b's
+and at jamba-v0.1-52b's, where N 16 runs the FMA ``ssd_kernel``),
 in the path's dtype (bf16: rtol 2e-2, atol 2e-2 x the output's RMS) and
 in f32 at the same shapes (2e-5), and times each beside one PyTorch call
 of the same function (``scaled_dot_product_attention``) where there is
@@ -129,7 +146,10 @@ SSD's bf16 build is four passes (``ssd_chunk_state``, ``ssd_scores``,
 ``ssd_state_pass``, ``ssd_chunk_scan``): its ``ms`` is their sum, each
 pass's time is printed, and both mamba's shape and mamba2-2.7b's bf16
 prefill must run exactly those four.  Decode attention is also held at
-G = 48 query heads over one KV head (granite-20b's MQA), and the three
+G = 48 query heads over one KV head (granite-20b's MQA), decode and
+flash attention at the MoE archs' heads (arctic-480b's 56 / 8, G 7, and
+jamba-v0.1-52b's 32 / 8, G 4, hd 128: the run's decode and prefill
+shapes, each in bf16 and f32, timed beside their bounds), and the three
 float kernels at the smoke configs' head dim 16 (and the SSD's N 16), in
 f32 and bf16.  The admission and completion kernels' device times at
 the serving shape, and the relay kernel's at each of its shapes, are
@@ -151,6 +171,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -181,11 +202,26 @@ LLM_BATCH, LLM_PROMPT, LLM_STEPS = 2, 4096, 32
 LLM_REL_TOL_F32 = 1e-3
 LLM_REL_TOL_BF16 = {"minitron-4b": 5e-2, "mamba2-2.7b": 1e-1,
                     "granite-20b": 5e-2, "internlm2-20b": 5e-2,
-                    "yi-34b": 5e-2, "chameleon-34b": 5e-2}
+                    "yi-34b": 5e-2, "chameleon-34b": 5e-2,
+                    "arctic-480b": 5e-2, "deepseek-v2-236b": 5e-2,
+                    "jamba-v0.1-52b": 5e-2}
+# the MoE archs, drop-free: bf16 noise flips some sequences' router top-k
+# set between prefill and decode, and a flipped sequence takes other
+# experts in decode than in prefill, so the check holds the sequences that
+# flip in no layer, at the dense archs' limit.  On 8 x 256 tokens (an H100
+# 80GB HBM3 at 700 W) arctic-480b flips none, deepseek-v2-236b 4 and
+# jamba-v0.1-52b 3; all 8 read 1.2e-2, 9.5e-2 and 0.255, the sequences
+# held 1.2e-2, 2.1e-2 and 2.5e-2 (the f32 legs 4e-6 to 5e-6, no flip);
+# every routed row dropped reads 0.46-0.69, half the keys dropped 1.03
+# (arctic) and 0.120 (jamba, 2 attention layers of 16)
 # the f32 leg of that check casts the weights up beside the bf16 ones: run
 # it where they fit (minitron-4b's 5.1 B parameters are 20 GB in f32;
 # granite-20b's 28.2 B would be 113 GB)
 F32_LEG_MAX_PARAMS = 8e9
+# the MoE archs' f32 leg runs at a shallower cut than their bf16 one, its
+# f32 weights alone on the card (52-62 GB; jamba's 16 layers would be
+# 104 GB, so one period of 8), on the first LLM_BATCH check sequences
+MOE_F32_CUTS = {"arctic-480b": 1, "deepseek-v2-236b": 4, "jamba-v0.1-52b": 8}
 PLANT_KEYS = 256    # two key splits of csrc/decode_attention.cu
 # the SSD's kernels (csrc/ssd_scan.cu) and the passes of its bf16 build
 # with B and C shared by the heads, as mamba2-2.7b calls it
@@ -254,10 +290,25 @@ CHAIN_SEED = 11
 TUNE_R, TUNE_PAIRS = 1040, ((20, 100), (30, 700))
 # the dense and vlm archs of the model phase (full width, bf16)
 DENSE_ARCHS = ("granite-20b", "internlm2-20b", "yi-34b", "chameleon-34b")
+# the moe and hybrid archs of the model phase: full width, the depth cut to
+# what one card holds beside the activations (bf16 weights: arctic's 3
+# layers would be 76.9 GiB, jamba's 3 periods about 72; deepseek keeps room
+# for its MLA score chunks and dispatch buffers)
+MOE_CUTS = {"arctic-480b": 2, "deepseek-v2-236b": 8, "jamba-v0.1-52b": 16}
+MOE_ARCHS = tuple(MOE_CUTS)
+# the query heads of those with GQA attention (8 KV heads of hd 128 each;
+# deepseek-v2-236b's MLA runs neither B6 nor B7)
+MOE_ATTN_HEADS = {"arctic": 56, "jamba": 32}
+# their decode check runs drop-free (capacity factor n_experts / top_k: a
+# capacity drop depends on the batch, so decode and prefill would differ)
+# on MOE_CHECK_BATCH prompts of MOE_CHECK_PROMPT tokens cut from the run's
+MOE_CHECK_PROMPT, MOE_CHECK_BATCH = 256, 8
+# a slot past every capacity: the planted fault of the MoE decode check
+PLANT_SLOT = 1 << 30
 # the archs serve --arch runs at full width, and those it serves at the
 # reduced config (their f32 serving weights pass one card)
 SERVE_ARCHS = ("xlb-service-model", "minitron-4b", "mamba2-2.7b")
-SERVE_SMOKE_ARCHS = DENSE_ARCHS
+SERVE_SMOKE_ARCHS = DENSE_ARCHS + MOE_ARCHS
 
 
 def fail(msg: str) -> None:
@@ -825,10 +876,22 @@ def relay_inputs(torch, N, nd, dev):
                          dtype=torch.int32).to(dev)
 
 
-def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
+def moe_route_ids(torch, T, E, k, dev):
+    """The flat (T * k,) expert ids of T tokens, each routed to k distinct
+    experts drawn uniformly from a seed, token-major as the MoE dispatch
+    hands them to ``relay_slots``."""
+    g = torch.Generator().manual_seed(T + E + k)
+    ids = torch.rand((T, E), generator=g).argsort(dim=-1)[:, :k]
+    return ids.reshape(-1).to(torch.int32).to(dev)
+
+
+def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda",
+                  moe_shapes=None):
     """Each kernel through its public wrapper in ``kernels/ops.py`` against
     its plain PyTorch version on the same card tensors, bit-exact (the
-    admission at the tile the wrapper planned, ``kernels/tune.py``)."""
+    admission at the tile the wrapper planned, ``kernels/tune.py``);
+    ``relay_slots`` also at each MoE prefill's shape of ``moe_shapes``
+    ({arch: (tokens, experts, top_k)})."""
     from repro_torch.kernels import tune
     dev = torch.device(dev)
     routing0, _ = routing_config(RT, "cpu")
@@ -943,6 +1006,25 @@ def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda"):
                            bytes=4 * (2 * N + nd), ops=2 * N + nd, err=err,
                            shape=(N, nd))
 
+    for arch, (T, E, k) in (moe_shapes or {}).items():
+        idx = moe_route_ids(torch, T, E, k, dev)
+        N = idx.shape[0]
+        call = lambda: ops.relay_slots(idx, E)
+        plain = lambda: rs.relay_slots(idx, E)
+        got, p = call(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, zip(("slot", "load"), got, p))
+        check(int(got[1].sum()) == N, f"relay_slots[{arch}]: loads do not "
+              "add up")
+        rows.append(f"relay_slots[{arch} MoE prefill: N={N} ({T} tokens x "
+                    f"top-{k}) n_dest={E}] max_abs_err={err} largest "
+                    f"load={int(got[1].max())}")
+        timing[f"relay_slots[{arch}]"] = dict(
+            ms=kernel_ms(torch, call, "relay_kernel"),
+            call_ms=cuda_ms(torch, call),
+            plain_ms=cuda_ms(torch, plain, reps=10, warm=1),
+            bytes=4 * (2 * N + E), ops=2 * N + E, err=err, moe=(N, E))
+
     floor, issue = launch_floor(torch, lib)
     for t in timing.values():
         t["floor_ms"], t["issue_ms"] = floor, issue
@@ -973,9 +1055,7 @@ def phase_model(torch, cfg, TM):
 
 
 def _to(torch, tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(torch, v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return _tree(tree, lambda t: t.to(dev))
 
 
 # --------------------------------------------------------------------------- #
@@ -1195,7 +1275,90 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
         ops=B * nh * tiles * 2 * (T * (T + 1) // 2 * (N + hd)
                                    + 2 * T * N * hd),
         peak=BF16_OPS_PS, err=err, err_f32=err32)
+
+    # B8 at jamba-v0.1-52b's prefill: 128 heads of hd 64, N 16, one group
+    # broadcast over the heads; at N 16 bf16 runs the FMA ssd_kernel
+    # (ssd_scan.runs_passes), first at a full width here
+    nh, N = 128, 16
+    x = (torch.randn((B, S, nh, hd), generator=gd, device=dev) * 0.5).to(bf16)
+    a = -F.softplus(torch.randn((B, S, nh), generator=gd, device=dev)) * 0.5
+    Bg = (torch.randn((B, S, 1, N), generator=gd, device=dev) * 0.3).to(bf16)
+    Cg = (torch.randn((B, S, 1, N), generator=gd, device=dev) * 0.3).to(bf16)
+    Bm, Cm = Bg.expand(-1, -1, nh, -1), Cg.expand(-1, -1, nh, -1)
+    call = lambda: ops.ssd_scan(x, a, Bm, Cm, chunk=Q, return_state=True)
+    plain = lambda: ssd.ssd_scan(x, a, Bm, Cm, Q)
+    (ky, kh), (py, ph) = call(), plain()
+    err = max(float_err(torch, "ssd_scan[jamba] y", ky, py),
+              float_err(torch, "ssd_scan[jamba] h_last", kh, ph))
+    del py, ph
+    err32 = f32_err(
+        torch, lambda *t: ops.ssd_scan(*t, chunk=Q, return_state=True),
+        lambda *t: ssd.ssd_scan(*t, Q), "ssd_scan[jamba]", x.float(), a,
+        Bg.float().expand(-1, -1, nh, -1), Cg.float().expand(-1, -1, nh, -1))
+    ms, names = kernel_time(profile_calls(torch, call, reps=3), SSD_PREFIX)
+    check(names.split("<", 1)[0] == "ssd_kernel", f"ssd_scan at jamba's "
+          f"shape ran {names!r}, not the FMA ssd_kernel")
+    rows.append(f"ssd_scan[jamba: B={B} S={S} nh={nh} hd={hd} N={N} bf16] "
+                f"max_abs_err={err}, in f32 {err32} (y and h_last; {names})")
+    timing["ssd_scan[jamba]"] = dict(
+        ms=ms, kernel=names,
+        call_ms=cuda_ms(torch, call, reps=3, warm=1),
+        plain_ms=cuda_ms(torch, plain, reps=3, warm=1), library_ms=None,
+        bytes=nbytes(x, a, Bg, Cg, ky, kh),
+        ops=B * nh * tiles * 2 * (T * (T + 1) // 2 * (N + hd)
+                                   + 2 * T * N * hd),
+        peak=BF16_OPS_PS, err=err, err_f32=err32)
+    del x, a, Bg, Cg, Bm, Cm, ky, kh
+    moe_attention(torch, ops, da, fa, rows, timing, dev)
     return rows, timing
+
+
+def moe_attention(torch, ops, da, fa, rows, timing, dev):
+    """B6 and B7 at the MoE archs' attention, each dtype against its plain
+    version: arctic-480b's 56 / 8 heads (G 7: bf16 walks the heads in a
+    pass of 4 and a ragged one of 3, f32 in one of 7) and jamba-v0.1-52b's
+    32 / 8 (G 4), hd 128; decode as the last of the run's steps, prefill
+    over the whole prompt."""
+    B, S, K, hd = LLM_BATCH, LLM_PROMPT, 8, 128
+    last = S + LLM_STEPS - 1
+    for arch, H in MOE_ATTN_HEADS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"[{arch}]" + ("" if dtype == torch.bfloat16 else "[f32]")
+            peak = BF16_OPS_PS if dtype == torch.bfloat16 else OPS_PS
+            q, kc, vc, lens = decode_inputs(torch, B, last + 1, H, K, hd,
+                                            dtype, [last - 20, last], dev,
+                                            seed=H)
+            call = lambda: ops.decode_attention(q, kc, vc, lens)
+            plain = lambda: da.decode_attention(q, kc, vc, lens)
+            err = float_err(torch, "decode_attention" + tag, call(), plain())
+            nb, nops = decode_work(q, kc, lens)
+            ms, names = kernel_time(profile_calls(torch, call), "decode_")
+            rows.append(f"decode_attention{tag}[B={B} S={last + 1} H={H} "
+                        f"K={K} hd={hd} {dtype}] max_abs_err={err} ({names})")
+            timing["decode_attention" + tag] = dict(
+                ms=ms, kernel=names, call_ms=cuda_ms(torch, call),
+                plain_ms=cuda_ms(torch, plain, reps=5, warm=1), bytes=nb,
+                ops=nops, peak=peak, err=err)
+            g = torch.Generator(device=dev).manual_seed(H)
+            rn = lambda *shape: torch.randn(shape, generator=g, device=dev,
+                                            dtype=torch.float32).to(dtype)
+            q, k, v = rn(B, S, H, hd), rn(B, S, K, hd), rn(B, S, K, hd)
+            call = lambda: ops.flash_attention(q, k, v, causal=True)
+            plain = lambda: fa.flash_attention(q, k, v, causal=True)
+            err = float_err(torch, "flash_attention" + tag, call(), plain())
+            ms, names = kernel_time(profile_calls(torch, call, reps=5),
+                                    "flash_kernel")
+            rows.append(f"flash_attention{tag}[B={B} S={S} H={H} K={K} "
+                        f"hd={hd} causal {dtype}] max_abs_err={err} "
+                        f"({names})")
+            timing["flash_attention" + tag] = dict(
+                ms=ms, kernel=names,
+                call_ms=cuda_ms(torch, call, reps=5, warm=1),
+                plain_ms=cuda_ms(torch, plain, reps=3, warm=1),
+                bytes=nbytes(q, k, v, q),
+                ops=4 * B * H * hd * S * (S + 1) // 2, peak=peak, err=err)
+            del q, k, v, kc, vc
+            torch.cuda.empty_cache()
 
 
 def ssd_passes(prof: dict) -> dict:
@@ -1226,12 +1389,14 @@ def f32_err(torch, call, plain, name, *inputs) -> float:
 # --------------------------------------------------------------------------- #
 
 
-def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
-    """Build ``cfg`` at full width and depth in bf16 (weights from a CUDA
-    generator), prefill LLM_BATCH x LLM_PROMPT tokens and decode LLM_STEPS
-    greedy steps through the launcher's ``run``; check the path's kernel
+def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda", full_layers=None):
+    """Build ``cfg`` at full width in bf16 (weights from a CUDA generator),
+    at full depth or, with ``full_layers``, at the depth ``cfg`` was cut
+    to; prefill LLM_BATCH x LLM_PROMPT tokens and decode LLM_STEPS greedy
+    steps through the launcher's ``run``; check the path's kernel
     launches, finite logits, and decode after a shorter prefill against
-    the last logits of the full prefill."""
+    the last logits of the full prefill (drop-free on MOE_CHECK_PROMPT
+    tokens where the arch has MoE layers)."""
     dev = torch.device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False     # the f32 check
     torch.cuda.synchronize()
@@ -1249,31 +1414,46 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
         ops.LAUNCHES[k] = 0
     res = launcher.run(cfg, params, tokens, LLM_STEPS)
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-    L = cfg.n_layers
-    want = ({"ssd_scan": L} if cfg.family == "ssm" else
-            {"flash_attention": L, "decode_attention": L * LLM_STEPS})
+    want = expected_launches(cfg, LLM_STEPS)
     check(launches == want, f"{cfg.name}: kernel launches {launches}, "
           f"expected {want}")
+    n = layer_counts(cfg)
     # which kernels a bf16 prefill runs, and their share of its device
     # time: one more prefill under the profiler (apart from the timed run)
     _, by_name = device_events(torch, lambda: TM.prefill(
         cfg, params, tokens, TM.init_cache(cfg, LLM_BATCH, LLM_PROMPT,
                                            params["embed"].dtype, dev)))
-    if cfg.attn_free:
-        kernels = " + ".join(ssd_passes(by_name))
-        kernel_us = kernel_time(by_name, SSD_PREFIX)[0]
-    else:
-        kernel_us, kernels = kernel_time(by_name, "flash_kernel")
-        check(kernels == "flash_kernel_wgmma<128>", f"{cfg.name}: the bf16 "
-              f"prefill ran {kernels!r}, not the tensor-core kernel")
+    parts = []
+    if n["gqa"]:
+        b7_us, names = kernel_time(by_name, "flash_kernel")
+        check(names == "flash_kernel_wgmma<128>", f"{cfg.name}: the bf16 "
+              f"prefill ran {names!r}, not the tensor-core kernel")
+        parts.append((names, b7_us, n["gqa"], "B7"))
+    if n["mamba"]:
+        b8_us, names = kernel_time(by_name, SSD_PREFIX)
+        if cfg.ssm.d_state == 16:      # the FMA build (runs_passes)
+            check(names.split("<", 1)[0] == "ssd_kernel", f"{cfg.name}: "
+                  f"the bf16 prefill ran {names!r}, not the FMA ssd_kernel")
+        else:
+            names = " + ".join(ssd_passes(by_name))
+        parts.append((names, b8_us, n["mamba"], "B8"))
+    if n["moe"]:
+        b5_us, names = kernel_time(by_name, "relay_kernel")
+        parts.append((names, b5_us, n["moe"], "B5"))
+    kernels = " + ".join(p[0] for p in parts)
     busy_ms = sum(by_name.values()) / 1e3
+    top = "; ".join(f"{kernel_name(k)[:70]} {us / 1e3:.3f}" for k, us in
+                    sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     check(bool(torch.isfinite(res["logits"]).all()),
           f"{cfg.name}: non-finite decode logits")
     peak = torch.cuda.max_memory_allocated(dev)    # init, prefill, decode
+    check(peak < 80 * 2**30, f"{cfg.name}: peak memory {peak / 2**30:.2f} "
+          "GiB")
 
-    # B6 inside the model: one decode step at the last position of the
-    # run, under the profiler (the cache's contents do not change its work)
-    b6 = ""
+    # B6 and B5 inside the model: one decode step at the last position of
+    # the run, under the profiler (the cache's contents do not change its
+    # work); beside it the step's least time, every weight read once
+    step = ""
     if not cfg.attn_free:
         cache = TM.init_cache(cfg, LLM_BATCH, LLM_PROMPT + LLM_STEPS,
                               params["embed"].dtype, dev)
@@ -1281,42 +1461,86 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
         lengths = torch.full((LLM_BATCH,), pos, dtype=torch.int32,
                              device=dev)
         tok = tokens[:, :1]
-        counts: dict = {}
         TM.decode_step(cfg, params, tok, lengths, cache)
         _, step_ev = device_events(torch, lambda: TM.decode_step(
-            cfg, params, tok, lengths, cache), counts)
-        b6_us, b6_names = kernel_time(step_ev, "decode_")
-        kc = cache["blocks"]["self"]["k"][0]
-        q = torch.empty((LLM_BATCH, cfg.n_heads, cfg.head_dim),
-                        dtype=kc.dtype, device=dev)
-        nb, nops = decode_work(q, kc, lengths)
-        b6_bound = max(nb / MEM_BPS, nops / BF16_OPS_PS) * 1e3
+            cfg, params, tok, lengths, cache))
         step_busy = sum(step_ev.values()) / 1e3
-        b6 = (f"; B6 inside the model (G = {cfg.n_heads // cfg.n_kv_heads}"
-              f", one decode step at position {pos}, profiler): "
-              f"{b6_us / 1e3 / L:.5f} ms a launch ({b6_names}; {L} "
-              f"launches a step, {b6_us / 1e3:.4f} ms of the step's "
-              f"{step_busy:.4f} ms device busy), bound {b6_bound:.5f} ms "
-              f"({nb} B)")
+        w_bytes = nbytes(*(t for t in _leaves(params)
+                           if t is not params["embed"]))
+        step = (f"; one decode step at position {pos} (profiler): device "
+                f"busy {step_busy:.4f} ms, bound {w_bytes / MEM_BPS * 1e3:.4f}"
+                f" ms (every weight but the embedding read once, {w_bytes} B)")
+        if n["gqa"]:
+            b6_us, b6_names = kernel_time(step_ev, "decode_")
+            kc = (cache["attn"] if cfg.is_hybrid
+                  else cache["blocks"]["self"])["k"][0]
+            q = torch.empty((LLM_BATCH, cfg.n_heads, cfg.head_dim),
+                            dtype=kc.dtype, device=dev)
+            nb, nops = decode_work(q, kc, lengths)
+            b6_bound = max(nb / MEM_BPS, nops / BF16_OPS_PS) * 1e3
+            step += (f"; B6 inside the model (G = "
+                     f"{cfg.n_heads // cfg.n_kv_heads}): "
+                     f"{b6_us / 1e3 / n['gqa']:.5f} ms a launch "
+                     f"({b6_names}; {n['gqa']} launches a "
+                     f"step, {b6_us / 1e3:.4f} ms of the step), bound "
+                     f"{b6_bound:.5f} ms ({nb} B)")
+        if n["moe"]:
+            b5_us, b5_names = kernel_time(step_ev, "relay_kernel")
+            step += (f"; B5 in the step: {b5_us / 1e3 / n['moe']:.5f} ms a "
+                     f"launch ({b5_names}; {n['moe']} launches at N = "
+                     f"{LLM_BATCH * cfg.moe.top_k})")
         del cache
 
     # consistency, as tests/test_smoke_archs.py checks it (in f32): the
     # full prefill's last logits against a shorter prefill plus
     # teacher-forced decode of the rest (mamba: a prefill that is a
-    # multiple of the 256-row chunk, as ssd_chunked asserts)
-    split = LLM_PROMPT - (cfg.ssm.chunk if cfg.family == "ssm" else 1)
-    f16_full, f16_dec = consistency(torch, TM, ops, cfg, params, tokens,
-                                    split)
-    _, bad_dec = consistency(torch, TM, ops, cfg, params, tokens, split,
-                             plant=True)
+    # multiple of the 256-row chunk, as ssd_chunked asserts; MoE:
+    # drop-free on shorter prompts, the first LLM_BATCH of them the heads
+    # of the run's prompts)
+    ccfg, ctok = cfg, tokens
+    if cfg.moe.enabled:
+        m, P = cfg.moe, MOE_CHECK_PROMPT
+        ccfg = replace(cfg, moe=replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        per = MOE_CHECK_BATCH // LLM_BATCH
+        ctok = (tokens[:, :per * P].reshape(LLM_BATCH, per, P)
+                .transpose(0, 1).reshape(MOE_CHECK_BATCH, P))
+    S = ctok.shape[1]
+    split = S - (cfg.ssm.chunk if cfg.family == "ssm" else 1)
+    flipped, (f16_full, f16_dec) = topk_flips(
+        torch, n["moe"], lambda: consistency(torch, TM, ops, ccfg, params,
+                                             ctok, split))
+    # a sequence whose router top-k set at the last position differs
+    # between the full prefill and the decode in some layer takes other
+    # experts there: its logits differ by design, and the check holds the
+    # others
+    keep = ~flipped.any(0) if n["moe"] else torch.ones(
+        ctok.shape[0], dtype=torch.bool, device=dev)
+    check(bool(keep.any()), f"{cfg.name}: every sequence's router top-k "
+          "set flipped between prefill and decode; the decode check holds "
+          "none")
+    faults = {}
+    for fault in plant_faults(cfg, n):
+        _, bad = consistency(torch, TM, ops, ccfg, params, ctok, split,
+                             plant=fault)
+        faults[fault] = rel_err(bad[keep], f16_full[keep])
     for name, t in (("bf16 prefill", f16_full), ("bf16 decode", f16_dec)):
         check(bool(torch.isfinite(t).all()), f"{cfg.name}: non-finite "
               f"{name} logits")
-    f32_leg = n_params <= F32_LEG_MAX_PARAMS
+    f32_leg = n_params <= F32_LEG_MAX_PARAMS or cfg.name in MOE_F32_CUTS
     if f32_leg:
-        p32 = _tree(params, lambda t: t.float())
-        f32_full, f32_dec = consistency(torch, TM, ops, cfg, p32, tokens,
-                                        split)
+        if n_params <= F32_LEG_MAX_PARAMS:
+            p32 = _tree(params, lambda t: t.float())
+        else:           # the MoE archs: f32 weights alone, shallower
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            ccfg = replace(ccfg, n_layers=MOE_F32_CUTS[cfg.name])
+            p32 = TM.init_params(ccfg, torch.Generator(device=dev)
+                                 .manual_seed(0), torch.float32, dev)
+            params = None
+        f32_full, f32_dec = consistency(torch, TM, ops, ccfg, p32,
+                                        ctok[:LLM_BATCH], split)
         del p32
         for name, t in (("f32 prefill", f32_full), ("f32 decode", f32_dec)):
             check(bool(torch.isfinite(t).all()), f"{cfg.name}: non-finite "
@@ -1326,27 +1550,54 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
               f"{split}-token prefill vs the full prefill: rel {rel32:.3e} "
               f">= {LLM_REL_TOL_F32}")
     tol16 = LLM_REL_TOL_BF16[cfg.name]
-    rel16 = rel_err(f16_dec, f16_full)
+    rel16 = rel_err(f16_dec[keep], f16_full[keep])
     check(rel16 < tol16, f"{cfg.name}: bf16 decode after a {split}-token "
           f"prefill vs the full prefill: rel {rel16:.3e} >= {tol16}")
-    planted = rel_err(bad_dec, f16_full)
-    fault = (f"layer {cfg.n_layers // 2} skips its state update"
-             if cfg.attn_free else
-             f"decode attention drops the newest {PLANT_KEYS} keys")
-    check(planted >= tol16, f"{cfg.name}: the bf16 gate does not see a "
-          f"planted fault ({fault}): rel {planted:.3e} < {tol16}")
-    if f32_leg:
+    what = {"dispatch": "every routed row of the MoE dispatch placed past "
+                        "its expert's capacity",
+            "state": f"layer {cfg.n_layers // 2} skips its state update",
+            "attention": f"decode attention drops the newest "
+                         f"{min(PLANT_KEYS, S // 2)} keys"}
+    for fault, planted in faults.items():
+        check(planted >= tol16, f"{cfg.name}: the bf16 gate does not see a "
+              f"planted fault ({what[fault]}): rel {planted:.3e} < {tol16}")
+    fault = "; ".join(f"{what[f]}: {r:.3e}" for f, r in faults.items())
+    rel16_all = rel_err(f16_dec, f16_full)
+    if f32_leg and params is None:
+        f32_part = (f"{rel32:.3e} in f32 at {ccfg.n_layers} layers "
+                    f"(< {LLM_REL_TOL_F32}), ")
+        vs32 = ""
+    elif f32_leg:
         f32_part = (f"{rel32:.3e} in f32 (< {LLM_REL_TOL_F32}), ")
         vs32 = (f"; bf16 vs f32 logits: prefill "
-                f"{rel_err(f16_full, f32_full):.3e}, decode "
-                f"{rel_err(f16_dec, f32_full):.3e}")
+                f"{rel_err(f16_full[:LLM_BATCH], f32_full):.3e}, decode "
+                f"{rel_err(f16_dec[:LLM_BATCH], f32_full):.3e}")
     else:
         f32_part = (f"f32 not run ({4 * n_params / 1e9:.1f} GB of f32 "
                     "weights beside the bf16 ones pass the card), ")
         vs32 = ""
+    moe = ""
+    if cfg.moe.enabled:
+        met = res["metrics"]
+        from repro_torch.models.moe import capacity_for
+        moe = (f"; MoE (capacity factor {cfg.moe.capacity_factor}, "
+               f"{capacity_for(LLM_BATCH * LLM_PROMPT, cfg)} slots an "
+               f"expert): prefill overflow_frac "
+               f"{float(met.overflow_frac):.6f}, expert load summed over "
+               f"{n['moe']} MoE layers largest {int(met.load.max())}, mean "
+               f"{float(met.load.float().mean()):.1f}; decode check "
+               f"drop-free (factor {ccfg.moe.capacity_factor:.4g}) on "
+               f"{ctok.shape[0]} x {S}, router top-k sets that differ "
+               f"between the full prefill and the decode in bf16, per MoE "
+               f"layer: {flipped.sum(1).tolist()} of {ctok.shape[0]} "
+               f"sequences; the check holds {int(keep.sum())} sequences "
+               f"(all {ctok.shape[0]}: rel {rel16_all:.3e}); f32 leg on "
+               f"the first {LLM_BATCH}")
+    depth = (f"{cfg.n_layers} of {full_layers} layers, depth cut"
+             if full_layers else f"{cfg.n_layers} layers, full depth")
     per_step = res["decode_s"] / LLM_STEPS
     line = (f"model {cfg.name}: {n_params / 1e9:.3f} B parameters "
-            f"({cfg.n_layers} layers, full depth; bf16), init "
+            f"({depth}; bf16), init "
             f"{init_s:.2f} s; prefill "
             f"{LLM_BATCH} x {LLM_PROMPT} tokens {1e3 * res['prefill_s']:.3f}"
             f" ms ({LLM_BATCH * LLM_PROMPT / res['prefill_s']:.1f} tokens/s)"
@@ -1354,25 +1605,73 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda"):
             f"= {LLM_BATCH / per_step:.1f} tokens/s (host clock, "
             f"synchronised); peak memory {peak / 2**30:.2f} GiB; decode "
             f"after a {split}-token prefill vs the full prefill: rel "
-            f"{f32_part}{rel16:.3e} in bf16 (< {tol16}), with a planted "
-            f"fault ({fault}) {planted:.3e} (>= {tol16}){vs32}; launches "
+            f"{f32_part}{rel16:.3e} in bf16 (< {tol16}), with planted "
+            f"faults ({fault}; each >= {tol16}){vs32}; launches "
             + " ".join(f"{k}={v}" for k, v in launches.items())
             + f"; profiled prefill: device busy {busy_ms:.3f} ms, of which "
-            f"{kernels} {kernel_us / 1e3:.3f} ms" + b6)
+            + ", ".join(f"{label} {name} {us / 1e3:.3f} ms ("
+                        f"{us / 1e3 / cnt:.5f} a launch, {cnt} launches)"
+                        for name, us, cnt, label in parts)
+            + f"; its largest kernels (ms): {top}" + moe + step)
     del params, res
     gc.collect()
     torch.cuda.empty_cache()
     return line, launches, kernels
 
 
-def consistency(torch, TM, ops, cfg, params, tokens, split, plant=False):
+def topk_flips(torch, n_moe: int, run):
+    """((MoE layers, sequences) bool: whether the sequence's router top-k
+    set at the last position differs between the full prefill and the
+    decode step; ``run()``'s result) for a ``consistency`` run with one
+    decode step: the routes of its full prefill, its shorter prefill and
+    its decode step are recorded in that order.  Without MoE layers the
+    first is None."""
+    if not n_moe:
+        return None, run()
+    from repro_torch.models import moe as moe_mod
+    route, rec = moe_mod.route, []
+
+    def recording(*a, **k):
+        out = route(*a, **k)
+        rec.append(out[1])
+        return out
+
+    moe_mod.route = recording
+    try:
+        res = run()
+    finally:
+        moe_mod.route = route
+    check(len(rec) == 3 * n_moe, f"recorded {len(rec)} routes, expected "
+          f"3 x {n_moe} (one decode step)")
+    key = lambda ids: torch.sort(ids, dim=-1).values
+    B = res[1].shape[0]
+    flipped = torch.stack([
+        (key(rec[l].reshape(B, -1, rec[l].shape[-1])[:, -1])
+         != key(rec[2 * n_moe + l].reshape(B, -1))).any(-1)
+        for l in range(n_moe)])
+    return flipped, res
+
+
+def plant_faults(cfg, n: dict) -> tuple:
+    """The faults ``consistency`` plants in an arch's decode: the MoE
+    dispatch's where it has MoE layers, attention's where it has GQA
+    layers, the state update's where it is attention-free."""
+    return tuple(f for f, on in (("dispatch", n["moe"]),
+                                 ("attention", n["gqa"]),
+                                 ("state", cfg.attn_free)) if on)
+
+
+def consistency(torch, TM, ops, cfg, params, tokens, split, plant=None):
     """(the last logits of a prefill over all of ``tokens``, the logits
     after a prefill of ``tokens[:, :split]`` and decode of the rest, each
-    token fed as the reference's test feeds it).  With ``plant`` the
-    decode carries a fault that the bf16 gate must see, and the first is
-    None: attention drops the newest PLANT_KEYS keys (a lost key split of
-    the decode kernel), or mamba's middle layer keeps its state from
-    before each step (its state update skipped)."""
+    token fed as the reference's test feeds it).  With ``plant`` (one of
+    ``plant_faults``) the decode carries a fault that the bf16 gate must
+    see, and the first is None: ``dispatch``, the MoE dispatch places
+    every routed row past its expert's capacity (all dropped);
+    ``attention``, attention drops the newest PLANT_KEYS keys, or half
+    the prompt where that is shorter (lost key splits of the decode
+    kernel); ``state``, mamba's middle layer keeps its state from before
+    each step (its state update skipped)."""
     dev, dt = tokens.device, params["embed"].dtype
     B, S = tokens.shape
     full = None if plant else TM.prefill(
@@ -1380,21 +1679,28 @@ def consistency(torch, TM, ops, cfg, params, tokens, split, plant=False):
     logits, cache = TM.prefill(cfg, params, tokens[:, :split],
                                TM.init_cache(cfg, B, S, dt, dev))
     decode_attention, mid = ops.decode_attention, cfg.n_layers // 2
-    if plant and not cfg.attn_free:
+    relay_slots = ops.relay_slots
+    if plant == "dispatch":
+        def past_capacity(idx, n_dest):
+            slot, load = relay_slots(idx, n_dest)
+            return torch.full_like(slot, PLANT_SLOT), load
+        ops.relay_slots = past_capacity
+    elif plant == "attention":
+        drop = min(PLANT_KEYS, S // 2)
         ops.decode_attention = lambda q, k, v, lengths: decode_attention(
-            q, k, v, lengths - PLANT_KEYS)
+            q, k, v, lengths - drop)
     try:
         for pos in range(split, S):
             lengths = torch.full((B,), pos, dtype=torch.int32, device=dev)
             held = [t[mid].clone() for t in cache] \
-                if plant and cfg.attn_free else []
+                if plant == "state" else []
             logits, cache = TM.decode_step(cfg, params,
                                            tokens[:, pos:pos + 1], lengths,
                                            cache)
             for t, h in zip(cache, held):
                 t[mid].copy_(h)
     finally:
-        ops.decode_attention = decode_attention
+        ops.decode_attention, ops.relay_slots = decode_attention, relay_slots
     return full, logits
 
 
@@ -1406,15 +1712,39 @@ def rel_err(got, want) -> float:
 def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree(v, fn) for v in tree]
     return fn(tree)
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
+
+
+def layer_counts(cfg) -> dict:
+    """A config's layers by the kernels they launch: GQA attention (B7 a
+    prefill, B6 a decode step; MLA runs neither), mamba (B8 a prefill)
+    and MoE FFNs (B5 a prefill and a decode step)."""
+    L, m = cfg.n_layers, cfg.moe
+    attn = 0 if cfg.attn_free else (L // cfg.attn_period if cfg.is_hybrid
+                                    else L)
+    moe = sum(m.enabled and i >= m.first_dense
+              and i % m.moe_every == m.moe_offset for i in range(L))
+    return {"gqa": 0 if cfg.mla else attn, "mamba": L - attn, "moe": moe}
+
+
+def expected_launches(cfg, steps: int) -> dict:
+    """The kernel launches of a prefill and ``steps`` decode steps."""
+    n = layer_counts(cfg)
+    want = {"flash_attention": n["gqa"], "decode_attention": n["gqa"] * steps,
+            "ssd_scan": n["mamba"], "relay_slots": n["moe"] * (1 + steps)}
+    return {k: v for k, v in want.items() if v}
 
 
 # --------------------------------------------------------------------------- #
@@ -1423,16 +1753,17 @@ def _leaves(tree):
 
 
 def phase_smoke_configs(torch, ops, TM, launcher, configs, dev="cuda"):
-    """``prefill_decode --smoke`` of minitron-4b, mamba2-2.7b and the dense
-    and vlm archs (DENSE_ARCHS) on the card through the launcher's
-    ``main`` (weights from a CUDA generator):
+    """``prefill_decode --smoke`` of minitron-4b, mamba2-2.7b, the dense
+    and vlm archs (DENSE_ARCHS) and the moe and hybrid ones (MOE_ARCHS) on
+    the card through the launcher's ``main`` (weights from a CUDA
+    generator):
     finite logits, and the kernel launches of that run counted from zero;
     then prefill and one decode step of each smoke config on the card
     against the CPU with the same weights (f32, rtol = atol = 1e-4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lines = []
-    for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS:
+    for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS + MOE_ARCHS:
         cfg = configs.smoke_config(configs.get_config(arch))
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
@@ -1440,9 +1771,7 @@ def phase_smoke_configs(torch, ops, TM, launcher, configs, dev="cuda"):
                              str(SMOKE_BATCH), "--prompt", str(SMOKE_PROMPT),
                              "--steps", str(SMOKE_STEPS)])
         got = {k: v for k, v in ops.LAUNCHES.items() if v}
-        L = cfg.n_layers
-        want = ({"ssd_scan": L} if cfg.attn_free else
-                {"flash_attention": L, "decode_attention": L * SMOKE_STEPS})
+        want = expected_launches(cfg, SMOKE_STEPS)
         check(got == want, f"{cfg.name}: launcher kernel launches {got}, "
               f"expected {want}")
         check(res["logits"].shape == (SMOKE_BATCH, cfg.vocab_padded)
@@ -2809,13 +3138,14 @@ def model_params(torch, cfg, dev):
 # --------------------------------------------------------------------------- #
 
 
-def phase_serve_arch(torch, serve):
+def phase_serve_arch(torch, serve, TM, configs):
     """``serve.main(["--arch", a, "--device", "cuda"])`` for each arch of
     SERVE_ARCHS at full width (free the earlier phases' models first:
     minitron-4b in f32 is about 16 GB) and of SERVE_SMOKE_ARCHS with
     ``--smoke`` (the reduced config the reference's serve runs: their f32
-    weights pass one card); an arch whose family is not ported must raise
-    NotImplementedError."""
+    weights pass one card); the audio family (whisper) is not ported:
+    ``init_params`` raises NotImplementedError naming ROADMAP item 12 and
+    ``serve`` refuses it as the reference does."""
     import contextlib
     import io
     lines = []
@@ -2835,11 +3165,24 @@ def phase_serve_arch(torch, serve):
                      f"{first}; main() {wall:.2f} s with the weights' init; "
                      "peak memory "
                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    whisper = configs.smoke_config(configs.get_config("whisper-large-v3"))
     try:
-        serve.main(["--arch", "arctic-480b", "--smoke", "--device", "cuda"])
-        fail("serve --arch arctic-480b did not raise")
+        TM.init_params(whisper, torch.Generator("cuda").manual_seed(0),
+                       torch.float32, "cuda")
     except NotImplementedError as e:
-        lines.append(f"serve --arch arctic-480b: NotImplementedError ({e})")
+        check("ROADMAP.md item 12" in str(e), f"whisper: {e}")
+        lines.append(f"init_params whisper-large-v3: NotImplementedError "
+                     f"({e})")
+    else:
+        fail("init_params of whisper-large-v3 did not raise")
+    try:
+        serve.main(["--arch", "whisper-large-v3", "--smoke", "--device",
+                    "cuda"])
+    except SystemExit as e:
+        check("enc-dec serving" in str(e), f"serve whisper: {e}")
+        lines.append(f"serve --arch whisper-large-v3: SystemExit ({e})")
+    else:
+        fail("serve --arch whisper-large-v3 did not exit")
     gc.collect()
     torch.cuda.empty_cache()
     return lines
@@ -2967,7 +3310,10 @@ def main() -> int:
     tune_lines, tune_timing = phase_tune(torch, RT, PD, B, ops, rm, tune)
     for line in tune_lines:
         print(line)
-    rows, timing = phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib)
+    moe_shapes = {a: (LLM_BATCH * LLM_PROMPT, c.moe.n_experts, c.moe.top_k)
+                  for a in MOE_ARCHS for c in [get_config(a)]}
+    rows, timing = phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib,
+                                 moe_shapes=moe_shapes)
     frows, ftiming = phase_float_kernels(torch, ops, da, fa, ssd)
     for t in ftiming.values():
         t["floor_ms"], t["issue_ms"] = timing["complete"]["floor_ms"], \
@@ -3014,17 +3360,26 @@ def main() -> int:
     for line in phase_chain(torch, W, HP, RT, interpose, policies, cfg):
         print(line)
     llm_launches, prefill_kernels = {}, {}
-    for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS:
-        line, got, names = phase_llm(torch, ops, TM, PDL, get_config(arch))
+    for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS + MOE_ARCHS:
+        cfg_a = get_config(arch)
+        full = None
+        if arch in MOE_CUTS:
+            full, cfg_a = cfg_a.n_layers, replace(cfg_a,
+                                                  n_layers=MOE_CUTS[arch])
+        line, got, names = phase_llm(torch, ops, TM, PDL, cfg_a,
+                                     full_layers=full)
         print(line)
         for k, v in got.items():
             llm_launches[k] = llm_launches.get(k, 0) + v
         prefill_kernels[arch] = names
     for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
         print(line)
-    for line in phase_serve_arch(torch, serve):
+    for line in phase_serve_arch(torch, serve, TM, configs):
         print(line)
     launches = {**main_launches, **staged_launches, **llm_launches}
+    # relay_slots runs on two paths: the staged chain and the MoE dispatch
+    launches["relay_slots"] = staged_launches["relay_slots"] \
+        + llm_launches["relay_slots"]
     for k, v in sharded_launches.items():       # the sharded drain's
         launches[k] += v
     print("kernels: " + " ".join(
@@ -3034,8 +3389,10 @@ def main() -> int:
           "path; route_match, relay_slots and admit in the staged phase, "
           "and admit, complete and route_match in the sharded drain too; "
           "flash_attention and decode_attention in the model phase's "
-          "minitron-4b and " + ", ".join(DENSE_ARCHS) + ", ssd_scan in "
-          "mamba2-2.7b's); " + "; ".join(
+          "minitron-4b, " + ", ".join(DENSE_ARCHS) + ", arctic-480b and "
+          "jamba-v0.1-52b, ssd_scan in mamba2-2.7b's and jamba's, and "
+          f"relay_slots in {llm_launches['relay_slots']} launches of the "
+          "MoE dispatch in " + ", ".join(MOE_ARCHS) + "); " + "; ".join(
               f"in the {name} phase: " + " ".join(
                   f"{k}={v}" for k, v in got.items())
               for name, got in (("control", control_launches),
@@ -3109,9 +3466,35 @@ def main() -> int:
                     for R in (ADMIT_R, 4096) for b in rm.TILES}
             if name == "flash_attention":      # as minitron's prefill ran it
                 kernels[-1]["kernel"] = prefill_kernels["minitron-4b"]
+            if name in ("decode_attention", "flash_attention"):
+                kernels[-1]["moe_shapes"] = {
+                    key[len(name):]: {
+                        "kernel": t2["kernel"], "ms": t2["ms"],
+                        "plain_ms": t2["plain_ms"],
+                        "bound_ms": bound_ms(t2)[0],
+                        "max_abs_err": t2["err"]}
+                    for key, t2 in timing.items()
+                    if any(key.startswith(f"{name}[{a}]")
+                           for a in MOE_ATTN_HEADS)}
             if name == "ssd_scan":             # as mamba's prefill ran it
                 kernels[-1]["kernel"] = prefill_kernels["mamba2-2.7b"]
                 kernels[-1]["passes_ms"] = t["passes"]
+                jam = timing["ssd_scan[jamba]"]
+                kernels[-1]["jamba_shape"] = {
+                    "kernel": jam["kernel"], "ms": jam["ms"],
+                    "plain_ms": jam["plain_ms"],
+                    "bound_ms": bound_ms(jam)[0], "max_abs_err": jam["err"]}
+            if name == "relay_slots":          # and in the MoE dispatch
+                kernels[-1]["launches_staged"] = \
+                    staged_launches["relay_slots"]
+                kernels[-1]["launches_moe_path"] = \
+                    llm_launches["relay_slots"]
+                kernels[-1]["moe_shapes"] = {
+                    a: {"N": timing[f"relay_slots[{a}]"]["moe"][0],
+                        "n_dest": timing[f"relay_slots[{a}]"]["moe"][1],
+                        "ms": timing[f"relay_slots[{a}]"]["ms"],
+                        "bound_ms": bound_ms(timing[f"relay_slots[{a}]"])[0]}
+                    for a in MOE_ARCHS}
     for name, label in (("admit_commit", "B2"), ("admit", "B3")):
         t = timing[name]
         print(f"admit redesign: {label} {name} device ms {t['ms']} at the "
@@ -3139,6 +3522,13 @@ def main() -> int:
                   f"{RELAY_BEFORE_MS[N, nd]}), bound "
                   f"ms {bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, "
                   f"call ms {t['call_ms']}, on {gpu}")
+    for t in timing.values():
+        if "moe" in t:
+            N, nd = t["moe"]
+            print(f"relay moe: B5 relay_slots[N={N},n_dest={nd}] (a MoE "
+                  f"prefill's dispatch) device ms {t['ms']}, bound ms "
+                  f"{bound_ms(t)[0]}, launch floor ms {t['floor_ms']}, call "
+                  f"ms {t['call_ms']}, plain ms {t['plain_ms']}, on {gpu}")
     for line in phase_analysis(torch):
         print(line)
     print(json.dumps({"kernels": kernels}))

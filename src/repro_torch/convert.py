@@ -1,8 +1,14 @@
 """Carry weights and state across from the JAX reference, given as numpy.
 
-``params_from_jax`` takes the reference ``init_params`` pytree (``embed``,
-``head``, ``norm_f`` and ``blocks`` stacked on a leading layer axis; dense
-and ssm families alike) with numpy leaves and keeps the ``x @ W`` layout.
+``params_from_jax`` takes the reference ``init_params`` pytree with numpy
+leaves and keeps its nesting and the ``x @ W`` layout: ``embed``,
+``head``, ``norm_f`` and ``blocks`` stacked on a leading block axis, for
+every family the port runs; deepseek's ``first`` (a list of unstacked
+layers); the MLA leaves (``w_dq``, ``w_uq``, ``w_dkv``, ``w_uk``,
+``w_uv``, ``wo``); the ``moe`` leaves (``router`` f32, the (E, ...)
+expert weights, ``shared`` / ``residual``); jamba's ``pos{i}`` layers of
+a period.  It carries caches too: dicts and lists of arrays, and an
+``SSMState`` (the hybrid family's ``{"attn", "ssm"}`` cache).
 ``ssm_state_from_numpy`` carries a (stacked or per-layer) ``SSMState``;
 ``routing_from_numpy`` and ``pool_from_numpy`` do the same for the
 datapath state.  The caller turns
@@ -25,9 +31,12 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 
 def params_from_jax(tree, device, dtype=None):
-    """Nested dict of numpy arrays → the same nesting of tensors."""
+    """Nested dicts and lists of numpy arrays → the same nesting of
+    tensors; a tuple with ``SSMState``'s fields becomes an ``SSMState``."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    if getattr(tree, "_fields", None) == SSMState._fields:
+        return SSMState(*(params_from_jax(v, device, dtype) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device, dtype) for v in tree)
     return _tensor(tree, device, dtype)

@@ -15,7 +15,8 @@ Three interchangeable dispatch methods (the tests cross-check them):
 
 ``positions_sort`` stays plain PyTorch on every device: it is the oracle
 of the relay kernel (``kernels/relay_dispatch.py``), which the staged
-admission chain calls through ``ops.relay_slots``.  Rows beyond a
+admission chain and the MoE dispatch (``models/moe.py``, through
+``relay_dispatch_at``) call through ``ops.relay_slots``.  Rows beyond a
 destination's capacity are dropped (``ok`` False) and counted in
 ``overflow_frac``.
 """
@@ -92,13 +93,22 @@ def relay_dispatch(x, idx, n_dest: int, capacity: int,
     """Scatter payload rows x (N, D) into per-destination pools
     (n_dest, capacity, D).  Rows beyond ``capacity``, and rows whose
     destination lies outside [0, n_dest), are dropped (ok False)."""
-    N, D = x.shape
     slot, load = _POSITIONS[method](idx, n_dest)
+    return relay_dispatch_at(x, idx, slot, load, n_dest, capacity)
+
+
+def relay_dispatch_at(x, idx, slot, load, n_dest: int,
+                      capacity: int) -> tuple[torch.Tensor, RelayMeta]:
+    """``relay_dispatch`` at slots already assigned: ``(slot, load)`` as
+    ``positions_sort`` or the relay kernel (``ops.relay_slots``) gives
+    them.  The MoE dispatch takes them from ``ops.relay_slots``; this
+    module does not call ``ops`` itself, which would close an import
+    cycle through ``kernels/relay_dispatch.py``."""
     ok = slot < capacity
     i = idx.to(torch.int64)
     inside = (i >= 0) & (i < n_dest)
     write_slot = torch.where(ok & inside, slot.to(torch.int64), capacity)
-    buf = torch.zeros((n_dest, capacity + 1, D), dtype=x.dtype,
+    buf = torch.zeros((n_dest, capacity + 1, x.shape[1]), dtype=x.dtype,
                       device=x.device)                      # dump row = C
     buf.index_put_((i.clamp(0, n_dest - 1), write_slot), x)
     overflow = 1.0 - ok.to(torch.float32).mean()

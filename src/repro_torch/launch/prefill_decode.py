@@ -1,7 +1,10 @@
 """Prefill-then-decode launcher for the model stack: ``python -m
 repro_torch.launch.prefill_decode --arch minitron-4b --batch 2 --prompt
 4096 --steps 32 [--device cuda|cpu] [--smoke]``; ``--arch`` is one of
-``ARCHS`` (the dense, vlm and ssm families).
+``ARCHS`` (the dense, vlm, ssm, moe and hybrid families).  arctic-480b,
+deepseek-v2-236b and jamba-v0.1-52b pass one card at full depth (arctic
+alone is 477 B parameters): run them with ``--smoke``, or call ``run``
+with a config whose depth is cut.
 
 The port's counterpart of ``launch/dryrun.py::build_prefill_step`` and
 ``build_decode_step`` in the reference, run for real: it builds the
@@ -27,7 +30,8 @@ from repro_torch.models import model as M
 
 #: the architectures the launcher builds (the families the port runs)
 ARCHS = ("minitron-4b", "mamba2-2.7b", "xlb-service-model", "granite-20b",
-         "internlm2-20b", "yi-34b", "chameleon-34b")
+         "internlm2-20b", "yi-34b", "chameleon-34b", "arctic-480b",
+         "deepseek-v2-236b", "jamba-v0.1-52b")
 
 
 def _sync(device: torch.device) -> None:
@@ -37,15 +41,17 @@ def _sync(device: torch.device) -> None:
 
 def run(cfg, params, tokens, steps: int) -> dict:
     """Prefill ``tokens`` (B, S) into a fresh cache, then ``steps`` greedy
-    decode steps; returns the generated tokens (B, steps), the last logits
-    and the host-clock seconds of each part (synchronised on the card)."""
+    decode steps; returns the generated tokens (B, steps), the last logits,
+    the prefill's merged ``MoEMetrics`` (None without MoE layers) and the
+    host-clock seconds of each part (synchronised on the card)."""
     device = tokens.device
     batch, prompt = tokens.shape
     cache = M.init_cache(cfg, batch, prompt + steps,
                          params["embed"].dtype, device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, tokens, cache)
+    logits, cache, metrics = M.prefill(cfg, params, tokens, cache,
+                                       return_metrics=True)
     _sync(device)
     t1 = time.perf_counter()
     lengths = torch.full((batch,), prompt, dtype=torch.int32, device=device)
@@ -58,7 +64,7 @@ def run(cfg, params, tokens, steps: int) -> dict:
     _sync(device)
     t2 = time.perf_counter()
     return {"logits": logits, "tokens": torch.cat(out, 1) if out else None,
-            "prefill_s": t1 - t0, "decode_s": t2 - t1}
+            "metrics": metrics, "prefill_s": t1 - t0, "decode_s": t2 - t1}
 
 
 def main(argv=None) -> dict:

@@ -1,6 +1,7 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch
 xlb-service-model|minitron-4b|mamba2-2.7b|granite-20b|internlm2-20b|
-yi-34b|chameleon-34b [--smoke] --engine xlb|istio|cilium --policy
+yi-34b|chameleon-34b|arctic-480b|deepseek-v2-236b|jamba-v0.1-52b
+[--smoke] --engine xlb|istio|cilium --policy
 least_request --instances 4 --slots 4 --requests 32 --max-len 24
 [--shards M] [--device cuda|cpu]``.
 
@@ -13,11 +14,10 @@ that the loop attaches to; and drives a synthetic request stream through
 the continuous-batching loop.  ``--shards M`` shards the XLB engine's
 admission batch and pool over an M-way shard mesh, all shards on the one
 device.  Runs on the card unless ``--device cpu`` is given.  An
-encoder-decoder arch is refused as the reference refuses it; an arch
-whose family the port does not have yet (moe, hybrid) raises
-``NotImplementedError`` from ``models/model.py::init_params``.  The
-serving weights are f32, so the 20-34 B archs fit one card only with
-``--smoke`` (granite-20b alone is about 113 GB in f32).
+encoder-decoder arch (whisper) is refused as the reference refuses it.
+The serving weights are f32, so the 20-34 B dense archs and the moe and
+hybrid ones fit one card only with ``--smoke`` (granite-20b alone is
+about 113 GB in f32).
 """
 
 from __future__ import annotations

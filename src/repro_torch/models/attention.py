@@ -1,29 +1,53 @@
-"""GQA attention for prefill and one-token decode (twin of the GQA parts of
-``repro/models/attention.py``).
+"""GQA and MLA attention for prefill and one-token decode (twin of
+``repro/models/attention.py`` without the encoder-decoder parts).
 
-Weights are flat on the head axis (``wq: (D, H*hd)``); caches are
-``(B, S, K, hd)`` per layer.  Prefill attention runs through
-``ops.flash_attention`` and decode attention through
+Weights are flat on the head axis (``wq: (D, H*hd)``); GQA caches are
+``(B, S, K, hd)`` per layer, MLA caches the latent ``ckv (B, S, r)`` and
+the shared rope key ``krope (B, S, dr)``.  GQA prefill attention runs
+through ``ops.flash_attention`` and GQA decode attention through
 ``ops.decode_attention``: the hand-written kernels on the card, their
-plain versions on the CPU.  Unlike the reference, the caches are written
-in place (the caller owns them; no copy per step or per layer).
+plain versions on the CPU.  MLA is plain PyTorch on every device, as the
+reference computes it in plain jnp: neither kernel takes its 192-wide q/k
+with a 128-wide v, or the absorbed latent-space decode.  Unlike the
+reference, the caches are written in place (the caller owns them; no
+copy per step or per layer).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Params, apply_rope, dense_init
+from repro_torch.models.layers import Draw, Params, apply_rope
+
+NEG_INF = -1e30
 
 
-def init_gqa(generator, cfg: ModelConfig, dtype, device) -> Params:
+def init_gqa(draw: Draw, cfg: ModelConfig) -> Params:
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": dense_init((D, H * hd), generator, dtype, device),
-            "wk": dense_init((D, K * hd), generator, dtype, device),
-            "wv": dense_init((D, K * hd), generator, dtype, device),
-            "wo": dense_init((H * hd, D), generator, dtype, device)}
+    return {"wq": draw.dense((D, H * hd)), "wk": draw.dense((D, K * hd)),
+            "wv": draw.dense((D, K * hd)), "wo": draw.dense((H * hd, D))}
+
+
+def init_mla(draw: Draw, cfg: ModelConfig) -> Params:
+    m, D, H = cfg.mla, cfg.d_model, cfg.n_heads
+    p = {"w_dkv": draw.dense((D, m.kv_lora_rank + m.qk_rope_head_dim)),
+         "w_uk": draw.dense((m.kv_lora_rank, H * m.qk_nope_head_dim)),
+         "w_uv": draw.dense((m.kv_lora_rank, H * m.v_head_dim)),
+         "wo": draw.dense((H * m.v_head_dim, D))}
+    if m.q_lora_rank:
+        p["w_dq"] = draw.dense((D, m.q_lora_rank))
+        p["w_uq"] = draw.dense((m.q_lora_rank, H * m.qk_head_dim))
+    else:
+        p["w_uq"] = draw.dense((D, H * m.qk_head_dim))
+    return p
+
+
+def init_attn(draw: Draw, cfg: ModelConfig) -> Params:
+    return init_mla(draw, cfg) if cfg.mla is not None else init_gqa(draw, cfg)
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -32,6 +56,20 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     z = lambda: torch.zeros((batch, max_len, K, hd), dtype=dtype,
                             device=device)
     return {"k": z(), "v": z()}
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device) -> Params:
+    m = cfg.mla
+    z = lambda w: torch.zeros((batch, max_len, w), dtype=dtype,
+                              device=device)
+    return {"ckv": z(m.kv_lora_rank), "krope": z(m.qk_rope_head_dim)}
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    device) -> Params:
+    init = init_mla_cache if cfg.mla is not None else init_gqa_cache
+    return init(cfg, batch, max_len, dtype, device)
 
 
 def _qkv(cfg: ModelConfig, p: Params, x, positions):
@@ -75,3 +113,134 @@ def gqa_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
     cache["v"].index_put_((b, idx), v[:, 0].to(cache["v"].dtype))
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
     return out.reshape(B, 1, -1) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------- #
+# MLA (DeepSeek-V2)
+# --------------------------------------------------------------------------- #
+
+
+def q_chunk_for(S: int) -> int:
+    """Query rows a chunk of the full-sequence MLA attention takes: none
+    below 4096, 512 up to 8192, then 256 (the reference's
+    ``transformer._auto_q_chunk``): at S = 4096 with 128 heads an
+    unchunked f32 score slab would be 16 GiB a pair of sequences."""
+    if S < 4096:
+        return 0
+    return 512 if S <= 8192 else 256
+
+
+def _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, scale: float,
+              q_chunk: int = 0):
+    """Causal attention with the decoupled-rope split scores, over query
+    chunks of ``q_chunk`` rows where that divides S.  q_nope/k_nope
+    (B, S, H, dn); q_rope (B, S, H, dr); k_rope (B, S, dr) shared by the
+    heads; v (B, S, H, dv).  Scores and softmax in f32."""
+    Sq, Skv = q_nope.shape[1], k_nope.shape[1]
+    kpos = torch.arange(Skv, device=q_nope.device)[None, :]
+
+    def block(qn, qr, off: int):
+        s = torch.einsum("bqhd,bshd->bhqs", qn, k_nope).float()
+        s = s + torch.einsum("bqhd,bsd->bhqs", qr, k_rope).float()
+        s = s * scale
+        qpos = off + torch.arange(qn.shape[1], device=qn.device)[:, None]
+        s = s.masked_fill(kpos > qpos, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype), v)
+
+    if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
+        return torch.cat([block(q_nope[:, i:i + q_chunk],
+                                q_rope[:, i:i + q_chunk], i)
+                          for i in range(0, Sq, q_chunk)], dim=1)
+    return block(q_nope, q_rope, 0)
+
+
+def _mla_q(cfg: ModelConfig, p: Params, x, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    hq = x @ p["w_dq"] if "w_dq" in p else x
+    q = (hq @ p["w_uq"]).reshape(B, S, cfg.n_heads, m.qk_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg: ModelConfig, p: Params, x, positions):
+    """The latent ``ckv`` (B, S, r) and the roped shared key (B, S, dr)."""
+    m = cfg.mla
+    ckv, k_rope = (x @ p["w_dkv"]).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return ckv, k_rope
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla.qk_head_dim)
+
+
+def mla_full(cfg: ModelConfig, p: Params, x, positions, *,
+             cache: Params | None = None):
+    """Full-sequence MLA (prefill): k/v materialised from the latent, the
+    queries chunked as ``q_chunk_for(S)`` says.  With ``cache``, the
+    latent and the rope key are written into it at offset 0 (in place).
+    Returns (out, cache)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    ckv, k_rope = _mla_latent(cfg, p, x, positions)
+    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (ckv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    out = _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, _mla_scale(cfg),
+                    q_chunk_for(S))
+    out = out.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    if cache is not None:
+        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, :S] = k_rope.to(cache["krope"].dtype)
+    return out, cache
+
+
+def mla_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
+    """Absorbed MLA decode: W_UK folded into the query and W_UV applied
+    after the weighted sum, so scores and values stay in the latent space
+    of the (B, S, r) + (B, S, dr) cache.  Writes the new latent and rope
+    key at ``lengths`` in place.  Returns (out, cache)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, lengths[:, None])
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+    ckv_new, krope_new = _mla_latent(cfg, p, x, lengths[:, None])
+    b = torch.arange(B, device=x.device)
+    idx = lengths.to(torch.int64)
+    ckv, krope = cache["ckv"], cache["krope"]
+    ckv.index_put_((b, idx), ckv_new[:, 0].to(ckv.dtype))
+    krope.index_put_((b, idx), krope_new[:, 0].to(krope.dtype))
+    s_lat = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv).float()
+    s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope, krope).float()
+    kpos = torch.arange(ckv.shape[1], device=x.device)
+    mask = (kpos[None, :] <= lengths[:, None])[:, None, None]
+    scores = torch.where(mask, (s_lat + s_rope) * _mla_scale(cfg), NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhqs,bsr->bqhr", w.to(ckv.dtype), ckv)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)
+    return out.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------- #
+# The entry points of the blocks
+# --------------------------------------------------------------------------- #
+
+
+def attn_full(cfg: ModelConfig, p: Params, x, positions, *, cache=None):
+    if cfg.mla is not None:
+        return mla_full(cfg, p, x, positions, cache=cache)
+    return gqa_full(cfg, p, x, positions, cache=cache)
+
+
+def attn_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
+    if cfg.mla is not None:
+        return mla_decode(cfg, p, x, lengths, cache)
+    return gqa_decode(cfg, p, x, lengths, cache)

@@ -9,27 +9,102 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 Params = dict
 
 
-def dense_init(shape, generator: torch.Generator, dtype, device,
-               scale: float | None = None) -> torch.Tensor:
-    """Truncated-normal (±3σ) fan-in init, drawn in f32 on the generator's
-    device (a CPU generator gives the same weights on every device; a CUDA
-    generator keeps a full-width init off the host)."""
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
-    return (w * std).to(device=device, dtype=dtype)
+class Draw:
+    """Makes the leaves of a seeded init, each a new tensor in ``dtype`` on
+    ``device`` unless a leaf names its own dtype.  ``dense`` and ``embed``
+    draw in f32 on the generator's device (a CPU generator gives the same
+    weights on every device; a CUDA generator keeps a full-width init off
+    the host) and cast into the leaf."""
+
+    def __init__(self, generator: torch.Generator, dtype, device):
+        self.generator, self.dtype, self.device = generator, dtype, device
+
+    def leaf(self, shape, dtype=None) -> torch.Tensor:
+        """The (uninitialised) tensor one leaf is made in."""
+        return torch.empty(tuple(shape), dtype=dtype or self.dtype,
+                           device=self.device)
+
+    def dense(self, shape, scale: float | None = None, dtype=None):
+        """Truncated-normal (±3σ) fan-in init.  A weight of three or more
+        axes (the experts' ``(E, D, F)``) is drawn one slab of its leading
+        axis at a time, so the f32 draw never holds more than one expert."""
+        out = self.leaf(shape, dtype)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+        for part in (out if out.dim() >= 3 else [out]):
+            w = torch.empty(part.shape, dtype=torch.float32,
+                            device=self.generator.device)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0,
+                                        generator=self.generator)
+            part.copy_(w * std)
+        return out
+
+    def embed(self, shape):
+        w = torch.randn(tuple(shape), generator=self.generator,
+                        dtype=torch.float32, device=self.generator.device)
+        return self.leaf(shape).copy_(w * 0.02)
+
+    def ones(self, shape, dtype=None):
+        return self.leaf(shape, dtype).fill_(1)
+
+    def zeros(self, shape, dtype=None):
+        return self.leaf(shape, dtype).zero_()
+
+    def const(self, array):
+        """An f32 leaf holding ``array`` (numpy)."""
+        a = torch.as_tensor(np.asarray(array, np.float32))
+        return self.leaf(a.shape, torch.float32).copy_(a)
 
 
-def embed_init(shape, generator: torch.Generator, dtype, device):
-    w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device) * 0.02
-    return w.to(device=device, dtype=dtype)
+class _StackDraw(Draw):
+    """Draws layer after layer straight into (n, ...) leaves: the k-th
+    leaf layer ``i`` makes is slice ``i`` of the k-th stacked tensor."""
+
+    def __init__(self, generator, dtype, device, n: int):
+        super().__init__(generator, dtype, device)
+        self.n, self.stacks, self.i, self.k = n, [], 0, 0
+
+    def leaf(self, shape, dtype=None) -> torch.Tensor:
+        if self.i == 0:
+            self.stacks.append(torch.empty(
+                (self.n,) + tuple(shape), dtype=dtype or self.dtype,
+                device=self.device))
+        out = self.stacks[self.k][self.i]
+        if out.shape != tuple(shape):
+            raise ValueError(f"layer {self.i} leaf {self.k}: {tuple(shape)} "
+                             f"where layer 0 made {tuple(out.shape)}")
+        self.k += 1
+        return out
+
+
+def stacked(n: int, layer, generator, dtype, device) -> Params:
+    """``n`` draws of ``layer(draw)`` stacked on a leading axis.  Each leaf
+    is allocated once at (n, ...) and filled in place, layer by layer and
+    leaf by leaf (the draws keep that order): a full-width init holds the
+    stack and one expert's f32 draw, never a second copy of a layer."""
+    draw = _StackDraw(generator, dtype, device, n)
+    tree = None
+    for i in range(n):
+        draw.i, draw.k = i, 0
+        lp = layer(draw)
+        if i == 0:
+            tree = lp
+        if draw.k != len(draw.stacks):
+            raise ValueError(f"layer {i} made {draw.k} leaves, layer 0 "
+                             f"{len(draw.stacks)}")
+    stacks = {id(s): s for s in draw.stacks}
+
+    def lift(t):        # layer 0's leaves are views of their stacks
+        if isinstance(t, dict):
+            return {k: lift(v) for k, v in t.items()}
+        return stacks[id(t._base)]
+    return lift(tree)
 
 
 def rms_norm(x, scale, eps: float = 1e-5):
@@ -65,12 +140,11 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def init_ffn(generator, d_model: int, d_ff: int, act: str, dtype,
-             device) -> Params:
-    p = {"w_in": dense_init((d_model, d_ff), generator, dtype, device),
-         "w_out": dense_init((d_ff, d_model), generator, dtype, device)}
+def init_ffn(draw: Draw, d_model: int, d_ff: int, act: str) -> Params:
+    p = {"w_in": draw.dense((d_model, d_ff)),
+         "w_out": draw.dense((d_ff, d_model))}
     if act == "swiglu":
-        p["w_gate"] = dense_init((d_model, d_ff), generator, dtype, device)
+        p["w_gate"] = draw.dense((d_model, d_ff))
     return p
 
 

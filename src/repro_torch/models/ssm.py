@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Params, dense_init, gated_rms_norm
+from repro_torch.models.layers import Draw, Params, gated_rms_norm
 
 
 class SSMState(NamedTuple):
@@ -29,11 +29,11 @@ class SSMState(NamedTuple):
     conv: torch.Tensor    # (B, conv_dim, W-1) model dtype
 
 
-def init_mamba(generator, cfg: ModelConfig, dtype, device) -> Params:
-    """The reference's init: seeded dense weights from ``generator``; A in
-    [1, 16] log-uniform and dt in [1e-3, 0.1] from the same numpy draws
-    as the reference (``RandomState(0)`` and ``(1)``), dt bias the
-    inverse softplus of dt."""
+def init_mamba(draw: Draw, cfg: ModelConfig) -> Params:
+    """The reference's init: seeded dense weights; A in [1, 16]
+    log-uniform and dt in [1e-3, 0.1] from the same numpy draws as the
+    reference (``RandomState(0)`` and ``(1)``), dt bias the inverse
+    softplus of dt."""
     s: SSMConfig = cfg.ssm
     D = cfg.d_model
     di, nh = s.d_inner(D), s.n_heads(D)
@@ -43,18 +43,16 @@ def init_mamba(generator, cfg: ModelConfig, dtype, device) -> Params:
     dt0 = np.exp(np.random.RandomState(1).uniform(np.log(1e-3), np.log(0.1),
                                                   nh))
     dt_bias = dt0 + np.log(-np.expm1(-dt0))
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     return {
-        "w_in": dense_init((D, 2 * di + 2 * s.n_groups * s.d_state + nh),
-                           generator, dtype, device),
-        "conv_w": dense_init((s.conv_width, conv_dim), generator, dtype,
-                             device, scale=1.0 / np.sqrt(s.conv_width)),
-        "conv_b": torch.zeros((conv_dim,), dtype=dtype, device=device),
-        "A_log": f32(np.log(a0)),
-        "D": torch.ones((nh,), dtype=torch.float32, device=device),
-        "dt_bias": f32(dt_bias),
-        "norm": torch.ones((di,), dtype=dtype, device=device),
-        "w_out": dense_init((di, D), generator, dtype, device),
+        "w_in": draw.dense((D, 2 * di + 2 * s.n_groups * s.d_state + nh)),
+        "conv_w": draw.dense((s.conv_width, conv_dim),
+                             scale=1.0 / np.sqrt(s.conv_width)),
+        "conv_b": draw.zeros((conv_dim,)),
+        "A_log": draw.const(np.log(a0)),
+        "D": draw.ones((nh,), torch.float32),
+        "dt_bias": draw.const(dt_bias),
+        "norm": draw.ones((di,)),
+        "w_out": draw.dense((di, D)),
     }
 
 

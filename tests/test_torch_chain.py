@@ -337,7 +337,8 @@ def test_service_refusals_and_defaults():
 @pytest.mark.parametrize("arch", ["xlb-service-model", "minitron-4b",
                                   "mamba2-2.7b", "granite-20b",
                                   "internlm2-20b", "yi-34b",
-                                  "chameleon-34b"])
+                                  "chameleon-34b", "arctic-480b",
+                                  "deepseek-v2-236b", "jamba-v0.1-52b"])
 def test_serve_arch_smoke_matches_reference_count(arch, capsys):
     argv = ["--arch", arch, "--instances", "2", "--slots", "2",
             "--requests", "6", "--max-len", "5"]
@@ -350,8 +351,8 @@ def test_serve_arch_smoke_matches_reference_count(arch, capsys):
 def test_serve_arch_refusals():
     with pytest.raises(SystemExit, match="enc-dec serving needs prompt"):
         tserve.main(["--arch", "whisper-large-v3", "--device", "cpu"])
-    for arch in ("arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
-            tserve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="enc-dec serving needs prompt"):
+        tserve.main(["--arch", "whisper-large-v3", "--smoke", "--device",
+                     "cpu"])
     with pytest.raises(SystemExit):            # argparse: not a choice
         tserve.main(["--arch", "gpt-2", "--device", "cpu"])

@@ -529,6 +529,13 @@ def _counted(name, call):
     # G = 48 (granite-20b's MQA): 12 passes of 4 heads in bf16, 6 of 8 in f32
     (2, 500, 48, 1, 128, torch.float32, None),
     (2, 500, 48, 1, 128, torch.bfloat16, None),
+    # G = 7 (arctic-480b's 56 / 8): passes of 4 + 3 heads in bf16, one of 7
+    # in f32; G = 4 (jamba-v0.1-52b's 32 / 8)
+    (2, 4128, 56, 8, 128, torch.bfloat16, None),
+    (2, 4128, 56, 8, 128, torch.float32, None),
+    (3, 1000, 7, 1, 128, torch.bfloat16, None),
+    (2, 4128, 32, 8, 128, torch.bfloat16, None),
+    (2, 1000, 32, 8, 128, torch.float32, None),
 ])
 def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
                                                lengths):
@@ -570,6 +577,12 @@ def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
     (2, 64, 4, 2, 16, torch.float32, True, False),
     (2, 64, 4, 2, 16, torch.bfloat16, True, False),
     (1, 200, 4, 2, 16, torch.bfloat16, False, True),
+    # G = 7 (arctic-480b's 56 / 8) and G = 4 (jamba-v0.1-52b's 32 / 8)
+    (1, 1024, 56, 8, 128, torch.bfloat16, True, False),
+    (1, 1024, 56, 8, 128, torch.float32, True, False),
+    (1, 300, 7, 1, 128, torch.bfloat16, True, False),
+    (1, 1024, 32, 8, 128, torch.bfloat16, True, False),
+    (1, 1024, 32, 8, 128, torch.float32, True, False),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
                                               causal, stacked):
@@ -646,20 +659,31 @@ def test_ssd_scan_kernel_matches_plain(dev, B, S, nh, hd, N, dtype, chunk,
     _assert_close(h, wh, f32_tol=2e-4)
 
 
-@pytest.mark.parametrize("arch", ["minitron-4b", "mamba2-2.7b"])
+# the kernel launches of a smoke prefill and 4 decode steps: a GQA layer
+# launches B7 once and B6 once a step, a mamba layer B8 once, a MoE layer
+# B5 once a prefill and once a step (deepseek's MLA runs no kernel)
+SMOKE_LAUNCHES = {
+    "minitron-4b": {"flash_attention": 2, "decode_attention": 8},
+    "mamba2-2.7b": {"ssd_scan": 2},
+    "arctic-480b": {"flash_attention": 2, "decode_attention": 8,
+                    "relay_slots": 10},
+    "deepseek-v2-236b": {"relay_slots": 5},
+    "jamba-v0.1-52b": {"flash_attention": 1, "decode_attention": 4,
+                       "ssd_scan": 7, "relay_slots": 20}}
+
+
+@pytest.mark.parametrize("arch", list(SMOKE_LAUNCHES))
 def test_prefill_decode_smoke_configs_on_the_card(dev, arch):
     """The launcher's reduced config (hd 16; mamba's N 16) on the card:
-    finite logits, every attention or SSD call through its kernel."""
+    finite logits, every attention, SSD and MoE dispatch call through its
+    kernel."""
     from repro_torch.launch import prefill_decode
     before = dict(ops.LAUNCHES)
     res = prefill_decode.main(["--smoke", "--arch", arch, "--batch", "2",
                                "--prompt", "64", "--steps", "4"])
     assert bool(torch.isfinite(res["logits"]).all())
     runs = {k: ops.LAUNCHES[k] - before[k] for k in before}
-    if arch == "mamba2-2.7b":
-        assert runs["ssd_scan"] == 2                # 2 layers, one prefill
-    else:
-        assert runs["flash_attention"] == 2 and runs["decode_attention"] == 8
+    assert {k: v for k, v in runs.items() if v} == SMOKE_LAUNCHES[arch]
 
 
 def _control_plane():
