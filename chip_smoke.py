@@ -106,26 +106,46 @@ Phases (each prints one line; any failure exits non-zero):
    prompts of 256 tokens, holding those whose router top-k set flips in
    no layer; the faults: every routed row dropped, and where there is GQA
    attention half the keys); the largest kernels of each profiled
-   prefill; each model is freed before the next is built;
+   prefill; each model is freed before the next is built; then
+   whisper-large-v3 at full width and depth (32 encoder + 32 decoder
+   layers, bf16): 8 x (1500 encoder frames + a 224-token prompt)
+   prefilled and 32 greedy decode steps (the encoder through B7 not
+   causal, the decoder's self-attention through B7 and B6, its cross
+   decode through B6 against the stored encoder K/V; the encoder's and
+   the prefill's ms, ms per step, tokens/s, peak memory, B7's device ms
+   a launch in the profiled encoder, B6's in a profiled step), with the
+   decode check in f32 (< 1e-3) and bf16 (under WHISPER_REL_TOL_BF16,
+   which cross_v zeroed in the cache must exceed); then whisper trained
+   at full width and depth (bf16 params, f32 moments, 8 x (448 tokens +
+   1500 frames)) through ``train_loop.run``: 8 steps, a checkpoint every
+   4, a failure injected at step 6 (restored and replayed), B7 in every
+   forward, finite losses falling, ms a step, tokens/s, peak memory, the
+   share of the FLOP bound, and one profiled step's B7 backward
+   recompute as a share of its device time;
 7. the reduced (smoke) configs of minitron-4b, mamba2-2.7b, the four
    dense and vlm archs and the three moe and hybrid ones (head dim 16;
    mamba's state 16) through the launcher's ``main`` on the card, as a
    user runs ``prefill_decode --smoke``, with finite logits and every
    attention, SSD and MoE dispatch through its kernel; then prefill and
    one decode step of each on the card against the CPU (f32, rtol = atol
-   = 1e-4); then ``launch/serve.py --arch`` at full width for
+   = 1e-4), whisper-large-v3's with its encoder frames; every arch's
+   smoke config trained two steps through ``launch.train`` on the card
+   (the forward's B7, B8 and B5 launches counted), and one smoke training
+   step of whisper-large-v3 and jamba-v0.1-52b on the card against the
+   CPU (f32: the loss and every gradient leaf within rtol = atol =
+   1e-4); then ``launch/serve.py --arch`` at full width for
    xlb-service-model, minitron-4b and mamba2-2.7b and with ``--smoke`` for
    the four dense and vlm archs and the three moe and hybrid ones (every
-   request served), and whisper-large-v3 (audio, not ported yet):
-   ``init_params`` raises ``NotImplementedError`` naming ROADMAP item 12
-   and ``serve`` exits as the reference does;
+   request served); ``serve --arch whisper-large-v3`` exits as the
+   reference's does (an encoder-decoder has no prompt audio there);
 8. the kernel launch counts: ``admit_commit``, ``complete`` and
    ``decode_attention`` on the main path (and in each serving phase after
    it), ``route_match``, ``relay_slots`` and ``admit`` in the staged
    phase, ``admit``, ``complete`` and ``route_match`` in the sharded
    drain (added to those), ``flash_attention``, ``decode_attention``,
    ``ssd_scan`` and ``relay_slots`` (the MoE layers x (1 + steps) of each
-   run) in the model phases (summed over the archs);
+   run) in the model phases (summed over the archs), and the same three
+   in the training forwards (whisper's cell and the smoke configs);
 9. ``python -m repro_torch.analysis`` with its kernels section in a
    subprocess: under compute-sanitizer's memcheck and racecheck where
    the sanitizer can attach to the card, else against the kernels'
@@ -149,7 +169,10 @@ prefill must run exactly those four.  Decode attention is also held at
 G = 48 query heads over one KV head (granite-20b's MQA), decode and
 flash attention at the MoE archs' heads (arctic-480b's 56 / 8, G 7, and
 jamba-v0.1-52b's 32 / 8, G 4, hd 128: the run's decode and prefill
-shapes, each in bf16 and f32, timed beside their bounds), and the three
+shapes, each in bf16 and f32, timed beside their bounds), flash attention
+not causal at whisper-large-v3's encoder (8 x 1500, 20 / 20, hd 64, bf16
+and f32, beside SDPA) and at a ragged S of 130, decode attention at its
+cross decode (8 x 1500 frames, lengths F - 1), and the three
 float kernels at the smoke configs' head dim 16 (and the SSD's N 16), in
 f32 and bf16.  The admission and completion kernels' device times at
 the serving shape, and the relay kernel's at each of its shapes, are
@@ -164,8 +187,11 @@ without one, or without the port's sources beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -305,6 +331,21 @@ MOE_ATTN_HEADS = {"arctic": 56, "jamba": 32}
 MOE_CHECK_PROMPT, MOE_CHECK_BATCH = 256, 8
 # a slot past every capacity: the planted fault of the MoE decode check
 PLANT_SLOT = 1 << 30
+# the whisper serving cell: batch, encoder frames (30 s of audio), the
+# decoder prompt and the decode steps (224 + 32 tokens within the
+# 448-token text context of the published dimensions); its bf16 decode
+# check's limit, which cross_v zeroed in the cache must exceed
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 8, 224, 32
+WHISPER_REL_TOL_BF16 = 5e-2
+# the whisper training cell: batch x (decoder tokens + encoder frames), the
+# steps through train_loop.run, the checkpoint interval and the step whose
+# first run fails (restored from the step-4 checkpoint and replayed)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 448, 8
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 6
+# the smoke configs through launch.train: steps, batch, sequence; and the
+# archs whose one smoke training step runs on the card against the CPU
+SMOKE_TRAIN_STEPS, SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ = 2, 2, 64
+TRAIN_PARITY_ARCHS = ("whisper-large-v3", "jamba-v0.1-52b")
 # the archs serve --arch runs at full width, and those it serves at the
 # reduced config (their f32 serving weights pass one card)
 SERVE_ARCHS = ("xlb-service-model", "minitron-4b", "mamba2-2.7b")
@@ -1310,7 +1351,81 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
         peak=BF16_OPS_PS, err=err, err_f32=err32)
     del x, a, Bg, Cg, Bm, Cm, ky, kh
     moe_attention(torch, ops, da, fa, rows, timing, dev)
+    whisper_attention(torch, ops, da, fa, rows, timing, dev)
     return rows, timing
+
+
+def whisper_attention(torch, ops, da, fa, rows, timing, dev):
+    """B7 in its non-causal mode at whisper-large-v3's encoder (8 x 1500
+    frames, 20 / 20 heads, hd 64: the bf16 tensor-core kernel, a ragged
+    last 128-row tile) in bf16 and f32, and at a ragged S of 130, each
+    against its plain version, the encoder shape timed beside one SDPA
+    call; B6 at its cross decode (one query against every frame of the
+    stored encoder K/V, lengths F - 1)."""
+    import torch.nn.functional as F
+    sdpa = F.scaled_dot_product_attention
+    B, S, H, hd = WHISPER_BATCH, 1500, 20, 64
+    g = torch.Generator(device=dev).manual_seed(1500)
+    rn = lambda *shape, dt=torch.bfloat16: torch.randn(
+        shape, generator=g, device=dev).to(dt)
+    q, k, v = rn(B, S, H, hd), rn(B, S, H, hd), rn(B, S, H, hd)
+    call = lambda: ops.flash_attention(q, k, v, causal=False)
+    plain = lambda: fa.flash_attention(q, k, v, causal=False)
+    err = float_err(torch, "flash_attention[enc]", call(), plain())
+    err32 = f32_err(torch, lambda *t: ops.flash_attention(*t, causal=False),
+                    lambda *t: fa.flash_attention(*t, causal=False),
+                    "flash_attention[enc]", q.float(), k.float(), v.float())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: sdpa(qt, kt, vt)
+    lib_err = float((lib().transpose(1, 2).float() - plain().float())
+                    .abs().max())
+    ms, names = kernel_time(profile_calls(torch, call, reps=5),
+                            "flash_kernel")
+    check(names == "flash_kernel_wgmma<64>", f"B7 at the encoder's shape "
+          f"ran {names!r}, not the tensor-core kernel")
+    rows.append(f"flash_attention[enc: B={B} S={S} H={H} K={H} hd={hd} "
+                f"not causal bf16] max_abs_err={err}, in f32 {err32} (sdpa "
+                f"vs plain {lib_err:.3g}; {names})")
+    timing["flash_attention[enc]"] = dict(
+        ms=ms, kernel=names, call_ms=cuda_ms(torch, call, reps=5, warm=1),
+        plain_ms=cuda_ms(torch, plain, reps=3, warm=1),
+        library_ms=cuda_ms(torch, lib, reps=10, warm=2),
+        library_device_ms=library_device_ms(torch, lib, reps=5),
+        bytes=nbytes(q, k, v, q), ops=4 * B * H * hd * S * S,
+        peak=BF16_OPS_PS, err=err, err_f32=err32)
+    errs = []
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (rn(2, 130, H, hd, dt=dt) for _ in range(3))
+        errs.append(float_err(torch, f"flash_attention[S=130 {dt}]",
+                              ops.flash_attention(q, k, v, causal=False),
+                              fa.flash_attention(q, k, v, causal=False)))
+    rows.append(f"flash_attention[B=2 S=130 H={H} hd={hd} not causal] "
+                f"max_abs_err={errs[0]} bf16, {errs[1]} f32")
+    del q, k, v, qt, kt, vt
+    # B6 against the stored encoder K/V: every frame valid
+    q, kc, vc, lens = decode_inputs(torch, B, S, H, H, hd, torch.bfloat16,
+                                    [S - 1] * B, dev, seed=1499)
+    call = lambda: ops.decode_attention(q, kc, vc, lens)
+    plain = lambda: da.decode_attention(q, kc, vc, lens)
+    err = float_err(torch, "decode_attention[cross]", call(), plain())
+    err32 = f32_err(torch, ops.decode_attention, da.decode_attention,
+                    "decode_attention[cross]", q.float(), kc.float(),
+                    vc.float(), lens)
+    q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    lib = lambda: sdpa(q4, k4, v4)
+    ms, names = kernel_time(profile_calls(torch, call), "decode_")
+    nb, nops = decode_work(q, kc, lens)
+    rows.append(f"decode_attention[cross: B={B} F={S} H={H} K={H} hd={hd} "
+                f"bf16, lengths F - 1] max_abs_err={err}, in f32 {err32} "
+                f"({names})")
+    timing["decode_attention[cross]"] = dict(
+        ms=ms, kernel=names, call_ms=cuda_ms(torch, call),
+        plain_ms=cuda_ms(torch, plain, reps=10, warm=2),
+        library_ms=cuda_ms(torch, lib, reps=20, warm=3),
+        library_device_ms=library_device_ms(torch, lib), bytes=nb,
+        ops=nops, peak=BF16_OPS_PS, err=err, err_f32=err32)
+    del q, kc, vc
+    torch.cuda.empty_cache()
 
 
 def moe_attention(torch, ops, da, fa, rows, timing, dev):
@@ -1729,21 +1844,36 @@ def _leaves(tree):
 
 def layer_counts(cfg) -> dict:
     """A config's layers by the kernels they launch: GQA attention (B7 a
-    prefill, B6 a decode step; MLA runs neither), mamba (B8 a prefill)
-    and MoE FFNs (B5 a prefill and a decode step)."""
+    prefill, B6 a decode step, twice with whisper's cross-attention; MLA
+    runs neither), whisper's encoder layers (B7 not causal), mamba (B8 a
+    prefill) and MoE FFNs (B5 a prefill and a decode step)."""
     L, m = cfg.n_layers, cfg.moe
     attn = 0 if cfg.attn_free else (L // cfg.attn_period if cfg.is_hybrid
                                     else L)
     moe = sum(m.enabled and i >= m.first_dense
               and i % m.moe_every == m.moe_offset for i in range(L))
-    return {"gqa": 0 if cfg.mla else attn, "mamba": L - attn, "moe": moe}
+    return {"gqa": 0 if cfg.mla else attn, "mamba": L - attn, "moe": moe,
+            "enc": cfg.n_enc_layers if cfg.is_encdec else 0}
 
 
 def expected_launches(cfg, steps: int) -> dict:
     """The kernel launches of a prefill and ``steps`` decode steps."""
     n = layer_counts(cfg)
-    want = {"flash_attention": n["gqa"], "decode_attention": n["gqa"] * steps,
+    per_step = n["gqa"] * (2 if cfg.is_encdec else 1)
+    want = {"flash_attention": n["gqa"] + n["enc"],
+            "decode_attention": per_step * steps,
             "ssd_scan": n["mamba"], "relay_slots": n["moe"] * (1 + steps)}
+    return {k: v for k, v in want.items() if v}
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The kernel launches of ``steps`` training steps: each forward runs
+    B7 in every attention layer (whisper's encoder too), B8 in every
+    mamba layer and B5 in every MoE layer; the backward recomputes the
+    plain functions and launches none."""
+    n = layer_counts(cfg)
+    want = {"flash_attention": (n["gqa"] + n["enc"]) * steps,
+            "ssd_scan": n["mamba"] * steps, "relay_slots": n["moe"] * steps}
     return {k: v for k, v in want.items() if v}
 
 
@@ -1754,16 +1884,17 @@ def expected_launches(cfg, steps: int) -> dict:
 
 def phase_smoke_configs(torch, ops, TM, launcher, configs, dev="cuda"):
     """``prefill_decode --smoke`` of minitron-4b, mamba2-2.7b, the dense
-    and vlm archs (DENSE_ARCHS) and the moe and hybrid ones (MOE_ARCHS) on
-    the card through the launcher's ``main`` (weights from a CUDA
-    generator):
+    and vlm archs (DENSE_ARCHS), the moe and hybrid ones (MOE_ARCHS) and
+    whisper-large-v3 (its encoder frames drawn from the seed) on the card
+    through the launcher's ``main`` (weights from a CUDA generator):
     finite logits, and the kernel launches of that run counted from zero;
     then prefill and one decode step of each smoke config on the card
     against the CPU with the same weights (f32, rtol = atol = 1e-4)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     lines = []
-    for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS + MOE_ARCHS:
+    for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS + MOE_ARCHS \
+            + ("whisper-large-v3",):
         cfg = configs.smoke_config(configs.get_config(arch))
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
@@ -1779,15 +1910,19 @@ def phase_smoke_configs(torch, ops, TM, launcher, configs, dev="cuda"):
               f"{cfg.name}: launcher logits not finite of the right shape")
         params = TM.init_params(cfg, torch.Generator().manual_seed(3),
                                 torch.float32, "cpu")
+        g = torch.Generator().manual_seed(4)
         tokens = torch.randint(0, cfg.vocab, (SMOKE_BATCH, SMOKE_PROMPT),
-                               generator=torch.Generator().manual_seed(4),
-                               dtype=torch.int32)
+                               generator=g, dtype=torch.int32)
+        frames = torch.randn((SMOKE_BATCH, cfg.enc_frames, cfg.d_model),
+                             generator=g) if cfg.is_encdec else None
         out = {}
         for d in ("cpu", dev):
             p = _to(torch, params, d)
             cache = TM.init_cache(cfg, SMOKE_BATCH, SMOKE_PROMPT + 1,
                                   torch.float32, d)
-            first, cache = TM.prefill(cfg, p, tokens.to(d), cache)
+            first, cache = TM.prefill(
+                cfg, p, tokens.to(d), cache,
+                enc_frames=None if frames is None else frames.to(d))
             lengths = torch.full((SMOKE_BATCH,), SMOKE_PROMPT,
                                  dtype=torch.int32, device=d)
             nxt, _ = TM.decode_step(cfg, p, tokens[:, :1].to(d), lengths,
@@ -3134,18 +3269,431 @@ def model_params(torch, cfg, dev):
 
 
 # --------------------------------------------------------------------------- #
+# phase 6c: whisper-large-v3 serving and training at full width
+# --------------------------------------------------------------------------- #
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` over ``reps`` calls, each ending in a
+    synchronise."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def whisper_decode_check(torch, TM, cfg, params, tokens, frames,
+                         plant=False):
+    """(the last logits of a prefill over all of ``tokens``, those of a
+    prefill of all but the last token and one decode step): the decode
+    step reads the cross K/V the shorter prefill stored.  With ``plant``
+    the stored ``cross_v`` is zeroed before the step (every layer's cross
+    attention reads zeros), and the first is None."""
+    dev, dt = tokens.device, params["embed"].dtype
+    B, S = tokens.shape
+    frames = frames.to(dt)
+    full = None if plant else TM.prefill(
+        cfg, params, tokens, TM.init_cache(cfg, B, S, dt, dev),
+        enc_frames=frames)[0]
+    _, cache = TM.prefill(cfg, params, tokens[:, :-1],
+                          TM.init_cache(cfg, B, S, dt, dev),
+                          enc_frames=frames)
+    if plant:
+        cache["blocks"]["cross_v"].zero_()
+    lengths = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    logits, _ = TM.decode_step(cfg, params, tokens[:, -1:], lengths, cache)
+    return full, logits
+
+
+def phase_whisper(torch, ops, TM, launcher, cfg, dev="cuda"):
+    """whisper-large-v3 at full width and depth in bf16 (weights from a
+    CUDA generator): WHISPER_BATCH x 1500 encoder frames and a
+    WHISPER_PROMPT-token prompt prefilled, WHISPER_STEPS greedy decode
+    steps through the launcher's ``run``; the launches (B7 in each encoder
+    layer, not causal, and each decoder layer; B6 twice a decoder layer a
+    step, the second against the stored encoder K/V), the encoder's and
+    the prefill's time, the profiled encoder's B7 and one profiled decode
+    step's B6; the decode check in f32 and bf16 with cross_v zeroed as
+    the planted fault.  Returns (line, launches)."""
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, P, T = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS
+    params = TM.init_params(cfg, gen, None, dev)
+    dt = params["embed"].dtype
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev,
+                           dtype=torch.int32)
+    frames = torch.randn((B, cfg.enc_frames, cfg.d_model), generator=gen,
+                         device=dev).to(dt)
+    n_params = sum(t.numel() for t in _leaves(params))
+    launcher.run(cfg, params, tokens[:, :16], 2, frames)   # warm-up
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    res = launcher.run(cfg, params, tokens, T, frames)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    want = expected_launches(cfg, T)
+    check(launches == want, f"{cfg.name}: kernel launches {launches}, "
+          f"expected {want}")
+    check(res["tokens"].shape == (B, T)
+          and bool(torch.isfinite(res["logits"]).all()),
+          f"{cfg.name}: decode logits not finite")
+    enc_ms = host_ms(torch, lambda: TM.encode(cfg, params, frames))
+    _, enc_ev = device_events(torch, lambda: TM.encode(cfg, params, frames))
+    b7_us, b7_names = kernel_time(enc_ev, "flash_kernel")
+    check(b7_names == "flash_kernel_wgmma<64>", f"{cfg.name}: the encoder "
+          f"ran {b7_names!r}, not the tensor-core kernel")
+    enc_busy = sum(enc_ev.values()) / 1e3
+    top = "; ".join(f"{kernel_name(k)[:60]} {us / 1e3:.3f}" for k, us in
+                    sorted(enc_ev.items(), key=lambda kv: -kv[1])[:5])
+    # one decode step at the last position of the run under the profiler
+    cache = TM.init_cache(cfg, B, P + T, dt, dev)
+    TM.prefill(cfg, params, tokens, cache, enc_frames=frames)
+    lengths = torch.full((B,), P + T - 1, dtype=torch.int32, device=dev)
+    TM.decode_step(cfg, params, tokens[:, :1], lengths, cache)
+    _, step_ev = device_events(torch, lambda: TM.decode_step(
+        cfg, params, tokens[:, :1], lengths, cache))
+    b6_us, b6_names = kernel_time(step_ev, "decode_")
+    step_busy = sum(step_ev.values()) / 1e3
+    del cache
+    peak = torch.cuda.max_memory_allocated(dev)
+    # the decode check: f32 (the weights cast up beside the bf16 ones),
+    # then bf16 with and without the planted fault
+    f16_full, f16_dec = whisper_decode_check(torch, TM, cfg, params, tokens,
+                                             frames)
+    _, bad = whisper_decode_check(torch, TM, cfg, params, tokens, frames,
+                                  plant=True)
+    rel16, planted = rel_err(f16_dec, f16_full), rel_err(bad, f16_full)
+    p32 = _tree(params, lambda t: t.float())
+    f32_full, f32_dec = whisper_decode_check(torch, TM, cfg, p32, tokens,
+                                             frames.float())
+    del p32
+    peak_check = torch.cuda.max_memory_allocated(dev)
+    for name, t in (("bf16 prefill", f16_full), ("bf16 decode", f16_dec),
+                    ("f32 prefill", f32_full), ("f32 decode", f32_dec)):
+        check(bool(torch.isfinite(t).all()), f"{cfg.name}: non-finite "
+              f"{name} logits")
+    rel32 = rel_err(f32_dec, f32_full)
+    check(rel32 < LLM_REL_TOL_F32, f"{cfg.name}: f32 decode vs prefill rel "
+          f"{rel32:.3e} >= {LLM_REL_TOL_F32}")
+    check(rel16 < WHISPER_REL_TOL_BF16, f"{cfg.name}: bf16 decode vs "
+          f"prefill rel {rel16:.3e} >= {WHISPER_REL_TOL_BF16}")
+    check(planted >= WHISPER_REL_TOL_BF16, f"{cfg.name}: the bf16 gate does "
+          f"not see cross_v zeroed: rel {planted:.3e} < "
+          f"{WHISPER_REL_TOL_BF16}")
+    per_step = res["decode_s"] / T
+    n_dec = layer_counts(cfg)["gqa"]
+    line = (f"model {cfg.name}: {n_params / 1e9:.3f} B parameters "
+            f"({cfg.n_enc_layers} encoder + {cfg.n_layers} decoder layers, "
+            f"full depth; bf16); prefill {B} x ({cfg.enc_frames} frames + "
+            f"{P} tokens) {1e3 * res['prefill_s']:.3f} ms, of which the "
+            f"encoder alone {enc_ms:.3f} ms (host clock, median of 3); "
+            f"{T} decode steps {1e3 * per_step:.3f} ms per step = "
+            f"{B / per_step:.1f} tokens/s; peak memory {peak / 2**30:.2f} "
+            f"GiB (init, prefill, decode; {peak_check / 2**30:.2f} GiB "
+            f"with the decode check's f32 weights); launches " + " ".join(f"{k}={v}" for k, v in
+                                         launches.items())
+            + f"; profiled encoder: device busy {enc_busy:.3f} ms, B7 "
+            f"{b7_names} (not causal) {b7_us / 1e3:.3f} ms = "
+            f"{b7_us / 1e3 / cfg.n_enc_layers:.5f} a launch "
+            f"({cfg.n_enc_layers} launches); largest kernels (ms): {top}; "
+            f"one decode step at position {P + T - 1} (profiler): device "
+            f"busy {step_busy:.4f} ms, B6 ({b6_names}) {b6_us / 1e3:.4f} ms "
+            f"over {2 * n_dec} launches (self and cross), "
+            f"{b6_us / 1e3 / (2 * n_dec):.5f} a launch; decode after a "
+            f"{P - 1}-token prefill vs the full prefill: rel {rel32:.3e} in "
+            f"f32 (< {LLM_REL_TOL_F32}), {rel16:.3e} in bf16 (< "
+            f"{WHISPER_REL_TOL_BF16}), with cross_v zeroed in the cache "
+            f"{planted:.3e} (>= {WHISPER_REL_TOL_BF16}); bf16 vs f32 "
+            f"prefill logits {rel_err(f16_full, f32_full):.3e}")
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """The operations one training step of whisper needs (forward + the
+    backward's two: 3 x the forward's GEMMs and attention scores, no
+    recompute): encoder GEMMs over B x enc_frames rows, decoder GEMMs over
+    B x S (the cross-attention's K/V projections over the frames), the
+    head, the encoder's full and the decoder's causal self-attention and
+    its cross-attention."""
+    D, Ff, F_ = cfg.d_model, cfg.d_ff, cfg.enc_frames
+    H, hd = cfg.n_heads, cfg.head_dim
+    te, td = B * F_, B * S
+    ffn, proj = 2 * D * Ff, 4 * D * H * hd        # params a token
+    enc = cfg.n_enc_layers * (2 * (proj + ffn) * te
+                              + 4 * B * H * hd * F_ * F_)
+    dec = cfg.n_layers * (2 * (proj + 2 * D * H * hd + ffn) * td
+                          + 2 * 2 * D * H * hd * te
+                          + 4 * B * H * hd * S * (S + 1) // 2
+                          + 4 * B * H * hd * S * F_)
+    head = 2 * D * cfg.vocab_padded * td
+    return 3.0 * (enc + dec + head)
+
+
+def ranged_kernel_ms(events, names) -> tuple:
+    """(device ms of the kernels that ran inside the device-side ranges
+    of the profiler annotations ``names``, device ms of every kernel),
+    from the profiler's device timeline (one stream: a range's kernels
+    are the kernels between its start and end).  The first is None where
+    the profiler recorded no device-side range of those names."""
+    from torch.autograd import DeviceType
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in dev
+                    if e.name in names)
+    kernels = [e for e in dev if e.name not in names]
+    total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    if not ranges:
+        return None, total
+    inside = sum(e.time_range.elapsed_us() for e in kernels
+                 if any(a <= e.time_range.start and e.time_range.end <= b
+                        for a, b in ranges))
+    return inside / 1e3, total
+
+
+def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
+    """whisper-large-v3 trained at full width and depth (bf16 params, f32
+    moments) on TRAIN_BATCH x (TRAIN_SEQ tokens + 1500 frames) through
+    ``train_loop.run``: TRAIN_STEPS steps, a checkpoint every
+    TRAIN_CKPT_EVERY, a failure injected before step TRAIN_FAIL_AT's first
+    run (restored from the last checkpoint and replayed); B7 counted in
+    every forward; finite losses and gradient norms, the last loss below
+    the first; ms a step, tokens/s, peak memory, the share of the FLOP
+    bound; then one step under the profiler for the backward recompute's
+    device share.  Returns (lines, launches)."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    pipe = TP.Pipeline(TP.DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        enc_frames=cfg.enc_frames, d_model=cfg.d_model))
+    tcfg = TL.TrainConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                          ckpt_dir=str(ckpt_dir), warmup=2,
+                          opt=TA.AdamWConfig(lr=1e-3), log_every=1)
+    failed = []
+
+    def fail_once(step):
+        if step == TRAIN_FAIL_AT and not failed:
+            failed.append(step)
+            raise RuntimeError("injected node failure")
+
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    out = TL.run(cfg, pipe, tcfg, device=dev, fail_injector=fail_once)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    hist = out["history"]
+    steps = [h["step"] for h in hist]
+    want_steps = list(range(TRAIN_FAIL_AT)) + list(
+        range(TRAIN_CKPT_EVERY, TRAIN_STEPS))
+    check(out["restarts"] == 1 and steps == want_steps, f"{cfg.name} "
+          f"training: steps {steps}, restarts {out['restarts']}")
+    want = train_launches(cfg, len(hist))
+    check(launches == want, f"{cfg.name} training: launches {launches}, "
+          f"expected {want}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"{cfg.name} training: a non-finite loss or "
+          "gradient norm")
+    check(hist[-1]["loss"] < hist[0]["loss"], f"{cfg.name} training: last "
+          f"loss {hist[-1]['loss']} not below the first {hist[0]['loss']}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    first = {h["step"]: h["loss"] for h in hist[:TRAIN_FAIL_AT]}
+    replay = [(h["step"], h["loss"] - first[h["step"]])
+              for h in hist[TRAIN_FAIL_AT:] if h["step"] in first]
+    check([st for st, _ in replay] == list(range(TRAIN_CKPT_EVERY,
+                                                  TRAIN_FAIL_AT))
+          and all(d == 0.0 for _, d in replay), f"{cfg.name} training: "
+          f"the replayed steps' loss - first run {replay}, expected 0")
+    walls = [h["wall_s"] for h in hist[1:]]
+    step_ms = statistics.median(walls) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bound = flops / BF16_OPS_PS * 1e3
+    # one more step under the profiler, on the trained state
+    state = out["state"]
+    step_fn = TL.make_train_step(cfg, tcfg)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(state["params"], state["opt"], state["bias"], batch)
+        torch.cuda.synchronize()
+    events = prof.events()
+    recompute, busy = ranged_kernel_ms(
+        events, (ops.VJP_RANGES["flash_attention"],))
+    by_name: dict = {}
+    from torch.autograd import DeviceType
+    for e in events:
+        if e.device_type == DeviceType.CUDA \
+                and e.name not in ops.VJP_RANGES.values():
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    check(busy > 0, f"{cfg.name}: the profiler saw no kernel of the "
+          "training step")
+    pct = lambda ms: 100 * ms / busy if busy else float("nan")
+    b7 = kernel_time(by_name, "flash_kernel")[0] or 0.0
+    top = "; ".join(f"{kernel_name(k)[:60]} {ms:.2f}" for k, ms in
+                    sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    # the recompute timed alone: one backward of B7 at the encoder's and
+    # the decoder's self-attention shapes (events), times the layers
+    H, hd = cfg.n_heads, cfg.head_dim
+    g = torch.Generator(device=dev).manual_seed(9)
+    vjp_ms = 0.0
+    for S, causal, layers in ((cfg.enc_frames, False, cfg.n_enc_layers),
+                              (TRAIN_SEQ, True, cfg.n_layers)):
+        q, k, v, do = (torch.randn((TRAIN_BATCH, S, H, hd), generator=g,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        vjp_ms += layers * cuda_ms(torch, lambda: fa.flash_attention_vjp(
+            q, k, v, do, causal=causal), reps=3, warm=1)
+        del q, k, v, do
+    del out, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    lines = [
+        f"train {cfg.name}: full width and depth ({cfg.n_enc_layers} + "
+        f"{cfg.n_layers} layers), bf16 params and grads, f32 moments; "
+        f"batch {TRAIN_BATCH} x ({TRAIN_SEQ} tokens + {cfg.enc_frames} "
+        f"frames); {len(hist)} steps run ({TRAIN_STEPS} + the replay of "
+        f"{TRAIN_FAIL_AT - TRAIN_CKPT_EVERY} after the failure injected at "
+        f"step {TRAIN_FAIL_AT}; one restart), checkpoints every "
+        f"{TRAIN_CKPT_EVERY}, {wall:.1f} s in all; losses "
+        + " ".join(f"{h['loss']:.4f}" for h in hist)
+        + "; grad norms " + " ".join(f"{h['grad_norm']:.3f}" for h in hist)
+        + "; replayed steps' loss - first run: "
+        + ", ".join(f"step {s} {d:+.3e}" for s, d in replay)
+        + f"; ms a step {step_ms:.2f} (median of steps 2-{len(hist)}, "
+        f"host clock; step 1 {hist[0]['wall_s'] * 1e3:.1f}), "
+        f"{tokens / step_ms * 1e3:.1f} decoder tokens/s "
+        f"({TRAIN_BATCH * cfg.enc_frames / step_ms * 1e3:.1f} frames/s); "
+        f"peak memory {peak / 2**30:.2f} GiB; FLOP bound {bound:.2f} ms "
+        f"({flops / 1e12:.2f} TFLOP at {BF16_OPS_PS / 1e12:.0f} TFLOP/s): "
+        f"{100 * bound / step_ms:.1f} % of the step; launches "
+        + " ".join(f"{k}={v}" for k, v in launches.items()),
+        f"train {cfg.name} profiled step: device busy {busy:.2f} ms; B7 "
+        f"forward {b7:.3f} ms ({cfg.n_enc_layers + cfg.n_layers} launches); "
+        f"backward recompute of B7 (the kernels inside the "
+        f"xlb::flash_attention_vjp ranges) "
+        + ("not measured (no device-side range recorded)"
+           if recompute is None else
+           f"{recompute:.2f} ms = {pct(recompute):.1f} % of the "
+           f"step's device time")
+        + f"; timed alone (events, one vjp at the encoder's and the "
+        f"decoder's shape x the layers) {vjp_ms:.2f} ms = "
+        f"{pct(vjp_ms):.1f} %; largest kernels (ms): {top}"]
+    return lines, launches
+
+
+def phase_train_smoke(torch, ops, TM, train, configs, dev="cuda"):
+    """Every arch's smoke config through ``launch.train`` on the card
+    (SMOKE_TRAIN_STEPS steps each, the config's dtype): finite losses and
+    the forward's launches (B7 in every attention layer, B8 in every
+    mamba layer, B5 in every MoE layer) counted from zero; then one
+    training step of each of TRAIN_PARITY_ARCHS' smoke configs in f32 on
+    the card against the CPU with the same weights and batch: the loss
+    and every gradient leaf within rtol = atol = 1e-4.  Returns (lines,
+    launches summed over the archs)."""
+    import shutil
+    from repro_torch.tree import items, leaves
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lines, total = [], {}
+    root = ROOT / "build" / "train_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    for arch in configs.ASSIGNED_ARCHS + ["xlb-service-model"]:
+        cfg = configs.smoke_config(configs.get_config(arch))
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = train.main(["--arch", arch, "--steps",
+                              str(SMOKE_TRAIN_STEPS), "--global-batch",
+                              str(SMOKE_TRAIN_BATCH), "--seq",
+                              str(SMOKE_TRAIN_SEQ), "--ckpt-dir",
+                              str(root / arch)])
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        want = train_launches(cfg, SMOKE_TRAIN_STEPS)
+        check(got == want, f"{cfg.name}: launch.train launches {got}, "
+              f"expected {want}")
+        losses = [h["loss"] for h in out["history"]]
+        check(len(losses) == SMOKE_TRAIN_STEPS
+              and all(math.isfinite(x) for x in losses),
+              f"{cfg.name}: launch.train losses {losses}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        lines.append(f"train smoke {cfg.name} ({cfg.dtype}): launch.train "
+                     f"on the card, {SMOKE_TRAIN_STEPS} steps of "
+                     f"{SMOKE_TRAIN_BATCH} x {SMOKE_TRAIN_SEQ}, losses "
+                     + " ".join(f"{x:.4f}" for x in losses)
+                     + "; launches " + " ".join(f"{k}={v}" for k, v in
+                                                got.items()))
+    shutil.rmtree(root, ignore_errors=True)
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = configs.smoke_config(configs.get_config(arch))
+        params = TM.init_params(cfg, torch.Generator().manual_seed(3),
+                                torch.float32, "cpu")
+        batch = Pipeline(DataConfig(
+            vocab=cfg.vocab, seq_len=SMOKE_TRAIN_SEQ,
+            global_batch=SMOKE_TRAIN_BATCH,
+            enc_frames=cfg.enc_frames if cfg.is_encdec else 0,
+            d_model=cfg.d_model)).batch_at(0)
+        res = {}
+        for d in ("cpu", dev):
+            p = _to(torch, params, d)
+            for t in leaves(p):
+                t.requires_grad_(True)
+            loss, _ = TM.loss_fn(cfg, p, {k: torch.from_numpy(v).to(d)
+                                          for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves(p))
+            res[d] = (loss.detach().cpu(), [g.cpu() for g in grads])
+        check(bool(torch.isfinite(res[dev][0])), f"{cfg.name}: non-finite "
+              "loss on the card")
+        torch.testing.assert_close(res[dev][0], res["cpu"][0], rtol=1e-4,
+                                   atol=1e-4)
+        worst = 0.0
+        for (name, _), a, b in zip(items(params), res[dev][1],
+                                   res["cpu"][1]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                       msg=lambda m: f"{arch} {name}: {m}")
+            worst = max(worst, float((a - b).abs().max()))
+        lines.append(f"train parity {cfg.name} (f32): one training step on "
+                     f"the card vs the CPU, loss {float(res[dev][0]):.6f} vs "
+                     f"{float(res['cpu'][0]):.6f}, {len(res[dev][1])} "
+                     f"gradient leaves max_abs_err={worst:.3g} "
+                     "(rtol=atol=1e-4)")
+    return lines, total
+
+
+# --------------------------------------------------------------------------- #
 # phase 6b: serve --arch at full width
 # --------------------------------------------------------------------------- #
 
 
-def phase_serve_arch(torch, serve, TM, configs):
+def phase_serve_arch(torch, serve):
     """``serve.main(["--arch", a, "--device", "cuda"])`` for each arch of
     SERVE_ARCHS at full width (free the earlier phases' models first:
     minitron-4b in f32 is about 16 GB) and of SERVE_SMOKE_ARCHS with
     ``--smoke`` (the reduced config the reference's serve runs: their f32
-    weights pass one card); the audio family (whisper) is not ported:
-    ``init_params`` raises NotImplementedError naming ROADMAP item 12 and
-    ``serve`` refuses it as the reference does."""
+    weights pass one card); ``serve`` refuses whisper-large-v3 (an
+    encoder-decoder: the serving loop has no prompt audio to give it) as
+    the reference does."""
     import contextlib
     import io
     lines = []
@@ -3165,16 +3713,6 @@ def phase_serve_arch(torch, serve, TM, configs):
                      f"{first}; main() {wall:.2f} s with the weights' init; "
                      "peak memory "
                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    whisper = configs.smoke_config(configs.get_config("whisper-large-v3"))
-    try:
-        TM.init_params(whisper, torch.Generator("cuda").manual_seed(0),
-                       torch.float32, "cuda")
-    except NotImplementedError as e:
-        check("ROADMAP.md item 12" in str(e), f"whisper: {e}")
-        lines.append(f"init_params whisper-large-v3: NotImplementedError "
-                     f"({e})")
-    else:
-        fail("init_params of whisper-large-v3 did not raise")
     try:
         serve.main(["--arch", "whisper-large-v3", "--smoke", "--device",
                     "cuda"])
@@ -3292,6 +3830,10 @@ def main() -> int:
     from repro_torch.launch import serve
     from repro_torch.workload import hops as HP
     from repro_torch.kernels import tune
+    from repro_torch.data import pipeline as TP
+    from repro_torch.launch import train as TRN
+    from repro_torch.optim import adamw as TA
+    from repro_torch.runtime import train_loop as TL
 
     # the run plans its admissions itself: no pin from the environment
     for name in (tune.ENV_AUTOTUNE, tune.ENV_BLOCK_R, tune.ENV_BLOCK_I,
@@ -3372,15 +3914,31 @@ def main() -> int:
         for k, v in got.items():
             llm_launches[k] = llm_launches.get(k, 0) + v
         prefill_kernels[arch] = names
+    whisper = get_config("whisper-large-v3")
+    line, whisper_launches = phase_whisper(torch, ops, TM, PDL, whisper)
+    print(line)
+    for k, v in whisper_launches.items():
+        llm_launches[k] = llm_launches.get(k, 0) + v
+    tlines, train_whisper = phase_train(torch, ops, fa, TL, TP, TA, whisper)
+    for line in tlines:
+        print(line)
     for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
         print(line)
-    for line in phase_serve_arch(torch, serve, TM, configs):
+    tlines, train_smoke = phase_train_smoke(torch, ops, TM, TRN, configs)
+    for line in tlines:
+        print(line)
+    train_total = dict(train_whisper)
+    for k, v in train_smoke.items():
+        train_total[k] = train_total.get(k, 0) + v
+    for line in phase_serve_arch(torch, serve):
         print(line)
     launches = {**main_launches, **staged_launches, **llm_launches}
     # relay_slots runs on two paths: the staged chain and the MoE dispatch
     launches["relay_slots"] = staged_launches["relay_slots"] \
         + llm_launches["relay_slots"]
     for k, v in sharded_launches.items():       # the sharded drain's
+        launches[k] += v
+    for k, v in train_total.items():            # the training forwards'
         launches[k] += v
     print("kernels: " + " ".join(
         f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
@@ -3392,7 +3950,15 @@ def main() -> int:
           "minitron-4b, " + ", ".join(DENSE_ARCHS) + ", arctic-480b and "
           "jamba-v0.1-52b, ssd_scan in mamba2-2.7b's and jamba's, and "
           f"relay_slots in {llm_launches['relay_slots']} launches of the "
-          "MoE dispatch in " + ", ".join(MOE_ARCHS) + "); " + "; ".join(
+          "MoE dispatch in " + ", ".join(MOE_ARCHS) + "; whisper-large-"
+          "v3's serving cell: flash_attention in its encoder, not causal, "
+          "and decoder, decode_attention self and cross; the training "
+          "forwards: " + " ".join(f"{k}={v}" for k, v in train_total.items())
+          + " (whisper-large-v3 at full width "
+          + " ".join(f"{k}={v}" for k, v in train_whisper.items())
+          + ", the smoke configs through launch.train "
+          + " ".join(f"{k}={v}" for k, v in train_smoke.items())
+          + ")); " + "; ".join(
               f"in the {name} phase: " + " ".join(
                   f"{k}={v}" for k, v in got.items())
               for name, got in (("control", control_launches),
@@ -3464,8 +4030,26 @@ def main() -> int:
                 kernels[-1]["tiles_ms"] = {
                     f"R={R},block_r={b}": tune_timing[(name, R, b)]
                     for R in (ADMIT_R, 4096) for b in rm.TILES}
+            if name in train_total:            # and in the training forwards
+                kernels[-1]["launches_training"] = train_total[name]
             if name == "flash_attention":      # as minitron's prefill ran it
                 kernels[-1]["kernel"] = prefill_kernels["minitron-4b"]
+                enc = timing["flash_attention[enc]"]
+                kernels[-1]["whisper_encoder_shape"] = {
+                    "causal": False, "kernel": enc["kernel"],
+                    "ms": enc["ms"], "plain_ms": enc["plain_ms"],
+                    "bound_ms": bound_ms(enc)[0],
+                    "library_ms": enc["library_ms"],
+                    "library_device_ms": enc["library_device_ms"],
+                    "max_abs_err": enc["err"]}
+            if name == "decode_attention":     # whisper's cross decode
+                cross = timing["decode_attention[cross]"]
+                kernels[-1]["whisper_cross_shape"] = {
+                    "kernel": cross["kernel"], "ms": cross["ms"],
+                    "plain_ms": cross["plain_ms"],
+                    "bound_ms": bound_ms(cross)[0],
+                    "library_ms": cross["library_ms"],
+                    "max_abs_err": cross["err"]}
             if name in ("decode_attention", "flash_attention"):
                 kernels[-1]["moe_shapes"] = {
                     key[len(name):]: {

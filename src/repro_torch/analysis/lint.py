@@ -48,9 +48,12 @@ PACKAGE = "repro_torch"
 #: the per-tick datapath: the strictest lints
 DATAPATH = ("repro_torch.kernels", "repro_torch.core")
 
-#: the serving datapath the import-graph reachability starts from
+#: the serving datapath the import-graph reachability starts from (the
+#: serving runtime's modules, not the training loop and its checkpoints)
 DATAPATH_ROOTS = (
-    "repro_torch.kernels", "repro_torch.core", "repro_torch.runtime",
+    "repro_torch.kernels", "repro_torch.core",
+    "repro_torch.runtime.serve_loop", "repro_torch.runtime.transport",
+    "repro_torch.runtime.elastic",
     "repro_torch.workload", "repro_torch.launch.serve",
     "repro_torch.launch.mesh", "repro_torch.analysis",
     "repro_torch.device",
@@ -68,7 +71,13 @@ SEED_LEGACY = (
 
 #: the seed modules the report marks dead (nothing of the serving
 #: datapath imports them); a datapath import of one is the failing event
-KNOWN_DEAD = ("repro_torch.launch.prefill_decode",)
+KNOWN_DEAD = (
+    "repro_torch.data", "repro_torch.data.pipeline",
+    "repro_torch.launch.prefill_decode", "repro_torch.launch.train",
+    "repro_torch.optim", "repro_torch.optim.adamw",
+    "repro_torch.optim.compression", "repro_torch.optim.schedules",
+    "repro_torch.runtime.checkpoint", "repro_torch.runtime.train_loop",
+)
 
 #: wall-clock exemptions inside the datapath (measurement code):
 #: ``kernels/_build.py`` times the nvcc run it starts, ``kernels/tune.py``

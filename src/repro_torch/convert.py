@@ -7,8 +7,11 @@ every family the port runs; deepseek's ``first`` (a list of unstacked
 layers); the MLA leaves (``w_dq``, ``w_uq``, ``w_dkv``, ``w_uk``,
 ``w_uv``, ``wo``); the ``moe`` leaves (``router`` f32, the (E, ...)
 expert weights, ``shared`` / ``residual``); jamba's ``pos{i}`` layers of
-a period.  It carries caches too: dicts and lists of arrays, and an
-``SSMState`` (the hybrid family's ``{"attn", "ssm"}`` cache).
+a period; whisper's ``enc`` subtree (stacked encoder ``blocks``,
+``norm_f``) and its decoder layers' ``norm_x`` and ``cross`` leaves.  It
+carries caches too: dicts and lists of arrays, an ``SSMState`` (the
+hybrid family's ``{"attn", "ssm"}`` cache), whisper's ``cross_k`` /
+``cross_v``; and the optimizer's ``AdamWState`` (step, f32 moments).
 ``ssm_state_from_numpy`` carries a (stacked or per-layer) ``SSMState``;
 ``routing_from_numpy`` and ``pool_from_numpy`` do the same for the
 datapath state.  The caller turns
@@ -23,6 +26,7 @@ import torch
 from repro_torch.core.balancer import PoolState
 from repro_torch.core.routing_table import RoutingState, state_from_numpy
 from repro_torch.models.ssm import SSMState
+from repro_torch.optim.adamw import AdamWState
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -32,11 +36,16 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 def params_from_jax(tree, device, dtype=None):
     """Nested dicts and lists of numpy arrays → the same nesting of
-    tensors; a tuple with ``SSMState``'s fields becomes an ``SSMState``."""
+    tensors; a tuple with ``SSMState``'s or ``AdamWState``'s fields
+    becomes one (an ``AdamWState``'s step keeps its int32)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     if getattr(tree, "_fields", None) == SSMState._fields:
         return SSMState(*(params_from_jax(v, device, dtype) for v in tree))
+    if getattr(tree, "_fields", None) == AdamWState._fields:
+        return AdamWState(_tensor(tree.step, device),
+                          *(params_from_jax(v, device, dtype)
+                            for v in tree[1:]))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device, dtype) for v in tree)
     return _tensor(tree, device, dtype)

@@ -10,6 +10,13 @@ FMA kernel in both dtypes.  ``kernels/ops.py`` picks one by
 the tensors' device.  Both compute the reference function: the Pallas
 kernel's skip of KV blocks with ``qi * block_q < ki * block_k`` drops
 valid keys when ``block_q > block_k``, and neither port version has it.
+
+``flash_attention_vjp`` is the gradient the training path takes (through
+the autograd Function in ``kernels/ops.py``): the reference has no
+backward kernel, and its gradient is JAX's autodiff of the plain
+``models/attention.py::sdpa``, so this recomputes that function in plain
+PyTorch from the saved inputs, ``VJP_Q_CHUNK`` query rows at a time, and
+returns its vector-Jacobian product.
 """
 
 from __future__ import annotations
@@ -25,6 +32,9 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 #: head dims whose bf16 calls run on the tensor cores (the rest: FMAs)
 TC_HEAD_DIMS = (32, 64, 128)
+#: query rows the backward recomputes at a time: one (B, H, 512, S) f32
+#: score slab alive (the reference's ``q_chunk`` up to S 8192)
+VJP_Q_CHUNK = 512
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
@@ -42,6 +52,50 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.to(torch.float32))
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def attention_rows(q, k, v, offset: int, *, causal: bool):
+    """The reference's ``sdpa`` over query rows ``offset`` on: q
+    (B, CQ, H, hd) against k/v (B, Skv, K, hd).  Scores in the inputs'
+    dtype, then scaled, masked (key position > query position, with
+    ``causal``) and softmaxed in f32; the weights cast back to v's dtype
+    for the sum (``repro/models/attention.py::sdpa``'s ``block``)."""
+    B, CQ, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, CQ, K, H // K, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * (
+        1.0 / math.sqrt(hd))
+    if causal:
+        qpos = offset + torch.arange(CQ, device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(kpos > qpos, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return out.reshape(B, CQ, H, v.shape[-1])
+
+
+def flash_attention_vjp(q, k, v, dout, *, causal: bool):
+    """(dq, dk, dv) of ``attention_rows`` over all of q at ``dout``, in
+    the inputs' dtypes: recomputed under autograd ``VJP_Q_CHUNK`` query
+    rows at a time (causal rows read only the keys they see), dk and dv
+    summed over the chunks in f32."""
+    S = q.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for i in range(0, S, VJP_Q_CHUNK):
+        j = min(i + VJP_Q_CHUNK, S)
+        n = j if causal else k.shape[1]
+        with torch.enable_grad():
+            qc, kc, vc = (t.detach().requires_grad_()
+                          for t in (q[:, i:j], k[:, :n], v[:, :n]))
+            out = attention_rows(qc, kc, vc, i, causal=causal)
+            gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc),
+                                             dout[:, i:j])
+        dq[:, i:j] = gq
+        dk[:, :n] += gk
+        dv[:, :n] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:

@@ -4,7 +4,10 @@ Each wrapper checks where its tensors lie.  On a CUDA device it launches
 the hand-written kernel (``csrc/``) or raises; on the CPU it runs the
 plain PyTorch version.  There is no fallback from one to the other.
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels.  ``flash_attention`` and
+``ssd_scan`` are differentiable: their kernels run the forward, and the
+backward recomputes the plain function (the reference's gradient is
+JAX's autodiff of its plain functions; there is no backward kernel).
 
 The sharded wrappers (``admit_commit_sharded``, ``complete_sharded``)
 count the launches of the kernels they run per shard under those kernels'
@@ -45,6 +48,9 @@ from repro_torch.kernels.route_match import AdmitResult
 LAUNCHES = {"admit": 0, "admit_commit": 0, "complete": 0, "route_match": 0,
             "relay_slots": 0, "decode_attention": 0, "flash_attention": 0,
             "ssd_scan": 0}
+#: the profiler ranges the backward recomputes of B7 and B8 run in
+VJP_RANGES = {"flash_attention": "xlb::flash_attention_vjp",
+              "ssd_scan": "xlb::ssd_scan_vjp"}
 
 
 class AdmitCommitOut(NamedTuple):
@@ -295,14 +301,61 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
     return _da.decode_attention(q, k_cache, v_cache, lengths)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """B7 with a gradient: the forward launches the kernel on CUDA tensors
+    (the plain version on the CPU), the backward recomputes the plain
+    attention from the saved inputs (``flash_attention_vjp``) on either."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        if _on_cuda(q):
+            out = _fa.flash_attention_cuda(q, k, v, causal=causal)
+            LAUNCHES["flash_attention"] += 1
+        else:
+            out = _fa.flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.profiler.record_function(VJP_RANGES["flash_attention"]):
+            return (*_fa.flash_attention_vjp(*ctx.saved_tensors, dout,
+                                             causal=ctx.causal), None)
+
+
+class _SSDScan(torch.autograd.Function):
+    """B8 with a gradient: the forward launches the kernels on CUDA
+    tensors (the plain version on the CPU), the backward recomputes the
+    plain scan from the saved inputs (``ssd_scan_vjp``) on either."""
+
+    @staticmethod
+    def forward(ctx, xdt, a_log, Bm, Cm, chunk: int):
+        if _on_cuda(xdt):
+            y, h = _ssd.ssd_scan_cuda(xdt, a_log, Bm, Cm)
+            LAUNCHES["ssd_scan"] += 1
+        else:
+            y, h = _ssd.ssd_scan(xdt, a_log, Bm, Cm, chunk)
+        ctx.save_for_backward(xdt, a_log, Bm, Cm)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        with torch.profiler.record_function(VJP_RANGES["ssd_scan"]):
+            if dy is None:
+                dy = torch.zeros_like(ctx.saved_tensors[0])
+            return (*_ssd.ssd_scan_vjp(*ctx.saved_tensors, ctx.chunk, dy,
+                                       dh), None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """GQA prefill attention: q (B, S, H, hd), k/v (B, S, K, hd) →
-    (B, S, H, hd), causal or not, scaled by 1/sqrt(hd).  Any S."""
-    if _on_cuda(q):
-        res = _fa.flash_attention_cuda(q, k, v, causal=causal)
-        LAUNCHES["flash_attention"] += 1
-        return res
-    return _fa.flash_attention(q, k, v, causal=causal)
+    (B, S, H, hd), causal or not, scaled by 1/sqrt(hd).  Any S.
+    Differentiable: the kernel runs the forward, the plain attention is
+    recomputed for the backward."""
+    return _FlashAttention.apply(q, k, v, causal)
 
 
 def ssd_scan(xdt, a_log, Bm, Cm, *, chunk: int,
@@ -314,14 +367,12 @@ def ssd_scan(xdt, a_log, Bm, Cm, *, chunk: int,
     The plain version computes chunk by chunk; on the card ``chunk`` is
     only checked for divisibility (the kernels use chunks of their own,
     and the form is exact for any chunk).  One call is one count in
-    ``LAUNCHES``, whatever number of passes it runs."""
+    ``LAUNCHES``, whatever number of passes it runs.  Differentiable: the
+    kernels run the forward, the plain scan is recomputed for the
+    backward."""
     S = xdt.shape[1]
     chunk = min(chunk, S)
     if chunk <= 0 or S % chunk:
         raise ValueError(f"S = {S} is not a multiple of the chunk {chunk}")
-    if _on_cuda(xdt):
-        y, h = _ssd.ssd_scan_cuda(xdt, a_log, Bm, Cm)
-        LAUNCHES["ssd_scan"] += 1
-    else:
-        y, h = _ssd.ssd_scan(xdt, a_log, Bm, Cm, chunk)
+    y, h = _SSDScan.apply(xdt, a_log, Bm, Cm, chunk)
     return (y, h) if return_state else y

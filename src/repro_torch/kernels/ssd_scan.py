@@ -6,6 +6,12 @@ inputs' dtype (as the Pallas kernel computes); ``ssd_scan_cuda`` launches
 ``csrc/ssd_scan.cu``.  ``kernels/ops.py`` picks one by the tensors'
 device.  Both start from a zero state and return ``(y, h_last)``: y
 (B, S, nh, hd) in xdt's dtype and the final state (B, nh, hd, N) f32.
+
+``ssd_scan_vjp`` is the training path's gradient (through the autograd
+Function in ``kernels/ops.py``): the reference has no backward kernel,
+and its gradient is JAX's autodiff of ``ssd_chunked``, so this recomputes
+the plain version from the saved inputs and returns its vector-Jacobian
+product.
 """
 
 from __future__ import annotations
@@ -71,6 +77,18 @@ def ssd_scan(xdt, a_log, Bm, Cm, chunk: int):
                          torch.exp(A_cum))
     y = (Y_diag + Y_off).reshape(B, S, nh, hd)
     return y.to(xdt.dtype), h
+
+
+def ssd_scan_vjp(xdt, a_log, Bm, Cm, chunk: int, dy, dh=None):
+    """(dxdt, da_log, dBm, dCm) of ``ssd_scan`` at the output gradients
+    ``dy`` and, where the final state was used, ``dh``; recomputed under
+    autograd, in the inputs' dtypes and shapes (a broadcast Bm or Cm gets
+    its per-head gradient; the caller's expand sums it)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (xdt, a_log, Bm, Cm)]
+        y, h = ssd_scan(*ins, chunk)
+        outs, grads = ([y, h], [dy, dh]) if dh is not None else ([y], [dy])
+        return torch.autograd.grad(outs, ins, grads)
 
 
 def ssd_scan_cuda(xdt, a_log, Bm, Cm):

@@ -1,7 +1,10 @@
 """Prefill-then-decode launcher for the model stack: ``python -m
 repro_torch.launch.prefill_decode --arch minitron-4b --batch 2 --prompt
 4096 --steps 32 [--device cuda|cpu] [--smoke]``; ``--arch`` is one of
-``ARCHS`` (the dense, vlm, ssm, moe and hybrid families).  arctic-480b,
+``ARCHS`` (the dense, vlm, ssm, moe, hybrid and audio families).
+whisper-large-v3 encodes ``--batch`` x 1500 frames drawn from ``--seed``
+(its conv frontend is a stub: precomputed frame embeddings) before the
+prompt, which its 448-token text context bounds.  arctic-480b,
 deepseek-v2-236b and jamba-v0.1-52b pass one card at full depth (arctic
 alone is 477 B parameters): run them with ``--smoke``, or call ``run``
 with a config whose depth is cut.
@@ -31,7 +34,7 @@ from repro_torch.models import model as M
 #: the architectures the launcher builds (the families the port runs)
 ARCHS = ("minitron-4b", "mamba2-2.7b", "xlb-service-model", "granite-20b",
          "internlm2-20b", "yi-34b", "chameleon-34b", "arctic-480b",
-         "deepseek-v2-236b", "jamba-v0.1-52b")
+         "deepseek-v2-236b", "jamba-v0.1-52b", "whisper-large-v3")
 
 
 def _sync(device: torch.device) -> None:
@@ -39,10 +42,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(cfg, params, tokens, steps: int) -> dict:
-    """Prefill ``tokens`` (B, S) into a fresh cache, then ``steps`` greedy
-    decode steps; returns the generated tokens (B, steps), the last logits,
-    the prefill's merged ``MoEMetrics`` (None without MoE layers) and the
+def run(cfg, params, tokens, steps: int, enc_frames=None) -> dict:
+    """Prefill ``tokens`` (B, S) into a fresh cache (whisper: after
+    encoding ``enc_frames`` (B, F, D)), then ``steps`` greedy decode
+    steps; returns the generated tokens (B, steps), the last logits, the
+    prefill's merged ``MoEMetrics`` (None without MoE layers) and the
     host-clock seconds of each part (synchronised on the card)."""
     device = tokens.device
     batch, prompt = tokens.shape
@@ -51,6 +55,7 @@ def run(cfg, params, tokens, steps: int) -> dict:
     _sync(device)
     t0 = time.perf_counter()
     logits, cache, metrics = M.prefill(cfg, params, tokens, cache,
+                                       enc_frames=enc_frames,
                                        return_metrics=True)
     _sync(device)
     t1 = time.perf_counter()
@@ -88,7 +93,12 @@ def main(argv=None) -> dict:
     params = M.init_params(cfg, gen, dtype, device)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt),
                            generator=gen, device=device, dtype=torch.int32)
-    res = run(cfg, params, tokens, args.steps)
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.randn((args.batch, cfg.enc_frames, cfg.d_model),
+                             generator=gen, device=device).to(
+                                 params["embed"].dtype)
+    res = run(cfg, params, tokens, args.steps, frames)
     n = args.batch * args.steps
     per_step = res["decode_s"] / max(args.steps, 1)
     print(f"{cfg.name} [{device}]: prefill {args.batch} x {args.prompt} "

@@ -1,16 +1,22 @@
-"""GQA and MLA attention for prefill and one-token decode (twin of
-``repro/models/attention.py`` without the encoder-decoder parts).
+"""GQA and MLA attention for training, prefill and one-token decode, and
+whisper's cross-attention (twin of ``repro/models/attention.py``).
 
 Weights are flat on the head axis (``wq: (D, H*hd)``); GQA caches are
 ``(B, S, K, hd)`` per layer, MLA caches the latent ``ckv (B, S, r)`` and
-the shared rope key ``krope (B, S, dr)``.  GQA prefill attention runs
-through ``ops.flash_attention`` and GQA decode attention through
+the shared rope key ``krope (B, S, dr)``.  GQA self-attention over a
+whole sequence (causal, or not in whisper's encoder) runs through
+``ops.flash_attention`` and GQA decode attention through
 ``ops.decode_attention``: the hand-written kernels on the card, their
 plain versions on the CPU.  MLA is plain PyTorch on every device, as the
 reference computes it in plain jnp: neither kernel takes its 192-wide q/k
-with a 128-wide v, or the absorbed latent-space decode.  Unlike the
-reference, the caches are written in place (the caller owns them; no
-copy per step or per layer).
+with a 128-wide v, or the absorbed latent-space decode.  Whisper's cross
+prefill (decoder queries against the encoder's frames, no rope) is plain
+PyTorch too: the flash kernel, like the TPU one, takes q and k/v of one
+length, and there are 448 queries against 1500 frames; it is recomputed
+in the backward rather than saved.  Cross decode is one query against
+every frame, so it runs through ``ops.decode_attention`` with
+``lengths = F - 1``.  Unlike the reference, the caches are written in
+place (the caller owns them; no copy per step or per layer).
 """
 
 from __future__ import annotations
@@ -18,8 +24,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Draw, Params, apply_rope
 
@@ -72,29 +80,57 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return init(cfg, batch, max_len, dtype, device)
 
 
-def _qkv(cfg: ModelConfig, p: Params, x, positions):
-    """Projections and rope: q (B, S, H, hd), k/v (B, S, K, hd)."""
-    B, S, _ = x.shape
+def _qkv(cfg: ModelConfig, p: Params, x, positions, kv_x=None):
+    """Projections: q (B, Sq, H, hd) from x, k/v (B, Skv, K, hd) from
+    ``kv_x`` (x itself where None); rope on q and k for self-attention
+    only, as the reference."""
+    B, Sq, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, K, hd)
-    v = (x @ p["wv"]).reshape(B, S, K, hd)
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
+    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
+    k = (src @ p["wk"]).reshape(B, Skv, K, hd)
+    v = (src @ p["wv"]).reshape(B, Skv, K, hd)
+    if kv_x is not None:
+        return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _cross_sdpa(q, k, v):
+    """q (B, Sq, H, hd) against every frame of k/v (B, F, K, hd): the
+    reference's ``sdpa`` without a mask, in plain PyTorch.  Where a
+    gradient is wanted (training) it is checkpointed: the backward
+    recomputes the (B, H, Sq, F) f32 scores from q, k and v instead of
+    keeping them.  Serving, whose weights take no gradient, calls it
+    plainly."""
+    if any(t.requires_grad for t in (q, k, v)):
+        return torch.utils.checkpoint.checkpoint(
+            fa.attention_rows, q, k, v, 0, use_reentrant=False,
+            causal=False)
+    return fa.attention_rows(q, k, v, 0, causal=False)
+
+
 def gqa_full(cfg: ModelConfig, p: Params, x, positions, *,
-             cache: Params | None = None):
-    """Full-sequence causal self-attention (prefill).  x: (B, S, D);
-    positions broadcastable to (B, S).  With ``cache``, K/V are written
-    into it at offset 0 (in place, when S fits, as the reference's
-    ``dynamic_update_slice`` does).  Returns (out, cache)."""
+             causal: bool = True, kv_x=None, cache: Params | None = None):
+    """Full-sequence attention (train / prefill / encoder / cross).
+    x: (B, S, D); positions broadcastable to (B, S).  Self-attention
+    (``kv_x`` None) ropes q and k and runs ``ops.flash_attention``,
+    causal or not; cross-attention (``kv_x`` (B, F, D), the encoder's
+    output) takes k/v from it, no rope, no mask, in plain PyTorch.  With
+    ``cache``, the K/V are written into its ``"k"`` / ``"v"`` at offset 0
+    (in place, when they fit, as the reference's ``dynamic_update_slice``
+    does).  Returns (out, cache)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, positions)
-    out = ops.flash_attention(q, k, v, causal=True)
-    if cache is not None and S <= cache["k"].shape[1]:
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+    q, k, v = _qkv(cfg, p, x, positions, kv_x)
+    if kv_x is None:
+        out = ops.flash_attention(q, k, v, causal=causal)
+    else:
+        out = _cross_sdpa(q, k, v)
+    n = k.shape[1]
+    if cache is not None and n <= cache["k"].shape[1]:
+        cache["k"][:, :n] = k.to(cache["k"].dtype)
+        cache["v"][:, :n] = v.to(cache["v"].dtype)
     return out.reshape(B, S, -1) @ p["wo"], cache
 
 
@@ -113,6 +149,18 @@ def gqa_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
     cache["v"].index_put_((b, idx), v[:, 0].to(cache["v"].dtype))
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
     return out.reshape(B, 1, -1) @ p["wo"], cache
+
+
+def gqa_cross_decode(cfg: ModelConfig, p: Params, x, cross_k, cross_v):
+    """Cross-attention decode (whisper): x (B, 1, D) against the encoder
+    K/V the prefill stored, (B, F, K, hd), every frame valid: through
+    ``ops.decode_attention`` with ``lengths = F - 1``."""
+    B = x.shape[0]
+    q = (x @ p["wq"]).reshape(B, cfg.n_heads, cfg.head_dim)
+    lengths = torch.full((B,), cross_k.shape[1] - 1, dtype=torch.int32,
+                         device=x.device)
+    out = ops.decode_attention(q, cross_k, cross_v, lengths)
+    return out.reshape(B, 1, -1) @ p["wo"]
 
 
 # --------------------------------------------------------------------------- #
@@ -234,10 +282,13 @@ def mla_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
 # --------------------------------------------------------------------------- #
 
 
-def attn_full(cfg: ModelConfig, p: Params, x, positions, *, cache=None):
+def attn_full(cfg: ModelConfig, p: Params, x, positions, *, cache=None,
+              causal: bool = True):
+    """Self-attention over a whole sequence; MLA is causal only (no
+    encoder has it)."""
     if cfg.mla is not None:
         return mla_full(cfg, p, x, positions, cache=cache)
-    return gqa_full(cfg, p, x, positions, cache=cache)
+    return gqa_full(cfg, p, x, positions, causal=causal, cache=cache)
 
 
 def attn_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):

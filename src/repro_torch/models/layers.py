@@ -140,6 +140,18 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoid_positions(n_pos: int, d_model: int) -> torch.Tensor:
+    """Fixed sinusoidal embeddings (whisper encoder), (n_pos, d_model) f32
+    on the CPU: computed in f64 with numpy and cast, as the reference
+    computes them."""
+    pos = np.arange(n_pos)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    ang = pos * (1.0 / (10000 ** (2 * dim / d_model)))
+    return torch.from_numpy(
+        np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+        .astype(np.float32))
+
+
 def init_ffn(draw: Draw, d_model: int, d_ff: int, act: str) -> Params:
     p = {"w_in": draw.dense((d_model, d_ff)),
          "w_out": draw.dense((d_ff, d_model))}
@@ -152,6 +164,8 @@ def ffn(params: Params, x, act: str):
     h = x @ params["w_in"]
     if act == "swiglu":
         h = torch.nn.functional.silu(x @ params["w_gate"]) * h
+    elif act == "gelu":         # jax.nn.gelu's default: the tanh form
+        h = torch.nn.functional.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act!r}")
     return h @ params["w_out"]

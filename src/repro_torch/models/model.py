@@ -1,8 +1,10 @@
-"""Model factory for serving (twin of ``repro/models/model.py`` without the
-encoder-decoder and training parts): seeded init, cache init, prefill and
-one decode step for the dense, vlm, moe, ssm and hybrid families.
+"""Model factory (twin of ``repro/models/model.py``): seeded init, cache
+init, whisper's encoder, the training forward and loss, prefill and one
+decode step for the dense, vlm, moe, ssm, hybrid and audio families.
 ``vlm`` (chameleon-34b) is a dense decoder, as in the reference: its VQ
-image tokens arrive inside the text vocabulary.
+image tokens arrive inside the text vocabulary.  ``audio``
+(whisper-large-v3) is an encoder-decoder whose conv frontend is a stub:
+callers pass precomputed frame embeddings (B, F, D).
 """
 
 from __future__ import annotations
@@ -12,12 +14,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import Draw, Params, rms_norm, stacked
+from repro_torch.models.layers import (Draw, Params, rms_norm,
+                                       sinusoid_positions, stacked)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def _dtype(cfg: ModelConfig, dtype):
@@ -40,14 +44,16 @@ def _block_init(cfg: ModelConfig):
         return lambda d: tfm._init_mamba_layer(d, cfg, cfg.d_ff > 0)
     if cfg.is_hybrid:
         return lambda d: tfm._init_jamba_period(d, cfg)
-    return lambda d: tfm._init_attn_layer(d, cfg, cfg.family == "moe")
+    return lambda d: tfm._init_attn_layer(d, cfg, cfg.family == "moe",
+                                          cross=cfg.is_encdec)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
                 device="cuda") -> Params:
     """The port's own seeded init (the reference's layout: ``embed``,
-    ``head``, ``norm_f``, ``blocks`` stacked on a leading block axis, and
-    deepseek's unstacked ``first`` list of dense layers).  Draws come from
+    ``head``, ``norm_f``, ``blocks`` stacked on a leading block axis,
+    deepseek's unstacked ``first`` list of dense layers, and whisper's
+    ``enc``: its stacked encoder ``blocks`` and ``norm_f``).  Draws come from
     ``generator`` on its own device: a CPU generator gives the same weights
     on any device, a CUDA one keeps a full-width init on the card.  The
     stack is filled in place (``layers.stacked``).  On the card unless
@@ -67,6 +73,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, dtype=None,
     if cfg.moe.first_dense:
         p["first"] = [tfm._init_attn_layer(draw, cfg)
                       for _ in range(cfg.moe.first_dense)]
+    if cfg.is_encdec:
+        p["enc"] = {"blocks": stacked(
+            cfg.n_enc_layers, lambda d: tfm._init_attn_layer(d, cfg),
+            generator, dtype, device), "norm_f": draw.ones((D,))}
     return p
 
 
@@ -92,7 +102,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     - the rest: ``{"blocks": {"self": ...}}`` stacked over the blocks, a
       layer's ``{"k", "v"}`` (B, max_len, K, hd) or, with MLA,
       ``{"ckv", "krope"}``; plus ``"first"``, one unstacked
-      ``{"self": ...}`` per leading dense layer.
+      ``{"self": ...}`` per leading dense layer; whisper's blocks also
+      hold the encoder's K/V, ``"cross_k"`` / ``"cross_v"``
+      (B, enc_frames, K, hd).
     On the card unless ``device="cpu"``; raises without a GPU."""
     device = resolve_device(device)
     dtype = _dtype(cfg, dtype)
@@ -106,7 +118,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         return _stack_zeros({"attn": kv,
                              "ssm": _stack_zeros(st, cfg.attn_period - 1)},
                             nb)
-    cache = {"blocks": _stack_zeros({"self": kv}, nb)}
+    per = {"self": kv}
+    if cfg.is_encdec:
+        shape = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.head_dim)
+        per["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        per["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    cache = {"blocks": _stack_zeros(per, nb)}
     if cfg.moe.first_dense:
         cache["first"] = [
             {"self": attn.init_attn_cache(cfg, batch, max_len, dtype,
@@ -125,21 +142,80 @@ def _logits(cfg: ModelConfig, params: Params, x):
     return (x @ params["head"]).to(torch.float32)
 
 
+def encode(cfg: ModelConfig, params: Params, enc_frames):
+    """Whisper's encoder: enc_frames (B, F, D), the conv frontend's
+    precomputed embeddings (a stub, as in the reference), plus the fixed
+    sinusoid, through the encoder blocks (attention not causal, rope on q
+    and k as the reference's self-attention applies it) → (B, F, D)."""
+    F_, D = enc_frames.shape[1:]
+    x = enc_frames.to(params["embed"].dtype)
+    x = x + sinusoid_positions(F_, D)[None].to(x.device, x.dtype)
+    positions = torch.arange(F_, device=x.device)[None]
+    x, _ = tfm.stack_train(cfg, params["enc"]["blocks"], x, positions,
+                           encoder=True)
+    return rms_norm(x, params["enc"]["norm_f"], cfg.norm_eps)
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens, enc_frames):
+    """(token embeddings, positions, the encoder's output or None)."""
+    x = params["embed"][tokens.to(torch.int64)]            # (B, S, D)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None]
+    enc_out = encode(cfg, params, enc_frames) if cfg.is_encdec else None
+    return x, positions, enc_out
+
+
+def forward(cfg: ModelConfig, params: Params, tokens, *, enc_frames=None):
+    """The training forward over whole sequences, tokens (B, S) int (and
+    whisper's ``enc_frames`` (B, F, D)): no cache, nothing written in
+    place, differentiable through B7 and B8.  Returns (logits (B, S, Vp)
+    fp32, ``MoEMetrics``; zeros of (max(E, 1),) loads without MoE
+    layers, as the reference's)."""
+    x, positions, enc_out = _embed(cfg, params, tokens, enc_frames)
+    for lp in params.get("first", []):
+        x, _ = tfm._attn_layer_full(cfg, lp, x, positions, None)
+    x, metrics = tfm.stack_train(cfg, params["blocks"], x, positions,
+                                 enc_out=enc_out)
+    if metrics is None:
+        metrics = moe_mod.MoEMetrics.zero(max(cfg.moe.n_experts, 1),
+                                          x.device)
+    x = rms_norm(x, params["norm_f"], cfg.norm_eps)
+    return (x @ params["head"]).to(torch.float32), metrics
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
+            aux_coef: float = 0.01, z_coef: float = 1e-4):
+    """batch: tokens (B, S) int, labels (B, S) int (-1 = masked)
+    [, enc_frames (B, F, D)].  The masked mean token cross-entropy plus
+    ``aux_coef`` x the MoE balancing loss and ``z_coef`` x the router
+    z-loss.  Returns (loss, metrics dict: loss, ce, aux, z, overflow,
+    expert_load)."""
+    logits, m = forward(cfg, params, batch["tokens"],
+                        enc_frames=batch.get("enc_frames"))
+    labels = batch["labels"].to(torch.int64)
+    mask = (labels >= 0).to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    ce = torch.sum(ce * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    loss = ce + aux_coef * m.aux_loss + z_coef * m.z_loss
+    return loss, {"loss": loss, "ce": ce, "aux": m.aux_loss,
+                  "z": m.z_loss, "overflow": m.overflow_frac,
+                  "expert_load": m.load}
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens, cache, *,
-            return_metrics: bool = False):
+            enc_frames=None, return_metrics: bool = False):
     """Run the prompt tokens (B, S) int from position 0, writing K/V (or
-    MLA latents) and the final SSM states into ``cache`` in place.
-    Returns (last-token logits (B, Vp) fp32, cache), and with
-    ``return_metrics`` the blocks' merged ``MoEMetrics`` (None without MoE
-    layers) as a third item."""
-    S = tokens.shape[1]
-    x = params["embed"][tokens.to(torch.int64)]           # (B, S, D)
-    positions = torch.arange(S, device=x.device)[None]
+    MLA latents) and the final SSM states into ``cache`` in place; whisper
+    encodes ``enc_frames`` (B, F, D) first and stores each decoder layer's
+    cross-attention K/V.  Returns (last-token logits (B, Vp) fp32, cache),
+    and with ``return_metrics`` the blocks' merged ``MoEMetrics`` (None
+    without MoE layers) as a third item."""
+    x, positions, enc_out = _embed(cfg, params, tokens, enc_frames)
     if cfg.moe.first_dense:
         for lp, c in zip(params["first"], cache["first"]):
             x, _ = tfm._attn_layer_full(cfg, lp, x, positions, c["self"])
     x, _, metrics = tfm.stack_prefill(cfg, params["blocks"], x, positions,
-                                      _blocks(cfg, cache))
+                                      _blocks(cfg, cache), enc_out=enc_out)
     out = (_logits(cfg, params, x), cache)
     return out + (metrics,) if return_metrics else out
 

@@ -1,10 +1,12 @@
 """Mamba-2 (SSD, state-space duality) mixer (twin of
 ``repro/models/ssm.py``).  [arXiv:2405.21060]
 
-Prefill runs the chunked SSD through ``ops.ssd_scan`` (the hand-written
-kernel on the card, its plain version on the CPU), which also returns the
-final state for decode; decode is the single-token recurrence in plain
-PyTorch, as in the reference (which has no kernel there).
+Training and prefill run the chunked SSD through ``ops.ssd_scan`` (the
+hand-written kernel on the card, its plain version on the CPU;
+differentiable, the backward recomputing the plain scan), which also
+returns the final state for decode; decode is the single-token
+recurrence in plain PyTorch, as in the reference (which has no kernel
+there).
 
 Layout: x:(B,S,nh,hd), B/C:(B,S,G,N) groups broadcast over heads,
 dt:(B,S,nh) post-softplus, A:(nh,) negative.
@@ -106,9 +108,9 @@ def _heads(cfg: ModelConfig, xBC, lead):
 
 
 def mamba_mixer(cfg: ModelConfig, p: Params, x):
-    """Full-sequence SSD mixer (prefill) from a zero state, as the
-    reference's prefill runs it.  x:(B,S,D).  Returns (out, SSMState): the
-    final state that decode continues from."""
+    """Full-sequence SSD mixer (train / prefill) from a zero state, as the
+    reference runs both.  x:(B,S,D).  Returns (out, SSMState): the final
+    state that decode continues from (training drops it)."""
     s = cfg.ssm
     B, S, _ = x.shape
     di = s.d_inner(cfg.d_model)

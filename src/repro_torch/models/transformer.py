@@ -1,5 +1,5 @@
-"""Block composition for prefill and decode (twin of
-``repro/models/transformer.py`` without the encoder-decoder parts).
+"""Block composition for training, prefill and decode (twin of
+``repro/models/transformer.py``).
 
   dense / vlm       block = [attn + dense FFN]                  × L
   moe (deepseek)    [MLA attn + dense FFN] × first_dense (unstacked,
@@ -9,12 +9,17 @@
   hybrid (jamba)    block = one period of ``attn_period`` layers: mamba
                     but attention at ``attn_pos``, the FFN MoE on odd
                     layers                                      × L / period
+  audio (whisper)   encoder block = [full attn + gelu FFN]      × n_enc,
+                    decoder block = [causal attn + cross-attn + gelu FFN]
+                                                                × L
 
 The reference scans over blocks with ``lax.scan``; here a Python loop
-walks the stacked block params, and the stacked caches are updated in
-place block by block.  Prefill and decode return the blocks' MoE metrics
-merged as the reference's ``stack_apply`` merges them (None for an arch
-without MoE layers)."""
+walks the stacked block params (``unbind``: one gradient per stack, not
+one per layer), and in prefill and decode the stacked caches are updated
+in place block by block.  Training (``stack_train``) passes no cache,
+keeps no state and writes nothing in place.  Every mode returns the
+blocks' MoE metrics merged as the reference's ``stack_apply`` merges
+them (None for an arch without MoE layers)."""
 
 from __future__ import annotations
 
@@ -37,12 +42,18 @@ def _init_ffn_part(draw: Draw, cfg: ModelConfig, is_moe: bool) -> Params:
     return {"ffn": init_ffn(draw, cfg.d_model, cfg.d_ff, cfg.ffn_act)}
 
 
-def _init_attn_layer(draw: Draw, cfg: ModelConfig,
-                     is_moe: bool = False) -> Params:
-    return {"norm1": draw.ones((cfg.d_model,)),
-            "attn": attn.init_attn(draw, cfg),
-            "norm2": draw.ones((cfg.d_model,)),
-            **_init_ffn_part(draw, cfg, is_moe)}
+def _init_attn_layer(draw: Draw, cfg: ModelConfig, is_moe: bool = False,
+                     cross: bool = False) -> Params:
+    """An attention layer; with ``cross`` (whisper's decoder) also the
+    cross-attention's norm ``norm_x`` and projections ``cross``."""
+    p = {"norm1": draw.ones((cfg.d_model,)),
+         "attn": attn.init_attn(draw, cfg),
+         "norm2": draw.ones((cfg.d_model,)),
+         **_init_ffn_part(draw, cfg, is_moe)}
+    if cross:
+        p["norm_x"] = draw.ones((cfg.d_model,))
+        p["cross"] = attn.init_gqa(draw, cfg)
+    return p
 
 
 def _init_mamba_layer(draw: Draw, cfg: ModelConfig, with_ffn: bool,
@@ -86,18 +97,36 @@ def _ffn_residual(cfg: ModelConfig, lp: Params, x):
     return x + h, metrics
 
 
-def _attn_layer_full(cfg: ModelConfig, lp: Params, x, positions, cache):
+def _attn_layer_full(cfg: ModelConfig, lp: Params, x, positions, cache, *,
+                     enc_out=None, cross_cache=None, causal: bool = True):
+    """Self-attention over the sequence (causal, or not in the encoder),
+    then with ``enc_out`` the cross-attention to it (K/V written into
+    ``cross_cache``'s ``"k"`` / ``"v"`` where given), then the FFN."""
     h, _ = attn.attn_full(cfg, lp["attn"],
                           rms_norm(x, lp["norm1"], cfg.norm_eps), positions,
-                          cache=cache)
-    return _ffn_residual(cfg, lp, x + h)
+                          cache=cache, causal=causal)
+    x = x + h
+    if enc_out is not None:
+        h, _ = attn.gqa_full(cfg, lp["cross"],
+                             rms_norm(x, lp["norm_x"], cfg.norm_eps),
+                             positions, kv_x=enc_out, cache=cross_cache)
+        x = x + h
+    return _ffn_residual(cfg, lp, x)
 
 
-def _attn_layer_decode(cfg: ModelConfig, lp: Params, x, lengths, cache):
+def _attn_layer_decode(cfg: ModelConfig, lp: Params, x, lengths, cache, *,
+                       cross=None):
+    """One-token self-attention on ``cache``, then with ``cross`` (the
+    stored encoder K/V) the cross-attention, then the FFN."""
     h, _ = attn.attn_decode(cfg, lp["attn"],
                             rms_norm(x, lp["norm1"], cfg.norm_eps), lengths,
                             cache)
-    return _ffn_residual(cfg, lp, x + h)
+    x = x + h
+    if cross is not None:
+        x = x + attn.gqa_cross_decode(
+            cfg, lp["cross"], rms_norm(x, lp["norm_x"], cfg.norm_eps),
+            *cross)
+    return _ffn_residual(cfg, lp, x)
 
 
 def _mamba_layer_full(cfg: ModelConfig, lp: Params, x):
@@ -143,33 +172,40 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree) -> list:
+    """The layers of a params tree stacked on a leading axis, each leaf
+    split by one ``unbind``: under autograd the stack then takes one
+    gradient (the layers' stacked), not one full-size gradient a layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _store(dst: ssm_mod.SSMState, st: ssm_mod.SSMState):
     """Copy a layer's new state into its views of the stacked cache."""
     for t, s in zip(dst, st):
         t.copy_(s)
 
 
-def _n_blocks(stacked: Params) -> int:
-    t = stacked
-    while isinstance(t, dict):
-        t = next(iter(t.values()))
-    return t.shape[0]
-
-
 def _hybrid_block(cfg: ModelConfig, bp: Params, x, cache, *, positions=None,
                   lengths=None):
-    """One jamba period (prefill with ``positions``, decode with
+    """One jamba period (train or prefill with ``positions``, decode with
     ``lengths``): attention at ``attn_pos`` on ``cache["attn"]``, the
     mamba layers on ``cache["ssm"]``, indexed by their position with the
-    attention position skipped."""
+    attention position skipped; ``cache`` None in training."""
     ms = []
     for pos in range(cfg.attn_period):
         lp = bp[f"pos{pos}"]
         if pos == cfg.attn_pos:
             if lengths is None:
-                x, m = _attn_layer_full(cfg, lp, x, positions, cache["attn"])
+                x, m = _attn_layer_full(cfg, lp, x, positions,
+                                        cache and cache["attn"])
             else:
                 x, m = _attn_layer_decode(cfg, lp, x, lengths, cache["attn"])
+        elif cache is None:
+            x, _, m = _mamba_layer_full(cfg, lp, x)
         else:
             state = _layer(cache["ssm"],
                            pos if pos < cfg.attn_pos else pos - 1)
@@ -183,8 +219,9 @@ def _hybrid_block(cfg: ModelConfig, bp: Params, x, cache, *, positions=None,
 
 
 def _block(cfg: ModelConfig, bp: Params, x, cache, *, positions=None,
-           lengths=None):
-    """One block of any family; returns (x, the MoE layers' metrics)."""
+           lengths=None, enc_out=None, encoder: bool = False):
+    """One block of any family; returns (x, the MoE layers' metrics).
+    ``cache`` None: training (or the encoder), nothing stored."""
     if cfg.is_hybrid:
         return _hybrid_block(cfg, bp, x, cache, positions=positions,
                              lengths=lengths)
@@ -193,30 +230,55 @@ def _block(cfg: ModelConfig, bp: Params, x, cache, *, positions=None,
             x, st, m = _mamba_layer_full(cfg, bp, x)
         else:
             x, st, m = _mamba_layer_decode(cfg, bp, x, cache)
-        _store(cache, st)
+        if cache is not None:
+            _store(cache, st)
         return x, [m]
-    if lengths is None:
-        x, m = _attn_layer_full(cfg, bp, x, positions, cache["self"])
-    else:
-        x, m = _attn_layer_decode(cfg, bp, x, lengths, cache["self"])
+    if lengths is not None:
+        cross = (cache["cross_k"], cache["cross_v"]) \
+            if "cross_k" in cache else None
+        x, m = _attn_layer_decode(cfg, bp, x, lengths, cache["self"],
+                                  cross=cross)
+        return x, [m]
+    cross_cache = None
+    if cache is not None and "cross_k" in cache:
+        cross_cache = {"k": cache["cross_k"], "v": cache["cross_v"]}
+    x, m = _attn_layer_full(cfg, bp, x, positions, cache and cache["self"],
+                            enc_out=enc_out, cross_cache=cross_cache,
+                            causal=not encoder)
     return x, [m]
 
 
 def _stack(cfg: ModelConfig, stacked: Params, x, caches, **kw):
     per_block = []
-    for i in range(_n_blocks(stacked)):
-        x, ms = _block(cfg, _layer(stacked, i), x, _layer(caches, i), **kw)
+    for i, bp in enumerate(_unstack(stacked)):
+        cache = None if caches is None else _layer(caches, i)
+        x, ms = _block(cfg, bp, x, cache, **kw)
         if cfg.moe.enabled:
             per_block.append(_merge_metrics(cfg, ms, x.device))
     return x, caches, _mean_metrics(per_block) if per_block else None
 
 
-def stack_prefill(cfg: ModelConfig, stacked: Params, x, positions, caches):
+def stack_train(cfg: ModelConfig, stacked: Params, x, positions, *,
+                enc_out=None, encoder: bool = False):
+    """The training forward through every stacked block: no cache, no
+    state kept, nothing written in place (autograd may save any tensor).
+    ``encoder``: whisper's encoder blocks (attention not causal);
+    ``enc_out``: the encoder's output the decoder blocks attend to.
+    Returns (x, metrics)."""
+    x, _, metrics = _stack(cfg, stacked, x, None, positions=positions,
+                           enc_out=enc_out, encoder=encoder)
+    return x, metrics
+
+
+def stack_prefill(cfg: ModelConfig, stacked: Params, x, positions, caches,
+                  *, enc_out=None):
     """Prefill through every stacked block in turn.  Attention layers write
-    their K/V (or MLA latents) into ``caches`` at offset 0; mamba layers
-    store their final SSM state and conv window.  Returns (x, caches,
-    metrics), the caches updated in place."""
-    return _stack(cfg, stacked, x, caches, positions=positions)
+    their K/V (or MLA latents) into ``caches`` at offset 0, and with
+    ``enc_out`` (whisper) the cross-attention's K/V into ``cross_k`` /
+    ``cross_v``; mamba layers store their final SSM state and conv window.
+    Returns (x, caches, metrics), the caches updated in place."""
+    return _stack(cfg, stacked, x, caches, positions=positions,
+                  enc_out=enc_out)
 
 
 def stack_decode(cfg: ModelConfig, stacked: Params, x, lengths, caches):

@@ -103,8 +103,12 @@ def test_lint_fires_on_planted_snippets(name):
 
 def test_import_report_lists_the_dead_seed_modules():
     report, findings = TL.import_report()
-    assert report["dead"] == list(TL.KNOWN_DEAD) \
-        == ["repro_torch.launch.prefill_decode"]
+    assert report["dead"] == list(TL.KNOWN_DEAD) == [
+        "repro_torch.data", "repro_torch.data.pipeline",
+        "repro_torch.launch.prefill_decode", "repro_torch.launch.train",
+        "repro_torch.optim", "repro_torch.optim.adamw",
+        "repro_torch.optim.compression", "repro_torch.optim.schedules",
+        "repro_torch.runtime.checkpoint", "repro_torch.runtime.train_loop"]
     assert findings == []
     mods = report["modules"]
     assert mods["repro_torch.core.interpose"]["status"] == "datapath"

@@ -78,17 +78,17 @@ def _shapes(tree):
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "arctic-480b",
                                   "jamba-v0.1-52b", "whisper-large-v3"])
 def test_unported_families_raise_naming_the_roadmap(arch):
-    """Only the audio family (whisper) has its config but not its model
-    yet: ``init_params`` refuses it, naming ROADMAP.md item 12.  The moe
-    and hybrid archs build their smoke configs in the reference's tree
-    (``blocks``, deepseek's ``first``, the MLA, MoE and ``pos{i}``
-    leaves), leaf for leaf in shape and dtype."""
+    """Every family is ported now, the audio one (whisper) last: the moe,
+    hybrid and audio archs build their smoke configs in the reference's
+    tree (``blocks``, deepseek's ``first``, the MLA, MoE and ``pos{i}``
+    leaves, whisper's ``enc`` and ``norm_x`` / ``cross``), leaf for leaf
+    in shape and dtype.  A family outside ``FAMILIES`` is still refused,
+    naming ROADMAP.md item 12."""
     cfg = T.smoke_config(T.get_config(arch))
     gen = torch.Generator().manual_seed(0)
-    if arch == "whisper-large-v3":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
-            TM.init_params(cfg, gen, torch.float32, "cpu")
-        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
+        TM.init_params(dataclasses.replace(cfg, family="video"), gen,
+                       torch.float32, "cpu")
     import jax
     import jax.numpy as jnp
     from repro.models import model as JM

@@ -536,6 +536,9 @@ def _counted(name, call):
     (3, 1000, 7, 1, 128, torch.bfloat16, None),
     (2, 4128, 32, 8, 128, torch.bfloat16, None),
     (2, 1000, 32, 8, 128, torch.float32, None),
+    # whisper-large-v3's cross decode: every one of 1500 frames valid
+    (8, 1500, 20, 20, 64, torch.bfloat16, [1499] * 8),
+    (8, 1500, 20, 20, 64, torch.float32, [1499] * 8),
 ])
 def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
                                                lengths):
@@ -583,6 +586,11 @@ def test_decode_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
     (1, 300, 7, 1, 128, torch.bfloat16, True, False),
     (1, 1024, 32, 8, 128, torch.bfloat16, True, False),
     (1, 1024, 32, 8, 128, torch.float32, True, False),
+    # whisper-large-v3's encoder, not causal: 1500 frames (a ragged last
+    # 128-row tile), 20 / 20 heads of hd 64
+    (8, 1500, 20, 20, 64, torch.bfloat16, False, False),
+    (2, 1500, 20, 20, 64, torch.float32, False, False),
+    (2, 130, 20, 20, 64, torch.bfloat16, False, True),
 ])
 def test_flash_attention_kernel_matches_plain(dev, B, S, H, K, hd, dtype,
                                               causal, stacked):
@@ -669,7 +677,9 @@ SMOKE_LAUNCHES = {
                     "relay_slots": 10},
     "deepseek-v2-236b": {"relay_slots": 5},
     "jamba-v0.1-52b": {"flash_attention": 1, "decode_attention": 4,
-                       "ssd_scan": 7, "relay_slots": 20}}
+                       "ssd_scan": 7, "relay_slots": 20},
+    # 2 encoder layers (not causal) + 2 decoder layers; B6 self and cross
+    "whisper-large-v3": {"flash_attention": 4, "decode_attention": 16}}
 
 
 @pytest.mark.parametrize("arch", list(SMOKE_LAUNCHES))
@@ -684,6 +694,55 @@ def test_prefill_decode_smoke_configs_on_the_card(dev, arch):
     assert bool(torch.isfinite(res["logits"]).all())
     runs = {k: ops.LAUNCHES[k] - before[k] for k in before}
     assert {k: v for k, v in runs.items() if v} == SMOKE_LAUNCHES[arch]
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "jamba-v0.1-52b",
+                                  "arctic-480b", "mamba2-2.7b"])
+def test_training_step_on_the_card_matches_the_cpu(dev, arch):
+    """The smoke config's loss and every gradient leaf (f32) on the card
+    against the CPU with the same weights: the forward through B7, B8
+    and B5, the backward recomputing the plain attention and scan."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as TM
+    from repro_torch.tree import leaves, map_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(get_config(arch))
+    params = TM.init_params(cfg, torch.Generator().manual_seed(3),
+                            torch.float32, "cpu")
+    g = torch.Generator().manual_seed(4)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=g),
+             "labels": torch.randint(-1, cfg.vocab, (2, 64), generator=g)}
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn((2, cfg.enc_frames, cfg.d_model),
+                                          generator=g)
+    out = {}
+    for d in ("cpu", dev):
+        tree = map_tree(lambda t: t.to(d, copy=True).requires_grad_(),
+                        params)
+        before = dict(ops.LAUNCHES)
+        loss, _ = TM.loss_fn(cfg, tree, {k: v.to(d) for k, v in
+                                         batch.items()})
+        grads = torch.autograd.grad(loss, leaves(tree))
+        runs = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        out[d] = (loss.detach().cpu(), [x.cpu() for x in grads], runs)
+    assert sum(out[dev][2].values()) > 0 and sum(out["cpu"][2].values()) == 0
+    torch.testing.assert_close(out[dev][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    for a, b in zip(out[dev][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_train_launcher_on_the_card(dev, tmp_path):
+    """``launch.train`` of whisper's smoke config on the card: finite
+    losses, B7 in every forward (2 encoder + 2 decoder layers a step)."""
+    from repro_torch.launch import train
+    before = dict(ops.LAUNCHES)
+    out = train.main(["--arch", "whisper-large-v3", "--steps", "2",
+                      "--global-batch", "2", "--seq", "32", "--ckpt-dir",
+                      str(tmp_path)])
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    runs = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    assert {k: v for k, v in runs.items() if v} == {"flash_attention": 8}
 
 
 def _control_plane():

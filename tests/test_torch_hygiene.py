@@ -53,7 +53,10 @@ def test_port_never_imports_jax_or_the_reference():
             "workload/generators.py", "workload/scenarios.py",
             "workload/slo.py", "analysis/invariants.py",
             "workload/hops.py", "workload/chain.py", "analysis/lint.py",
-            "analysis/__main__.py", "analysis/kernel_sweep.py"} <= names
+            "analysis/__main__.py", "analysis/kernel_sweep.py",
+            "optim/adamw.py", "optim/schedules.py", "optim/compression.py",
+            "data/pipeline.py", "runtime/checkpoint.py",
+            "runtime/train_loop.py", "launch/train.py", "tree.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -110,6 +113,20 @@ def test_serve_loop_and_launcher_raise_without_gpu(no_gpu):
         serve.main(["--requests", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prefill_decode.main(["--smoke", "--prompt", "4", "--steps", "1"])
+
+
+def test_training_defaults_to_cuda_and_raises_without_gpu(no_gpu, tmp_path):
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import train
+    from repro_torch.runtime import train_loop
+    pipe = Pipeline(DataConfig(vocab=16, seq_len=4, global_batch=2))
+    tcfg = train_loop.TrainConfig(steps=1, ckpt_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop.run(XLB_SERVICE_MODEL, pipe, tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "xlb-service-model", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.fixture
