@@ -138,6 +138,20 @@ Phases (each prints one line; any failure exits non-zero):
    the four dense and vlm archs and the three moe and hybrid ones (every
    request served); ``serve --arch whisper-large-v3`` exits as the
    reference's does (an encoder-decoder has no prompt audio there);
+   then the port's three examples (``examples/torch/``) through their
+   ``main`` on the card: quickstart (8 requests, a transaction, a 9th;
+   no_route 0, routing version 1, commit #1), serve_cluster (bookinfo on
+   istio, cilium and xlb, every request completed) and train_moe
+   (deepseek-mini-100m, EXAMPLE_TRAIN_STEPS steps through
+   ``train_loop.run``: finite losses, falling over the first 100 steps
+   (EXAMPLE_FALL_WINDOW), its checkpoints under build/), each one's
+   launches of B1, B2, B5, B6 and B7 counted; then the dry run
+   (``launch/dryrun.trace_cell_for`` on a one-chip ``LogicalMesh((1,
+   1))``: meta tensors on the host, the H100's
+   data-sheet peaks) for whisper-large-v3's training cell and
+   minitron-4b's prefill, its predicted bytes beside the peaks this run
+   measured and its traced FLOPs beside ``train_flops`` (the ratio held
+   to DRYRUN_FLOP_RATIO);
 8. the kernel launch counts: ``admit_commit``, ``complete`` and
    ``decode_attention`` on the main path (and in each serving phase after
    it), ``route_match``, ``relay_slots`` and ``admit`` in the staged
@@ -202,11 +216,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-# H100 SXM data-sheet peaks: HBM3 bytes/s, non-tensor f32 operations/s,
-# dense bf16 tensor-core operations/s
-MEM_BPS = 3.35e12
-OPS_PS = 67e12
-BF16_OPS_PS = 989e12
+# H100 SXM data-sheet peaks (HBM3 bytes/s, non-tensor f32 operations/s,
+# dense bf16 tensor-core operations/s): set in main() from
+# repro_torch.roofline.constants
+MEM_BPS = OPS_PS = BF16_OPS_PS = None
 
 I_LANES, SLOTS, ADMIT_R, MAX_LEN = 64, 16, 256, 32
 N_REQUESTS, N_UNROUTABLE, ARRIVALS_PER_TICK = 4096, 64, 34
@@ -350,6 +363,30 @@ TRAIN_PARITY_ARCHS = ("whisper-large-v3", "jamba-v0.1-52b")
 # reduced config (their f32 serving weights pass one card)
 SERVE_ARCHS = ("xlb-service-model", "minitron-4b", "mamba2-2.7b")
 SERVE_SMOKE_ARCHS = DENSE_ARCHS + MOE_ARCHS
+# the examples phase: train_moe's steps (its default) and where its
+# checkpoints go; the kernels each example must launch (ops.LAUNCHES keys)
+# and the profiler's kernel names they count under
+EXAMPLE_TRAIN_STEPS = 300
+# train_moe's loss must fall over its first 100 steps: the mean of these
+# steps below the mean of steps 0-19.  Later it climbs back, in the
+# reference too (ROADMAP.md §3: the synthetic stream slides 32 tokens a
+# step and the memorised window outruns the decaying learning rate)
+EXAMPLE_FALL_WINDOW = (80, 100)
+EXAMPLE_KERNELS = {"quickstart": ("admit_commit", "complete",
+                                  "decode_attention"),
+                   "serve_cluster": ("admit_commit", "complete",
+                                     "decode_attention"),
+                   "train_moe": ("relay_slots", "flash_attention")}
+PROFILER_NAMES = {"admit_commit": "admit_kernel",
+                  "complete": "complete_kernel",
+                  "decode_attention": "decode_kernel",
+                  "relay_slots": "relay_kernel",
+                  "flash_attention": "flash_kernel"}
+# the dryrun phase: traced FLOPs of whisper's training step over the
+# hand count train_flops must fall in this range (PERF.md §6, PR 25's
+# prediction: the B7 backward recompute and the checkpointed cross
+# prefill add their forward matmuls again)
+DRYRUN_FLOP_RATIO = (1.02, 1.10)
 
 
 def fail(msg: str) -> None:
@@ -1511,7 +1548,8 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda", full_layers=None):
     steps through the launcher's ``run``; check the path's kernel
     launches, finite logits, and decode after a shorter prefill against
     the last logits of the full prefill (drop-free on MOE_CHECK_PROMPT
-    tokens where the arch has MoE layers)."""
+    tokens where the arch has MoE layers).  Returns (line, launches,
+    the prefill's kernels, peak bytes over init, prefill and decode)."""
     dev = torch.device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False     # the f32 check
     torch.cuda.synchronize()
@@ -1731,7 +1769,7 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda", full_layers=None):
     del params, res
     gc.collect()
     torch.cuda.empty_cache()
-    return line, launches, kernels
+    return line, launches, kernels, peak
 
 
 def topk_flips(torch, n_moe: int, run):
@@ -3468,7 +3506,8 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
     every forward; finite losses and gradient norms, the last loss below
     the first; ms a step, tokens/s, peak memory, the share of the FLOP
     bound; then one step under the profiler for the backward recompute's
-    device share.  Returns (lines, launches)."""
+    device share.  Returns (lines, launches, the measurements the dryrun
+    phase reads: peak bytes, ``train_flops``, ms a step)."""
     import shutil
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device(dev)
@@ -3524,6 +3563,10 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     bound = flops / BF16_OPS_PS * 1e3
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.roofline import analysis as RA
+    model_flops = RA.model_flops(cfg, ShapeConfig(
+        "train_whisper", TRAIN_SEQ, TRAIN_BATCH, "train"))
     # one more step under the profiler, on the trained state
     state = out["state"]
     step_fn = TL.make_train_step(cfg, tcfg)
@@ -3585,7 +3628,9 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
         f"({TRAIN_BATCH * cfg.enc_frames / step_ms * 1e3:.1f} frames/s); "
         f"peak memory {peak / 2**30:.2f} GiB; FLOP bound {bound:.2f} ms "
         f"({flops / 1e12:.2f} TFLOP at {BF16_OPS_PS / 1e12:.0f} TFLOP/s): "
-        f"{100 * bound / step_ms:.1f} % of the step; launches "
+        f"{100 * bound / step_ms:.1f} % of the step (roofline.analysis."
+        f"model_flops of the shape: {model_flops / 1e12:.2f} TFLOP); "
+        "launches "
         + " ".join(f"{k}={v}" for k, v in launches.items()),
         f"train {cfg.name} profiled step: device busy {busy:.2f} ms; B7 "
         f"forward {b7:.3f} ms ({cfg.n_enc_layers + cfg.n_layers} launches); "
@@ -3598,7 +3643,8 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
         + f"; timed alone (events, one vjp at the encoder's and the "
         f"decoder's shape x the layers) {vjp_ms:.2f} ms = "
         f"{pct(vjp_ms):.1f} %; largest kernels (ms): {top}"]
-    return lines, launches
+    return lines, launches, {"peak": peak, "train_flops": flops,
+                             "step_ms": step_ms}
 
 
 def phase_train_smoke(torch, ops, TM, train, configs, dev="cuda"):
@@ -3731,6 +3777,166 @@ def phase_serve_arch(torch, serve):
 # --------------------------------------------------------------------------- #
 
 
+def load_example(name: str):
+    """``examples/torch/<name>.py`` as a module (its ``main`` is called)."""
+    import importlib.util
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, ops, dev="cuda"):
+    """The three examples of the port through their ``main`` on the card,
+    as a user runs them: quickstart (8 requests, then a transaction and a
+    9th: no_route 0, routing version 1, commit #1), serve_cluster (every
+    request of bookinfo completed on istio, cilium and xlb) and train_moe
+    (EXAMPLE_TRAIN_STEPS steps: finite losses, steps 80-99 below steps
+    0-19 on average, every checkpoint written under build/).  Each
+    example's launches counted from zero (``ops.LAUNCHES``) and, for the
+    two serving ones, the kernels the profiler saw.  Returns (lines,
+    launches summed)."""
+    import shutil
+    lines, total = [], {}
+    args = {"quickstart": ["--device", dev],
+            "serve_cluster": ["--device", dev],
+            "train_moe": ["--device", dev, "--steps",
+                          str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir",
+                          str(ROOT / "build" / "example_train_moe")]}
+    shutil.rmtree(ROOT / "build" / "example_train_moe", ignore_errors=True)
+    for name, argv in args.items():
+        mod = load_example(name)
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        counts: dict = {}
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            if name == "train_moe":
+                out = mod.main(argv)
+            else:               # small: under the profiler
+                box = []
+                device_events(torch, lambda: box.append(mod.main(argv)),
+                              counts)
+                out = box[0]
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        for k in EXAMPLE_KERNELS[name]:
+            check(launches.get(k, 0) > 0, f"example {name}: no {k} launch "
+                  f"({launches})")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        seen = {k: sum(c for n, c in counts.items()
+                       if PROFILER_NAMES[k] in n)
+                for k in EXAMPLE_KERNELS[name]} if counts else {}
+        if name == "quickstart":
+            check(out["completed"] == 8 and out["no_route"] == 0
+                  and out["completed_after"] == 9
+                  and out["routing_version"] == 1
+                  and out["cp_version"] == 1,
+                  f"example quickstart: {out['lines']}")
+            facts = "; ".join(out["lines"][:1] + out["lines"][-2:])
+        elif name == "serve_cluster":
+            for mode, row in out["rows"].items():
+                check(row["completed"] == 8, f"example serve_cluster: "
+                      f"{mode} completed {row['completed']} of 8")
+            facts = "; ".join(out["lines"])
+        else:
+            losses = out["losses"]
+            ckpts = sorted(p.name for p in Path(out["ckpt_dir"]).iterdir())
+            check(len(losses) == EXAMPLE_TRAIN_STEPS and out["restarts"] == 0
+                  and all(math.isfinite(x) for x in losses),
+                  f"example train_moe: {len(losses)} steps, restarts "
+                  f"{out['restarts']}, losses finite "
+                  f"{all(math.isfinite(x) for x in losses)}")
+            lo, hi = EXAMPLE_FALL_WINDOW
+            first, fallen = (statistics.mean(losses[:20]),
+                             statistics.mean(losses[lo:hi]))
+            check(fallen < first, f"example train_moe: the mean loss of "
+                  f"steps {lo}-{hi - 1} ({fallen}) not below steps 0-19's "
+                  f"({first})")
+            want = [f"step-{k:09d}" for k in sorted(
+                {*range(100, EXAMPLE_TRAIN_STEPS + 1, 100),
+                 EXAMPLE_TRAIN_STEPS})][-3:]    # every 100, the last 3
+            check(ckpts == want, f"example train_moe: checkpoints {ckpts},"
+                  f" expected {want}")
+            walls = [h["wall_s"] for h in out["out"]["history"][1:]]
+            facts = (f"{out['lines'][0]}; {out['lines'][-1]}; mean loss of "
+                     f"steps 0-19 {first:.4f}, of steps {lo}-{hi - 1} "
+                     f"{fallen:.4f}, of the last 20 "
+                     f"{statistics.mean(losses[-20:]):.4f}; loss every 20 "
+                     "steps " + " ".join(f"{losses[i]:.4f}" for i in
+                                         range(0, len(losses), 20)) + "; "
+                     f"ms a step {statistics.median(walls) * 1e3:.2f} "
+                     f"(median, host clock; step 1 "
+                     f"{out['out']['history'][0]['wall_s'] * 1e3:.1f}); "
+                     f"checkpoints {', '.join(ckpts)} under "
+                     "build/example_train_moe")
+            del out
+            shutil.rmtree(ROOT / "build" / "example_train_moe",
+                          ignore_errors=True)
+        check(printed.getvalue().strip() != "", f"example {name} printed "
+              "nothing")
+        lines.append(
+            f"example {name}: {wall:.1f} s; {facts}; launches "
+            + " ".join(f"{k}={v}" for k, v in launches.items())
+            + ("; kernels the profiler saw: " + " ".join(
+                f"{PROFILER_NAMES[k]}={v}" for k, v in seen.items())
+               if seen else ""))
+    return lines, total
+
+
+def phase_dryrun(torch, DR, SP, measured, gpu):
+    """The dry run's predictions (``launch/dryrun.trace_cell_for`` on a
+    one-chip ``LogicalMesh((1, 1))``, meta tensors on the host, H100
+    data-sheet peaks) beside this run's measurements of the same cells:
+    whisper-large-v3's training step (TRAIN_BATCH x (TRAIN_SEQ tokens +
+    frames)) against ``train_flops`` and its measured peak, and
+    minitron-4b's LLM_BATCH x LLM_PROMPT bf16 prefill against its measured
+    peak.  Fails if a trace raises or the traced FLOPs over
+    ``train_flops`` fall outside DRYRUN_FLOP_RATIO."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    ms = SP.MeshSpec(SP.LogicalMesh((1, 1)))
+    lines = []
+    cells = (("whisper-large-v3", ShapeConfig(
+        "train_whisper", TRAIN_SEQ, TRAIN_BATCH, "train"), "train"),
+             ("minitron-4b", ShapeConfig(
+                 "prefill_minitron", LLM_PROMPT, LLM_BATCH, "prefill"),
+              "prefill"))
+    for arch, shape, kind in cells:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        rep = DR.trace_cell_for(cfg, shape, ms)
+        wall = time.perf_counter() - t0
+        m, r, tr = rep["memory_analysis"], rep["roofline"], rep["traced"]
+        got = measured[arch]
+        line = (f"dryrun {arch} {kind} {shape.global_batch} x "
+                f"{shape.seq_len} on one chip (prediction: meta trace "
+                f"{wall:.1f} s on the host, H100 data-sheet peaks): traced "
+                f"{tr['flops'] / 1e12:.3f} TFLOP (recompute included: "
+                f"{tr['recompute_included']}), model_flops "
+                f"{r['model_flops'] / 1e12:.3f}; bytes argument "
+                f"{m['argument_GiB']} + output {m['output_GiB']} + temp "
+                f"{m['temp_GiB']} ({m['temp_rule']}) = {m['total_GiB']} GiB "
+                f"(fits_hbm {m['fits_hbm']}); {r['dominant']}-bound, "
+                f"{r['step_lower_bound_s'] * 1e3:.3f} ms | measured in this "
+                f"run on {gpu}: peak {got['peak'] / 2**30:.2f} GiB "
+                f"(predicted / measured "
+                f"{m['total_GiB'] * 2**30 / got['peak']:.3f})")
+        if kind == "train":
+            ratio = tr["flops"] / got["train_flops"]
+            lo, hi = DRYRUN_FLOP_RATIO
+            check(lo <= ratio <= hi, f"dryrun {arch}: traced FLOPs / "
+                  f"train_flops {ratio:.4f} outside [{lo}, {hi}]")
+            line += (f", train_flops {got['train_flops'] / 1e12:.3f} TFLOP "
+                     f"(traced / train_flops {ratio:.4f}, in [{lo}, {hi}]); "
+                     f"a step {got['step_ms']:.2f} ms against the predicted "
+                     f"bound {r['step_lower_bound_s'] * 1e3:.3f} ms")
+        lines.append(line)
+    return lines
+
+
 def sanitizer_attaches(path: str) -> tuple[bool, str]:
     """Whether compute-sanitizer can instrument a CUDA program here: a
     one-line torch program under memcheck must run clean."""
@@ -3834,6 +4040,11 @@ def main() -> int:
     from repro_torch.launch import train as TRN
     from repro_torch.optim import adamw as TA
     from repro_torch.runtime import train_loop as TL
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.roofline import constants as RC
+    from repro_torch.sharding import specs as SP
+    global MEM_BPS, OPS_PS, BF16_OPS_PS
+    MEM_BPS, OPS_PS, BF16_OPS_PS = RC.MEM_BPS, RC.OPS_PS, RC.BF16_OPS_PS
 
     # the run plans its admissions itself: no pin from the environment
     for name in (tune.ENV_AUTOTUNE, tune.ENV_BLOCK_R, tune.ENV_BLOCK_I,
@@ -3901,15 +4112,16 @@ def main() -> int:
         print(line)
     for line in phase_chain(torch, W, HP, RT, interpose, policies, cfg):
         print(line)
-    llm_launches, prefill_kernels = {}, {}
+    llm_launches, prefill_kernels, peaks = {}, {}, {}
     for arch in ("minitron-4b", "mamba2-2.7b") + DENSE_ARCHS + MOE_ARCHS:
         cfg_a = get_config(arch)
         full = None
         if arch in MOE_CUTS:
             full, cfg_a = cfg_a.n_layers, replace(cfg_a,
                                                   n_layers=MOE_CUTS[arch])
-        line, got, names = phase_llm(torch, ops, TM, PDL, cfg_a,
-                                     full_layers=full)
+        line, got, names, peak = phase_llm(torch, ops, TM, PDL, cfg_a,
+                                           full_layers=full)
+        peaks[arch] = peak
         print(line)
         for k, v in got.items():
             llm_launches[k] = llm_launches.get(k, 0) + v
@@ -3919,7 +4131,8 @@ def main() -> int:
     print(line)
     for k, v in whisper_launches.items():
         llm_launches[k] = llm_launches.get(k, 0) + v
-    tlines, train_whisper = phase_train(torch, ops, fa, TL, TP, TA, whisper)
+    tlines, train_whisper, train_measured = phase_train(
+        torch, ops, fa, TL, TP, TA, whisper)
     for line in tlines:
         print(line)
     for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
@@ -3932,6 +4145,13 @@ def main() -> int:
         train_total[k] = train_total.get(k, 0) + v
     for line in phase_serve_arch(torch, serve):
         print(line)
+    elines, example_launches = phase_examples(torch, ops)
+    for line in elines:
+        print(line)
+    for line in phase_dryrun(torch, DR, SP, {
+            "whisper-large-v3": train_measured,
+            "minitron-4b": {"peak": peaks["minitron-4b"]}}, gpu):
+        print(line)
     launches = {**main_launches, **staged_launches, **llm_launches}
     # relay_slots runs on two paths: the staged chain and the MoE dispatch
     launches["relay_slots"] = staged_launches["relay_slots"] \
@@ -3940,6 +4160,8 @@ def main() -> int:
         launches[k] += v
     for k, v in train_total.items():            # the training forwards'
         launches[k] += v
+    for k, v in example_launches.items():       # the examples'
+        launches[k] = launches.get(k, 0) + v
     print("kernels: " + " ".join(
         f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
                                 main_launches["decode_attention"]}.items())
@@ -3961,7 +4183,8 @@ def main() -> int:
           + ")); " + "; ".join(
               f"in the {name} phase: " + " ".join(
                   f"{k}={v}" for k, v in got.items())
-              for name, got in (("control", control_launches),
+              for name, got in (("examples", example_launches),
+                                ("control", control_launches),
                                 ("degraded", degraded_launches),
                                 ("chaos", chaos_launches),
                                 ("sanitizer", sanitize_launches),
@@ -4032,6 +4255,8 @@ def main() -> int:
                     for R in (ADMIT_R, 4096) for b in rm.TILES}
             if name in train_total:            # and in the training forwards
                 kernels[-1]["launches_training"] = train_total[name]
+            if name in example_launches:       # and in the examples
+                kernels[-1]["launches_examples"] = example_launches[name]
             if name == "flash_attention":      # as minitron's prefill ran it
                 kernels[-1]["kernel"] = prefill_kernels["minitron-4b"]
                 enc = timing["flash_attention[enc]"]

@@ -73,10 +73,13 @@ SEED_LEGACY = (
 #: datapath imports them); a datapath import of one is the failing event
 KNOWN_DEAD = (
     "repro_torch.data", "repro_torch.data.pipeline",
-    "repro_torch.launch.prefill_decode", "repro_torch.launch.train",
-    "repro_torch.optim", "repro_torch.optim.adamw",
-    "repro_torch.optim.compression", "repro_torch.optim.schedules",
+    "repro_torch.launch.dryrun", "repro_torch.launch.prefill_decode",
+    "repro_torch.launch.train", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.optim.compression",
+    "repro_torch.optim.schedules", "repro_torch.roofline",
+    "repro_torch.roofline.analysis", "repro_torch.roofline.constants",
     "repro_torch.runtime.checkpoint", "repro_torch.runtime.train_loop",
+    "repro_torch.sharding",
 )
 
 #: wall-clock exemptions inside the datapath (measurement code):

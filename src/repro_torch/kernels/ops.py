@@ -2,7 +2,9 @@
 
 Each wrapper checks where its tensors lie.  On a CUDA device it launches
 the hand-written kernel (``csrc/``) or raises; on the CPU it runs the
-plain PyTorch version.  There is no fallback from one to the other.
+plain PyTorch version, and on the meta device (the dry run) the plain
+version too, which there computes shapes only.  There is no fallback
+from one to the other.
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
 that its main path went through the kernels.  ``flash_attention`` and
 ``ssd_scan`` are differentiable: their kernels run the forward, and the
@@ -87,13 +89,16 @@ class CompleteOut(NamedTuple):
 
 
 def device_kind(t: torch.Tensor) -> str:
-    """Where a wrapper's tensors lie: ``"cuda"`` or ``"cpu"``."""
+    """Where a wrapper's tensors lie: ``"cuda"``, ``"cpu"`` or ``"meta"``."""
     return t.device.type
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
+    """True where the kernel launches.  Meta tensors (the dry run's: shapes
+    and dtypes, no data) take the plain version, which on them computes
+    only the output shapes; they never reach a launch."""
     kind = device_kind(t)
-    if kind not in ("cuda", "cpu"):
+    if kind not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {t.device}")
     return kind == "cuda"
 

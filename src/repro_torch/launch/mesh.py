@@ -1,5 +1,12 @@
-"""The shard mesh of the sharded datapath (twin of ``make_shard_mesh`` in
-``repro/launch/mesh.py``).
+"""Meshes (twin of ``repro/launch/mesh.py``): the production meshes as
+shapes, and the shard mesh of the sharded datapath.
+
+``make_production_mesh`` / ``make_mesh_spec`` give the reference's
+production meshes, (16, 16) ``data`` / ``model`` and (2, 16, 16)
+``pod`` / ``data`` / ``model``, as ``LogicalMesh``es: axis names and
+sizes, no devices.  The dry run reads them for its per-device shapes;
+placing tensors on them (and the reference's ``make_host_mesh``) comes
+with the multi-device work (ROADMAP.md item 14).
 
 The reference drives its mesh from one program (``shard_map``): one
 controller runs every shard and the collectives are ``all_gather``,
@@ -20,6 +27,21 @@ import dataclasses
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.specs import LogicalMesh, MeshSpec
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """The reference's target: 16×16 (256 chips) per pod; 2 pods = 512.
+
+    Axes: "pod" (slow inter-pod hop), "data" (DP/FSDP), "model"
+    (TP/EP/SP)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LogicalMesh(shape, axes)
+
+
+def make_mesh_spec(*, multi_pod: bool = False) -> MeshSpec:
+    return MeshSpec(make_production_mesh(multi_pod=multi_pod))
 
 
 def _stacked(xs) -> torch.Tensor:

@@ -20,10 +20,12 @@ class Draw:
     ``device`` unless a leaf names its own dtype.  ``dense`` and ``embed``
     draw in f32 on the generator's device (a CPU generator gives the same
     weights on every device; a CUDA generator keeps a full-width init off
-    the host) and cast into the leaf."""
+    the host) and cast into the leaf.  On the meta device nothing is
+    drawn: each leaf is returned as made (shape and dtype only)."""
 
     def __init__(self, generator: torch.Generator, dtype, device):
         self.generator, self.dtype, self.device = generator, dtype, device
+        self.meta = torch.device(device).type == "meta"
 
     def leaf(self, shape, dtype=None) -> torch.Tensor:
         """The (uninitialised) tensor one leaf is made in."""
@@ -35,6 +37,8 @@ class Draw:
         axes (the experts' ``(E, D, F)``) is drawn one slab of its leading
         axis at a time, so the f32 draw never holds more than one expert."""
         out = self.leaf(shape, dtype)
+        if self.meta:
+            return out
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
         for part in (out if out.dim() >= 3 else [out]):
@@ -46,6 +50,8 @@ class Draw:
         return out
 
     def embed(self, shape):
+        if self.meta:
+            return self.leaf(shape)
         w = torch.randn(tuple(shape), generator=self.generator,
                         dtype=torch.float32, device=self.generator.device)
         return self.leaf(shape).copy_(w * 0.02)
@@ -59,7 +65,8 @@ class Draw:
     def const(self, array):
         """An f32 leaf holding ``array`` (numpy)."""
         a = torch.as_tensor(np.asarray(array, np.float32))
-        return self.leaf(a.shape, torch.float32).copy_(a)
+        out = self.leaf(a.shape, torch.float32)
+        return out if self.meta else out.copy_(a)
 
 
 class _StackDraw(Draw):

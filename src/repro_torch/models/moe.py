@@ -90,7 +90,9 @@ def route(cfg: ModelConfig, p: Params, xf, router_bias=None):
     weights = weights / (weights.sum(-1, keepdim=True) + 1e-9)
     # Switch aux loss: E * sum_e f_e * P_e
     me = gates.mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=m.n_experts).float() \
+    flat = idx.reshape(-1)      # a fixed-size count: meta tensors take it
+    ce = torch.zeros((m.n_experts,), dtype=torch.int64, device=flat.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat)).float() \
         .div(xf.shape[0])
     aux = m.n_experts * torch.sum(me * ce)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)

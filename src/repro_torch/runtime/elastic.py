@@ -5,11 +5,13 @@
 scenarios: grow or shrink one cluster to a target endpoint count in a
 single ControlPlane transaction.  Scale-up revives draining endpoints
 before allocating fresh instance lanes; scale-down drains gracefully (the
-reaper removes the rows once their in-flight load clears).  The
-reference's ``reshard_params``, ``reshard_tree`` and
-``validate_divisibility`` move a model's parameters between DP/FSDP/TP
-meshes (``sharding/specs.py::MeshSpec``): they come with the port's model
-sharding (ROADMAP.md queue 1 item 12), not with the sharded datapath.
+reaper removes the rows once their in-flight load clears).
+
+``validate_divisibility`` is the pre-flight check of a mesh change, pure
+shape logic over a ``sharding/specs.py::MeshSpec``.  The reference's
+``reshard_params`` and ``reshard_tree`` move a model's parameters between
+DP/FSDP/TP meshes: they place tensors on several devices and come with
+the multi-device work (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -54,3 +56,18 @@ def scale_fleet(cp, cluster: str, target: int, *, max_instances: int,
                 cp.drain_endpoint(cluster, i)
                 acts.append(("drain", i))
     return acts
+
+
+def validate_divisibility(cfg, ms, global_batch: int) -> list[str]:
+    """Pre-flight checks when the mesh changes shape (elastic event)."""
+    problems = []
+    dp = 1
+    for a in ms.dp:
+        dp *= ms.mesh.shape[a]
+    if global_batch % dp:
+        problems.append(f"global_batch {global_batch} % dp {dp} != 0")
+    if cfg.moe.enabled and cfg.moe.n_experts % ms.mesh.shape["model"]:
+        problems.append(
+            f"n_experts {cfg.moe.n_experts} not divisible by model axis "
+            f"{ms.mesh.shape['model']} — EP relay needs even ownership")
+    return problems

@@ -2,7 +2,7 @@
 runs over a line of them (twin of the service wrapper and chain runs in
 the reference's ``benchmarks/common.py``: ``build_cp``, ``build_routing``,
 ``request_batch``, ``HopStats``, ``Service``, ``make_service``, ``warm``,
-``run_chain``, ``run_chain_scenario``).
+``run_chain``, ``run_graph``, ``run_chain_scenario``).
 
 The per-service application is the dense LM ``xlb-service-model``; a
 request occupies a slot for ``tokens_per_req`` decode steps.  When a
@@ -289,6 +289,51 @@ def run_chain(mode: str, *, chain_len: int, n_requests: int = 16,
     wall = time.perf_counter() - t0
     lat = [done_t[r] - t0 for r in done_t]
     return {"mode": mode, "chain": chain_len, "completed": len(done_t),
+            "req_per_s": len(done_t) / wall if wall else 0.0,
+            "avg_ms": 1e3 * float(np.mean(lat)) if lat else float("nan"),
+            "wall_s": wall}
+
+
+def run_graph(mode: str, graph, *, n_requests: int = 12, slots: int = 8,
+              tokens_per_req: int = 2, max_ticks: int = 4000, cfg=None,
+              params=None, device="cuda") -> dict:
+    """Paper Fig 11/12: microservice application topologies.  One fleet
+    per service of ``graph`` (a ``configs.ServiceGraph``) but the client,
+    at most 8 instances each; the requests enter at the client's first
+    callee and fan out along ``graph.edges``: a request that completes at
+    a service is submitted to each of its callees, and is done at the
+    first leaf it completes at."""
+    cfg, params, device = _model(cfg, params, device)
+    insts = {s: max(1, min(graph.instances.get(s, 1), 8))
+             for s in graph.services}
+    svcs = {s: make_service(mode, insts[s], slots, tokens_per_req, cfg=cfg,
+                            params=params, device=device)
+            for s in graph.services if s != graph.services[0]}
+    warm(*svcs.values())
+    out_edges = {}
+    for a, b in graph.edges:
+        out_edges.setdefault(a, []).append(b)
+    entry = out_edges[graph.services[0]][0]     # client → first real service
+    svcs[entry].submit(list(range(n_requests)))
+    done_t = {}
+    t0 = time.perf_counter()
+    ticks = 0
+    while any(s.busy for s in svcs.values()) and ticks < max_ticks:
+        for name, s in svcs.items():
+            if not s.busy:
+                continue
+            finished = s.tick()
+            nxt = out_edges.get(name, [])
+            for r in finished:
+                if nxt:                          # fan out to callees
+                    for callee in nxt:
+                        svcs[callee].submit([r])
+                else:
+                    done_t[r] = time.perf_counter()
+        ticks += 1
+    wall = time.perf_counter() - t0
+    lat = [done_t[r] - t0 for r in done_t]
+    return {"mode": mode, "graph": graph.name, "completed": len(done_t),
             "req_per_s": len(done_t) / wall if wall else 0.0,
             "avg_ms": 1e3 * float(np.mean(lat)) if lat else float("nan"),
             "wall_s": wall}

@@ -105,14 +105,20 @@ def test_import_report_lists_the_dead_seed_modules():
     report, findings = TL.import_report()
     assert report["dead"] == list(TL.KNOWN_DEAD) == [
         "repro_torch.data", "repro_torch.data.pipeline",
-        "repro_torch.launch.prefill_decode", "repro_torch.launch.train",
-        "repro_torch.optim", "repro_torch.optim.adamw",
-        "repro_torch.optim.compression", "repro_torch.optim.schedules",
-        "repro_torch.runtime.checkpoint", "repro_torch.runtime.train_loop"]
+        "repro_torch.launch.dryrun", "repro_torch.launch.prefill_decode",
+        "repro_torch.launch.train", "repro_torch.optim",
+        "repro_torch.optim.adamw", "repro_torch.optim.compression",
+        "repro_torch.optim.schedules", "repro_torch.roofline",
+        "repro_torch.roofline.analysis", "repro_torch.roofline.constants",
+        "repro_torch.runtime.checkpoint", "repro_torch.runtime.train_loop",
+        "repro_torch.sharding"]
     assert findings == []
     mods = report["modules"]
     assert mods["repro_torch.core.interpose"]["status"] == "datapath"
     assert mods["repro_torch.models.model"]["status"] == "legacy-imported"
+    # the rules the shard mesh's module imports: seed code, live
+    assert mods["repro_torch.sharding.specs"]["status"] == \
+        "legacy-imported"
     assert mods["repro_torch.convert"]["status"] == "other"
     assert "repro_torch.workload.hops" in report["datapath"]
 

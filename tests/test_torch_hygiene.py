@@ -29,7 +29,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + sorted((ROOT / "examples" / "torch").glob("*.py")) \
+        + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path: Path):
@@ -44,7 +45,7 @@ def test_port_never_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 15 and all(f.exists() for f in files)
     names = {f.relative_to(ROOT / "src" / "repro_torch").as_posix()
-             for f in files[:-1]}
+             for f in files[:-1] if "examples" not in f.parts}
     assert {"kernels/decode_attention.py", "kernels/flash_attention.py",
             "kernels/ssd_scan.py", "models/ssm.py", "models/transformer.py",
             "configs/minitron_4b.py", "configs/mamba2_2_7b.py",
@@ -56,7 +57,11 @@ def test_port_never_imports_jax_or_the_reference():
             "analysis/__main__.py", "analysis/kernel_sweep.py",
             "optim/adamw.py", "optim/schedules.py", "optim/compression.py",
             "data/pipeline.py", "runtime/checkpoint.py",
-            "runtime/train_loop.py", "launch/train.py", "tree.py"} <= names
+            "runtime/train_loop.py", "launch/train.py", "tree.py",
+            "roofline/constants.py", "roofline/analysis.py",
+            "sharding/specs.py", "launch/dryrun.py"} <= names
+    examples = {f.name for f in files if "examples" in f.parts}
+    assert examples == {"quickstart.py", "serve_cluster.py", "train_moe.py"}
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
@@ -185,6 +190,39 @@ def test_wrappers_raise_without_a_built_library(fake_cuda, no_gpu):
                             "route_match": 0, "relay_slots": 0,
                             "decode_attention": 0, "flash_attention": 0,
                             "ssd_scan": 0}
+
+
+def test_wrappers_on_meta_tensors_take_the_plain_versions(monkeypatch):
+    """Meta tensors (the dry run's) get meta outputs of the plain
+    versions' shapes and never reach a launch or the library."""
+    monkeypatch.setattr(_build, "_lib", None)
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel was built or launched for meta")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    before = dict(ops.LAUNCHES)
+    meta = lambda t: t.to("meta") if isinstance(t, torch.Tensor) else t
+    q, kv = torch.zeros((2, 4, 32)), torch.zeros((2, 8, 2, 32))
+    lengths = torch.full((2,), 5, dtype=torch.int32)
+    calls = [
+        (ops.decode_attention, (q, kv, kv, lengths), {}),
+        (ops.flash_attention, (torch.zeros((2, 8, 4, 32)), kv, kv), {}),
+        (ops.ssd_scan, (torch.zeros((1, 64, 2, 32)), torch.zeros((1, 64, 2)),
+                        torch.zeros((1, 64, 2, 16)),
+                        torch.zeros((1, 64, 2, 16))),
+         {"chunk": 32, "return_state": True}),
+        (ops.relay_slots, (torch.tensor([0, 2, 1, 2, 3],
+                                        dtype=torch.int32), 3), {}),
+    ]
+    for fn, args, kw in calls:
+        want = fn(*args, **kw)
+        got = fn(*(meta(a) for a in args), **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        assert [(g.device.type, g.shape, g.dtype) for g in got] == \
+            [("meta", w.shape, w.dtype) for w in want], fn.__name__
+    assert ops.LAUNCHES == before
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
