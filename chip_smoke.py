@@ -121,7 +121,17 @@ Phases (each prints one line; any failure exits non-zero):
    4, a failure injected at step 6 (restored and replayed), B7 in every
    forward, finite losses falling, ms a step, tokens/s, peak memory, the
    share of the FLOP bound, and one profiled step's B7 backward
-   recompute as a share of its device time;
+   recompute as a share of its device time; then the ``RunCtx`` phase:
+   the same training step (the same init and batches) under
+   ``RunCtx(remat="none")`` and ``RunCtx(remat="block")``, CTX_STEPS
+   steps each in this one run (ms a step, peak memory, the first loss,
+   bit-equal between the two; B7 launched once a layer a step, twice
+   under block remat), and a world-size-1 NCCL process group: a (1, 1)
+   ``DeviceMesh`` over it, CTX_ARCHS' smoke configs (f32) placed by
+   ``MeshSpec`` as DTensors, ``loss_fn`` under ``RunCtx(shard=
+   ms.constrain, tp_size=1, ep=(mesh, ("data", "model")))`` against the
+   plain tensors' ``loss_fn`` without a ctx (rtol 1e-4), B5 launched in
+   the expert-parallel relay's body and B7 through ``local_map``;
 7. the reduced (smoke) configs of minitron-4b, mamba2-2.7b, the four
    dense and vlm archs and the three moe and hybrid ones (head dim 16;
    mamba's state 16) through the launcher's ``main`` on the card, as a
@@ -148,10 +158,11 @@ Phases (each prints one line; any failure exits non-zero):
    launches of B1, B2, B5, B6 and B7 counted; then the dry run
    (``launch/dryrun.trace_cell_for`` on a one-chip ``LogicalMesh((1,
    1))``: meta tensors on the host, the H100's
-   data-sheet peaks) for whisper-large-v3's training cell and
-   minitron-4b's prefill, its predicted bytes beside the peaks this run
-   measured and its traced FLOPs beside ``train_flops`` (the ratio held
-   to DRYRUN_FLOP_RATIO);
+   data-sheet peaks) for whisper-large-v3's training cell (without and
+   with block remat) and minitron-4b's prefill, its predicted bytes
+   beside the peaks this run measured (the ``RunCtx`` phase's two
+   runs too) and its traced FLOPs beside ``train_flops`` (the ratio
+   held to DRYRUN_FLOP_RATIO[remat]);
 8. the kernel launch counts: ``admit_commit``, ``complete`` and
    ``decode_attention`` on the main path (and in each serving phase after
    it), ``route_match``, ``relay_slots`` and ``admit`` in the staged
@@ -383,10 +394,17 @@ PROFILER_NAMES = {"admit_commit": "admit_kernel",
                   "relay_slots": "relay_kernel",
                   "flash_attention": "flash_kernel"}
 # the dryrun phase: traced FLOPs of whisper's training step over the
-# hand count train_flops must fall in this range (PERF.md §6, PR 25's
-# prediction: the B7 backward recompute and the checkpointed cross
-# prefill add their forward matmuls again)
-DRYRUN_FLOP_RATIO = (1.02, 1.10)
+# hand count train_flops must fall in this range, by remat (PERF.md §6:
+# the B7 backward recompute and the checkpointed cross prefill add their
+# forward matmuls again, 1.0494; block remat every block's forward
+# again, 1.2987 on the CPU's trace)
+DRYRUN_FLOP_RATIO = {"none": (1.02, 1.10), "block": (1.27, 1.33)}
+# the RunCtx phase: whisper's training steps under each remat, and the
+# smoke configs whose loss runs on DTensors over a world-size-1 NCCL
+# group (deepseek: B5 and MLA; arctic: B5 and B7), within this rtol
+CTX_STEPS = 4
+CTX_ARCHS = ("deepseek-v2-236b", "arctic-480b")
+CTX_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -3569,7 +3587,8 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
         "train_whisper", TRAIN_SEQ, TRAIN_BATCH, "train"))
     # one more step under the profiler, on the trained state
     state = out["state"]
-    step_fn = TL.make_train_step(cfg, tcfg)
+    from repro_torch.models.transformer import RunCtx
+    step_fn = TL.make_train_step(cfg, RunCtx(), tcfg)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in pipe.batch_at(TRAIN_STEPS).items()}
     torch.cuda.synchronize()
@@ -3645,6 +3664,147 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
         f"{pct(vjp_ms):.1f} %; largest kernels (ms): {top}"]
     return lines, launches, {"peak": peak, "train_flops": flops,
                              "step_ms": step_ms}
+
+
+def phase_ctx(torch, ops, TL, TP, TA, TM, SP, MS, EL, TT, cfg, dev="cuda"):
+    """The ``RunCtx`` phase.  (1) whisper-large-v3's training step at full
+    width and depth (TRAIN_BATCH x (TRAIN_SEQ tokens + frames), the
+    seed-0 init on the card, the pipeline's first CTX_STEPS batches) under
+    ``remat="none"`` and ``remat="block"`` in turn: ms a step (median of
+    steps 2 on, host clock to a synchronise), peak memory, the first
+    loss (bit-equal between the two: a checkpoint changes what is kept,
+    not what is computed), B7's launches (one a layer a step; under block
+    remat two: the recompute).  (2) A world-size-1 NCCL process group (a
+    ``FileStore`` under build/), ``launch.mesh.make_host_mesh(1, 1)``, and
+    CTX_ARCHS' smoke configs in f32: ``loss_fn`` on the params and batch
+    placed by ``MeshSpec`` (DTensors) under ``RunCtx(shard=ms.constrain,
+    tp_size=1, ep=(mesh, ("data", "model")))`` against ``loss_fn`` of the
+    plain tensors without a ctx, within CTX_RTOL; the counts of that
+    loss's launches (B5 in the relay's body, B7 through ``local_map``).
+    Returns (lines, launches of the ctx runs, {remat: measurements})."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, smoke_config
+    dev = torch.device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = TP.Pipeline(TP.DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        enc_frames=cfg.enc_frames, d_model=cfg.d_model))
+    tcfg = TL.TrainConfig(steps=TRAIN_STEPS, warmup=2,
+                          opt=TA.AdamWConfig(lr=1e-3))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(CTX_STEPS)]
+    layers = cfg.n_enc_layers + cfg.n_layers
+    runs, total = {}, {}
+    for remat in ("none", "block"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = TM.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                None, dev)
+        opt = TA.init(params)
+        bias = torch.zeros((max(cfg.moe.n_experts, 1),),
+                           dtype=torch.float32, device=dev)
+        step = TL.make_train_step(cfg, TT.RunCtx(remat=remat), tcfg)
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        walls, losses = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, bias, m = step(params, opt, bias, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        want = {"flash_attention": CTX_STEPS * layers
+                * (2 if remat == "block" else 1)}
+        check(got == want, f"ctx {cfg.name} remat={remat}: launches {got}, "
+              f"expected {want}")
+        check(all(math.isfinite(x) for x in losses), f"ctx {cfg.name} "
+              f"remat={remat}: a non-finite loss {losses}")
+        runs[remat] = {"peak": torch.cuda.max_memory_allocated(dev),
+                       "step_ms": statistics.median(walls[1:]) * 1e3,
+                       "first_ms": walls[0] * 1e3, "losses": losses}
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        del params, opt, bias, step, m
+    a, b = runs["none"], runs["block"]
+    check(a["losses"][0] == b["losses"][0], f"ctx {cfg.name}: the first "
+          f"loss {a['losses'][0]!r} (remat none) != {b['losses'][0]!r} "
+          "(block)")
+    lines = [
+        f"ctx {cfg.name} training step, full width and depth, batch "
+        f"{TRAIN_BATCH} x ({TRAIN_SEQ} tokens + {cfg.enc_frames} frames), "
+        f"{CTX_STEPS} steps each from one init: remat=none "
+        f"{a['step_ms']:.2f} ms a step (first {a['first_ms']:.1f}), peak "
+        f"{a['peak'] / 2**30:.2f} GiB, losses "
+        + " ".join(f"{x:.6f}" for x in a["losses"])
+        + f" | remat=block {b['step_ms']:.2f} ms a step (first "
+        f"{b['first_ms']:.1f}), peak {b['peak'] / 2**30:.2f} GiB, losses "
+        + " ".join(f"{x:.6f}" for x in b["losses"])
+        + f" | block / none: step {b['step_ms'] / a['step_ms']:.4f}, peak "
+        f"{b['peak'] / a['peak']:.4f}, the peak {(a['peak'] - b['peak']) / 2**30:.2f}"
+        f" GiB lower; first loss bit-equal; B7 launches {layers} a step "
+        f"without remat, {2 * layers} with (the recompute)"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the multi-device layer on a world-size-1 NCCL group
+    store_path = ROOT / "build" / "ctx_store"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    store_path.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = MS.make_host_mesh(1, 1)
+        ms = SP.MeshSpec(mesh)
+        ctx = TT.RunCtx(shard=ms.constrain, tp_size=1,
+                        ep=(mesh, ("data", "model")))
+        for arch in CTX_ARCHS:
+            c = smoke_config(get_config(arch))
+            params = TM.init_params(c, torch.Generator(dev).manual_seed(1),
+                                    torch.float32, dev)
+            g = torch.Generator(dev).manual_seed(2)
+            tok = torch.randint(0, c.vocab, (4, 64), generator=g, device=dev,
+                                dtype=torch.int32)
+            batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+            with torch.no_grad():
+                want, _ = TM.loss_fn(c, params, batch)
+                pd = EL.reshard_params(params, ms)
+                bd = EL.reshard_tree(batch, ms.batch_shardings(batch))
+                for k in ops.LAUNCHES:
+                    ops.LAUNCHES[k] = 0
+                got, _ = TM.loss_fn(c, pd, bd, ctx=ctx)
+                torch.cuda.synchronize()
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            got = float(got.full_tensor())
+            rel = abs(got - float(want)) / abs(float(want))
+            n_moe = c.n_layers - c.moe.first_dense
+            need = {"relay_slots": n_moe}
+            if c.mla is None:
+                need["flash_attention"] = c.n_layers
+            check(launches == need, f"ctx {arch}: launches under the mesh "
+                  f"{launches}, expected {need}")
+            check(rel <= CTX_RTOL, f"ctx {arch}: loss on the mesh {got!r} "
+                  f"vs {float(want)!r} without a ctx (rel {rel:.3g} > "
+                  f"{CTX_RTOL})")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            lines.append(
+                f"ctx {arch}-smoke (f32) on a world-size-1 NCCL group, "
+                f"(1, 1) DeviceMesh, params and batch as DTensors "
+                f"(MeshSpec), RunCtx(shard=ms.constrain, tp_size=1, "
+                f"ep=(mesh, ('data', 'model'))): loss {got:.7f} vs "
+                f"{float(want):.7f} without a ctx (rel {rel:.3g}, rtol "
+                f"{CTX_RTOL}); launches " + " ".join(
+                    f"{k}={v}" for k, v in launches.items())
+                + " (B5 in the relay's body, B7 through local_map)")
+            del params, pd, bd
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+    return lines, total, runs
 
 
 def phase_train_smoke(torch, ops, TM, train, configs, dev="cuda"):
@@ -3886,33 +4046,38 @@ def phase_examples(torch, ops, dev="cuda"):
     return lines, total
 
 
-def phase_dryrun(torch, DR, SP, measured, gpu):
+def phase_dryrun(torch, DR, SP, measured, gpu, ctx_runs):
     """The dry run's predictions (``launch/dryrun.trace_cell_for`` on a
     one-chip ``LogicalMesh((1, 1))``, meta tensors on the host, H100
     data-sheet peaks) beside this run's measurements of the same cells:
     whisper-large-v3's training step (TRAIN_BATCH x (TRAIN_SEQ tokens +
-    frames)) against ``train_flops`` and its measured peak, and
-    minitron-4b's LLM_BATCH x LLM_PROMPT bf16 prefill against its measured
-    peak.  Fails if a trace raises or the traced FLOPs over
-    ``train_flops`` fall outside DRYRUN_FLOP_RATIO."""
+    frames)) without and with block remat, against ``train_flops``, its
+    measured peak in ``train_loop.run`` and the ``RunCtx`` phase's peaks
+    under each remat (``ctx_runs``), and minitron-4b's LLM_BATCH x
+    LLM_PROMPT bf16 prefill against its measured peak.  Fails if a trace
+    raises or the traced FLOPs over ``train_flops`` fall outside
+    DRYRUN_FLOP_RATIO[remat]."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     ms = SP.MeshSpec(SP.LogicalMesh((1, 1)))
     lines = []
-    cells = (("whisper-large-v3", ShapeConfig(
-        "train_whisper", TRAIN_SEQ, TRAIN_BATCH, "train"), "train"),
+    train = ShapeConfig("train_whisper", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cells = (("whisper-large-v3", train, "train", "none"),
+             ("whisper-large-v3", train, "train", "block"),
              ("minitron-4b", ShapeConfig(
                  "prefill_minitron", LLM_PROMPT, LLM_BATCH, "prefill"),
-              "prefill"))
-    for arch, shape, kind in cells:
+              "prefill", None))
+    for arch, shape, kind, remat in cells:
         cfg = get_config(arch)
         t0 = time.perf_counter()
-        rep = DR.trace_cell_for(cfg, shape, ms)
+        rep = DR.trace_cell_for(cfg, shape, ms, remat=remat)
         wall = time.perf_counter() - t0
         m, r, tr = rep["memory_analysis"], rep["roofline"], rep["traced"]
         got = measured[arch]
+        pred = m["total_GiB"] * 2**30
         line = (f"dryrun {arch} {kind} {shape.global_batch} x "
-                f"{shape.seq_len} on one chip (prediction: meta trace "
+                f"{shape.seq_len}" + (f" remat={remat}" if remat else "")
+                + f" on one chip (prediction: meta trace "
                 f"{wall:.1f} s on the host, H100 data-sheet peaks): traced "
                 f"{tr['flops'] / 1e12:.3f} TFLOP (recompute included: "
                 f"{tr['recompute_included']}), model_flops "
@@ -3921,18 +4086,26 @@ def phase_dryrun(torch, DR, SP, measured, gpu):
                 f"{m['temp_GiB']} ({m['temp_rule']}) = {m['total_GiB']} GiB "
                 f"(fits_hbm {m['fits_hbm']}); {r['dominant']}-bound, "
                 f"{r['step_lower_bound_s'] * 1e3:.3f} ms | measured in this "
-                f"run on {gpu}: peak {got['peak'] / 2**30:.2f} GiB "
-                f"(predicted / measured "
-                f"{m['total_GiB'] * 2**30 / got['peak']:.3f})")
+                f"run on {gpu}: ")
         if kind == "train":
+            run = ctx_runs[remat]
+            line += (f"peak under RunCtx(remat={remat!r}) "
+                     f"{run['peak'] / 2**30:.2f} GiB (predicted / measured "
+                     f"{pred / run['peak']:.3f})")
+            if remat == "none":
+                line += (f", in train_loop.run {got['peak'] / 2**30:.2f} "
+                         f"GiB ({pred / got['peak']:.3f})")
             ratio = tr["flops"] / got["train_flops"]
-            lo, hi = DRYRUN_FLOP_RATIO
-            check(lo <= ratio <= hi, f"dryrun {arch}: traced FLOPs / "
-                  f"train_flops {ratio:.4f} outside [{lo}, {hi}]")
+            lo, hi = DRYRUN_FLOP_RATIO[remat]
+            check(lo <= ratio <= hi, f"dryrun {arch} remat={remat}: traced "
+                  f"FLOPs / train_flops {ratio:.4f} outside [{lo}, {hi}]")
             line += (f", train_flops {got['train_flops'] / 1e12:.3f} TFLOP "
                      f"(traced / train_flops {ratio:.4f}, in [{lo}, {hi}]); "
-                     f"a step {got['step_ms']:.2f} ms against the predicted "
+                     f"a step {run['step_ms']:.2f} ms against the predicted "
                      f"bound {r['step_lower_bound_s'] * 1e3:.3f} ms")
+        else:
+            line += (f"peak {got['peak'] / 2**30:.2f} GiB (predicted / "
+                     f"measured {pred / got['peak']:.3f})")
         lines.append(line)
     return lines
 
@@ -4043,6 +4216,8 @@ def main() -> int:
     from repro_torch.launch import dryrun as DR
     from repro_torch.roofline import constants as RC
     from repro_torch.sharding import specs as SP
+    from repro_torch.runtime import elastic as EL
+    from repro_torch.models import transformer as TT
     global MEM_BPS, OPS_PS, BF16_OPS_PS
     MEM_BPS, OPS_PS, BF16_OPS_PS = RC.MEM_BPS, RC.OPS_PS, RC.BF16_OPS_PS
 
@@ -4135,6 +4310,10 @@ def main() -> int:
         torch, ops, fa, TL, TP, TA, whisper)
     for line in tlines:
         print(line)
+    clines, ctx_launches, ctx_runs = phase_ctx(
+        torch, ops, TL, TP, TA, TM, SP, MS, EL, TT, whisper)
+    for line in clines:
+        print(line)
     for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
         print(line)
     tlines, train_smoke = phase_train_smoke(torch, ops, TM, TRN, configs)
@@ -4150,7 +4329,7 @@ def main() -> int:
         print(line)
     for line in phase_dryrun(torch, DR, SP, {
             "whisper-large-v3": train_measured,
-            "minitron-4b": {"peak": peaks["minitron-4b"]}}, gpu):
+            "minitron-4b": {"peak": peaks["minitron-4b"]}}, gpu, ctx_runs):
         print(line)
     launches = {**main_launches, **staged_launches, **llm_launches}
     # relay_slots runs on two paths: the staged chain and the MoE dispatch
@@ -4161,6 +4340,8 @@ def main() -> int:
     for k, v in train_total.items():            # the training forwards'
         launches[k] += v
     for k, v in example_launches.items():       # the examples'
+        launches[k] = launches.get(k, 0) + v
+    for k, v in ctx_launches.items():           # the RunCtx phase's
         launches[k] = launches.get(k, 0) + v
     print("kernels: " + " ".join(
         f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
@@ -4184,6 +4365,7 @@ def main() -> int:
               f"in the {name} phase: " + " ".join(
                   f"{k}={v}" for k, v in got.items())
               for name, got in (("examples", example_launches),
+                                ("RunCtx", ctx_launches),
                                 ("control", control_launches),
                                 ("degraded", degraded_launches),
                                 ("chaos", chaos_launches),
@@ -4257,6 +4439,8 @@ def main() -> int:
                 kernels[-1]["launches_training"] = train_total[name]
             if name in example_launches:       # and in the examples
                 kernels[-1]["launches_examples"] = example_launches[name]
+            if name in ctx_launches:           # and in the RunCtx phase
+                kernels[-1]["launches_ctx"] = ctx_launches[name]
             if name == "flash_attention":      # as minitron's prefill ran it
                 kernels[-1]["kernel"] = prefill_kernels["minitron-4b"]
                 enc = timing["flash_attention[enc]"]

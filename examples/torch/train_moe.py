@@ -18,6 +18,7 @@ from pathlib import Path
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.data.pipeline import DataConfig, Pipeline
+from repro_torch.models.transformer import RunCtx
 from repro_torch.optim import adamw
 from repro_torch.runtime import train_loop
 
@@ -52,7 +53,7 @@ def main(argv=None) -> dict:
     tcfg = train_loop.TrainConfig(
         steps=args.steps, ckpt_every=100, ckpt_dir=args.ckpt_dir,
         opt=adamw.AdamWConfig(lr=1e-3), warmup=30, log_every=20)
-    out = train_loop.run(CFG, pipe, tcfg, device=args.device)
+    out = train_loop.run(CFG, pipe, tcfg, RunCtx(), device=args.device)
     losses = [h["loss"] for h in out["history"]]
     lines.append(f"loss: {losses[0]:.3f} -> {losses[-1]:.3f} over "
                  f"{len(losses)} steps; restarts={out['restarts']}")

@@ -1,11 +1,9 @@
 """Configuration system (twin of ``repro/configs/base.py``).
 
 Every assigned architecture is a frozen ``ModelConfig``; input shapes are
-``ShapeConfig``.  Pure data, ported whole for every family, including those
-whose model the port does not run yet (moe, hybrid, audio:
-``models/model.py::init_params`` refuses them, ROADMAP.md item 12); no
-torch import, so the control plane and the tests read configs without a
-device.
+``ShapeConfig``.  Pure data, ported whole for every family (dense, vlm,
+moe, ssm, hybrid, audio: ``models/model.py`` runs each); no torch import,
+so the control plane and the tests read configs without a device.
 """
 
 from __future__ import annotations

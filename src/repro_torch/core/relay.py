@@ -6,7 +6,11 @@ i-sock; on the device that is a capacity-bounded counting-sort dispatch:
 payload rows move to their destination's buffer slot in one scatter.
 
 Across a shard mesh (``sharded_apply``) the relay hop is an explicit
-``all_to_all`` over the mesh's axis.
+``all_to_all`` over the mesh's axis, driven by one controller over the
+shards.  Across the ranks of a ``DeviceMesh`` (``ep_relay``, the MoE's
+expert-parallel relay) every rank runs the same body on its own rows and
+the hop is a differentiable ``all_to_all`` of
+``torch.distributed._functional_collectives``.
 
 Three interchangeable dispatch methods (the tests cross-check them):
   * ``sort``    - counting-sort positions + scatter.  Default.
@@ -23,6 +27,7 @@ destination's capacity are dropped (``ok`` False) and counted in
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -206,3 +211,115 @@ def sharded_apply(xs, idxs, weights, n_dest: int, capacity: int, mesh,
     stack = lambda f: mesh.all_gather([getattr(m, f) for m in metas])
     return out, RelayMeta(stack("idx"), stack("slot"), stack("ok"), load,
                           overflow)
+
+
+# --------------------------------------------------------------------------- #
+# Expert-parallel relay across the ranks of a DeviceMesh
+# --------------------------------------------------------------------------- #
+
+
+def _fc():
+    import torch.distributed._functional_collectives as fc
+    return fc
+
+
+def ep_body(x, idx, weights, w_in, w_gate, w_out, *, n_dest: int,
+            capacity: int, model_group, model_size: int, dp_groups: tuple,
+            backend_fn, slots_fn, gather: bool):
+    """One rank's relay: the reference's ``sharded_apply`` body inside its
+    ``shard_map``, on this rank's local tensors.
+
+    x (N_loc, D) rows, idx (N_loc,) global destination ids, weights
+    (N_loc,) combine scales; ``w_in`` / ``w_gate`` / ``w_out`` this rank's
+    ``n_dest // model_size`` experts (with ``gather``, also a slice of
+    their D / D dims over the data axes, all-gathered here over
+    ``dp_groups``, the minor axis first).  ``slots_fn(idx, n_dest)`` gives
+    (slot, load) (``ops.relay_slots``: the relay kernel on the card).  A
+    row is dropped against its own rank's ``capacity`` at each
+    destination.  Returns (out (N_loc, D'), overflow_frac (), load (E,)):
+    the load summed and the overflow averaged over the model group and
+    the data groups (the reference's ``psum`` / ``pmean``)."""
+    fc = _fc()
+    if gather:
+        for g in reversed(dp_groups):
+            w_in = fc.all_gather_tensor_autograd(w_in, 1, g)
+            w_gate = fc.all_gather_tensor_autograd(w_gate, 1, g)
+            w_out = fc.all_gather_tensor_autograd(w_out, 2, g)
+    M, D = model_size, x.shape[1]
+    E_loc = n_dest // M
+    slot, load = slots_fn(idx, n_dest)
+    buf, meta = relay_dispatch_at(x, idx, slot, load, n_dest, capacity)
+    # relay hop: chunk j of (M * E_loc * C, D) (destinations j * E_loc ...)
+    # goes to model rank j, which receives one chunk a source rank
+    recv = fc.all_to_all_single_autograd(
+        buf.reshape(n_dest * capacity, D), None, None, model_group)
+    pool = recv.reshape(M, E_loc, capacity, D).transpose(0, 1) \
+        .reshape(E_loc, M * capacity, D)
+    out = backend_fn({"w_in": w_in, "w_gate": w_gate, "w_out": w_out}, pool)
+    # reverse relay: the results back to their source ranks
+    out = out.reshape(E_loc, M, capacity, -1).transpose(0, 1) \
+        .reshape(n_dest * capacity, -1)
+    back = fc.all_to_all_single_autograd(out, None, None, model_group)
+    load = fc.wait_tensor(fc.all_reduce(meta.load, "sum", model_group))
+    ovf = fc.wait_tensor(fc.all_reduce(meta.overflow_frac, "sum",
+                                       model_group)) / M
+    for g in dp_groups:
+        load = fc.wait_tensor(fc.all_reduce(load, "sum", g))
+        ovf = fc.wait_tensor(fc.all_reduce(ovf, "sum", g)) / g.size()
+    rows = relay_combine(back.reshape(n_dest, capacity, -1), meta, weights)
+    return rows, ovf, load
+
+
+def ep_relay(x, idx, weights, params: dict, *, mesh, tok_axes: tuple,
+             n_dest: int, capacity: int, backend_fn, slots_fn,
+             explicit_fsdp: bool = False):
+    """The expert-parallel relay over the ``DeviceMesh`` ``mesh``: the
+    rows x (N, D), ids and weights sharded over ``tok_axes`` (major to
+    minor in the mesh's order; ``"model"`` among them), the experts of
+    ``params`` (``w_in`` / ``w_gate`` (E, D, F), ``w_out`` (E, F, D))
+    over ``"model"`` and, with ``explicit_fsdp``, their D / D dims over
+    the data axes of ``tok_axes``; ``ep_body`` on each rank's shards
+    (``local_map``).  Plain tensors count as the same on every rank.
+    Returns (out (N, D') sharded as the rows, overflow_frac, load (E,)),
+    the last two the same on every rank: DTensors, or plain tensors (the
+    rows gathered) where every argument was plain."""
+    from repro_torch.kernels.ops import _local_map
+    from repro_torch.sharding.specs import is_dtensor
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = mesh.mesh_dim_names
+    order = [n for n in names if n in tok_axes]
+    if tuple(order) != tuple(tok_axes):
+        raise ValueError(f"tok_axes {tok_axes} must be axes of the mesh "
+                         f"{names}, in its order")
+    dp_axes = tuple(a for a in tok_axes if a != "model")
+    gather = explicit_fsdp and bool(dp_axes)
+    rows = [Shard(0) if n in tok_axes else Replicate() for n in names]
+    rep = [Replicate() for _ in names]
+
+    def experts(dim: int, grad: bool = False) -> list:
+        # without the gather, each data rank's rows give a part of the
+        # experts' gradient: summed over the data axes
+        return [Shard(0) if n == "model" else
+                Shard(dim) if gather and n in dp_axes else
+                Partial() if grad and n in dp_axes else Replicate()
+                for n in names]
+
+    M = mesh["model"].size()
+    if n_dest % M:
+        raise ValueError(f"n_dest ({n_dest}) must divide over the {M}-way "
+                         f"model axis")
+    body = functools.partial(
+        ep_body, n_dest=n_dest, capacity=capacity,
+        model_group=mesh.get_group("model"), model_size=M,
+        dp_groups=tuple(mesh.get_group(a) for a in dp_axes),
+        backend_fn=backend_fn, slots_fn=slots_fn, gather=gather)
+    args = [x, idx, weights, params["w_in"], params["w_gate"],
+            params["w_out"]]
+    out, ovf, load = _local_map(
+        body, args, (rows, rows, rows, experts(1), experts(1), experts(2)),
+        (rows, rep, rep), mesh, in_grad_placements=(
+            rows, rows, rows, experts(1, True), experts(1, True),
+            experts(2, True)))
+    if not any(map(is_dtensor, args)):       # plain in, plain out
+        return out.full_tensor(), ovf.to_local(), load.to_local()
+    return out, ovf, load

@@ -15,8 +15,9 @@ valid keys when ``block_q > block_k``, and neither port version has it.
 the autograd Function in ``kernels/ops.py``): the reference has no
 backward kernel, and its gradient is JAX's autodiff of the plain
 ``models/attention.py::sdpa``, so this recomputes that function in plain
-PyTorch from the saved inputs, ``VJP_Q_CHUNK`` query rows at a time, and
-returns its vector-Jacobian product.
+PyTorch from the saved inputs, ``VJP_Q_CHUNK`` query rows at a time (or
+the caller's ``q_chunk``), and returns its vector-Jacobian product.
+``flash_attention_chunked`` is the plain forward over query chunks.
 """
 
 from __future__ import annotations
@@ -74,17 +75,31 @@ def attention_rows(q, k, v, offset: int, *, causal: bool):
     return out.reshape(B, CQ, H, v.shape[-1])
 
 
-def flash_attention_vjp(q, k, v, dout, *, causal: bool):
+def flash_attention_chunked(q, k, v, q_chunk: int, *, causal: bool):
+    """``attention_rows`` over ``q_chunk`` query rows at a time (causal
+    rows read only the keys they see): the reference's ``sdpa`` with
+    ``q_chunk``, one (B, H, q_chunk, S) f32 score slab alive at once."""
+    S = q.shape[1]
+    return torch.cat([
+        attention_rows(q[:, i:i + q_chunk],
+                       k[:, :i + q_chunk] if causal else k,
+                       v[:, :i + q_chunk] if causal else v, i,
+                       causal=causal)
+        for i in range(0, S, q_chunk)], dim=1)
+
+
+def flash_attention_vjp(q, k, v, dout, *, causal: bool,
+                        q_chunk: int = VJP_Q_CHUNK):
     """(dq, dk, dv) of ``attention_rows`` over all of q at ``dout``, in
-    the inputs' dtypes: recomputed under autograd ``VJP_Q_CHUNK`` query
-    rows at a time (causal rows read only the keys they see), dk and dv
-    summed over the chunks in f32."""
+    the inputs' dtypes: recomputed under autograd ``q_chunk`` query rows
+    at a time (causal rows read only the keys they see), dk and dv summed
+    over the chunks in f32."""
     S = q.shape[1]
     dq = torch.empty_like(q)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-    for i in range(0, S, VJP_Q_CHUNK):
-        j = min(i + VJP_Q_CHUNK, S)
+    for i in range(0, S, q_chunk):
+        j = min(i + q_chunk, S)
         n = j if causal else k.shape[1]
         with torch.enable_grad():
             qc, kc, vc = (t.detach().requires_grad_()

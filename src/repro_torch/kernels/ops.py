@@ -11,6 +11,16 @@ that its main path went through the kernels.  ``flash_attention`` and
 backward recomputes the plain function (the reference's gradient is
 JAX's autodiff of its plain functions; there is no backward kernel).
 
+``relay_slots``, ``decode_attention``, ``flash_attention`` and
+``ssd_scan`` also take DTensors (``torch.distributed.tensor``, the
+tensors a ``sharding/specs.py::MeshSpec`` places on a ``DeviceMesh``):
+a kernel reads raw memory, so it runs on each rank's local shard through
+``local_map`` (the torch counterpart of the reference's ``shard_map``),
+with the batch over the data axes and the heads over ``model`` where the
+K/V heads divide it (else replicated over ``model``); the relay rank
+takes its ids replicated, as it ranks over all of them.  Plain tensors
+among a DTensor call's arguments count as replicated.
+
 The sharded wrappers (``admit_commit_sharded``, ``complete_sharded``)
 count the launches of the kernels they run per shard under those kernels'
 names.
@@ -45,6 +55,7 @@ from repro_torch.kernels import route_match as _rm
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import tune
 from repro_torch.kernels.route_match import AdmitResult
+from repro_torch.sharding.specs import is_dtensor
 
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"admit": 0, "admit_commit": 0, "complete": 0, "route_match": 0,
@@ -280,11 +291,72 @@ def route_match(svc, features, routing) -> tuple[torch.Tensor, torch.Tensor]:
     return _rm.route_match(svc, features, routing)
 
 
+def _split(mesh, shape, batch: int | None, heads: int | None,
+           shard_heads: bool = True) -> list:
+    """Placements of a kernel's operand on ``mesh``: dim ``batch`` over
+    the data axes (every axis but ``model``, major to minor) where their
+    product divides it, dim ``heads`` over ``model`` with
+    ``shard_heads`` where that divides it; replicated otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    sizes = dict(zip(names, mesh.shape))
+    dp = 1
+    for n in names:
+        if n != "model":
+            dp *= sizes[n]
+    out = []
+    for n in names:
+        if n == "model":
+            ok = shard_heads and heads is not None \
+                and shape[heads] % sizes[n] == 0
+            out.append(Shard(heads) if ok else Replicate())
+        else:
+            ok = batch is not None and shape[batch] % dp == 0
+            out.append(Shard(batch) if ok else Replicate())
+    return out
+
+
+def _local_map(fn, args, in_placements, out_placements, mesh=None,
+               in_grad_placements=None):
+    """``fn`` on each rank's local shards of ``args`` laid out as
+    ``in_placements`` (redistributed there first; a plain tensor counts
+    as replicated), its outputs DTensors of ``out_placements`` (a list of
+    placements for one output, a tuple of lists for several), on
+    ``mesh`` (the first DTensor's where None).  ``in_grad_placements``:
+    the layout of each input's local gradient where it is not that
+    input's own (a replicated input whose ranks each use a part of it
+    leaves a ``Partial`` gradient)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    if mesh is None:
+        mesh = next(a for a in args if is_dtensor(a)).device_mesh
+    args = [a if is_dtensor(a) or not isinstance(a, torch.Tensor) else
+            DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False) for a in args]
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements,
+                     in_grad_placements=in_grad_placements or in_placements,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _mesh_and_heads(tensors, kv):
+    """The mesh of the first DTensor among ``tensors``, and whether the
+    K/V heads ``kv`` divide over its ``model`` axis (then the heads
+    shard)."""
+    mesh = next(t for t in tensors if is_dtensor(t)).device_mesh
+    tp = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+    return mesh, kv % tp == 0
+
+
 def relay_slots(idx, n_dest: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Counting-sort rank: (slot (N,), load (n_dest,)) i32, the stable rank
     of each row within its destination and the per-destination totals;
     rows at the sentinel ``n_dest`` take no rank and count no load.  Any
     N; N == 0 returns empty slots and zero loads with no launch."""
+    if is_dtensor(idx):
+        rep = _split(idx.device_mesh, idx.shape, None, None)
+        return _local_map(lambda i: relay_slots(i, n_dest), [idx], (rep,),
+                          (rep, rep))
     if idx.shape[0] == 0:
         z = lambda n: torch.zeros((n,), dtype=torch.int32, device=idx.device)
         return z(0), z(n_dest)
@@ -299,6 +371,14 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
     """One-token GQA attention: q (B, H, hd) against caches (B, S, K, hd)
     at ``kpos <= lengths[b]``, scaled by 1/sqrt(hd) → (B, H, hd).  Any S;
     the caches are read in place on the card."""
+    args = (q, k_cache, v_cache, lengths)
+    if any(map(is_dtensor, args)):
+        mesh, heads = _mesh_and_heads(args, k_cache.shape[2])
+        pq = _split(mesh, q.shape, 0, 1, heads)
+        pk = _split(mesh, k_cache.shape, 0, 2, heads)
+        return _local_map(decode_attention, list(args),
+                          (pq, pk, pk, _split(mesh, lengths.shape, 0, None)),
+                          pq)
     if _on_cuda(q):
         res = _da.decode_attention_cuda(q, k_cache, v_cache, lengths)
         LAUNCHES["decode_attention"] += 1
@@ -308,25 +388,31 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
 
 class _FlashAttention(torch.autograd.Function):
     """B7 with a gradient: the forward launches the kernel on CUDA tensors
-    (the plain version on the CPU), the backward recomputes the plain
-    attention from the saved inputs (``flash_attention_vjp``) on either."""
+    (the plain version on the CPU, over ``q_chunk``-row query chunks where
+    given), the backward recomputes the plain attention from the saved
+    inputs (``flash_attention_vjp``, ``q_chunk`` rows at a time) on
+    either."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, q_chunk: int):
         if _on_cuda(q):
             out = _fa.flash_attention_cuda(q, k, v, causal=causal)
             LAUNCHES["flash_attention"] += 1
+        elif q_chunk:
+            out = _fa.flash_attention_chunked(q, k, v, q_chunk,
+                                              causal=causal)
         else:
             out = _fa.flash_attention(q, k, v, causal=causal)
         ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
+        ctx.causal, ctx.q_chunk = causal, q_chunk
         return out
 
     @staticmethod
     def backward(ctx, dout):
         with torch.profiler.record_function(VJP_RANGES["flash_attention"]):
-            return (*_fa.flash_attention_vjp(*ctx.saved_tensors, dout,
-                                             causal=ctx.causal), None)
+            return (*_fa.flash_attention_vjp(
+                *ctx.saved_tensors, dout, causal=ctx.causal,
+                q_chunk=ctx.q_chunk or _fa.VJP_Q_CHUNK), None, None)
 
 
 class _SSDScan(torch.autograd.Function):
@@ -355,12 +441,22 @@ class _SSDScan(torch.autograd.Function):
                                        dh), None)
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True,
+                    q_chunk: int = 0) -> torch.Tensor:
     """GQA prefill attention: q (B, S, H, hd), k/v (B, S, K, hd) →
     (B, S, H, hd), causal or not, scaled by 1/sqrt(hd).  Any S.
+    ``q_chunk`` > 0: the plain version and the backward's recompute take
+    that many query rows at a time (the kernel keeps its own tiles).
     Differentiable: the kernel runs the forward, the plain attention is
     recomputed for the backward."""
-    return _FlashAttention.apply(q, k, v, causal)
+    if any(map(is_dtensor, (q, k, v))):
+        mesh, heads = _mesh_and_heads((q, k, v), k.shape[2])
+        pq = _split(mesh, q.shape, 0, 2, heads)
+        pk = _split(mesh, k.shape, 0, 2, heads)
+        return _local_map(
+            lambda a, b, c: _FlashAttention.apply(a, b, c, causal, q_chunk),
+            [q, k, v], (pq, pk, pk), pq)
+    return _FlashAttention.apply(q, k, v, causal, q_chunk)
 
 
 def ssd_scan(xdt, a_log, Bm, Cm, *, chunk: int,
@@ -374,10 +470,20 @@ def ssd_scan(xdt, a_log, Bm, Cm, *, chunk: int,
     and the form is exact for any chunk).  One call is one count in
     ``LAUNCHES``, whatever number of passes it runs.  Differentiable: the
     kernels run the forward, the plain scan is recomputed for the
-    backward."""
+    backward.  On DTensors: the batch over the data axes and the heads
+    over ``model``."""
     S = xdt.shape[1]
     chunk = min(chunk, S)
     if chunk <= 0 or S % chunk:
         raise ValueError(f"S = {S} is not a multiple of the chunk {chunk}")
-    y, h = _SSDScan.apply(xdt, a_log, Bm, Cm, chunk)
+    args = (xdt, a_log, Bm, Cm)
+    if any(map(is_dtensor, args)):
+        mesh, _ = _mesh_and_heads(args, 1)
+        p4 = _split(mesh, xdt.shape, 0, 2)
+        y, h = _local_map(
+            lambda *a: _SSDScan.apply(*a, chunk), list(args),
+            (p4, _split(mesh, a_log.shape, 0, 2), p4, p4),
+            (p4, _split(mesh, (xdt.shape[0], xdt.shape[2]), 0, 1)))
+    else:
+        y, h = _SSDScan.apply(xdt, a_log, Bm, Cm, chunk)
     return (y, h) if return_state else y

@@ -1,12 +1,15 @@
 """Meshes (twin of ``repro/launch/mesh.py``): the production meshes as
-shapes, and the shard mesh of the sharded datapath.
+shapes, a host mesh over the ranks of a process group, and the shard
+mesh of the sharded datapath.
 
 ``make_production_mesh`` / ``make_mesh_spec`` give the reference's
 production meshes, (16, 16) ``data`` / ``model`` and (2, 16, 16)
 ``pod`` / ``data`` / ``model``, as ``LogicalMesh``es: axis names and
-sizes, no devices.  The dry run reads them for its per-device shapes;
-placing tensors on them (and the reference's ``make_host_mesh``) comes
-with the multi-device work (ROADMAP.md item 14).
+sizes, no devices.  The dry run reads them for its per-device shapes
+and, over a fake process group of as many ranks, for its collectives.
+``make_host_mesh`` is a ``DeviceMesh`` over the ranks of the default
+process group (``torch.distributed``: ``gloo`` processes on the CPU,
+``nccl`` on the cards), which a ``MeshSpec`` places tensors on.
 
 The reference drives its mesh from one program (``shard_map``): one
 controller runs every shard and the collectives are ``all_gather``,
@@ -16,8 +19,10 @@ device every shard lives on, and the three collectives as plain functions
 over the M per-shard values.  Per-shard values are a list of M tensors, or
 one tensor whose leading dimension is the shard axis.
 
-Shards over several devices are not part of this layer (ROADMAP.md,
-queue 1: shards over several GPUs); a mesh over more than one raises.
+The shard mesh over several devices (the sharded admission datapath
+across processes, run only by ``benchmarks/shard_bench.py``) is
+ROADMAP.md item 5's first part; a shard mesh over more than one device
+raises.
 """
 
 from __future__ import annotations
@@ -42,6 +47,23 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
 
 def make_mesh_spec(*, multi_pod: bool = False) -> MeshSpec:
     return MeshSpec(make_production_mesh(multi_pod=multi_pod))
+
+
+def make_host_mesh(data: int = 1, model: int = 1):
+    """A (data, model) ``DeviceMesh`` over the first ``data * model``
+    ranks of the default process group (which the caller initialises),
+    on "cuda" where the group is NCCL's, else on "cpu".  Raises
+    ``ValueError`` when ``data * model`` exceeds the world size, as the
+    reference asserts against its device count."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    n = dist.get_world_size()
+    if data * model > n:
+        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} "
+                         f"ranks, the process group has {n}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    ranks = torch.arange(data * model).reshape(data, model)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=("data", "model"))
 
 
 def _stacked(xs) -> torch.Tensor:
@@ -92,8 +114,8 @@ def make_shard_mesh(shards: int, axis: str = "shard",
     if len(devs) != 1:
         raise ValueError(
             f"a shard mesh over {len(devs)} devices: the port drives every "
-            "shard on one device (shards over several GPUs are ROADMAP.md "
-            "queue 1 item 14)")
+            "shard on one device (the sharded datapath over several GPUs "
+            "is ROADMAP.md item 5)")
     return ShardMesh({axis: shards}, devs.pop())
 
 

@@ -20,6 +20,7 @@ import tempfile
 
 from repro_torch.configs import ASSIGNED_ARCHS, get_config, smoke_config
 from repro_torch.data.pipeline import DataConfig, Pipeline
+from repro_torch.models.transformer import RunCtx
 from repro_torch.optim import adamw
 from repro_torch.runtime import train_loop
 
@@ -54,7 +55,7 @@ def main(argv=None) -> dict:
             tempfile.gettempdir(), f"repro_torch-{cfg.name}"),
         microbatch=args.microbatch,
         opt=adamw.AdamWConfig(lr=args.lr), log_every=10)
-    out = train_loop.run(cfg, pipe, tcfg, device=args.device)
+    out = train_loop.run(cfg, pipe, tcfg, RunCtx(), device=args.device)
     losses = [h["loss"] for h in out["history"]]
     if losses:
         print(f"done: loss {losses[0]:.3f} -> {losses[-1]:.3f}")

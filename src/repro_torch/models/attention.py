@@ -17,21 +17,39 @@ in the backward rather than saved.  Cross decode is one query against
 every frame, so it runs through ``ops.decode_attention`` with
 ``lengths = F - 1``.  Unlike the reference, the caches are written in
 place (the caller owns them; no copy per step or per layer).
+
+The full-sequence paths take the reference's layout knobs: ``shard``
+(``RunCtx.shard``, called at the reference's ``"heads"``, ``"kv_full"``,
+``"heads4"`` and ``"scores4"`` places), ``q_chunk`` (query rows a chunk
+of the plain attention: the CPU's and the meta device's forward, and the
+backward's recompute of B7; the kernel on the card keeps its own tiles,
+and computes the same function) and ``expand_kv`` (GQA expanded to MHA,
+zero-padded to a head count the model axis divides).  The reference's
+``"scores"`` slab of GQA lives inside B7 here: on DTensors
+``ops.flash_attention`` runs the kernel on each rank's heads
+(``local_map``), which is the layout that rule asks for.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Draw, Params, apply_rope
+from repro_torch.models.layers import (Draw, Params, apply_rope, reshape,
+                                       write_prefix, write_rows)
 
 NEG_INF = -1e30
+
+
+def _no_shard(x, kind=None):
+    return x
 
 
 def init_gqa(draw: Draw, cfg: ModelConfig) -> Params:
@@ -88,9 +106,9 @@ def _qkv(cfg: ModelConfig, p: Params, x, positions, kv_x=None):
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
     Skv = src.shape[1]
-    q = (x @ p["wq"]).reshape(B, Sq, H, hd)
-    k = (src @ p["wk"]).reshape(B, Skv, K, hd)
-    v = (src @ p["wv"]).reshape(B, Skv, K, hd)
+    q = reshape(x @ p["wq"], B, Sq, H, hd)
+    k = reshape(src @ p["wk"], B, Skv, K, hd)
+    v = reshape(src @ p["wv"], B, Skv, K, hd)
     if kv_x is not None:
         return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
@@ -111,12 +129,30 @@ def _cross_sdpa(q, k, v):
     return fa.attention_rows(q, k, v, 0, causal=False)
 
 
+def _expand_heads(q, k, v, heads: int):
+    """GQA→MHA: each K/V head repeated for its G query heads, then q, k
+    and v zero-padded to ``heads`` heads where that is more (the
+    reference's ``sdpa`` with ``expand_kv``)."""
+    H, K = q.shape[2], k.shape[2]
+    if K < H:
+        k = k.repeat_interleave(H // K, dim=2)
+        v = v.repeat_interleave(H // K, dim=2)
+    if heads > H:
+        pad = (0, 0, 0, heads - H)
+        q, k, v = (F.pad(t, pad) for t in (q, k, v))
+    return q, k, v
+
+
 def gqa_full(cfg: ModelConfig, p: Params, x, positions, *,
-             causal: bool = True, kv_x=None, cache: Params | None = None):
+             causal: bool = True, kv_x=None, cache: Params | None = None,
+             shard=None, q_chunk: int = 0, expand_kv: int = 0):
     """Full-sequence attention (train / prefill / encoder / cross).
     x: (B, S, D); positions broadcastable to (B, S).  Self-attention
     (``kv_x`` None) ropes q and k and runs ``ops.flash_attention``,
-    causal or not; cross-attention (``kv_x`` (B, F, D), the encoder's
+    causal or not, its plain version over ``q_chunk``-row query chunks
+    where that divides S; with ``expand_kv`` the K/V heads are repeated
+    to MHA and every head zero-padded to ``expand_kv`` heads, the padding
+    dropped after.  Cross-attention (``kv_x`` (B, F, D), the encoder's
     output) takes k/v from it, no rope, no mask, in plain PyTorch.  With
     ``cache``, the K/V are written into its ``"k"`` / ``"v"`` at offset 0
     (in place, when they fit, as the reference's ``dynamic_update_slice``
@@ -124,14 +160,25 @@ def gqa_full(cfg: ModelConfig, p: Params, x, positions, *,
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions, kv_x)
     if kv_x is None:
-        out = ops.flash_attention(q, k, v, causal=causal)
+        con = shard or _no_shard
+        qa, ka, va = _expand_heads(q, k, v, expand_kv) if expand_kv \
+            else (q, k, v)
+        Hx, K = qa.shape[2], ka.shape[2]
+        qa = reshape(con(reshape(qa, B, S, K, Hx // K, -1), "heads"),
+                     B, S, Hx, -1)
+        chunked = q_chunk and S > q_chunk and S % q_chunk == 0
+        if chunked:
+            ka, va = con(ka, "kv_full"), con(va, "kv_full")
+        out = ops.flash_attention(qa, ka, va, causal=causal,
+                                  q_chunk=q_chunk if chunked else 0)
+        out = out[:, :, :cfg.n_heads] if Hx != cfg.n_heads else out
     else:
         out = _cross_sdpa(q, k, v)
     n = k.shape[1]
     if cache is not None and n <= cache["k"].shape[1]:
-        cache["k"][:, :n] = k.to(cache["k"].dtype)
-        cache["v"][:, :n] = v.to(cache["v"].dtype)
-    return out.reshape(B, S, -1) @ p["wo"], cache
+        write_prefix(cache["k"], k)
+        write_prefix(cache["v"], v)
+    return reshape(out, B, S, -1) @ p["wo"], cache
 
 
 def gqa_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
@@ -143,12 +190,10 @@ def gqa_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
     """
     B = x.shape[0]
     q, k, v = _qkv(cfg, p, x, lengths[:, None])
-    b = torch.arange(B, device=x.device)
-    idx = lengths.to(torch.int64)
-    cache["k"].index_put_((b, idx), k[:, 0].to(cache["k"].dtype))
-    cache["v"].index_put_((b, idx), v[:, 0].to(cache["v"].dtype))
+    write_rows(cache["k"], lengths, k[:, 0])
+    write_rows(cache["v"], lengths, v[:, 0])
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
-    return out.reshape(B, 1, -1) @ p["wo"], cache
+    return reshape(out, B, 1, -1) @ p["wo"], cache
 
 
 def gqa_cross_decode(cfg: ModelConfig, p: Params, x, cross_k, cross_v):
@@ -156,11 +201,11 @@ def gqa_cross_decode(cfg: ModelConfig, p: Params, x, cross_k, cross_v):
     K/V the prefill stored, (B, F, K, hd), every frame valid: through
     ``ops.decode_attention`` with ``lengths = F - 1``."""
     B = x.shape[0]
-    q = (x @ p["wq"]).reshape(B, cfg.n_heads, cfg.head_dim)
+    q = reshape(x @ p["wq"], B, cfg.n_heads, cfg.head_dim)
     lengths = torch.full((B,), cross_k.shape[1] - 1, dtype=torch.int32,
                          device=x.device)
     out = ops.decode_attention(q, cross_k, cross_v, lengths)
-    return out.reshape(B, 1, -1) @ p["wo"]
+    return reshape(out, B, 1, -1) @ p["wo"]
 
 
 # --------------------------------------------------------------------------- #
@@ -168,37 +213,52 @@ def gqa_cross_decode(cfg: ModelConfig, p: Params, x, cross_k, cross_v):
 # --------------------------------------------------------------------------- #
 
 
-def q_chunk_for(S: int) -> int:
-    """Query rows a chunk of the full-sequence MLA attention takes: none
+def q_chunk_for(S: int, q_chunk: int = 0) -> int:
+    """Query rows a chunk of the plain full-sequence attention (GQA's
+    plain version and recompute, MLA): ``q_chunk`` where given, else none
     below 4096, 512 up to 8192, then 256 (the reference's
-    ``transformer._auto_q_chunk``): at S = 4096 with 128 heads an
-    unchunked f32 score slab would be 16 GiB a pair of sequences."""
+    ``transformer._auto_q_chunk``; the port's twin of it calls this): at
+    S = 4096 with 128 heads an unchunked f32 score slab would be 16 GiB a
+    pair of sequences."""
+    if q_chunk:
+        return q_chunk
     if S < 4096:
         return 0
     return 512 if S <= 8192 else 256
 
 
 def _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, scale: float,
-              q_chunk: int = 0):
+              q_chunk: int = 0, shard=None):
     """Causal attention with the decoupled-rope split scores, over query
     chunks of ``q_chunk`` rows where that divides S.  q_nope/k_nope
     (B, S, H, dn); q_rope (B, S, H, dr); k_rope (B, S, dr) shared by the
-    heads; v (B, S, H, dv).  Scores and softmax in f32."""
+    heads; v (B, S, H, dv).  Scores and softmax in f32.  Under autograd
+    each chunk is checkpointed, as the reference's: the backward
+    recomputes one chunk's f32 score slab instead of keeping every
+    chunk's."""
+    con = shard or _no_shard
     Sq, Skv = q_nope.shape[1], k_nope.shape[1]
-    kpos = torch.arange(Skv, device=q_nope.device)[None, :]
 
     def block(qn, qr, off: int):
         s = torch.einsum("bqhd,bshd->bhqs", qn, k_nope).float()
         s = s + torch.einsum("bqhd,bsd->bhqs", qr, k_rope).float()
-        s = s * scale
+        s = con(s, "scores4") * scale
         qpos = off + torch.arange(qn.shape[1], device=qn.device)[:, None]
+        kpos = torch.arange(Skv, device=qn.device)[None, :]
         s = s.masked_fill(kpos > qpos, NEG_INF)
         w = torch.softmax(s, dim=-1)
         return torch.einsum("bhqs,bshd->bqhd", w.to(v.dtype), v)
 
+    q_nope, q_rope = con(q_nope, "heads4"), con(q_rope, "heads4")
     if q_chunk and Sq > q_chunk and Sq % q_chunk == 0:
-        return torch.cat([block(q_nope[:, i:i + q_chunk],
-                                q_rope[:, i:i + q_chunk], i)
+        k_nope = con(k_nope, "heads4")      # full S, head-sharded: fixed
+        run = block
+        if torch.is_grad_enabled():
+            run = functools.partial(torch.utils.checkpoint.checkpoint, block,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+        return torch.cat([run(q_nope[:, i:i + q_chunk],
+                              q_rope[:, i:i + q_chunk], i)
                           for i in range(0, Sq, q_chunk)], dim=1)
     return block(q_nope, q_rope, 0)
 
@@ -207,7 +267,7 @@ def _mla_q(cfg: ModelConfig, p: Params, x, positions):
     m = cfg.mla
     B, S, _ = x.shape
     hq = x @ p["w_dq"] if "w_dq" in p else x
-    q = (hq @ p["w_uq"]).reshape(B, S, cfg.n_heads, m.qk_head_dim)
+    q = reshape(hq @ p["w_uq"], B, S, cfg.n_heads, m.qk_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -227,24 +287,24 @@ def _mla_scale(cfg: ModelConfig) -> float:
 
 
 def mla_full(cfg: ModelConfig, p: Params, x, positions, *,
-             cache: Params | None = None):
+             cache: Params | None = None, shard=None, q_chunk: int = 0):
     """Full-sequence MLA (prefill): k/v materialised from the latent, the
-    queries chunked as ``q_chunk_for(S)`` says.  With ``cache``, the
-    latent and the rope key are written into it at offset 0 (in place).
-    Returns (out, cache)."""
+    queries chunked by ``q_chunk`` rows.  With ``cache``, the latent and
+    the rope key are written into it at offset 0 (in place).  Returns
+    (out, cache)."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     ckv, k_rope = _mla_latent(cfg, p, x, positions)
-    k_nope = (ckv @ p["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (ckv @ p["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    k_nope = reshape(ckv @ p["w_uk"], B, S, H, m.qk_nope_head_dim)
+    v = reshape(ckv @ p["w_uv"], B, S, H, m.v_head_dim)
     out = _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, _mla_scale(cfg),
-                    q_chunk_for(S))
-    out = out.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+                    q_chunk, shard)
+    out = reshape(out, B, S, H * m.v_head_dim) @ p["wo"]
     if cache is not None:
-        cache["ckv"][:, :S] = ckv.to(cache["ckv"].dtype)
-        cache["krope"][:, :S] = k_rope.to(cache["krope"].dtype)
+        write_prefix(cache["ckv"], ckv)
+        write_prefix(cache["krope"], k_rope)
     return out, cache
 
 
@@ -257,14 +317,12 @@ def mla_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
     B = x.shape[0]
     H = cfg.n_heads
     q_nope, q_rope = _mla_q(cfg, p, x, lengths[:, None])
-    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    w_uk = reshape(p["w_uk"], m.kv_lora_rank, H, m.qk_nope_head_dim)
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
     ckv_new, krope_new = _mla_latent(cfg, p, x, lengths[:, None])
-    b = torch.arange(B, device=x.device)
-    idx = lengths.to(torch.int64)
     ckv, krope = cache["ckv"], cache["krope"]
-    ckv.index_put_((b, idx), ckv_new[:, 0].to(ckv.dtype))
-    krope.index_put_((b, idx), krope_new[:, 0].to(krope.dtype))
+    write_rows(ckv, lengths, ckv_new[:, 0])
+    write_rows(krope, lengths, krope_new[:, 0])
     s_lat = torch.einsum("bqhr,bsr->bhqs", q_lat, ckv).float()
     s_rope = torch.einsum("bqhd,bsd->bhqs", q_rope, krope).float()
     kpos = torch.arange(ckv.shape[1], device=x.device)
@@ -272,9 +330,9 @@ def mla_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
     scores = torch.where(mask, (s_lat + s_rope) * _mla_scale(cfg), NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out_lat = torch.einsum("bhqs,bsr->bqhr", w.to(ckv.dtype), ckv)
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
+    w_uv = reshape(p["w_uv"], m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)
-    return out.reshape(B, 1, H * m.v_head_dim) @ p["wo"], cache
+    return reshape(out, B, 1, H * m.v_head_dim) @ p["wo"], cache
 
 
 # --------------------------------------------------------------------------- #
@@ -283,12 +341,15 @@ def mla_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
 
 
 def attn_full(cfg: ModelConfig, p: Params, x, positions, *, cache=None,
-              causal: bool = True):
+              causal: bool = True, shard=None, q_chunk: int = 0,
+              expand_kv: int = 0):
     """Self-attention over a whole sequence; MLA is causal only (no
-    encoder has it)."""
+    encoder has it) and takes no ``expand_kv`` (its heads shard)."""
     if cfg.mla is not None:
-        return mla_full(cfg, p, x, positions, cache=cache)
-    return gqa_full(cfg, p, x, positions, causal=causal, cache=cache)
+        return mla_full(cfg, p, x, positions, cache=cache, shard=shard,
+                        q_chunk=q_chunk)
+    return gqa_full(cfg, p, x, positions, causal=causal, cache=cache,
+                    shard=shard, q_chunk=q_chunk, expand_kv=expand_kv)
 
 
 def attn_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):

@@ -7,10 +7,13 @@ statistics are computed in fp32.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.specs import is_dtensor
 
 Params = dict
 
@@ -112,6 +115,124 @@ def stacked(n: int, layer, generator, dtype, device) -> Params:
             return {k: lift(v) for k, v in t.items()}
         return stacks[id(t._base)]
     return lift(tree)
+
+
+#: each DTensor view that ``reshape`` replicated first, by
+#: "(global shape) -> (view)": forward and backward both count
+RESHAPE_GATHERS: collections.Counter = collections.Counter()
+
+
+def _dt_reshape(x, shape):
+    from torch.distributed.tensor import Replicate, Shard
+    try:
+        return x.reshape(shape)
+    except RuntimeError:
+        # a view of the global shape that DTensor refuses on this layout,
+        # or whose local shapes it gets wrong (an uneven split); any
+        # other error is the caller's
+        torch.empty(x.shape, device="meta").reshape(shape)
+    RESHAPE_GATHERS[f"{tuple(x.shape)} -> {tuple(shape)}"] += 1
+    # keep the leading dim's shards while the view's leading dim takes
+    # them all, else replicate
+    n, keep = 1, []
+    for q in x.placements:
+        if isinstance(q, Shard) and q.dim == 0 and \
+                shape[0] % (n * x.device_mesh.size(len(keep))) == 0:
+            n *= x.device_mesh.size(len(keep))
+            keep.append(q)
+        else:
+            keep.append(Replicate())
+    return x.redistribute(x.device_mesh, keep).reshape(shape)
+
+
+class _DTReshape(torch.autograd.Function):
+    """A DTensor's reshape whose backward views the gradient back the
+    same careful way (the gradient's layout is the backward's choice)."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = x.shape
+        return _dt_reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dt_reshape(g, ctx.shape), None
+
+
+def reshape(x, *shape):
+    """``x.reshape(*shape)``.  A DTensor whose layout that view cannot
+    keep (a dim split or merged across its mesh axes unevenly, which
+    DTensor refuses, or takes and then gets the local shapes wrong,
+    where GSPMD would pad: 56 heads over 16 ranks) is
+    first replicated on every dim but a sharded leading one (the batch,
+    as far as the view's leading dim divides over its axes), then
+    viewed; its gradient likewise.  Each such gather is counted in
+    ``RESHAPE_GATHERS``, and the dry run reports its bytes."""
+    if not is_dtensor(x):
+        return x.reshape(*shape)
+    return _DTReshape.apply(x, shape)
+
+
+def _local_part(cache, values, placements):
+    """(the cache's local tensor, ``values`` as this rank's part laid out
+    as ``placements`` (a plain tensor counts as the same on every rank),
+    the cache's global offset on this rank)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = cache.device_mesh
+    if not isinstance(values, DTensor):
+        values = DTensor.from_local(values, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    v = values.redistribute(mesh, placements).to_local()
+    _, off = compute_local_shape_and_global_offset(cache.shape, mesh,
+                                                   cache.placements)
+    return cache.to_local(), v, off
+
+
+def write_prefix(cache, values) -> None:
+    """``cache[:, :n] = values`` in place (n = values.shape[1] <= the
+    cache's length), in the cache's dtype.  A DTensor cache (batch and
+    sequence sharded as ``MeshSpec.cache_pspecs`` says) is written rank
+    by rank, into each rank's own slice; no tensor is gathered but the
+    values, to the cache's layout."""
+    if not is_dtensor(cache):
+        cache[:, :values.shape[1]] = values.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    n = values.shape[1]
+    want = list(cache.placements) if n == cache.shape[1] else [
+        Replicate() if isinstance(q, Shard) and q.dim == 1 else q
+        for q in cache.placements]
+    loc, v, off = _local_part(cache, values, want)
+    if n == cache.shape[1]:
+        loc.copy_(v.to(loc.dtype))
+        return
+    m = max(0, min(loc.shape[1], n - off[1]))
+    loc[:, :m] = v[:, off[1]:off[1] + m].to(loc.dtype)
+
+
+def write_rows(cache, lengths, rows) -> None:
+    """``cache[b, lengths[b]] = rows[b]`` in place, in the cache's dtype;
+    an index past the cache raises (the CPU) or device-asserts (CUDA).  A
+    DTensor cache is written rank by rank: the rank whose sequence slice
+    holds ``lengths[b]`` writes it, the others write back what is
+    there."""
+    if not is_dtensor(cache):
+        b = torch.arange(cache.shape[0], device=cache.device)
+        cache.index_put_((b, lengths.to(torch.int64)), rows.to(cache.dtype))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    batch = [q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+             for q in cache.placements]
+    loc, r, off = _local_part(cache, rows, batch)
+    _, L, _ = _local_part(cache, lengths, batch)
+    pos = L.to(torch.int64) - off[1]
+    ok = (pos >= 0) & (pos < loc.shape[1])
+    pos = pos.clamp(0, loc.shape[1] - 1)
+    b = torch.arange(loc.shape[0], device=loc.device)
+    keep = ok.reshape(-1, *[1] * (r.dim() - 1))
+    loc.index_put_((b, pos), torch.where(keep, r.to(loc.dtype), loc[b, pos]))
 
 
 def rms_norm(x, scale, eps: float = 1e-5):

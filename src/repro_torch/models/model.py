@@ -5,9 +5,22 @@ decode step for the dense, vlm, moe, ssm, hybrid and audio families.
 image tokens arrive inside the text vocabulary.  ``audio``
 (whisper-large-v3) is an encoder-decoder whose conv frontend is a stub:
 callers pass precomputed frame embeddings (B, F, D).
+
+Every entry point takes the reference's ``ctx`` (``transformer.RunCtx``,
+``DEFAULT_CTX`` when not given: no remat, the sort dispatch, no
+constraint), and calls ``ctx.shard`` where the reference does:
+``"resid"`` on the embeddings (and the encoder's input), ``"logits"`` on
+the training and decode logits.  Where the params are DTensors (placed
+by ``sharding/specs.py``), each entry point runs under DTensor's
+``implicit_replication``: the plain constants the forward makes
+(positions, rope tables, masks) count as the same on every rank;
+``on_mesh(params)`` is that context, for a caller's backward.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -19,6 +32,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (Draw, Params, rms_norm,
                                        sinusoid_positions, stacked)
+from repro_torch.models.transformer import DEFAULT_CTX, RunCtx
+from repro_torch.sharding.specs import is_dtensor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -132,6 +147,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     return cache
 
 
+def on_mesh(params):
+    """``implicit_replication`` where ``params`` are DTensors, else a
+    context that does nothing."""
+    if not is_dtensor(params["embed"]):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        # already on: the context's exit would turn it off, not restore it
+        return contextlib.nullcontext()
+    return implicit_replication()
+
+
+def _meshed(fn):
+    """``fn(cfg, params, ...)`` under ``on_mesh(params)``."""
+    @functools.wraps(fn)
+    def call(cfg, params, *a, **k):
+        with on_mesh(params):
+            return fn(cfg, params, *a, **k)
+    return call
+
+
 def _blocks(cfg: ModelConfig, cache):
     return cache if cfg.attn_free or cfg.is_hybrid else cache["blocks"]
 
@@ -142,7 +179,9 @@ def _logits(cfg: ModelConfig, params: Params, x):
     return (x @ params["head"]).to(torch.float32)
 
 
-def encode(cfg: ModelConfig, params: Params, enc_frames):
+@_meshed
+def encode(cfg: ModelConfig, params: Params, enc_frames,
+           ctx: RunCtx = DEFAULT_CTX):
     """Whisper's encoder: enc_frames (B, F, D), the conv frontend's
     precomputed embeddings (a stub, as in the reference), plus the fixed
     sinusoid, through the encoder blocks (attention not causal, rope on q
@@ -150,47 +189,55 @@ def encode(cfg: ModelConfig, params: Params, enc_frames):
     F_, D = enc_frames.shape[1:]
     x = enc_frames.to(params["embed"].dtype)
     x = x + sinusoid_positions(F_, D)[None].to(x.device, x.dtype)
+    x = ctx.shard(x, "resid")
     positions = torch.arange(F_, device=x.device)[None]
-    x, _ = tfm.stack_train(cfg, params["enc"]["blocks"], x, positions,
+    x, _ = tfm.stack_train(cfg, params["enc"]["blocks"], x, positions, ctx,
                            encoder=True)
     return rms_norm(x, params["enc"]["norm_f"], cfg.norm_eps)
 
 
-def _embed(cfg: ModelConfig, params: Params, tokens, enc_frames):
+def _embed(cfg: ModelConfig, params: Params, tokens, enc_frames,
+           ctx: RunCtx):
     """(token embeddings, positions, the encoder's output or None)."""
-    x = params["embed"][tokens.to(torch.int64)]            # (B, S, D)
+    x = ctx.shard(params["embed"][tokens.to(torch.int64)], "resid")
     positions = torch.arange(tokens.shape[1], device=x.device)[None]
-    enc_out = encode(cfg, params, enc_frames) if cfg.is_encdec else None
+    enc_out = encode(cfg, params, enc_frames, ctx) if cfg.is_encdec \
+        else None
     return x, positions, enc_out
 
 
-def forward(cfg: ModelConfig, params: Params, tokens, *, enc_frames=None):
+@_meshed
+def forward(cfg: ModelConfig, params: Params, tokens, *, enc_frames=None,
+            ctx: RunCtx = DEFAULT_CTX):
     """The training forward over whole sequences, tokens (B, S) int (and
     whisper's ``enc_frames`` (B, F, D)): no cache, nothing written in
     place, differentiable through B7 and B8.  Returns (logits (B, S, Vp)
     fp32, ``MoEMetrics``; zeros of (max(E, 1),) loads without MoE
     layers, as the reference's)."""
-    x, positions, enc_out = _embed(cfg, params, tokens, enc_frames)
+    x, positions, enc_out = _embed(cfg, params, tokens, enc_frames, ctx)
     for lp in params.get("first", []):
-        x, _ = tfm._attn_layer_full(cfg, lp, x, positions, None)
-    x, metrics = tfm.stack_train(cfg, params["blocks"], x, positions,
+        x, _ = tfm._attn_layer_full(cfg, lp, x, positions, None, ctx)
+    x, metrics = tfm.stack_train(cfg, params["blocks"], x, positions, ctx,
                                  enc_out=enc_out)
     if metrics is None:
         metrics = moe_mod.MoEMetrics.zero(max(cfg.moe.n_experts, 1),
                                           x.device)
     x = rms_norm(x, params["norm_f"], cfg.norm_eps)
-    return (x @ params["head"]).to(torch.float32), metrics
+    return ctx.shard((x @ params["head"]).to(torch.float32),
+                     "logits"), metrics
 
 
+@_meshed
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
-            aux_coef: float = 0.01, z_coef: float = 1e-4):
+            ctx: RunCtx = DEFAULT_CTX, aux_coef: float = 0.01,
+            z_coef: float = 1e-4):
     """batch: tokens (B, S) int, labels (B, S) int (-1 = masked)
     [, enc_frames (B, F, D)].  The masked mean token cross-entropy plus
     ``aux_coef`` x the MoE balancing loss and ``z_coef`` x the router
     z-loss.  Returns (loss, metrics dict: loss, ce, aux, z, overflow,
     expert_load)."""
     logits, m = forward(cfg, params, batch["tokens"],
-                        enc_frames=batch.get("enc_frames"))
+                        enc_frames=batch.get("enc_frames"), ctx=ctx)
     labels = batch["labels"].to(torch.int64)
     mask = (labels >= 0).to(torch.float32)
     logp = torch.log_softmax(logits, dim=-1)
@@ -202,32 +249,39 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *,
                   "expert_load": m.load}
 
 
+@_meshed
 def prefill(cfg: ModelConfig, params: Params, tokens, cache, *,
-            enc_frames=None, return_metrics: bool = False):
+            enc_frames=None, return_metrics: bool = False,
+            ctx: RunCtx = DEFAULT_CTX):
     """Run the prompt tokens (B, S) int from position 0, writing K/V (or
     MLA latents) and the final SSM states into ``cache`` in place; whisper
     encodes ``enc_frames`` (B, F, D) first and stores each decoder layer's
     cross-attention K/V.  Returns (last-token logits (B, Vp) fp32, cache),
     and with ``return_metrics`` the blocks' merged ``MoEMetrics`` (None
     without MoE layers) as a third item."""
-    x, positions, enc_out = _embed(cfg, params, tokens, enc_frames)
+    x, positions, enc_out = _embed(cfg, params, tokens, enc_frames, ctx)
     if cfg.moe.first_dense:
         for lp, c in zip(params["first"], cache["first"]):
-            x, _ = tfm._attn_layer_full(cfg, lp, x, positions, c["self"])
+            x, _ = tfm._attn_layer_full(cfg, lp, x, positions, c["self"],
+                                        ctx)
     x, _, metrics = tfm.stack_prefill(cfg, params["blocks"], x, positions,
-                                      _blocks(cfg, cache), enc_out=enc_out)
+                                      _blocks(cfg, cache), ctx,
+                                      enc_out=enc_out)
     out = (_logits(cfg, params, x), cache)
     return out + (metrics,) if return_metrics else out
 
 
-def decode_step(cfg: ModelConfig, params: Params, token, lengths, cache):
+@_meshed
+def decode_step(cfg: ModelConfig, params: Params, token, lengths, cache, *,
+                ctx: RunCtx = DEFAULT_CTX):
     """One decode step.  token (B, 1) int; lengths (B,) int — the position
     each sequence writes at.  Returns (logits (B, Vp) fp32, cache), the
     cache updated in place."""
     x = params["embed"][token.to(torch.int64)]            # (B, 1, D)
     if cfg.moe.first_dense:
         for lp, c in zip(params["first"], cache["first"]):
-            x, _ = tfm._attn_layer_decode(cfg, lp, x, lengths, c["self"])
+            x, _ = tfm._attn_layer_decode(cfg, lp, x, lengths, c["self"],
+                                          ctx)
     x, _, _ = tfm.stack_decode(cfg, params["blocks"], x, lengths,
-                               _blocks(cfg, cache))
-    return _logits(cfg, params, x), cache
+                               _blocks(cfg, cache), ctx)
+    return ctx.shard(_logits(cfg, params, x), "logits"), cache

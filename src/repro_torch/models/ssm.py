@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Draw, Params, gated_rms_norm
+from repro_torch.models.layers import Draw, Params, gated_rms_norm, reshape
 
 
 class SSMState(NamedTuple):
@@ -102,9 +102,9 @@ def _heads(cfg: ModelConfig, xBC, lead):
         s.d_state, s.n_groups
     xs, Bm, Cm = torch.split(xBC, [di, G * N, G * N], dim=-1)
     rep = nh // G
-    bcast = lambda t: t.reshape(*lead, G, 1, N).expand(*lead, G, rep, N) \
-        .reshape(*lead, nh, N)
-    return xs.reshape(*lead, nh, s.head_dim), bcast(Bm), bcast(Cm)
+    bcast = lambda t: reshape(reshape(t, *lead, G, 1, N)
+                              .expand(*lead, G, rep, N), *lead, nh, N)
+    return reshape(xs, *lead, nh, s.head_dim), bcast(Bm), bcast(Cm)
 
 
 def mamba_mixer(cfg: ModelConfig, p: Params, x):
@@ -123,7 +123,7 @@ def mamba_mixer(cfg: ModelConfig, p: Params, x):
                              dt * A[None, None], Bm, Cm,
                              chunk=min(s.chunk, S), return_state=True)
     y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
-    y = gated_rms_norm(y.reshape(B, S, di), z, p["norm"], cfg.norm_eps)
+    y = gated_rms_norm(reshape(y, B, S, di), z, p["norm"], cfg.norm_eps)
     return y @ p["w_out"], SSMState(ssm=h_last, conv=conv_state)
 
 
@@ -145,6 +145,6 @@ def mamba_decode(cfg: ModelConfig, p: Params, x, state: SSMState):
     new_ssm = a[..., None, None] * state.ssm + upd
     y = torch.einsum("bhpn,bhn->bhp", new_ssm, Cm.to(torch.float32))
     y = y.to(xs.dtype) + xs * p["D"][None, :, None].to(xs.dtype)
-    y = gated_rms_norm(y.reshape(B, di), z, p["norm"], cfg.norm_eps)
+    y = gated_rms_norm(reshape(y, B, di), z, p["norm"], cfg.norm_eps)
     return (y @ p["w_out"])[:, None, :], \
         SSMState(ssm=new_ssm, conv=win[:, :, 1:])

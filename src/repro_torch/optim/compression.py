@@ -3,8 +3,8 @@
 
 Per-tensor symmetric int8 with an f32 residual carried to the next step,
 which keeps the compression unbiased over steps (the EF-SGD lineage).
-``cross_pod_allreduce`` needs a second device: it is not ported yet
-(ROADMAP.md item 14).
+``cross_pod_allreduce`` is the slow hop of a two-stage all-reduce: the
+int8 payload summed as int32 over the ranks of the ``pod`` group.
 """
 
 from __future__ import annotations
@@ -47,9 +47,25 @@ def decompress_pytree(q, s):
     return map_tree(lambda qi, si: qi.to(torch.float32) * si, q, s)
 
 
-def cross_pod_allreduce(grads, ef: EFState, axis: str = "pod"):
-    """The int8 all-reduce over the pod axis: needs a mesh of more than
-    one device, which the port does not build yet."""
-    raise NotImplementedError(
-        "cross_pod_allreduce: a collective over more than one device is "
-        "not ported yet (ROADMAP.md item 14)")
+def cross_pod_allreduce(grads, ef: EFState, axis: str = "pod", *,
+                        group=None):
+    """The mean of ``grads`` over the pod group with an int8 payload (the
+    reference's, inside its ``shard_map``): each rank quantises its
+    gradients with error feedback, the int8 values are summed as int32
+    (exact), the scales take their max, and each leaf comes back as
+    sum x scale / n in f32.  ``group``: the pod axis' process group, or
+    a ``DeviceMesh`` with an ``axis`` dimension; None is the default
+    group.  Returns (the reduced grads, the new EFState)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    if hasattr(group, "get_group"):
+        group = group.get_group(axis)
+    group = group or dist.group.WORLD
+    q, s, ef = compress_pytree(grads, ef)
+    n = dist.get_world_size(group)
+    q32 = map_tree(lambda x: fc.wait_tensor(fc.all_reduce(
+        x.to(torch.int32), "sum", group)), q)
+    s = map_tree(lambda x: fc.wait_tensor(fc.all_reduce(x, "max", group)),
+                 s)
+    return map_tree(lambda qi, si: qi.to(torch.float32) * si / n, q32,
+                    s), ef

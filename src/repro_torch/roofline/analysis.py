@@ -1,21 +1,26 @@
 """Roofline analysis of the port's dry run (twin of
 ``repro/roofline/analysis.py``).
 
-Two terms per (arch × shape × mesh) cell, in seconds a step, predicted
-from the H100's data-sheet peaks (``roofline/constants.py``):
+Three terms per (arch × shape × mesh) cell, in seconds a step,
+predicted from the H100's data-sheet rates (``roofline/constants.py``):
 
-  compute = traced FLOPs per device / BF16_OPS_PS
-  memory  = analytic HBM bytes per device / MEM_BPS
+  compute    = traced FLOPs per device / BF16_OPS_PS
+  memory     = analytic HBM bytes per device / MEM_BPS
+  collective = traced collective wire bytes per device / LINK_BPS
 
 The reference reads its FLOPs from XLA's optimized HLO (``parse_hlo``).
 The port has no compiled program to read: ``trace_step_flops`` runs the
 port's own step on the meta device under ``FlopCounterMode`` and counts
 the matmul, bmm and convolution FLOPs it issues, the backward's included
-(and so the recompute of B7's and B8's backward, as the reference's HLO
-holds its remat).  The reference's third term, the collectives' wire
-bytes, has no twin yet: the port has no multi-device step whose
-collectives could be counted (ROADMAP.md item 14), so ``collective_s`` is
-None and the bound is taken over the two terms above.
+(and so the block remat's second forward and the recompute of B7's and
+B8's backward, as the reference's HLO holds its remat).  The collectives
+come from the port's step on DTensors over a fake process group of the
+mesh's ranks (``launch/dryrun.py::trace_collectives``): each functional
+collective rank 0 issues, turned into wire bytes by the reference's
+formulas (``wire_bytes``) and timed at one NVLink direction's rate.
+That rate is the one of the links inside an 8-GPU node: the links
+between nodes are slower and not modelled, so ``collective_s`` is a
+lower bound for a mesh past 8 cards.
 
 ``model_flops`` (6·N·T dense / 6·N_active·T MoE + attention) is the
 useful-work yardstick, ``analytic_memory_bytes`` / ``cache_bytes`` the
@@ -29,11 +34,31 @@ import math
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.roofline.constants import BF16_OPS_PS, HBM_BYTES, MEM_BPS
+from repro_torch.roofline.constants import (BF16_OPS_PS, HBM_BYTES,
+                                            LINK_BPS, MEM_BPS)
 
-COLLECTIVE_NOTE = ("not counted: the port has no multi-device step yet "
-                   "(ROADMAP.md item 14); the bound is over the compute "
-                   "and memory terms")
+COLLECTIVE_NOTE = ("wire bytes a device of the sharded trace's "
+                   "collectives at NVLink's 450e9 B/s a direction; links "
+                   "between 8-GPU nodes are slower and not modelled")
+
+
+def wire_bytes(kind: str, operand_bytes: float, group: int) -> float:
+    """Bytes a device puts on the wire for one collective whose operand
+    (the local input) is ``operand_bytes``, over ``group`` ranks: the
+    reference's ``parse_hlo`` formulas, which take the result's bytes b
+    (all-gather b(g-1)/g with b = operand x g, all-reduce 2b(g-1)/g,
+    reduce-scatter b(g-1) with b = operand / g, all-to-all b(g-1)/g,
+    permute b)."""
+    g = group
+    if kind == "all-gather":
+        return operand_bytes * g * (g - 1) / g
+    if kind == "all-reduce":
+        return 2.0 * operand_bytes * (g - 1) / g
+    if kind == "reduce-scatter":
+        return operand_bytes / g * (g - 1)
+    if kind == "all-to-all":
+        return operand_bytes * (g - 1) / g
+    return float(operand_bytes)
 
 
 # --------------------------------------------------------------------------- #
@@ -175,6 +200,11 @@ def analyze_traced(cfg: ModelConfig, shape: ShapeConfig, ms,
     compute_s = flops_dev / BF16_OPS_PS
     memory_s = mem_dev / MEM_BPS
     terms = {"compute": compute_s, "memory": memory_s}
+    coll = traced.get("collectives")
+    collective_s = None
+    if coll is not None:
+        collective_s = coll["collective_bytes"] / LINK_BPS
+        terms["collective"] = collective_s
     dominant = max(terms, key=terms.get)
     bound = max(terms.values())
     useful_frac = (mf / n_chips / BF16_OPS_PS) / bound if bound else 0.0
@@ -202,8 +232,11 @@ def analyze_traced(cfg: ModelConfig, shape: ShapeConfig, ms,
         "roofline": {
             "compute_s": compute_s,
             "memory_s": memory_s,
-            "collective_s": None,
+            "collective_s": collective_s,
             "collective_note": COLLECTIVE_NOTE,
+            "collectives": None if coll is None else coll["kinds"],
+            "collective_bytes_per_device": None if coll is None
+            else coll["collective_bytes"],
             "dominant": dominant,
             "step_lower_bound_s": bound,
             "model_flops": mf,

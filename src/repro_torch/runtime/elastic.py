@@ -8,13 +8,41 @@ before allocating fresh instance lanes; scale-down drains gracefully (the
 reaper removes the rows once their in-flight load clears).
 
 ``validate_divisibility`` is the pre-flight check of a mesh change, pure
-shape logic over a ``sharding/specs.py::MeshSpec``.  The reference's
-``reshard_params`` and ``reshard_tree`` move a model's parameters between
-DP/FSDP/TP meshes: they place tensors on several devices and come with
-the multi-device work (ROADMAP.md item 14).
+shape logic over a ``sharding/specs.py::MeshSpec``.  ``reshard_params``
+and ``reshard_tree`` move a live tree between DP/FSDP/TP meshes: each
+leaf goes to the placement the new ``MeshSpec`` (over a ``DeviceMesh``)
+gives it, a DTensor by ``redistribute`` (or, onto another mesh, through
+its full value), a plain tensor (the same on every rank) by
+``distribute_tensor``.  Checkpoints are mesh-agnostic and the data
+pipeline step-indexed, so this is all a mesh change needs.
 """
 
 from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.tree import map_tree
+
+
+def _place(t, sh):
+    """``t`` at ``sh`` (a ``specs.Placed``)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(t, DTensor):
+        if t.device_mesh == sh.mesh:
+            return t.redistribute(sh.mesh, sh.placements)
+        t = t.full_tensor()
+    return distribute_tensor(t.detach(), sh.mesh, sh.placements)
+
+
+def reshard_params(params: Any, new_ms) -> Any:
+    """``params`` placed by ``new_ms.params_shardings``."""
+    return reshard_tree(params, new_ms.params_shardings(params))
+
+
+def reshard_tree(tree: Any, shardings: Any) -> Any:
+    """Every leaf of ``tree`` at its ``Placed`` in ``shardings`` (a tree
+    of the same structure)."""
+    return map_tree(_place, tree, shardings)
 
 
 def scale_fleet(cp, cluster: str, target: int, *, max_instances: int,

@@ -31,8 +31,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.transformer import RunCtx
 from repro_torch.optim import adamw, schedules
 from repro_torch.runtime.checkpoint import Checkpointer
+from repro_torch.sharding.specs import is_dtensor
 from repro_torch.tree import leaves, map_tree, unflatten
 
 
@@ -48,18 +50,24 @@ class TrainConfig:
     log_every: int = 10
 
 
-def _grads(cfg: ModelConfig, params, batch):
+def _grads(cfg: ModelConfig, ctx: RunCtx, params, batch):
     """(loss, the loss_fn metrics, gradients in the params' layout and
-    dtypes) of one batch."""
+    dtypes) of one batch.  A DTensor gradient is laid out as its
+    parameter here, so that a partial sum is reduced once, not again
+    by each optimizer op that reads it."""
     for p in leaves(params):
         p.requires_grad_(True)
-    loss, aux = M.loss_fn(cfg, params, batch)
-    grads = torch.autograd.grad(loss, leaves(params))
+    with M.on_mesh(params):
+        loss, aux = M.loss_fn(cfg, params, batch, ctx=ctx)
+        grads = torch.autograd.grad(loss, leaves(params))
+    grads = [g.redistribute(p.device_mesh, p.placements) if is_dtensor(g)
+             else g for p, g in zip(leaves(params), grads)]
     return loss.detach(), aux, unflatten(params, grads)
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    """The train step: forward + backward (accumulated over
+def make_train_step(cfg: ModelConfig, ctx: RunCtx, tcfg: TrainConfig):
+    """The train step under ``ctx`` (``RunCtx``: remat, MoE method,
+    sharding hooks): forward + backward (accumulated over
     ``tcfg.microbatch`` slices of the batch into f32 where > 1), the
     warmup-cosine scale at the step before the increment, AdamW (in place)
     and the router bias.  ``step(params, opt_state, router_bias, batch)``
@@ -75,13 +83,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             for i in range(n):
                 mb = {k: v[i * (B // n):(i + 1) * (B // n)]
                       for k, v in batch.items()}
-                loss, aux, g = _grads(cfg, params, mb)
+                loss, aux, g = _grads(cfg, ctx, params, mb)
                 grads = map_tree(torch.add, grads, g)
                 lval = lval + loss
             grads = map_tree(lambda g: g / n, grads)
             lval = lval / n
         else:
-            lval, aux, grads = _grads(cfg, params, batch)
+            lval, aux, grads = _grads(cfg, ctx, params, batch)
         lr_scale = schedules.warmup_cosine(opt_state.step,
                                            warmup=tcfg.warmup,
                                            total=tcfg.steps)
@@ -100,11 +108,13 @@ def _on(device, batch: dict) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def run(cfg: ModelConfig, pipeline, tcfg: TrainConfig, *, params=None,
-        seed: int = 0, device="cuda",
+def run(cfg: ModelConfig, pipeline, tcfg: TrainConfig,
+        ctx: RunCtx | None = None, *, params=None, seed: int = 0,
+        device="cuda",
         fail_injector: Optional[Callable[[int], None]] = None) -> dict:
     """The driver loop with checkpoint / restart and the straggler
-    watchdog.  ``params`` None: the seeded init (a generator on
+    watchdog, each step under ``ctx`` (``RunCtx()`` where None).
+    ``params`` None: the seeded init (a generator on
     ``device`` seeded with ``seed``); a failure before the first
     checkpoint starts over from that init.  A checkpoint already in
     ``tcfg.ckpt_dir`` is restored first.  ``fail_injector(step)`` may
@@ -121,7 +131,7 @@ def run(cfg: ModelConfig, pipeline, tcfg: TrainConfig, *, params=None,
     router_bias = torch.zeros((max(cfg.moe.n_experts, 1),),
                               dtype=torch.float32, device=device)
     ckpt = Checkpointer(tcfg.ckpt_dir)
-    train_step = make_train_step(cfg, tcfg)
+    train_step = make_train_step(cfg, ctx or RunCtx(), tcfg)
 
     state = {"params": params, "opt": adamw.init(params),
              "bias": router_bias}

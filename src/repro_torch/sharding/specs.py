@@ -18,11 +18,17 @@ Baseline layout (the reference's):
 
 A spec is ``PartitionSpec``'s own form, a tuple with one entry per
 leading dim: None, an axis name, or a tuple of axis names, trailing Nones
-dropped.  The mesh is a ``LogicalMesh``: axis names and sizes, no
-devices.  The methods that place tensors on a mesh (the reference's
-``named``, ``constrain`` and ``*_shardings``) come with the multi-device
-work (ROADMAP.md item 14); here the rules give specs and per-device
-shapes (``local_shape``), which is what the dry run reads.
+dropped.  A ``MeshSpec``'s mesh is a ``LogicalMesh`` (axis names and
+sizes, no devices: the dry run's per-device shapes, ``local_shape``) or a
+``torch.distributed.device_mesh.DeviceMesh``, whose axis names and sizes
+then give the ``LogicalMesh``.  Over a ``DeviceMesh`` the reference's
+placing methods follow from the same specs: ``named`` turns a spec into
+DTensor placements (a ``Placed``: the mesh and one placement a mesh
+axis), ``constrain`` redistributes a DTensor to a rule's layout, and
+``params_shardings`` / ``cache_shardings`` / ``batch_shardings`` give a
+``Placed`` a leaf.  A tensor dim over two axes (``("pod", "data")``) is
+split major to minor in the mesh's order, as JAX lays out
+``P(("pod", "data"))``.
 """
 
 from __future__ import annotations
@@ -30,9 +36,9 @@ from __future__ import annotations
 import dataclasses
 import math
 import re
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
-from repro_torch.tree import items, unflatten
+from repro_torch.tree import items, map_tree, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +66,28 @@ class LogicalMesh:
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
+
+
+class Placed(NamedTuple):
+    """Where a tensor lives on a ``DeviceMesh``: the port's
+    ``NamedSharding``, one DTensor placement a mesh axis."""
+
+    mesh: Any
+    placements: tuple
+
+
+def _is_device_mesh(mesh) -> bool:
+    return hasattr(mesh, "mesh_dim_names") and hasattr(mesh, "get_group")
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (False where torch has no
+    ``torch.distributed``)."""
+    import torch
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def axis_size(mesh, cand) -> int:
@@ -105,6 +133,14 @@ class MeshSpec:
 
     mesh: Any
     params_tp_only: bool = False
+    device_mesh: Any = None
+
+    def __post_init__(self):
+        if _is_device_mesh(self.mesh):
+            dm = self.mesh
+            object.__setattr__(self, "device_mesh", dm)
+            object.__setattr__(self, "mesh", LogicalMesh(
+                tuple(dm.shape), tuple(dm.mesh_dim_names)))
 
     @property
     def dp(self) -> tuple:
@@ -127,6 +163,98 @@ class MeshSpec:
             if axes is not None:
                 out[i] //= axis_size(self.mesh, axes)
         return tuple(out)
+
+    # ------------------------------------------------------------------ #
+    # Placing on a DeviceMesh
+    # ------------------------------------------------------------------ #
+    def placements(self, spec: tuple) -> tuple:
+        """DTensor placements of ``spec``: ``Shard(d)`` on each mesh axis
+        that shards tensor dim d, ``Replicate()`` on the rest.  A dim over
+        several axes takes them major to minor in the mesh's order (the
+        only order DTensor's placements express; every rule here names
+        them so)."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = self.mesh.axis_names
+        out = [Replicate()] * len(names)
+        for d, axes in enumerate(spec):
+            if axes is None:
+                continue
+            pos = [names.index(a) for a in
+                   (axes if isinstance(axes, tuple) else (axes,))]
+            if pos != sorted(pos):
+                raise ValueError(f"spec {spec}: axes {axes} are not in the "
+                                 f"mesh's order {names}")
+            for i in pos:
+                out[i] = Shard(d)
+        return tuple(out)
+
+    def named(self, spec: tuple) -> Placed:
+        """``spec`` on this ``DeviceMesh`` (the reference's
+        ``NamedSharding``)."""
+        if self.device_mesh is None:
+            raise ValueError("named() needs a MeshSpec over a DeviceMesh; "
+                             "a LogicalMesh has no devices")
+        return Placed(self.device_mesh, self.placements(spec))
+
+    def constrain(self, x, kind: str):
+        """The reference's layout rule ``kind`` applied to ``x``: a
+        DTensor is redistributed to it (differentiably; the collectives
+        are DTensor's), anything else comes back unchanged, as does a
+        kind or rank no rule names."""
+        if not is_dtensor(x):
+            return x
+        spec = self.activation_spec(kind, tuple(x.shape))
+        if spec is None:
+            return x
+        return x.redistribute(self.device_mesh, self.placements(spec))
+
+    def activation_spec(self, kind: str, shape: tuple):
+        """The spec of the reference's ``constrain`` rule ``kind`` for an
+        activation of ``shape``; None where no rule applies."""
+        dp, tp = self.dp, self.tp
+        if kind == "resid":                    # (B,S,D)
+            if shape[1] == 1:                  # decode token
+                return fit_spec(self.mesh, shape, [(dp,), (), (tp,)])
+            return fit_spec(self.mesh, shape, [(dp,), (tp,), ()])
+        if kind == "logits":                   # (B,S,V) / (B,V)
+            if len(shape) == 3:
+                return fit_spec(self.mesh, shape, [(dp,), (), (tp,)])
+            return fit_spec(self.mesh, shape, [(dp,), (tp,)])
+        if kind == "heads" and len(shape) == 5:        # q (B,S,K,G,hd)
+            # head-shard only when the score slab can shard K or G, else
+            # sequence-shard (the "scores" and "resid" layouts)
+            ts = axis_size(self.mesh, tp)
+            if shape[2] % ts == 0 or shape[3] % ts == 0:
+                return fit_spec(self.mesh, shape,
+                                [(dp,), (), (tp,), (tp,), ()])
+            return fit_spec(self.mesh, shape, [(dp,), (tp,), (), (), ()])
+        if kind == "kv_full" and len(shape) == 4:      # K/V: batch-only
+            return fit_spec(self.mesh, shape, [(dp,), (), (), ()])
+        if kind == "attn_in" and len(shape) == 3:      # x before q/k/v
+            return fit_spec(self.mesh, shape, [(dp,), (), ()])
+        if kind == "heads4" and len(shape) == 4:       # (B,S,H,d): H→tp
+            return fit_spec(self.mesh, shape, [(dp,), (), (tp,), ()])
+        if kind == "scores4" and len(shape) == 4:      # (B,H,CQ,Skv)
+            return fit_spec(self.mesh, shape, [(dp,), (tp,), (), ()])
+        if kind == "scores" and len(shape) == 5:       # (B,K,G,CQ,Skv)
+            return fit_spec(self.mesh, shape,
+                            [(dp,), (tp,), (tp,), (tp,), ()])
+        return None
+
+    def params_shardings(self, params) -> Any:
+        """A ``Placed`` a leaf of ``params``, from ``param_specs``."""
+        return map_tree(lambda t, s: self.named(s), params,
+                        self.param_specs(params))
+
+    def cache_shardings(self, cfg, cache) -> Any:
+        """A ``Placed`` a leaf of ``cache``, from ``cache_pspecs``."""
+        return map_tree(lambda t, s: self.named(s), cache,
+                        self.cache_pspecs(cfg, cache))
+
+    def batch_shardings(self, batch) -> Any:
+        """A ``Placed`` a leaf of ``batch``, from ``batch_spec``."""
+        return unflatten(batch, [self.named(self.batch_spec(k, t.shape))
+                                 for k, t in items(batch)])
 
     # ------------------------------------------------------------------ #
     # Parameters

@@ -154,8 +154,11 @@ def test_capacity_matches_reference():
 
 
 def test_expert_parallel_moe_raises_naming_the_roadmap(case):
+    """The expert-parallel relay is ported (``tests/test_torch_distributed.py``
+    runs it over four processes); an ``ep`` without a ``DeviceMesh`` is
+    refused before any dispatch."""
     _, _, tcfg, _, tp, x = case
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
+    with pytest.raises(ValueError, match="needs a DeviceMesh"):
         moe.moe_ffn(tcfg, tp, torch.from_numpy(x), ep=(None, ("model",)))
 
 

@@ -151,7 +151,34 @@ def test_error_feedback_is_unbiased_over_steps():
                                total.numpy(), rtol=0, atol=1e-5)
 
 
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A one-rank ``gloo`` group through a ``FileStore`` in ``tmp_path``,
+    made and torn down here."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
 def test_cross_pod_allreduce_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 14"):
+    """The int8 all-reduce is ported (four ranks in
+    ``tests/test_torch_distributed.py``); without a process group it
+    raises torch's own error rather than running on one device."""
+    with pytest.raises(ValueError, match="process group"):
         TC.cross_pod_allreduce({"g": torch.zeros(2)},
                                TC.init({"g": torch.zeros(2)}))
+
+
+def test_cross_pod_allreduce_on_one_rank_is_the_int8_round_trip(
+        one_rank_group):
+    rng = np.random.RandomState(3)
+    g = {"g": torch.tensor(rng.randn(33).astype(np.float32))}
+    ef = TC.init(g)
+    red, ef2 = TC.cross_pod_allreduce(g, ef, group=one_rank_group)
+    q, s, ef3 = TC.compress_pytree(g, ef)
+    assert torch.equal(red["g"], TC.decompress_pytree(q, s)["g"])
+    assert torch.equal(ef2.residual["g"], ef3.residual["g"])

@@ -90,9 +90,18 @@ def test_analyze_traced_report():
                                     J_SHAPES["train_4k"], 256)
     assert r["analytic_hbm_bytes_per_device"] == mem
     assert r["memory_s"] == mem / RC.MEM_BPS
-    assert r["collective_s"] is None and "item 14" in r["collective_note"]
+    # no collectives traced: no collective term, the bound over the two
+    assert r["collective_s"] is None and "NVLink" in r["collective_note"]
     assert r["dominant"] == "compute"
     assert r["step_lower_bound_s"] == max(r["compute_s"], r["memory_s"])
+    # with the sharded trace's wire bytes: the third term at LINK_BPS
+    coll = {"kinds": {"all-gather": {"bytes": 9e12, "count": 3}},
+            "collective_bytes": 9e12}
+    rc = RA.analyze_traced(cfg, shape, ms, {**traced, "collectives": coll})
+    assert rc["roofline"]["collective_s"] == 9e12 / RC.LINK_BPS
+    assert rc["roofline"]["dominant"] == "collective"
+    assert rc["roofline"]["step_lower_bound_s"] == 9e12 / RC.LINK_BPS
+    assert rc["roofline"]["collectives"] == coll["kinds"]
     assert r["model_flops"] == RA.model_flops(cfg, shape)
     assert math.isclose(r["useful_flops_ratio"],
                         r["model_flops"] / 3.2e16)
@@ -106,3 +115,17 @@ def test_analyze_traced_report():
         JRA.analytic_memory_bytes(j_get_config("minitron-4b"),
                                   J_SHAPES["train_4k"], 256,
                                   param_shards=16)
+
+
+def test_wire_bytes_follow_the_reference_formulas():
+    """``wire_bytes`` from a collective's operand (the local input) equals
+    the reference's ``parse_hlo`` formulas over its result b: all-gather
+    b(g-1)/g (b = operand x g), all-reduce 2b(g-1)/g, reduce-scatter
+    b(g-1) (b = operand / g), all-to-all b(g-1)/g, permute b."""
+    b, g = 3 * 2**20, 16
+    assert RA.wire_bytes("all-gather", b, g) == (b * g) * (g - 1) / g
+    assert RA.wire_bytes("all-reduce", b, g) == 2.0 * b * (g - 1) / g
+    assert RA.wire_bytes("reduce-scatter", b, g) == (b / g) * (g - 1)
+    assert RA.wire_bytes("all-to-all", b, g) == b * (g - 1) / g
+    assert RA.wire_bytes("collective-permute", b, g) == b
+    assert RA.wire_bytes("all-gather", b, 1) == 0.0

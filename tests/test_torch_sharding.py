@@ -200,3 +200,131 @@ def test_validate_divisibility_messages(arch):
                 == JE.validate_divisibility(jcfg, _stub(mesh), batch)
     assert elastic.validate_divisibility(cfg, _ms("16x16"), 100) == \
         ["global_batch 100 % dp 16 != 0"]
+
+
+# --------------------------------------------------------------------------- #
+# Placements over a DeviceMesh (a fake process group of 512 ranks)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def fake_meshes():
+    """The production meshes as ``DeviceMesh``es over a fake process group
+    of 512 ranks (this process rank 0), made and torn down here."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=512)
+    try:
+        yield {name: DeviceMesh("cpu", torch.arange(
+            int(np.prod(shape))).reshape(shape), mesh_dim_names=names)
+               for name, (shape, names) in MESHES.items()}
+    finally:
+        dist.destroy_process_group()
+
+
+def _local(shape, mesh, placements, coord):
+    from torch.distributed.tensor._utils import \
+        _compute_local_shape_and_global_offset
+    return _compute_local_shape_and_global_offset(
+        shape, tuple(mesh.shape), list(coord), placements)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_placements_give_the_local_shapes_of_the_specs(fake_meshes, arch,
+                                                       mesh):
+    """``MeshSpec`` over a ``DeviceMesh``: ``named(spec)`` of every
+    parameter and cache leaf gives, on rank 0 and on the last rank, the
+    local shape ``local_shape`` computes from the same spec, and the
+    ``*_shardings`` trees hold those placements."""
+    dm = fake_meshes[mesh]
+    ms = MeshSpec(dm)
+    assert ms.device_mesh is dm and ms.mesh == _ms(mesh).mesh
+    cfg = get_config(arch)
+    params = _t_params(arch)
+    specs = ms.param_specs(params)
+    shardings = ms.params_shardings(params)
+    last = [s - 1 for s in dm.shape]
+    pairs = []
+    map_tree(lambda t, s, sh: pairs.append((t, s, sh)), params, specs,
+             shardings)
+    sh = SHAPES["decode_32k"]
+    if shape_applicable(cfg, sh)[0]:
+        cache = M.init_cache(cfg, sh.global_batch, sh.seq_len, device=META)
+        map_tree(lambda t, s, pl: pairs.append((t, s, pl)), cache,
+                 ms.cache_pspecs(cfg, cache), ms.cache_shardings(cfg, cache))
+    for t, spec, placed in pairs:
+        assert placed.mesh is dm and placed.placements == \
+            ms.placements(spec)
+        want = ms.local_shape(t.shape, spec)
+        for coord in ([0] * dm.ndim, last):
+            got, _ = _local(tuple(t.shape), dm, placed.placements, coord)
+            assert tuple(got) == want, (spec, coord)
+
+
+def test_two_axes_on_one_dim_split_major_to_minor(fake_meshes):
+    """``("pod", "data")`` on a dim: rank (p, d, m) holds block p * 16 + d
+    of 32, as JAX lays out ``P(("pod", "data"))``; ``("data", "model")``
+    likewise d * 16 + m; an order against the mesh's is refused."""
+    dm = fake_meshes["2x16x16"]
+    ms = MeshSpec(dm)
+    batch = {"tokens": torch.empty((256, 4096), device=META)}
+    placed = ms.batch_shardings(batch)["tokens"]
+    assert ms.batch_spec("tokens", (256, 4096)) == (("pod", "data"),)
+    for p in range(2):
+        for d in range(16):
+            shape, off = _local((256, 4096), dm, placed.placements,
+                                [p, d, 5])
+            assert shape == (8, 4096) and off == ((p * 16 + d) * 8, 0)
+    pl = ms.placements((None, ("data", "model")))
+    for d, m in ((0, 1), (3, 7), (15, 15)):
+        shape, off = _local((4, 32768), dm, pl, [1, d, m])
+        assert shape == (4, 128) and off == (0, (d * 16 + m) * 128)
+    with pytest.raises(ValueError, match="mesh's order"):
+        ms.placements((("model", "data"),))
+
+
+def test_constrain_redistributes_dtensors_and_passes_the_rest(fake_meshes):
+    """``constrain(x, kind)`` moves a DTensor to the rule's layout and
+    returns a plain tensor, or a kind no rule names, unchanged."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dm = fake_meshes["16x16"]
+    ms = MeshSpec(dm)
+    x = torch.empty((32, 64, 48), device=META)
+    assert ms.constrain(x, "resid") is x
+    dx = DTensor.from_local(torch.empty((32, 64, 48), device=META), dm,
+                            [Replicate(), Replicate()], run_check=False)
+    assert ms.constrain(dx, "resid").placements == (Shard(0), Shard(1))
+    assert ms.constrain(dx, "logits").placements == (Shard(0), Shard(2))
+    assert ms.constrain(dx, "no such rule") is dx
+    assert ms.activation_spec("resid", (32, 1, 48)) == ("data", None,
+                                                        "model")
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        _ms("16x16").named(("data",))
+
+
+def test_reshape_replicates_only_the_views_dtensor_refuses(fake_meshes):
+    """``layers.reshape`` on a DTensor: a view its layout keeps (448
+    heads over 16 ranks) is DTensor's own and gathers nothing; one it
+    cannot (56 heads over 16) is replicated over ``model`` first, the
+    batch kept sharded, and counted in ``RESHAPE_GATHERS``; any other
+    error (a size that does not match) is raised as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.models import layers as L
+    dm = fake_meshes["16x16"]
+    x = DTensor.from_local(torch.empty((1, 8, 448), device=META), dm,
+                           [Shard(0), Shard(2)], run_check=False)
+    L.RESHAPE_GATHERS.clear()
+    kept = L.reshape(x, 16, 8, 448, 16)
+    assert kept.placements == (Shard(0), Shard(2))
+    assert not L.RESHAPE_GATHERS
+    heads = L.reshape(x, 16, 8, 56, 128)
+    assert heads.shape == (16, 8, 56, 128)
+    assert heads.placements == (Shard(0), Replicate())
+    assert L.RESHAPE_GATHERS == {
+        "(16, 8, 7168) -> (16, 8, 56, 128)": 1}
+    with pytest.raises(RuntimeError, match="invalid for input of size"):
+        L.reshape(x, 16, 8, 57, 128)
+    assert sum(L.RESHAPE_GATHERS.values()) == 1
