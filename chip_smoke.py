@@ -74,8 +74,25 @@ Phases (each prints one line; any failure exits non-zero):
    wrapper; then ENGINE_REQUESTS requests through ``ServeLoop`` over
    ``Engine(shards=4)``, equal to shards=1 on the card and to shards=4 on
    the CPU in every count, tick and routing bit, timed beside the
-   unsharded drain, with the B1, B3 and B4 launches per tick; then the
-   chained-service path (``workload/hops.py``, ``workload/chain.py``): a
+   unsharded drain, with the B1, B3, B4 and B5 launches per tick; then
+   the same datapath across processes, one rank a shard: two NCCL ranks
+   on this card first (a probe: NCCL refuses two ranks on one device), then
+   four spawned ``gloo`` processes on this card (``rank_worker``; a
+   FileStore under build/, the group's 120-s timeout), at M = 2 (the
+   first two, a subgroup) and then M = 4 (RANK_WIDTHS), each rank on its
+   ``RankShardMesh``: ``ops.admit_commit_sharded`` on its rows
+   of the serving batch, a ragged batch and one whose rank 1 holds only
+   padding (an idle ingress host), ``ops.complete_sharded`` on its pool
+   slice, and ENGINE_REQUESTS requests through ``ServeLoop`` over
+   ``Engine(shards=M)`` (its lanes' decode through B6); rank 0 gathers
+   the results, and each is held bit-exact against the one-process mesh at
+   M and the unsharded run on the card (the drain: every count, tick,
+   routing bit, metric and pool cell; its tokens compared and counted);
+   per rank its B3, B4, B5, B1 and B6 launches (and the profiler's count of
+   them), ms a call and ms a tick; the run fails unless gloo takes CUDA
+   tensors for the three collectives the mesh calls, and where a rank
+   raises, fails a check or outlives RANK_TIMEOUT; then
+   the chained-service path (``workload/hops.py``, ``workload/chain.py``): a
    depth-3 chain of the full-width serving model (64 x 16 a hop, one
    least-request cluster, admit batch 256, 512 Poisson requests at the
    main path's rate) on istio, cilium and xlb, xlb with shards=2 and an
@@ -208,6 +225,11 @@ and 4096 likewise.
 Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
 without one, or without the port's sources beside this file.
+
+``python3 chip_smoke.py --timing SRC`` times only the main path's drain
+and the one-process sharded admission of the port in SRC
+(``timing_for``): run it for two checkouts in one call, in turns, to
+compare them.
 """
 
 from __future__ import annotations
@@ -322,6 +344,17 @@ CHAOS_SEED, CHAOS_TICKS, CHAOS_MAX_LEN = 23, 170, 3
 SAN_TICKS = 40
 # the sharded phase: the mesh widths, the seed of its drains' draws
 SHARDS, SHARD_SEED = (1, 2, 4), 11
+# the ranks phase: the widths (one spawned process a shard, all on this
+# card; the processes of the widest, the smaller ones over its first
+# ranks), the seconds the processes may take, and the NCCL probe's; its admission cases (label, R, I, C; "idle": shard 1's rows all
+# padding); the kernels each rank's drain must launch (ops.LAUNCHES key:
+# the profiler's kernel name)
+RANK_WIDTHS, RANK_TIMEOUT, NCCL_PROBE_TIMEOUT = (2, 4), 240, 60
+RANK_CASES = (("serving", ADMIT_R, I_LANES, SLOTS), ("ragged", 300, 8, 4),
+              ("idle", ADMIT_R, I_LANES, SLOTS))
+RANK_KERNELS = {"admit": "admit_kernel", "route_match": "route_kernel",
+                "relay_slots": "relay_kernel", "complete": "complete_kernel",
+                "decode_attention": "decode_kernel"}
 # B3 in the sharded admission with the staged all-free mask, before its
 # all-free mode: device ms per launch at width R/M = 256 / 128 / 64
 # (PERF.md §5, on an NVIDIA H100 80GB HBM3 at 700 W); and F4's
@@ -2939,19 +2972,23 @@ def to_cpu(out):
 
 
 def sharded_drain(torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev,
-                  shards, timed=False):
+                  shards, timed=False, mesh=None, block_r=None):
     """ENGINE_REQUESTS routable main-path requests through ServeLoop over
     Engine(shards=``shards``) on ``dev`` (eos -1: completion depends only
     on the length, so the card and the CPU finish the same requests on the
-    same ticks), draws from one seeded CPU generator.  Returns (the drain's
-    record, its timing, its kernel launches)."""
+    same ticks), draws from one seeded CPU generator.  ``mesh``: the shard
+    mesh (None: ``make_shard_mesh``); ``block_r``: the admission plan
+    (None: the tuner's).  Returns (the drain's record, its timing, its
+    kernel launches); on a rank mesh the record's pool is the rank's
+    slice."""
     routing, ids = routing_config(RT, dev)
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.float32, dev)
     kw = {} if shards == 1 else dict(
-        shards=shards, shard_mesh=MS.make_shard_mesh(shards, device=dev))
+        shards=shards, shard_mesh=mesh if mesh is not None
+        else MS.make_shard_mesh(shards, device=dev))
     eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, eos=-1, device=dev,
-                           **kw)
+                           block_r=block_r, **kw)
     eng.draws = host_draws(torch, policies, dev, SHARD_SEED)
     loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
                         dtype=torch.float32, backoff_cap=4)
@@ -2997,6 +3034,7 @@ def sharded_drain(torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev,
             setattr(ops, n, fn)
     launches = {k: ops.LAUNCHES[k] for k in ("admit", "admit_commit",
                                              "complete", "route_match",
+                                             "relay_slots",
                                              "decode_attention")}
     check(len(loop.done) == len(reqs),
           f"sharded drain (M={shards}, {dev}): {len(loop.done)} of "
@@ -3059,7 +3097,7 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
             sync(torch, dev)
             n = {k: ops.LAUNCHES[k] - n0[k] for k in n0}
             check(n["admit"] == sum(live) and n["route_match"] == 1
-                  and n["admit_commit"] == 0,
+                  and n["relay_slots"] == 1 and n["admit_commit"] == 0,
                   f"sharded admit[{label} M={M}]: launches {n}, "
                   f"live shards {live}")
             check(label != "idle" or M != 4 or live == [True, False, True,
@@ -3073,7 +3111,8 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
             line = (f"sharded admit_commit[{label} R={R} I={I} C={C} M={M}] "
                     f"max_abs_err={err} vs admit_commit on the card, "
                     f"{err_cpu} vs the CPU; launches admit={n['admit']} "
-                    f"route_match={n['route_match']}; ok={int(got.ok.sum())}"
+                    f"route_match={n['route_match']} relay_slots="
+                    f"{n['relay_slots']}; ok={int(got.ok.sum())}"
                     f" held={int(got.held)} no_route={int(got.no_route)}")
             if label != "idle":
                 prof = profile_calls(torch, call)
@@ -3163,7 +3202,8 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
     untok = lambda r: {k: v for k, v in r.items() if k != "tokens"}  # noqa
     check(untok(four) == untok(four_cpu), "sharded drain: shards=4 on the "
           "card differs from shards=4 on the CPU")
-    check(min(launches[k] for k in ("admit", "complete", "route_match")) > 0
+    check(min(launches[k] for k in ("admit", "complete", "route_match",
+                                    "relay_slots")) > 0
           and launches["admit_commit"] == 0,
           f"sharded drain: kernels not launched as the sharded path does: "
           f"{launches}")
@@ -3181,11 +3221,361 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
         f"sharded drain: shards=4 equals shards=1 on the card (every count, "
         f"tick, token and routing bit) and shards=4 on the CPU; launches "
         f"per arrival tick ({arr} of {four['ticks']}): B3 "
-        f"{launches['admit'] / arr:.3f}, B4 {launches['route_match'] / arr:.3f};"
-        f" B1 per tick {launches['complete'] / four['ticks']:.3f}; B3 at the "
+        f"{launches['admit'] / arr:.3f}, B4 {launches['route_match'] / arr:.3f},"
+        f" B5 {launches['relay_slots'] / arr:.3f}; B1 per tick {launches['complete'] / four['ticks']:.3f}; B3 at the "
         f"serving shape unsharded (width C = {SLOTS}): {b3_ms}")
     return lines, timing, {k: launches[k] for k in ("admit", "complete",
-                                                    "route_match")}
+                                                    "route_match",
+                                                    "relay_slots")}
+
+
+# --------------------------------------------------------------------------- #
+# phase 5, continued: the sharded datapath across processes
+# --------------------------------------------------------------------------- #
+
+
+def rank_case(torch, RT, routing0, label, R, I, C, M, dev):
+    """An admission case of the ranks phase on ``dev``, from
+    ``admit_inputs``; in "idle" shard 1's rows of the M-way split are all
+    padding (an idle ingress host)."""
+    routing, reqs, pool, rnd, gum = admit_inputs(torch, RT, routing0, R, I,
+                                                 C, seed=R, dev=dev)
+    if label == "idle":
+        reqs[0] = reqs[0].clone()
+        reqs[0][R // M:2 * R // M] = -1
+    return routing, reqs, pool, rnd, gum
+
+
+def cpu_fields(out) -> dict:
+    """{field: CPU tensor} of an AdmitCommitOut / CompleteOut, the pool's
+    fields as "pool.<field>"."""
+    return {f: t.cpu() for f, _, t in out_pairs(out, out)}
+
+
+def rank_run(torch, dist, MS, rank: int, world: int, dev: str,
+             group) -> dict:
+    """A rank's work in the ranks phase at width ``world``, on card 0 (or
+    the CPU, to rehearse) over the rank mesh of ``group``: on the card,
+    which collectives gloo takes CUDA tensors for;
+    ``ops.admit_commit_sharded`` on its rows of each of RANK_CASES and its
+    pool slice; ``ops.complete_sharded`` on its slice of
+    ``complete_inputs``; ENGINE_REQUESTS requests through ``ServeLoop``
+    over ``Engine(shards=world)`` (``sharded_drain``), timed, then again
+    under the profiler.  Returns its results (CPU tensors and lists)."""
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core import balancer as B
+    from repro_torch.core import interpose, policies
+    from repro_torch.core import routing_table as RT
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import route_match as rm
+    from repro_torch.kernels import shard_admit as SA
+    from repro_torch.models import model as TM
+    from repro_torch.runtime import serve_loop as SL
+    dev = torch.device("cuda", 0) if dev == "cuda" else torch.device(dev)
+    probe = {}
+    if dev.type == "cuda":
+        _build.library(dev)
+        x = torch.arange(4 * world, dtype=torch.int32, device=dev)
+        gather = getattr(dist, "all_gather_single", None) \
+            or dist.all_gather_into_tensor
+        for op, fn in (
+                ("all_reduce", lambda: dist.all_reduce(x[:4].clone(),
+                                                       group=group)),
+                ("all_gather", lambda: gather(torch.empty_like(x), x[:4],
+                                              group=group)),
+                ("all_to_all", lambda: dist.all_to_all_single(
+                    torch.empty_like(x), x, group=group))):
+            try:
+                fn()
+                torch.cuda.synchronize()
+                probe[op] = "takes"
+            except Exception as e:             # noqa: BLE001 (the finding)
+                probe[op] = f"refuses ({type(e).__name__}: {str(e)[:160]})"
+    mesh = MS.make_shard_mesh(world, device=dev, group=group)
+    out = {"probe": probe, "mesh": type(mesh).__name__, "admit": {}}
+    calls = dict.fromkeys(RANK_KERNELS, 0)   # the first call of each case
+    rows = lambda t, fill=0: SA.held_rows(t, mesh, "shard", fill)  # noqa
+    routing0, _ = routing_config(RT, "cpu")
+    for label, R, I, C in RANK_CASES:
+        routing, reqs, pool, rnd, gum = rank_case(torch, RT, routing0, label,
+                                                  R, I, C, world, dev)
+        batch = B.RequestBatch(rows(reqs[0], -1), *map(rows, reqs[1:]))
+        n = I // world
+        pstate = B.PoolState(*(t[rank * n:(rank + 1) * n] for t in pool))
+        rnd_h, gum_h = rows(rnd), rows(gum)
+        live = SA.live_shards(batch.req_id, 1)
+        call = lambda: ops.admit_commit_sharded(  # noqa: E731
+            batch, routing, pstate, rnd_h, gum_h, mesh=mesh, live=live,
+            block_r=rm.TILE)
+        n0 = dict(ops.LAUNCHES)
+        got = call()
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - n0[k] for k in RANK_KERNELS}
+        for k, v in launched.items():
+            calls[k] += v
+        out["admit"][label] = (cpu_fields(got), launched, live,
+                               cuda_ms(torch, call, reps=20, warm=2))
+    args = complete_inputs(torch, RT, dev)
+    n = I_LANES // world
+    pstate = B.PoolState(*(t[rank * n:(rank + 1) * n] for t in args[:6]))
+    nxt = args[6][rank * n:(rank + 1) * n]
+    call = lambda: ops.complete_sharded(  # noqa: E731
+        pstate, nxt, *args[7:], mesh=mesh, eos=1, max_len=MAX_LEN)
+    n0 = ops.LAUNCHES["complete"]
+    got = call()
+    calls["complete"] += ops.LAUNCHES["complete"] - n0
+    out["complete"] = (cpu_fields(got), cuda_ms(torch, call, reps=20,
+                                                warm=2))
+    drain = lambda timed: sharded_drain(  # noqa: E731
+        torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev, world,
+        timed, mesh=mesh, block_r=rm.TILE)
+    out["drain"], out["timing"], out["launches"] = drain(True)
+    counts: dict = {}
+    device_events(torch, lambda: drain(False), counts)
+    out["profiled"] = {k: sum(c for name, c in counts.items() if key in name)
+                       for k, key in RANK_KERNELS.items()}
+    out["calls"] = calls
+    return out
+
+
+def rank_worker(rank: int, world: int, where: str, backend: str,
+                dev: str = "cuda") -> None:
+    """One process of the ranks phase, started by ``phase_ranks`` with the
+    spawn method (it loads the kernel library the parent built).  It joins
+    a ``backend`` group of ``world`` ranks through a FileStore in
+    ``where``, on card 0 with the others (``dev`` "cpu" rehearses the
+    phase on the CPU).  With ``nccl``, one all_reduce, and what happened
+    goes to nccl<rank>.txt.  With ``gloo``, ``rank_run`` at each width M of
+    RANK_WIDTHS over a group of the first M ranks (the others wait), with
+    its seconds; rank 0 gathers every rank's results and writes them to
+    out.pt."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import tune
+    from repro_torch.launch import mesh as MS
+    os.environ[tune.ENV_AUTOTUNE] = "0"
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    where = Path(where)
+    MS.init_shard_group(backend, rank=rank, world_size=world,
+                        store=dist.FileStore(str(where / "store"), world))
+    try:
+        if backend == "nccl":
+            try:
+                x = torch.ones(1, device="cuda")
+                dist.all_reduce(x)
+                torch.cuda.synchronize()
+                said = f"ran (sum {x.item()})"
+            except Exception as e:             # noqa: BLE001 (the finding)
+                said = f"refused ({type(e).__name__}: {e})"
+            (where / f"nccl{rank}.txt").write_text(said)
+            return
+        outs = {}
+        for M in RANK_WIDTHS:
+            group = dist.new_group(list(range(M)), timeout=MS.GROUP_TIMEOUT) \
+                if M < world else dist.group.WORLD
+            if rank < M:
+                t0 = time.perf_counter()
+                outs[M] = rank_run(torch, dist, MS, rank, M, dev, group)
+                outs[M]["seconds"] = time.perf_counter() - t0
+            dist.barrier()
+        got = [None] * world if rank == 0 else None
+        dist.gather_object(outs, got, dst=0)
+        if rank == 0:
+            torch.save(got, where / "out.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def start_ranks(where: Path, world: int, backend: str, timeout: float,
+                dev: str, target=None):
+    """``world`` processes of ``target`` (``rank_worker`` by default;
+    spawn), joined within ``timeout`` s, every one still alive then
+    killed.  Returns (exit codes, seconds)."""
+    import multiprocessing
+    where.mkdir(parents=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target or rank_worker,
+                         args=(r, world, str(where), backend, dev))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for pr in procs:
+        pr.start()
+    try:
+        for pr in procs:
+            pr.join(max(0.0, t0 + timeout - time.perf_counter()))
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.kill()
+                pr.join()
+    return [pr.exitcode for pr in procs], time.perf_counter() - t0
+
+
+def assemble(recs: list, rows: int) -> dict:
+    """The ranks' {field: tensor} records put together: per-row fields
+    concatenated and cut to ``rows``, per-cell (pool, done) fields
+    concatenated, the rest the same on every rank."""
+    import torch
+    out = {}
+    for f, v in recs[0].items():
+        if f in ("cluster", "endpoint", "instance", "slot", "ok"):
+            out[f] = torch.cat([r[f] for r in recs])[:rows]
+        elif f.startswith("pool.") or f == "done":
+            out[f] = torch.cat([r[f] for r in recs])
+        else:
+            for m, r in enumerate(recs):
+                check(torch.equal(r[f], v), f"ranks: {f} differs on rank {m}")
+            out[f] = v
+    return out
+
+
+def phase_ranks(torch, RT, B, ops, interpose, SL, TM, MS, policies, rm, cfg,
+                gpu, dev="cuda", target=None):
+    """The sharded datapath across processes, one ``gloo`` rank a shard
+    (``RankShardMesh``), every rank on this one card: first two NCCL
+    ranks on the card (a probe: NCCL refuses two ranks on one device), then
+    four gloo processes, at each M of RANK_WIDTHS over the first M of them:
+    the ranks' admission (RANK_CASES), completion and drain
+    (``rank_run``), each held bit-exact against the one-process
+    ``ShardMesh`` at M and against the unsharded run on the card (the
+    drain: every count, tick, routing bit, metric and pool cell; tokens
+    compared and counted, as a rank decodes its I/M lanes alone).
+    ``target`` replaces ``rank_worker`` (a rehearsal's).  Returns (lines,
+    {M: [each rank's launches]})."""
+    import shutil
+    dev = torch.device(dev)
+    base = ROOT / "build" / "ranks"
+    shutil.rmtree(base, ignore_errors=True)
+    lines = []
+    if dev.type == "cuda":
+        codes, secs = start_ranks(base / "nccl2", 2, "nccl",
+                                  NCCL_PROBE_TIMEOUT, dev.type, target)
+        said = [(base / "nccl2" / f"nccl{r}.txt").read_text()[:300]
+                if (base / "nccl2" / f"nccl{r}.txt").exists() else "nothing"
+                for r in range(2)]
+        lines.append(f"ranks: NCCL with 2 ranks on one card: {said} (exit "
+                     f"codes {codes}, {secs:.1f} s); the ranks below join "
+                     "over gloo")
+    routing0, _ = routing_config(RT, "cpu")
+    drain = lambda m: sharded_drain(  # noqa: E731
+        torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev, m,
+        block_r=rm.TILE)[0]
+    unsharded = drain(1)
+    untok = lambda r: {k: v for k, v in r.items() if k != "tokens"}  # noqa
+    world = max(RANK_WIDTHS)
+    codes, secs = start_ranks(base / "gloo", world, "gloo", RANK_TIMEOUT,
+                              dev.type, target)
+    check(all(c == 0 for c in codes), f"ranks: exit codes {codes} (a rank "
+          "raised, failed a check or timed out)")
+    outs = torch.load(base / "gloo" / "out.pt", weights_only=False)
+    lines.append(f"ranks: {world} gloo processes on one card, {secs:.1f} s "
+                 "from spawn to exit")
+    launches = {}
+    for M in RANK_WIDTHS:
+        mesh = MS.make_shard_mesh(M, device=dev)
+        check(isinstance(mesh, MS.ShardMesh), "ranks: the parent's mesh is "
+              "not the one-process mesh")
+        got = [outs[r][M] for r in range(M)]
+        check(all(g["mesh"] == "RankShardMesh" for g in got),
+              f"ranks M={M}: meshes {[g['mesh'] for g in got]}")
+        for op, said in got[0]["probe"].items():
+            check(said == "takes", f"ranks M={M}: gloo {said} CUDA tensors "
+                  f"for {op}, which the rank mesh hands it")
+        lines.append(f"ranks M={M}: ranks 0-{M - 1}, {got[0]['seconds']:.1f}"
+                     f" s of work; gloo and CUDA tensors: {got[0]['probe']}")
+        for label, R, I, C in RANK_CASES:
+            routing, reqs, pool, rnd, gum = rank_case(
+                torch, RT, routing0, label, R, I, C, M, dev)
+            batch, pstate = B.RequestBatch(*reqs), B.PoolState(*pool)
+            want = ops.admit_commit(batch, routing, pstate, rnd, gum,
+                                    block_r=rm.TILE)
+            one_call = lambda: ops.admit_commit_sharded(  # noqa: E731
+                batch, routing, pstate, rnd, gum, mesh=mesh, block_r=rm.TILE)
+            one = one_call()
+            whole = assemble([g["admit"][label][0] for g in got], R)
+            pairs = lambda ref: [(f, whole[f], t) for f, t in  # noqa: E731
+                                 cpu_fields(ref).items()]
+            err = max_abs_err(torch, pairs(want))
+            err1 = max_abs_err(torch, pairs(one))
+            live = [g["admit"][label][2][0] for g in got]
+            check(label != "idle" or not live[1],
+                  f"ranks M={M} idle: rank 1 read {live[1]} from its rows")
+            for r, g in enumerate(got):
+                n = g["admit"][label][1]
+                check(n["admit"] == int(live[r]) and n["route_match"] == 1
+                      and n["relay_slots"] == 1,
+                      f"ranks M={M} {label}: rank {r} launched {n}")
+            lines.append(
+                f"ranks M={M} admit_commit_sharded[{label} R={R} I={I} "
+                f"C={C}] max_abs_err={err} vs admit_commit on the card, "
+                f"{err1} vs the one-process mesh; live ranks {live}; ms a "
+                f"call per rank " + " / ".join(
+                    f"{g['admit'][label][3]:.4f}" for g in got)
+                + f" (the one-process mesh {cuda_ms(torch, one_call):.4f})")
+        args = complete_inputs(torch, RT, dev)
+        pstate = B.PoolState(*args[:6])
+        want = ops.complete(pstate, *args[6:], eos=1, max_len=MAX_LEN)
+        one = ops.complete_sharded(pstate, *args[6:], mesh=mesh, eos=1,
+                                   max_len=MAX_LEN)
+        whole = assemble([g["complete"][0] for g in got], I_LANES * SLOTS)
+        err = max_abs_err(torch, [(f, whole[f], t) for f, t in
+                                  cpu_fields(want).items()])
+        err1 = max_abs_err(torch, [(f, whole[f], t) for f, t in
+                                   cpu_fields(one).items()])
+        lines.append(
+            f"ranks M={M} complete_sharded[I={I_LANES} C={SLOTS}] "
+            f"max_abs_err={err} vs complete on the card (EWMAs included), "
+            f"{err1} vs the one-process mesh; ms a call per rank "
+            + " / ".join(f"{g['complete'][1]:.4f}" for g in got))
+        recs = [g["drain"] for g in got]
+        for r, rec in enumerate(recs[1:], 1):
+            check(untok({k: v for k, v in rec.items() if k != "pool"})
+                  == untok({k: v for k, v in recs[0].items() if k != "pool"}),
+                  f"ranks M={M}: rank {r}'s host state differs from rank 0's")
+        whole = dict(recs[0], pool={f: sum((rec["pool"][f] for rec in recs),
+                                           [])
+                                    for f in recs[0]["pool"]})
+        one = drain(M)
+        check(untok(whole) == untok(one), f"ranks M={M}: the drain differs "
+              "from the one-process mesh's")
+        check(untok(whole) == untok(unsharded), f"ranks M={M}: the drain "
+              "differs from the unsharded drain")
+        same = sum(a == b for a, b in zip(whole["tokens"], one["tokens"]))
+        lines.append(
+            f"ranks M={M} drain: {ENGINE_REQUESTS} requests in "
+            f"{whole['ticks']} ticks, equal to the one-process mesh and the "
+            f"unsharded drain on the card in every count, tick, routing bit, "
+            f"metric and pool cell; token streams equal in {same} of "
+            f"{len(one['tokens'])} requests")
+        launches[M] = []
+        for r, g in enumerate(got):
+            n, prof, t = g["launches"], g["profiled"], g["timing"]
+            total = {k: n[k] + g["calls"][k] for k in RANK_KERNELS}
+            launches[M].append(total)
+            check(all(total[k] > 0 for k in RANK_KERNELS)
+                  and all(prof[k] > 0 for k in RANK_KERNELS if n[k]),
+                  f"ranks M={M} rank {r}: launches {total} (drain {n}), "
+                  f"profiler {prof}")
+            lines.append(
+                f"ranks M={M} rank {r}: launches B3 {total['admit']} B4 "
+                f"{total['route_match']} B5 {total['relay_slots']} B1 "
+                f"{total['complete']} B6 {total['decode_attention']} (the "
+                f"drain's B3 {n['admit']} B4 {n['route_match']} B5 "
+                f"{n['relay_slots']} B1 {n['complete']} B6 "
+                f"{n['decode_attention']}; the profiler's over a second "
+                f"drain, this process's kernels: B3 {prof['admit']} B4 "
+                f"{prof['route_match']} B5 {prof['relay_slots']} B1 "
+                f"{prof['complete']} B6 {prof['decode_attention']}); "
+                f"median ms a tick {t['med']['tick']:.4f}, admit "
+                f"{t['med']['admit']:.4f}, complete "
+                f"{t['med']['complete']:.4f}, {t['wall']:.3f} s in all")
+    lines.append(f"ranks: every rank on one card ({gpu}): these times are "
+                 "gloo's collectives through host memory and the card "
+                 "time-sliced between processes, not a measurement of "
+                 "several cards")
+    return lines, launches
 
 
 # --------------------------------------------------------------------------- #
@@ -4285,6 +4675,10 @@ def main() -> int:
         timing["admit"]["ms"])
     for line in slines:
         print(line)
+    rlines, rank_launches = phase_ranks(torch, RT, B, ops, interpose, SL, TM,
+                                        MS, policies, rm, cfg, gpu)
+    for line in rlines:
+        print(line)
     for line in phase_chain(torch, W, HP, RT, interpose, policies, cfg):
         print(line)
     llm_launches, prefill_kernels, peaks = {}, {}, {}
@@ -4348,7 +4742,8 @@ def main() -> int:
                                 main_launches["decode_attention"]}.items())
           + " (admit_commit, complete and decode_attention[xlb] on the main "
           "path; route_match, relay_slots and admit in the staged phase, "
-          "and admit, complete and route_match in the sharded drain too; "
+          "and admit, complete, route_match and relay_slots in the sharded "
+          "drain too; "
           "flash_attention and decode_attention in the model phase's "
           "minitron-4b, " + ", ".join(DENSE_ARCHS) + ", arctic-480b and "
           "jamba-v0.1-52b, ssd_scan in mamba2-2.7b's and jamba's, and "
@@ -4423,13 +4818,19 @@ def main() -> int:
                     k: xlb[k] for k in ("ms", "kernel", "library_ms",
                                         "library_device_ms")}
             if name in sharded_launches:       # and in the sharded drain
-                key, part = {"admit": ("admit[serving,M={}]", "b3_ms"),
-                             "route_match": ("admit[serving,M={}]", "b4_ms"),
-                             "complete": ("complete[M={}]", "b1_ms")}[name]
                 kernels[-1]["launches_sharded_drain"] = \
                     sharded_launches[name]
+            sharded_ms = {"admit": ("admit[serving,M={}]", "b3_ms"),
+                          "route_match": ("admit[serving,M={}]", "b4_ms"),
+                          "complete": ("complete[M={}]", "b1_ms")}
+            if name in sharded_ms:             # per shard, at each M
+                key, part = sharded_ms[name]
                 kernels[-1]["sharded_ms"] = {
                     str(M): stiming[key.format(M)][part] for M in SHARDS}
+            if name in RANK_KERNELS:           # each rank's, in its drain
+                kernels[-1]["launches_ranks"] = {
+                    str(M): [n[name] for n in per]
+                    for M, per in rank_launches.items()}
             if name in ("admit_commit", "admit"):   # the tuned plan, tiles
                 kernels[-1]["block_r"] = t["block_r"]
                 kernels[-1]["tiles_ms"] = {
@@ -4531,5 +4932,49 @@ def main() -> int:
     return 0
 
 
+def timing_for(src: str) -> int:
+    """``python3 chip_smoke.py --timing SRC``: for the port in SRC (this
+    checkout's ``src``, or another checkout's, to compare two trees in one
+    call, in turns), the main path's timed drain (``phase_serve``: its
+    "serve:" line) and the one-process sharded admission
+    (``ops.admit_commit_sharded`` over ``make_shard_mesh``) at the serving
+    shape and block_r 256 at each M of SHARDS: event-timed ms a call, the
+    mean of 50 calls."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch finds no CUDA device")
+    sys.path.insert(0, str(Path(src).resolve()))
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core import balancer as B
+    from repro_torch.core import interpose
+    from repro_torch.core import routing_table as RT
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import shard_admit as SA
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as TM
+    from repro_torch.runtime import serve_loop as SL
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    print(f"timing {src}: " + phase_serve(torch, RT, ops, TM, interpose, SL,
+                                          cfg)[0] + f" on {gpu}")
+    routing0, _ = routing_config(RT, "cpu")
+    routing, reqs, pool, rnd, gum = admit_inputs(
+        torch, RT, routing0, ADMIT_R, I_LANES, SLOTS, seed=ADMIT_R, dev=dev)
+    batch, pstate = B.RequestBatch(*reqs), B.PoolState(*pool)
+    got = []
+    for M in SHARDS:
+        mesh = MS.make_shard_mesh(M, device=dev)
+        live = SA.live_shards(reqs[0], M)
+        got.append(cuda_ms(torch, lambda: ops.admit_commit_sharded(
+            batch, routing, pstate, rnd, gum, mesh=mesh, live=live,
+            block_r=256)))
+    print(f"timing {src}: sharded admission, ms a call at M " + " / ".join(
+        map(str, SHARDS)) + ": " + " / ".join(f"{t:.4f}" for t in got)
+        + f" on {gpu}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--timing"]:
+        sys.exit(timing_for(sys.argv[2]))
     sys.exit(main())

@@ -13,9 +13,16 @@ tick runs two things:
 With ``shards`` > 1 both run sharded over the axis ``shard_axis`` of
 ``shard_mesh`` (``ops.admit_commit_sharded`` / ``ops.complete_sharded``):
 the batch splits ``(R/M,)``, the pool ``(I/M,)`` (shard m owns rows
-``[m·I/M, (m+1)·I/M)`` of the one (I, C) pool), bit-exact against the
-unsharded engine on the same batches.  The decode step runs over the whole
-pool either way.
+``[m·I/M, (m+1)·I/M)`` of the (I, C) pool), bit-exact against the
+unsharded engine on the same batches.  On a one-process mesh
+(``ShardMesh``) the engine holds the whole pool and decodes it.  On a rank
+mesh (``RankShardMesh``, one rank a shard) each rank's engine holds its
+(I/M, C) slice of the pool and the cache of those I/M·C rows, decodes
+only them, takes its rows of every admission batch (every rank builds and
+draws the whole batch, then slices it), and gathers what the host reads
+of a tick (emitted tokens, done flags, serviced ids, the active count)
+from every rank, so each rank's host sees the whole tick.  Routing and
+metrics are replicated, equal on every rank after the psums.
 
 State tensors are replaced, not mutated, except the KV cache, which the
 decode writes in place.  The engine runs on the card unless the caller
@@ -101,11 +108,31 @@ class Engine:
         self.draws = lambda R: policies.draws(gen, R)
 
     # ------------------------------------------------------------------ #
+    @property
+    def held_shards(self) -> tuple:
+        """The shards this engine holds: all of them, or on a rank mesh
+        the rank's own."""
+        return (0,) if self.shards == 1 else tuple(self.shard_mesh.held)
+
+    @property
+    def first_instance(self) -> int:
+        """The global index of the first instance lane this engine holds."""
+        return self.held_shards[0] * (self.n_instances // self.shards)
+
+    @property
+    def held_instances(self) -> int:
+        return len(self.held_shards) * (self.n_instances // self.shards)
+
+    def _rank_mesh(self) -> bool:
+        return len(self.held_shards) < self.shards
+
+    # ------------------------------------------------------------------ #
     def init_state(self, routing: RoutingState, dtype=None) -> EngineState:
         return EngineState(
             routing=routing.to(self.device),
-            pool=PoolState.init(self.n_instances, self.slots, self.device),
-            cache=M.init_cache(self.cfg, self.n_instances * self.slots,
+            pool=PoolState.init(self.held_instances, self.slots,
+                                self.device),
+            cache=M.init_cache(self.cfg, self.held_instances * self.slots,
                                self.max_len, dtype, self.device),
             metrics=FlowMetrics.zeros(self.device))
 
@@ -124,16 +151,26 @@ class Engine:
     # ------------------------------------------------------------------ #
     def admit(self, state: EngineState, reqs: RequestBatch,
               live=None) -> EngineState:
-        """One admission.  ``live`` (sharded engines):
-        ``shard_admit.live_shards`` of the batch as the host built it;
-        None reads it from ``reqs``."""
+        """One admission of the whole batch ``reqs``.  ``live`` (sharded
+        engines): ``shard_admit.live_shards`` of the batch as the host
+        built it, one entry a shard; None reads it from ``reqs``."""
         rstate, metrics = state.routing, state.metrics
         rnd, gumbel = self.draws(reqs.req_id.shape[0])
         if self.shards > 1:
+            mesh, axis = self.shard_mesh, self.shard_axis
+            if self._rank_mesh():        # this rank's rows of the batch
+                rows = lambda x, fill=0: shard_admit.held_rows(  # noqa: E731
+                    x, mesh, axis, fill)
+                reqs = RequestBatch(
+                    req_id=rows(reqs.req_id, -1), svc=rows(reqs.svc),
+                    features=rows(reqs.features), token=rows(reqs.token),
+                    msg_bytes=rows(reqs.msg_bytes))
+                rnd, gumbel = rows(rnd), rows(gumbel)
+            if live is not None:
+                live = [live[m] for m in self.held_shards]
             res = ops.admit_commit_sharded(
-                reqs, rstate, state.pool, rnd, gumbel, mesh=self.shard_mesh,
-                axis=self.shard_axis, live=live, block_r=self.block_r,
-                fold=self.fold)
+                reqs, rstate, state.pool, rnd, gumbel, mesh=mesh, axis=axis,
+                live=live, block_r=self.block_r, fold=self.fold)
         else:
             res = ops.admit_commit(reqs, rstate, state.pool, rnd, gumbel,
                                    block_r=self.block_r, fold=self.fold)
@@ -172,7 +209,24 @@ class Engine:
         out = {"emitted": nxt, "done": res.done,
                "req_id": pool.req_id,           # ids that produced this tick
                "active": res.pool.active.sum()}
+        if self.shards > 1 and self._rank_mesh():
+            out = self._gather_tick(out)
         return EngineState(rstate, res.pool, cache, metrics), out
+
+    def _gather_tick(self, out: dict) -> dict:
+        """What the host reads of a tick, from every rank, in one
+        all_gather: (I, C) emitted / done / req_id in instance order and
+        the summed active count."""
+        i32 = torch.int32
+        n = out["emitted"].numel()
+        mine = torch.cat([out[k].reshape(-1).to(i32)
+                          for k in ("emitted", "done", "req_id")]
+                         + [out["active"].reshape(1).to(i32)])
+        got = self.shard_mesh.all_gather(mine[None])        # (M, 3n + 1)
+        cells = lambda k: got[:, k * n:(k + 1) * n].reshape(  # noqa: E731
+            self.n_instances, self.slots)
+        return {"emitted": cells(0), "done": cells(1) > 0,
+                "req_id": cells(2), "active": got[:, 3 * n].sum()}
 
     # ------------------------------------------------------------------ #
     def make_jitted(self, donate: bool = True):
@@ -186,6 +240,8 @@ class Engine:
         accepted for the ``Balancer`` protocol; nothing is donated."""
 
         def serve_step(params, state: EngineState, reqs: RequestBatch):
+            # every rank of a rank mesh builds the same batch, so every
+            # rank admits on the same ticks and joins the same collectives
             if bool((reqs.req_id >= 0).any()):
                 live = (shard_admit.live_shards(reqs.req_id, self.shards)
                         if self.shards > 1 else None)

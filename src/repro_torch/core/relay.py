@@ -6,8 +6,8 @@ i-sock; on the device that is a capacity-bounded counting-sort dispatch:
 payload rows move to their destination's buffer slot in one scatter.
 
 Across a shard mesh (``sharded_apply``) the relay hop is an explicit
-``all_to_all`` over the mesh's axis, driven by one controller over the
-shards.  Across the ranks of a ``DeviceMesh`` (``ep_relay``, the MoE's
+``all_to_all`` over the mesh's axis: one controller over every shard, or
+one rank a shard (``launch/mesh.py``).  Across the ranks of a ``DeviceMesh`` (``ep_relay``, the MoE's
 expert-parallel relay) every rank runs the same body on its own rows and
 the hop is a differentiable ``all_to_all`` of
 ``torch.distributed._functional_collectives``.
@@ -167,17 +167,18 @@ def sharded_apply(xs, idxs, weights, n_dest: int, capacity: int, mesh,
     """Relay every shard's rows over the mesh axis ``axis`` to the owners
     of their destinations, apply ``backend_fn(params_j, pool)`` on each
     owner j, and relay the results back: the reference's ``shard_map``
-    body, driven by one controller over the M shards.
+    body, over the shards this process holds (``mesh.held``: all M of a
+    ``ShardMesh``, the rank's own of a ``RankShardMesh``).
 
-    ``xs``: per-shard rows (M, N_loc, D) (or a list of M (N_loc, D));
-    ``idxs``: per-shard global destination ids (M, N_loc); ``weights``:
-    per-shard (M, N_loc) scales or None; ``backend_params``: per-shard
-    parameters, shard j's for its ``n_dest // M`` destinations (destination
-    b lives on shard ``b // (n_dest // M)``); ``n_dest % M == 0``.  The
-    backend gets (n_dest // M, M * capacity, D) and returns
-    (n_dest // M, M * capacity, D').  Returns (out (M, N_loc, D'), meta).
+    ``xs``: per held shard rows (L, N_loc, D) (or a list of L (N_loc,
+    D)); ``idxs``: their global destination ids (L, N_loc); ``weights``:
+    (L, N_loc) scales or None; ``backend_params``: per held shard its
+    parameters, shard j's for its ``n_dest // M`` destinations
+    (destination b lives on shard ``b // (n_dest // M)``); ``n_dest % M ==
+    0``.  The backend gets (n_dest // M, M * capacity, D) and returns
+    (n_dest // M, M * capacity, D').  Returns (out (L, N_loc, D'), meta).
 
-    Meta across the shards: ``idx``/``slot``/``ok`` are per-source (M,
+    Meta across the shards: ``idx``/``slot``/``ok`` are per-source (L,
     N_loc): each source shard owns ``capacity`` slots at every destination,
     so a row is dropped against its own shard's quota (a destination
     absorbs up to ``M * capacity`` rows in all); ``overflow_frac`` is the
@@ -194,21 +195,21 @@ def sharded_apply(xs, idxs, weights, n_dest: int, capacity: int, mesh,
                         for x, i in zip(xs, idxs)))
     # relay hop: shard m's pools (M, E_loc, C, D) split by owner; owner j
     # receives (M, E_loc, C, D), its leading axis the source shard
-    recv = mesh.all_to_all([b.reshape(M, E_loc, capacity, -1)
-                            for b in bufs])
+    recv = mesh.all_to_all(torch.stack([b.reshape(M, E_loc, capacity, -1)
+                                        for b in bufs]))
     outs = [backend_fn(p, r.transpose(0, 1).reshape(E_loc, M * capacity, -1))
             for p, r in zip(backend_params, recv)]
     # reverse relay: owner j's results (E_loc, M*C, D') split by source
-    back = mesh.all_to_all([o.reshape(E_loc, M, capacity, -1)
-                            .transpose(0, 1) for o in outs])
-    load = mesh.psum([m.load for m in metas])
-    overflow = mesh.psum([m.overflow_frac for m in metas]) / M
-    ws = [None] * M if weights is None else weights
-    out = mesh.all_gather([
+    back = mesh.all_to_all(torch.stack([
+        o.reshape(E_loc, M, capacity, -1).transpose(0, 1) for o in outs]))
+    load = mesh.psum(torch.stack([m.load for m in metas]))
+    overflow = mesh.psum(torch.stack([m.overflow_frac for m in metas])) / M
+    ws = [None] * len(metas) if weights is None else weights
+    out = torch.stack([
         relay_combine(b.reshape(n_dest, capacity, -1),
                       m._replace(load=load, overflow_frac=overflow), w)
         for b, m, w in zip(back, metas, ws)])
-    stack = lambda f: mesh.all_gather([getattr(m, f) for m in metas])
+    stack = lambda f: torch.stack([getattr(m, f) for m in metas])  # noqa
     return out, RelayMeta(stack("idx"), stack("slot"), stack("ok"), load,
                           overflow)
 

@@ -22,8 +22,8 @@ takes its ids replicated, as it ranks over all of them.  Plain tensors
 among a DTensor call's arguments count as replicated.
 
 The sharded wrappers (``admit_commit_sharded``, ``complete_sharded``)
-count the launches of the kernels they run per shard under those kernels'
-names.
+count the launches of the kernels they run per shard (and the route and
+relay kernels they run once a call) under those kernels' names.
 
 The admission and completion wrappers take the reference's tuning
 arguments: ``block_r`` (rows per tile, which also decides the first
@@ -191,21 +191,28 @@ def admit_commit_sharded(reqs: RequestBatch, routing, pool: PoolState, rnd,
                          live=None, block_r: int | None = None,
                          fold: str | None = None) -> AdmitCommitOut:
     """``admit_commit`` sharded over the mesh axis ``axis``
-    (``launch/mesh.py::ShardMesh``): the batch splits ``(R/M,)``, the pool
-    ``(I/M,)``, the routing tables replicate, each shard runs the
+    (``launch/mesh.py``: ``ShardMesh``, every shard in this process, or
+    ``RankShardMesh``, one rank a shard): the batch splits ``(R/M,)``, the
+    pool ``(I/M,)``, the routing tables replicate, each shard runs the
     admission kernel without the commit (one launch per shard that holds a
-    valid row, counted under ``"admit"``, and one route-match launch for
-    the batch), and one collective pass reconciles the state the datapath
-    owns; bit-exact against ``admit_commit`` on the same batch
-    (``kernels/shard_admit.py``).  ``live``: ``shard_admit.live_shards``
-    of the batch as the host built it (None reads it from ``reqs``).  The
-    plan is made at the per-shard width R/M, as the reference's is."""
+    valid row, counted under ``"admit"``), one route-match launch for the
+    rows this process holds, one relay launch for their pool commits, and
+    one collective pass reconciles the state the datapath owns; bit-exact
+    against ``admit_commit`` on the same batch
+    (``kernels/shard_admit.py``).  ``reqs``, ``rnd``, ``gumbel`` and
+    ``pool`` are what this process holds (``shard_admit.held_rows``).
+    ``live``: ``shard_admit.live_shards`` of the held rows as the host
+    built them (None reads it from ``reqs``).  The plan is made at the
+    per-shard width R/M, as the reference's is; on a rank mesh every rank
+    takes rank 0's."""
     from repro_torch.kernels import shard_admit as _sa
-    M = mesh.shape[axis]
-    R_loc = -(-max(reqs.req_id.shape[0], 1) // M)
-    block_r, fold = tune.plan_admit(R_loc, pool.req_id.shape,
-                                    block_r=block_r, fold=fold, commit=True,
+    M, L = mesh.shape[axis], len(mesh.held)
+    R_loc = -(-max(reqs.req_id.shape[0], 1) // L)
+    shape = (pool.req_id.shape[0] // L * M, pool.req_id.shape[1])
+    block_r, fold = tune.plan_admit(R_loc, shape, block_r=block_r,
+                                    fold=fold, commit=True,
                                     device=reqs.req_id.device)
+    block_r = mesh.agree(("admit", R_loc, *shape), block_r)
     res = _sa.admit_commit_sharded(
         reqs.req_id, reqs.svc, reqs.features, reqs.msg_bytes, reqs.token,
         routing, *pool, rnd, gumbel, mesh=mesh, axis=axis, live=live,
@@ -258,15 +265,15 @@ def complete_sharded(pool: PoolState, nxt, ep_load, rx_bytes,
                      block_i: int | None = None,
                      fold: str | None = None) -> CompleteOut:
     """``complete`` sharded over the mesh axis ``axis``: the pool splits
-    ``(I/M,)``, the (E,)/(S,) tables replicate, the completion kernel runs
-    on each slice (one launch per shard, counted under ``"complete"``),
+    ``(I/M,)`` (``pool`` and ``nxt`` are what this process holds), the
+    (E,)/(S,) tables replicate, the completion kernel runs on each held
+    slice (one launch per shard, counted under ``"complete"``),
     and the per-shard integer folds are psum-reconciled before ONE shared
     ``health_update`` on the global counts, so the EWMAs are bit-exact
     against ``complete`` on the whole pool (``kernels/shard_admit.py``)."""
     from repro_torch.kernels import shard_admit as _sa
-    M = mesh.shape[axis]
     I, C = pool.req_id.shape
-    tune.plan_complete((max(I // max(M, 1), 1), C), block_i=block_i,
+    tune.plan_complete((max(I // len(mesh.held), 1), C), block_i=block_i,
                        fold=fold, device=nxt.device)
     ewl, ewt = _ewma_defaults(ep_load, ep_inflight_ewma, ep_tput_ewma)
     res = _sa.complete_sharded(*pool, nxt, ep_load, rx_bytes, ewl, ewt,

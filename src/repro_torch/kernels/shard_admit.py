@@ -25,19 +25,23 @@ the preceding shards' per-cluster routable counts:
 
 Loads, held releases, per-service metrics and the ``no_route``/``held``
 counts are ``psum``-reconciled; the affinity caches merge lowest shard
-first; pool commits travel to their owner shards through the
-``relay_dispatch`` counting sort and one ``all_to_all`` hop.
+first; pool commits travel to their owner shards through the relay
+kernel's counting sort (B5, ``ops.relay_slots``) and one ``all_to_all``
+hop.
 
-One controller drives the M shards (``launch/mesh.py::ShardMesh``), as
-the reference's ``shard_map`` does: per-shard values are stacked on a
-leading shard axis and the collectives are the mesh's functions.  Work
-that needs no collective and no per-shard kernel runs once over the stack:
-the route match of phase 1 (B4 through ``router.match_cluster``, over the
-whole padded batch; it is stateless) and the water-fill search of phase 2
-for all shards at once.  The admission kernel runs once per shard that
-holds a valid row; an all-padding shard launches nothing (the reference's
-``lax.cond`` skip).  Which shards hold one is read from the host batch
-(``live_shards``), so the choice costs no device sync.
+One body serves both shard meshes of ``launch/mesh.py``: a ``ShardMesh``,
+where one process drives all M shards on one device, as the reference's
+``shard_map`` does, and a ``RankShardMesh``, one rank of a process group a
+shard.  Per-shard values are stacked on a leading axis of the shards this
+process holds (``mesh.held``: all M, or the rank's own), and the
+collectives are the mesh's.  Work that needs no collective and no
+per-shard kernel runs once over the held rows: the route match of phase 1
+(B4 through ``router.match_cluster``; it is stateless), the water-fill
+search of phase 2 and the pool commits' sort.  The admission kernel runs
+once per held shard that holds a valid row; an all-padding shard launches
+nothing (the reference's ``lax.cond`` skip) but joins every collective.
+Which shards hold one is read from the host batch (``live_shards``), so
+the choice costs no device sync.
 
 Completion: B1 (``csrc/complete.cu``) on each ``(I/M, C)`` pool slice with
 zero bases, so its counts are the shard's deltas; a ``psum`` of the
@@ -141,6 +145,20 @@ def live_shards(req_id, shards: int) -> list[bool]:
     return [any(valid[m * R_loc:(m + 1) * R_loc]) for m in range(shards)]
 
 
+def held_rows(x, mesh, axis: str = "shard", fill: int = 0):
+    """The rows of a whole batch that this process's shards take: every
+    row on a one-process mesh; on a rank mesh, rank m's rows [m·R/M,
+    (m+1)·R/M) of the batch padded to a multiple of M with ``fill``.
+    Every rank draws and builds the whole batch and takes its rows: the
+    reference's "row-aligned with the batch split"."""
+    M, held = mesh.shape[axis], mesh.held
+    if len(held) == M:
+        return x
+    R_loc = -(-x.shape[0] // M)
+    x = _pad(x, R_loc * M - x.shape[0], fill)
+    return x[held[0] * R_loc:(held[-1] + 1) * R_loc]
+
+
 def _bincount(ids, length: int, vals=None) -> torch.Tensor:
     """Masked scatter-add fold over the last axis (of ones where ``vals``
     is None), ids >= length drop: (..., N) ids → (..., length) int32."""
@@ -152,21 +170,25 @@ def _bincount(ids, length: int, vals=None) -> torch.Tensor:
     return out[..., :length]
 
 
-def _prefix_before(gathered) -> torch.Tensor:
-    """Per shard, the sum of the rows of the shards before it (M, ...):
-    the exclusive scan giving each shard its carried-counter offset."""
-    return torch.cumsum(gathered, 0, dtype=gathered.dtype) - gathered
+def _prefix_before(gathered, held) -> torch.Tensor:
+    """Per held shard, the sum of the rows of the shards before it (L,
+    ...): the exclusive scan of the gathered (M, ...) rows giving each
+    shard its carried-counter offset."""
+    before = torch.cumsum(gathered, 0, dtype=gathered.dtype) - gathered
+    return before[held[0]:held[-1] + 1]
 
 
-def _check_mesh(mesh, axis: str, I: int, t) -> int:
-    M = mesh.shape[axis]
-    if I % M:
-        raise ValueError(f"pool instances ({I}) must divide over the "
+def _check_mesh(mesh, axis: str, I_held: int, t) -> tuple[int, tuple]:
+    """(M, the held shards); the held pool's instances must split evenly
+    over the held shards, and every tensor lie on the mesh's device."""
+    M, held = mesh.shape[axis], mesh.held
+    if I_held % len(held):
+        raise ValueError(f"pool instances ({I_held}) must divide over the "
                          f"{M}-way mesh axis {axis!r}")
     if t.device != mesh.device:
         raise ValueError(f"tensors on {t.device} but the shard mesh is on "
                          f"{mesh.device}")
-    return M
+    return M, held
 
 
 def _pad(x, n: int, fill: int):
@@ -198,16 +220,29 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
                          block_r: int = _rm.TILE) -> AdmitCommitResult:
     """``admit_commit`` sharded ``(R/M,)`` over the mesh axis ``axis``.
 
-    Same flat contract as ``route_match.admit_commit``; instance ``i`` of
-    the (I, C) pool belongs to shard ``i // (I/M)``, and the result is
-    bit-exact against single-shard ``admit_commit`` on the same batch.  A
-    ragged batch pads to a multiple of M with inert ``req_id = -1`` rows.
-    ``live``: ``live_shards`` of the batch as the host built it (None
-    computes it here).  Each shard's kernel walks tiles of
-    ``min(block_r, R/M)`` rows, as the reference's does.  Requires
-    ``I % M == 0`` and every tensor on the mesh's device."""
-    I, C = pool_req_id.shape
-    M = _check_mesh(mesh, axis, I, features)
+    Same flat contract as ``route_match.admit_commit``, over what this
+    process holds (``mesh.held``): on a one-process mesh the whole batch
+    and the whole (I, C) pool; on a rank mesh the rank's rows of the batch
+    (``held_rows``: every rank passes as many) and its (I/M, C) slice of
+    the pool.  Instance ``i`` belongs to shard ``i // (I/M)``, and the
+    result is bit-exact against single-shard ``admit_commit`` on the whole
+    batch: the per-row outputs and the pool for the held rows and
+    instances, the routing counters and metrics replicated.  A ragged
+    batch pads to a multiple of the held shards with inert ``req_id = -1``
+    rows.  ``live``: ``live_shards`` of the held rows as the host built
+    them, one entry a held shard (None computes it here).  Each shard's
+    kernel walks tiles of ``min(block_r, R/M)`` rows, as the reference's
+    does.  Requires ``I % M == 0`` and every tensor on the mesh's device.
+
+    Four collectives a call, on every shard whatever its rows: two
+    ``all_gather`` (the per-cluster counts with the pool's active mask;
+    the per-instance counts with the affinity proposals), one ``psum`` of
+    every integer delta, one ``all_to_all`` of the pool commits."""
+    I_h, C = pool_req_id.shape
+    M, held = _check_mesh(mesh, axis, I_h, features)
+    L = len(held)
+    I_loc = I_h // L
+    I = I_loc * M
     pool = [p.to(I32) for p in (pool_req_id, pool_endpoint, pool_svc,
                                 pool_length, pool_token)]
     act = pool_active != 0
@@ -215,13 +250,14 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
     if R0 == 0:                          # empty batch: pool passes through
         return AdmitCommitResult(*ops._empty_admit(state), *pool, act)
     if live is None:
-        live = live_shards(req_id, M)
+        live = live_shards(req_id, L)
     dev = features.device
-    R_loc = -(-R0 // M)
-    R, I_loc = R_loc * M, I // M
+    R_loc = -(-R0 // L)
+    R = R_loc * L
     S = state.svc_rule_start.shape[0]
     CL = state.cluster_ep_count.shape[0]
     E = state.ep_load.shape[0]
+    A = state.aff_key.shape[0]
     if token is None:
         token = torch.zeros((R0,), dtype=I32, device=dev)
     rid = _pad(req_id.to(I32), R - R0, -1)
@@ -230,7 +266,7 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
                                      msg_bytes.to(I32), rnd.to(I32),
                                      gumbel.to(torch.float32),
                                      token.to(I32)))
-    rows = lambda x: x.reshape(M, R_loc, *x.shape[1:])      # noqa: E731
+    rows = lambda x: x.reshape(L, R_loc, *x.shape[1:])      # noqa: E731
 
     # ---- phase 1: match + eligibility -> per-cluster routable counts ---- #
     valid = rid >= 0
@@ -242,15 +278,23 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
     clm = cluster.clamp_min(0).to(I64)
     routable = valid & (cluster >= 0) & (ecnt[clm.clamp(max=CL - 1)] > 0)
     cnt_cl = _bincount(rows(torch.where(routable, clm, CL)), CL)
-    all_cl = mesh.all_gather(cnt_cl)                        # (M, CL)
-    prev_cl = _prefix_before(all_cl)
-    total_cl = mesh.psum(all_cl)
+    # the pool's active mask travels with the counts: every shard matches
+    # global ranks against the whole pool's free slots in phase 4
+    got = mesh.all_gather(torch.cat(
+        [cnt_cl, act.to(I32).reshape(L, I_loc * C)], 1))    # (M, CL + ..)
+    all_cl = got[:, :CL]
+    act_all = got[:, CL:].reshape(I, C) > 0
+    prev_cl = _prefix_before(all_cl, held)                  # (L, CL)
+    total_cl = all_cl.sum(0, dtype=I32)
 
     # ---- phase 2: offset the carried-counter inputs --------------------- #
     # shard 0 has nothing before it: its loads are the state's
     ep_load0 = state.ep_load.to(I32)
-    adj_load = ep_load0[None] if M == 1 else torch.cat(
-        [ep_load0[None], waterfill_lr(state, prev_cl[1:], k_max=R)])
+    first = 1 if held[0] == 0 else 0
+    parts = [ep_load0[None]] * first
+    if L > first:
+        parts.append(waterfill_lr(state, prev_cl[first:], k_max=R_loc * M))
+    adj_load = parts[0] if len(parts) == 1 else torch.cat(parts)
     adj_cur = state.rr_cursor.to(I32) + prev_cl        # raw carry; mod at emit
 
     # ---- phase 3: the admission kernel per shard (all-free pool) -------- #
@@ -261,7 +305,7 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
     zs = torch.zeros((S,), dtype=I32, device=dev)
     zero = torch.zeros((), dtype=I32, device=dev)
     per = []
-    for m in range(M):
+    for m in range(L):
         if not live[m]:                  # an idle ingress host: no launch
             per.append((neg, neg, neg, z, adj_load[m], zs, zs, zero,
                         state.aff_key, state.aff_ep))
@@ -276,35 +320,41 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
                     r.svc_requests, r.svc_tx_bytes, r.no_route, r.aff_key,
                     r.aff_ep))
     (endpoint, instance, lslot, lok, res_load, res_sreq, res_stx,
-     res_noroute, res_affk, res_affe) = (mesh.all_gather(f)
-                                         for f in zip(*per))
+     res_noroute, res_affk, res_affe) = (torch.stack(f) for f in zip(*per))
 
     # ---- phase 4: global slot allocation + psum reconciliation ---------- #
     rt = lok > 0                               # == routable (all-free pool)
     instc = instance.clamp(0, I - 1).to(I64)
     local_rank = torch.where(rt, lslot, 0)
-    cnt_i = _bincount(torch.where(rt, instc, I), I)      # (M, I)
-    prev_i = _prefix_before(mesh.all_gather(cnt_i))
-    g_rank = prev_i.gather(1, instc) + local_rank           # (M, R_loc)
+    cnt_i = _bincount(torch.where(rt, instc, I), I)      # (L, I)
+    got = mesh.all_gather(torch.cat([cnt_i, res_affk.to(I32),
+                                     res_affe.to(I32)], 1))  # (M, I + 2A)
+    prev_i = _prefix_before(got[:, :I], held)
+    g_rank = prev_i.gather(1, instc) + local_rank           # (L, R_loc)
 
-    free = (~act).to(I32)                                   # the whole pool
+    free = (~act_all).to(I32)                               # the whole pool
     fprefix = torch.cumsum(free, 1, dtype=I32)              # (I, C)
     ok = rt & (g_rank < fprefix[:, C - 1][instc])
     hit = (free[instc] > 0) & (fprefix[instc] == (g_rank + 1)[..., None])
     slot = torch.where(ok, torch.argmax(hit.to(I32), -1).to(I32), -1)
-    held = rt & ~ok
+    held_r = rt & ~ok
 
+    # one psum of every integer delta: the loads (the kernel's increments
+    # less the globally held rows' releases), the per-service metrics (the
+    # kernel counted every routable request; the held ones come out), the
+    # no_route and held counts.  int32 sums wrap, so one sum of the
+    # differences equals the sums' difference bit for bit
     epc = endpoint.clamp_min(0).to(I64)
-    held_rel = _bincount(torch.where(held, epc, E), E)
-    ep_load = ep_load0 + mesh.psum(res_load - adj_load) \
-        - mesh.psum(held_rel)
-    # the kernel counted every routable request (nothing held locally);
-    # take the globally held ones out before the metric psum
-    held_svc = torch.where(held & (rows(svc) < S), rows(svc_c).to(I64), S)
-    sreq = mesh.psum(res_sreq - _bincount(held_svc, S))
-    stx = mesh.psum(res_stx - _bincount(held_svc, S, rows(msg_bytes)))
-    no_route = mesh.psum(res_noroute)
-    held_n = mesh.psum(held.sum(1, dtype=I32))
+    held_rel = _bincount(torch.where(held_r, epc, E), E)
+    held_svc = torch.where(held_r & (rows(svc) < S), rows(svc_c).to(I64), S)
+    tot = mesh.psum(torch.cat([
+        res_load - adj_load - held_rel,
+        res_sreq - _bincount(held_svc, S),
+        res_stx - _bincount(held_svc, S, rows(msg_bytes)),
+        res_noroute[:, None], held_r.sum(1, dtype=I32)[:, None]], 1))
+    ep_load = ep_load0 + tot[:E]
+    sreq, stx = tot[E:E + S], tot[E + S:E + 2 * S]
+    no_route, held_n = tot[E + 2 * S], tot[E + 2 * S + 1]
     rr_cursor = (state.rr_cursor.to(I32) + total_cl) \
         % state.cluster_ep_count.to(I32).clamp_min(1)
 
@@ -312,7 +362,7 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
     # miss fallback is a pure function of the flow key, so proposals for a
     # slot agree wherever the sequential batch would have hit.  The lowest
     # shard proposing a change wins: the first writer of the concatenation
-    gk, ge = res_affk, res_affe                             # (M, A)
+    gk, ge = got[:, I:I + A], got[:, I + A:]                # (M, A)
     prop = (gk != state.aff_key) | (ge != state.aff_ep)
     has = prop.any(0)
     m1 = torch.argmax(prop.to(I32), 0, keepdim=True)        # first proposer
@@ -321,28 +371,31 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
 
     # ---- phase 5: relay pool commits to their owner shards -------------- #
     # payload rows (req_id, endpoint, svc, token, slot, ok) counting-sorted
-    # into per-instance pools, C slots per source and instance (admitted
-    # global ranks are < C, so nothing drops), then one all_to_all hop to
-    # the shard owning the instance.  One dispatch serves all M sources:
-    # source m's instance i is destination m * I + i.
+    # (B5) into per-instance pools, C slots per source and instance
+    # (admitted global ranks are < C, so nothing drops), then one
+    # all_to_all hop to the shard owning the instance.  One dispatch
+    # serves every held source: held source m's instance i is destination
+    # m * I + i
     x = torch.stack([rows(rid), endpoint, rows(svc), rows(token), slot,
-                     ok.to(I32)], -1)                       # (M, R_loc, 6)
-    src = torch.arange(M, device=dev)[:, None] * I
-    dest = torch.where(ok, src + instc, M * I)
-    buf, _ = relay.relay_dispatch(x.reshape(R, 6), dest.reshape(R), M * I, C)
-    recv = mesh.all_to_all(buf.reshape(M, M, I_loc, C, 6))  # (dst, src, ..)
+                     ok.to(I32)], -1)                       # (L, R_loc, 6)
+    src = torch.arange(L, device=dev)[:, None] * I
+    dest = torch.where(ok, src + instc, L * I).reshape(R)
+    rank, load = ops.relay_slots(dest, L * I)
+    buf, _ = relay.relay_dispatch_at(x.reshape(R, 6), dest, rank, load,
+                                     L * I, C)
+    recv = mesh.all_to_all(buf.reshape(L, M, I_loc, C, 6))  # (dst, src, ..)
     rows_in = recv.reshape(-1, 6)
-    owner = torch.arange(M * I_loc, device=dev).reshape(M, 1, I_loc, 1)
-    gi = owner.expand(M, M, I_loc, C).reshape(-1)           # global instance
+    owner = torch.arange(L * I_loc, device=dev).reshape(L, 1, I_loc, 1)
+    gi = owner.expand(L, M, I_loc, C).reshape(-1)           # held instance
     rok = rows_in[:, 5] > 0
-    W = -(-(I * C + 1) // 4) * 4          # a dump column; rows 16 B aligned
-    tgt = torch.where(rok, gi * C + rows_in[:, 4], I * C)
+    W = -(-(I_h * C + 1) // 4) * 4        # a dump column; rows 16 B aligned
+    tgt = torch.where(rok, gi * C + rows_in[:, 4], I_h * C)
     cells = torch.zeros((6, W), dtype=I32, device=dev)
-    cells[:, :I * C] = torch.stack([*pool, act.to(I32)]).reshape(6, I * C)
+    cells[:, :I_h * C] = torch.stack([*pool, act.to(I32)]).reshape(6, I_h * C)
     one = torch.ones_like(rows_in[:, 0])
     cells[:, tgt] = torch.stack([rows_in[:, 0], rows_in[:, 1],
                                  rows_in[:, 2], one * 0, rows_in[:, 3], one])
-    out = cells[:, :I * C].reshape(6, I, C)
+    out = cells[:, :I_h * C].reshape(6, I_h, C)
 
     flat = lambda x: x.reshape(R)[:R0]                      # noqa: E731
     return AdmitCommitResult(
@@ -373,15 +426,18 @@ def complete_sharded(pool_req_id, pool_endpoint, pool_svc, pool_length,
                      max_len: int) -> CompleteResult:
     """``completion.complete`` over an ``(I/M,)``-sharded pool.
 
-    Same flat contract; the (E,) load and EWMA tables and the (S,) rx
-    table are replicated, each shard folds its own pool slice against zero
-    bases, and one psum reconciles the integer counts before the shared
-    ``health_update`` epilogue: bit-exact against single-shard
-    ``complete`` on the whole pool.  Requires ``I % M == 0`` and every
-    tensor on the mesh's device."""
-    I, C = pool_req_id.shape
-    M = _check_mesh(mesh, axis, I, nxt)
-    I_loc = I // M
+    Same flat contract, over the pool this process holds (the whole pool
+    on a one-process mesh, the rank's (I/M, C) slice on a rank mesh); the
+    (E,) load and EWMA tables and the (S,) rx table are replicated, each
+    shard folds its own pool slice against zero bases, and one psum
+    reconciles the integer counts before the shared ``health_update``
+    epilogue: bit-exact against single-shard ``complete`` on the whole
+    pool.  Requires ``I % M == 0`` and every tensor on the mesh's
+    device."""
+    I_h, C = pool_req_id.shape
+    _, held = _check_mesh(mesh, axis, I_h, nxt)
+    L = len(held)
+    I_loc = I_h // L
     E, S = ep_load.shape[0], rx_bytes.shape[0]
     dev = nxt.device
     zi = torch.zeros((E + S,), dtype=I32, device=dev)
@@ -390,13 +446,14 @@ def complete_sharded(pool_req_id, pool_endpoint, pool_svc, pool_length,
               pool_active, nxt)
     per = [_complete_shard(*(f[m * I_loc:(m + 1) * I_loc] for f in fields),
                            zi[:E], zi[E:], zf, zf, eos=eos, max_len=max_len)
-           for m in range(M)]
-    cnt = mesh.psum([r.done_cnt for r in per])              # global releases
+           for m in range(L)]
+    # global releases and rx bytes, one psum
+    tot = mesh.psum([torch.cat([r.done_cnt, r.rx_bytes]) for r in per])
+    cnt = tot[:E]
     load0 = ep_load.to(I32)
     ewl, ewt = _cp.health_update(ep_inflight_ewma.to(torch.float32),
                                  ep_tput_ewma.to(torch.float32), load0, cnt)
-    cat = lambda xs: xs[0] if M == 1 else torch.cat(xs)     # noqa: E731
+    cat = lambda xs: xs[0] if L == 1 else torch.cat(xs)     # noqa: E731
     return CompleteResult(
         *(cat(x) for x in zip(*(r[:7] for r in per))),
-        load0 - cnt, rx_bytes.to(I32) + mesh.psum([r.rx_bytes for r in per]),
-        cnt, ewl, ewt)
+        load0 - cnt, rx_bytes.to(I32) + tot[E:], cnt, ewl, ewt)

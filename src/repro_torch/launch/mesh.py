@@ -11,23 +11,31 @@ and, over a fake process group of as many ranks, for its collectives.
 process group (``torch.distributed``: ``gloo`` processes on the CPU,
 ``nccl`` on the cards), which a ``MeshSpec`` places tensors on.
 
-The reference drives its mesh from one program (``shard_map``): one
-controller runs every shard and the collectives are ``all_gather``,
-``psum`` and ``all_to_all`` inside that program.  The port does the same
-from one process: a ``ShardMesh`` names the axis and its width M, the one
-device every shard lives on, and the three collectives as plain functions
-over the M per-shard values.  Per-shard values are a list of M tensors, or
-one tensor whose leading dimension is the shard axis.
+The reference drives its shard mesh from one program (``shard_map``):
+one controller runs every shard and the collectives are ``all_gather``,
+``psum`` and ``all_to_all`` inside that program.  The port has two shard
+meshes with one interface, so that ``kernels/shard_admit.py`` has one
+body for both:
 
-The shard mesh over several devices (the sharded admission datapath
-across processes, run only by ``benchmarks/shard_bench.py``) is
-ROADMAP.md item 5's first part; a shard mesh over more than one device
-raises.
+* ``ShardMesh``: one process drives all M shards on one device, and the
+  collectives are plain functions over the M per-shard values;
+* ``RankShardMesh``: one rank of a process group a shard (PyTorch's
+  idiom, one process a device), each on its own device, and the
+  collectives are the group's (``gloo`` on the CPU or where ranks share
+  a card, NCCL where each rank has its own).
+
+A mesh names the shards this process holds (``held``: all M, or the
+rank's own).  Per-shard values are stacked on a leading axis of those
+shards, as one tensor or a list: ``all_gather`` turns (L, ...) into
+(M, ...), ``psum`` into (...), and ``all_to_all`` exchanges (L, M_dst,
+...) for (L, M_src, ...).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+from typing import Any
 
 import torch
 
@@ -72,10 +80,16 @@ def _stacked(xs) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
-    """A 1-D mesh: ``shape[axis] == M`` shards, all on ``device``."""
+    """A 1-D mesh: ``shape[axis] == M`` shards, all on ``device``, all
+    held by this process."""
 
     shape: dict
     device: torch.device
+
+    @property
+    def held(self) -> tuple:
+        """The shards this process holds: every one."""
+        return tuple(range(next(iter(self.shape.values()))))
 
     @staticmethod
     def all_gather(xs) -> torch.Tensor:
@@ -97,15 +111,93 @@ class ShardMesh:
         the received values (M, M, ...), ``out[j][m] = xs[m][j]``."""
         return _stacked(xs).transpose(0, 1)
 
+    @staticmethod
+    def agree(key, value: int) -> int:
+        """``value``: one process decides for every shard."""
+        return value
 
-def make_shard_mesh(shards: int, axis: str = "shard",
-                    device="cuda") -> ShardMesh:
+
+#: how long a rank waits in a collective before the group fails it
+GROUP_TIMEOUT = datetime.timedelta(seconds=120)
+
+
+@dataclasses.dataclass(eq=False)
+class RankShardMesh:
+    """A 1-D mesh over the ``shape[axis] == M`` ranks of a process group:
+    rank m holds shard m on its own ``device``.  Every rank must call each
+    collective, in the same order, with operands of the same shape.  The
+    operands stay on ``device``: NCCL and ``gloo`` both take CUDA tensors
+    for the three collectives (``gloo`` copies them through the host
+    itself)."""
+
+    shape: dict
+    device: torch.device
+    rank: int
+    group: Any = None           # None: the default group
+    _agreed: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def held(self) -> tuple:
+        return (self.rank,)
+
+    def _one(self, xs) -> torch.Tensor:
+        x = _stacked(xs)
+        if x.shape[0] != 1:
+            raise ValueError(f"a rank holds one shard, got {x.shape[0]}")
+        return x[0]
+
+    def all_gather(self, xs) -> torch.Tensor:
+        """This rank's value (1, ...) gathered: (M, ...) in rank order."""
+        import torch.distributed as dist
+        x = self._one(xs)
+        M = next(iter(self.shape.values()))
+        out = x.new_empty((M * x.numel(),))
+        gather = getattr(dist, "all_gather_single", None) \
+            or dist.all_gather_into_tensor
+        gather(out, x.reshape(-1), group=self.group)
+        return out.reshape(M, *x.shape)
+
+    def psum(self, xs) -> torch.Tensor:
+        """The sum of every rank's value (1, ...), in its own dtype (an
+        int32 sum wraps as the reference's does)."""
+        import torch.distributed as dist
+        buf = self._one(xs).clone()
+        dist.all_reduce(buf, group=self.group)
+        return buf
+
+    def all_to_all(self, xs) -> torch.Tensor:
+        """This rank's (1, M, ...) split by destination: chunk j goes to
+        rank j, which gets (1, M, ...) stacked by source."""
+        import torch.distributed as dist
+        x = self._one(xs).contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return out[None]
+
+    def agree(self, key, value: int) -> int:
+        """Rank 0's ``value`` for ``key``, on every rank: one collective
+        the first time every rank asks for ``key``, remembered after (a
+        kernel plan a rank swept on its own device must not differ from
+        its neighbours')."""
+        if key not in self._agreed:
+            mine = value if self.rank == 0 else 0
+            self._agreed[key] = int(self.psum(torch.tensor(
+                [mine], dtype=torch.int64, device=self.device)[None])[0])
+        return self._agreed[key]
+
+
+def make_shard_mesh(shards: int, axis: str = "shard", device="cuda",
+                    group=None):
     """A ``shards``-way mesh over axis ``axis`` for the sharded admission
     datapath (``ops.admit_commit_sharded``, ``ops.complete_sharded``).
 
-    ``device`` is the one device of every shard (``"cuda"`` by default,
-    ``"cpu"`` for the plain versions); a sequence of devices, one per
-    shard as ``jax.devices()`` gives them, must name only one."""
+    With a process group (``group``, or the default group when it is
+    initialised with ``shards`` ranks): a
+    ``RankShardMesh``, this rank's shard on ``device``.  Otherwise a
+    ``ShardMesh``: every shard on the one ``device`` (``"cuda"`` by
+    default, ``"cpu"`` for the plain versions); a sequence of devices, one
+    per shard as ``jax.devices()`` gives them, must name only one."""
+    import torch.distributed as dist
     if shards < 1:
         raise ValueError(f"a shard mesh needs at least one shard, "
                          f"got {shards}")
@@ -113,10 +205,35 @@ def make_shard_mesh(shards: int, axis: str = "shard",
                                   else [device])}
     if len(devs) != 1:
         raise ValueError(
-            f"a shard mesh over {len(devs)} devices: the port drives every "
-            "shard on one device (the sharded datapath over several GPUs "
-            "is ROADMAP.md item 5)")
-    return ShardMesh({axis: shards}, devs.pop())
+            f"a shard mesh over {len(devs)} devices in one process: one "
+            "process drives its shards on one device; for one device a "
+            "shard, run one rank a shard under a process group "
+            "(torch.distributed) and give each rank its own device "
+            "(launch/mesh.py::RankShardMesh)")
+    dev = devs.pop()
+    if group is None and dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() == shards:
+        group = dist.group.WORLD
+    if group is None:
+        return ShardMesh({axis: shards}, dev)
+    n = dist.get_world_size(group)
+    if n != shards:
+        raise ValueError(f"a {shards}-way shard mesh over a process group "
+                         f"of {n} ranks")
+    return RankShardMesh({axis: shards}, dev, dist.get_rank(group), group)
+
+
+def init_shard_group(backend: str, *, rank: int | None = None,
+                     world_size: int | None = None, store=None):
+    """Initialise the default process group for a rank shard mesh, with
+    ``GROUP_TIMEOUT``: a lost collective fails instead of hanging.
+    Without ``store`` the rank, size and rendezvous come from the
+    environment (``torchrun``: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``)."""
+    import torch.distributed as dist
+    kw = {} if store is None else dict(store=store, rank=rank,
+                                       world_size=world_size)
+    dist.init_process_group(backend, timeout=GROUP_TIMEOUT, **kw)
 
 
 def _indexed(device) -> torch.device:

@@ -3,7 +3,8 @@ xlb-service-model|minitron-4b|mamba2-2.7b|granite-20b|internlm2-20b|
 yi-34b|chameleon-34b|arctic-480b|deepseek-v2-236b|jamba-v0.1-52b
 [--smoke] --engine xlb|istio|cilium --policy
 least_request --instances 4 --slots 4 --requests 32 --max-len 24
-[--shards M] [--device cuda|cpu]``.
+[--shards M] [--device cuda|cpu]``, or one rank a shard:
+``torchrun --nproc-per-node M -m repro_torch.launch.serve --shards M``.
 
 Boots the chosen engine (XLB or one of the sidecar baselines) with the
 chosen architecture at full width, or at the reference's reduced config
@@ -12,8 +13,14 @@ generator seeded with 0 on the device; one service routed to one cluster
 over the instances under the chosen policy, built by a ``ControlPlane``
 that the loop attaches to; and drives a synthetic request stream through
 the continuous-batching loop.  ``--shards M`` shards the XLB engine's
-admission batch and pool over an M-way shard mesh, all shards on the one
-device.  Runs on the card unless ``--device cpu`` is given.  An
+admission batch and pool over an M-way shard mesh: all shards on the one
+device in this process, or, under ``torchrun`` (``WORLD_SIZE`` = M in the
+environment) or a process group the caller initialised, one rank a shard
+(``launch/mesh.py::RankShardMesh``).  The ranks join over NCCL where each
+has a card of its own, else over ``gloo`` (``--device cpu``, or ranks
+sharing a card); every rank runs the same loop over the same requests and
+rank 0 prints the report.  Runs on the card unless ``--device cpu`` is
+given.  An
 encoder-decoder arch (whisper) is refused as the reference refuses it.
 The serving weights are f32, so the 20-34 B dense archs and the moe and
 hybrid ones fit one card only with ``--smoke`` (granite-20b alone is
@@ -23,6 +30,7 @@ about 113 GB in f32).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -35,7 +43,7 @@ from repro_torch.core.control import ControlPlane
 from repro_torch.core.routing_table import (POLICY_NAMES, Cluster, Rule,
                                             ServiceConfig)
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_shard_mesh
+from repro_torch.launch.mesh import init_shard_group, make_shard_mesh
 from repro_torch.models import model as M
 from repro_torch.runtime.serve_loop import Request, ServeLoop
 
@@ -80,10 +88,58 @@ def main(argv=None) -> int:
         if args.instances % args.shards:
             raise SystemExit(f"--instances {args.instances} must divide "
                              f"over --shards {args.shards}")
+        device, owned = _rank_device(args.shards, args.device)
         kw = dict(shards=args.shards,
-                  shard_mesh=make_shard_mesh(args.shards,
-                                             device=args.device))
-    device = resolve_device(args.device)
+                  shard_mesh=make_shard_mesh(args.shards, device=device))
+    else:
+        device, owned = resolve_device(args.device), False
+    try:
+        return _serve(args, cfg, device, kw)
+    finally:
+        if owned:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _rank_device(shards: int, device: str) -> tuple[torch.device, bool]:
+    """The device of this process's shards and whether this call
+    initialised the process group.  One rank a shard under a process group
+    of ``shards`` ranks: the caller's, or, under ``torchrun``
+    (``WORLD_SIZE`` in the environment), one initialised here (NCCL when
+    every local rank has a card of its own, else ``gloo``).  A rank takes
+    card ``LOCAL_RANK`` (else its rank) modulo the cards there are.
+    Without either, every shard runs in this process on ``device``."""
+    import torch.distributed as dist
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dist.is_initialized():
+        if dist.get_world_size() != shards:     # not a group of the shards
+            return resolve_device(device), False
+        owned, rank = False, dist.get_rank()
+    elif world == 1:
+        return resolve_device(device), False
+    elif world != shards:
+        raise SystemExit(f"--shards {shards} under torchrun with {world} "
+                         "ranks: one rank a shard")
+    else:
+        owned, rank = True, int(os.environ.get("RANK", "0"))
+    if device == "cuda":
+        resolve_device(device)                   # raises without a GPU
+        n = torch.cuda.device_count()
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                      str(rank))) % n)
+        torch.cuda.set_device(dev)
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+        backend = "nccl" if local_world <= n else "gloo"
+    else:
+        dev, backend = torch.device("cpu"), "gloo"
+    if owned:
+        init_shard_group(backend)
+    return dev, owned
+
+
+def _serve(args, cfg, device, kw) -> int:
+    import torch.distributed as dist
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     params = M.init_params(cfg, torch.Generator(device).manual_seed(0),
                            dtype=torch.float32, device=device)
     cp = ControlPlane(
@@ -102,7 +158,11 @@ def main(argv=None) -> int:
     rep = loop.drain()
     wall = time.perf_counter() - t0
     lat = [r.t_done - r.t_submit for r in rep.done] or [float("nan")]
+    if not rank0:
+        return len(rep.done)
     shards = f", {args.shards} shards" if args.shards > 1 else ""
+    if dist.is_initialized() and args.shards > 1:
+        shards += f" on {dist.get_world_size()} ranks"
     print(f"{cfg.name} [{args.engine}, {device}{shards}]: {len(rep.done)} "
           f"requests in {wall:.2f}s ({len(rep.done)/wall:.1f} req/s), avg "
           "latency "

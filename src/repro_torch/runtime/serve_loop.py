@@ -14,6 +14,11 @@ a ``transport.RemoteConsumer`` boots from the consumer's snapshot and
 pumps it once a tick instead: plans arrive over its lossy channel, and
 the heartbeat with the live ``ep_load`` goes back the same way.
 
+Over an engine sharded one rank a shard (``launch/mesh.py::RankShardMesh``)
+every rank runs this loop over the same requests: the engine gathers each
+tick's host outputs from every rank, so each rank's loop sees the whole
+tick and keeps the same host state.
+
 A ``FaultInjector`` rolls back the progress of held instances before the
 step (the degraded-backend model the health daemon must detect), and
 under ``XLB_SANITIZE=1`` every tick ends with the queue-conservation law.
@@ -127,11 +132,14 @@ class FaultInjector:
         ends = [f.end for f in self.faults]
         return None if any(e is None for e in ends) else max(ends, default=0)
 
-    def apply(self, pool, tick: int):
+    def apply(self, pool, tick: int, first: int = 0):
+        """``first``: the global index of the pool's first lane (a rank of
+        a sharded engine holds lanes ``first`` onward)."""
         # a fault naming a lane outside the live instance window (a
-        # schedule written for a larger fleet) is inert
+        # schedule written for a larger fleet, or another rank's lane) is
+        # inert
         I = pool.length.shape[0]
-        held = [i for i in self.active(tick) if 0 <= i < I]
+        held = [i - first for i in self.active(tick) if 0 <= i - first < I]
         if not held:
             return pool
         if isinstance(pool.length, np.ndarray):
@@ -297,7 +305,9 @@ class ServeLoop:
         elif self.remote is not None:        # transport-attached: plans in,
             self.remote.pump(self.ticks)     # heartbeat + load report out
         if self.fault is not None:           # roll progress back BEFORE
-            pool = self.fault.apply(self.state.pool, self.ticks)  # the step
+            pool = self.fault.apply(                             # the step
+                self.state.pool, self.ticks,
+                getattr(self.balancer, "first_instance", 0))
             if pool is not self.state.pool:
                 self.state = self.state._replace(pool=pool)
         self._release_matured()

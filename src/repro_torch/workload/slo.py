@@ -8,7 +8,8 @@ numbers never enter a row.
 
 ``scenario_row`` and ``chaos_row`` build rows that validate against the
 schemas of :mod:`repro_torch.analysis.invariants`; a malformed row fails
-the run that produced it.  ``append_scenario_row`` stamps a row and
+the run that produced it.  ``format_slo_table`` prints scenario rows
+as a Markdown table.  ``append_scenario_row`` stamps a row and
 appends it to a JSON-lines file, by default the port's own
 ``BENCH_TREND_torch.jsonl`` in the working directory.
 """
@@ -105,3 +106,19 @@ def append_scenario_row(row: dict, path: str = TREND_FILE) -> dict:
     with open(path, "a") as f:
         f.write(json.dumps(stamped) + "\n")
     return stamped
+
+
+def format_slo_table(rows: list[dict]) -> str:
+    """A Markdown SLO table of scenario rows: one line a row with its
+    scenario, mode, depth, arrivals, completed of requested, and p50 / p99
+    / p999 in ticks."""
+    lines = ["| scenario | mode | depth | arrivals | done/req | "
+             "p50 | p99 | p999 (ticks) |",
+             "|---|---|---|---|---|---|---|---|"]
+    for r in rows:
+        lines.append(
+            f"| {r['scenario']} | {r['mode']} | {r['depth']} | "
+            f"{r['arrivals']} | {r['completed']}/{r['n_requests']} | "
+            f"{r['p50_ticks']:.1f} | {r['p99_ticks']:.1f} | "
+            f"{r['p999_ticks']:.1f} |")
+    return "\n".join(lines)

@@ -965,6 +965,7 @@ def test_sharded_admission_matches_unsharded_on_the_card(dev, case, M):
                                  mesh=make_shard_mesh(M))
     assert ops.LAUNCHES["admit"] - n0["admit"] == sum(live)
     assert ops.LAUNCHES["route_match"] - n0["route_match"] == 1
+    assert ops.LAUNCHES["relay_slots"] - n0["relay_slots"] == 1
     assert ops.LAUNCHES["admit_commit"] == n0["admit_commit"]
     _equal_fields(k, ops.admit_commit(reqs, routing, pool, rnd, gum),
                   f"{case} M={M} vs unsharded")

@@ -347,12 +347,33 @@ def test_engine_and_mesh_validation_match_reference():
     assert MESH[4].shape == {"shard": 4} and MESH[4].device == CPU
 
 
-def test_shard_mesh_over_several_devices_raises(monkeypatch):
+def test_shard_mesh_over_several_devices_raises(monkeypatch, tmp_path):
+    """Several devices in one process raise, naming the process mesh; a
+    list naming one device builds the one-process mesh on it; under a
+    process group of as many ranks as shards, the mesh is the group's."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import RankShardMesh, ShardMesh
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert "ROADMAP.md" in _error(
-        lambda: make_shard_mesh(2, device=["cuda:0", "cuda:1"]))
+    msg = _error(lambda: make_shard_mesh(2, device=["cuda:0", "cuda:1"]))
+    assert "process group" in msg and "RankShardMesh" in msg
+    assert "ROADMAP.md" not in msg
     assert make_shard_mesh(2, device=["cuda:1", "cuda:1"]).device \
         == torch.device("cuda", 1)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_shard_mesh(1, device="cpu")
+        assert isinstance(mesh, RankShardMesh) and mesh.held == (0,)
+        assert mesh.shape == {"shard": 1} and mesh.device == CPU
+        assert isinstance(make_shard_mesh(2, device="cpu"), ShardMesh)
+        assert "process group of 1 ranks" in _error(lambda: make_shard_mesh(
+            2, device="cpu", group=dist.group.WORLD))
+        x = torch.tensor([[2**31 - 1, 5]], dtype=torch.int32)
+        assert mesh.psum(x).tolist() == [2**31 - 1, 5]
+        assert mesh.all_gather(x).tolist() == x.tolist()
+        assert mesh.all_to_all(x[:, :1]).tolist() == [[2**31 - 1]]
+    finally:
+        dist.destroy_process_group()
 
 
 def test_shard_mesh_collectives():

@@ -306,6 +306,27 @@ def test_chaos_row_validation_matches_reference(field, value):
                                     **dict(CHAOS, **{field: value})))
 
 
+def test_format_slo_table_matches_reference():
+    """The same rows give the same Markdown string: a complete chain row,
+    one whose completions fall short of its requests (a drop and a
+    request still queued), and a row without samples (NaN percentiles)."""
+    def run(p):
+        rows = [_row(p),
+                p.w.scenario_row("canary", "istio", depth=1, seed=3,
+                                 arrivals="bursty", n_requests=40,
+                                 completed=37, dropped=1, ticks=90,
+                                 samples=[2, 5, 5, 9, 30], ops=2, txns=2,
+                                 rate=4.5),
+                p.w.scenario_row("idle", "cilium", depth=2, seed=0,
+                                 arrivals="poisson", n_requests=0,
+                                 completed=0, dropped=0, ticks=1,
+                                 samples=[], ops=0, txns=0, rate=0.0)]
+        return p.w.slo.format_slo_table(rows)
+
+    out = _both(run)
+    assert "| 37/40 |" in out and "nan" in out and len(out.splitlines()) == 5
+
+
 def test_append_scenario_row_matches_reference(tmp_path):
     def run(p):
         path = tmp_path / f"{id(p)}.jsonl"
