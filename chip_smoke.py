@@ -30,15 +30,29 @@ Phases (each prints one line; any failure exits non-zero):
    width of ``xlb-service-model`` with 64 instance lanes x 16 slots (1024
    concurrent connections), admit batches of 256, ``max_len`` 32, one
    cluster per policy plus a 50-endpoint cluster, several thousand
-   requests drained to completion and timed with CUDA events; then a
-   separate pass under torch.profiler for the device's busy share;
+   requests drained to completion through ``make_jitted``'s captured tick
+   (two CUDA graphs: the arrival tick and the decode-only tick), each
+   tick timed with CUDA events; then a separate pass under torch.profiler
+   for the device's busy share, where the launches ``ops.LAUNCHES``
+   counts from the graph replays must equal the profiler's count of the
+   B2, B1 and B6 kernels; the same through the eager tick
+   (``Engine.eager_step``), whose parts (admit, decode, complete) are
+   timed by patching their wrappers; then AB_PAIRS alternating pairs of
+   AB_REQUESTS-request drains, captured against eager, each pair
+   bit-equal (every completion, tick, token, routing counter, EWMA,
+   metric and pool cell), with req/s, the median tick and the device's
+   idle share of each side, and one pair with a commit and a slow lane
+   midway, bit-equal too;
 4. the staged admission chain (match_cluster → select → allocate_slots →
    scatter_to_pool, through the route and relay kernels) on the card at
    the main path's shape, against the same chain on the CPU with the same
    draws, timed beside the fused admission kernel;
 5. the same traffic through ``ServeLoop`` over the XLB engine and the
-   Istio and Cilium sidecar baselines: requests/s, median tick and the
-   device's busy share of each, in this one run; then the control plane:
+   Istio and Cilium sidecar baselines, each captured (the XLB tick's two
+   graphs; a decode graph a KV cache for the sidecars: one per instance
+   for Istio, one for Cilium), as the reference jits all three:
+   requests/s, median tick and the device's busy share of each, in this
+   one run; then the control plane:
    the serving routing built by the port's ``ControlPlane``, ``ServeLoop``
    attached to it on the card, and one transaction mid-drain (drain a
    loaded endpoint of productpage, remove one by swap-with-last, add one),
@@ -59,9 +73,10 @@ Phases (each prints one line; any failure exits non-zero):
      lane; the consumers converge, the replica resyncs once, every request
      completes; the same channel stats, histories and chaos row on the CPU;
    - sanitizer: the main path's traffic with ``XLB_SANITIZE=1`` (every
-     admit and complete guard and the loop law on the card), no law fires
-     and the state equals the plain run's; a planted off-by-one release
-     must raise naming its law;
+     admit and complete guard and the loop law on the card; the eager
+     tick, as the guards read the card on the host), no law fires and the
+     state equals the plain (captured) run's; a planted off-by-one
+     release must raise naming its law;
    then sharded admission and completion (``kernels/shard_admit.py``) at
    M = 1, 2 and 4 shards of one card: ``ops.admit_commit_sharded`` at the
    serving shape, a ragged batch and with an idle ingress host (a shard
@@ -260,6 +275,10 @@ PROFILE_FROM, PROFILE_TICKS = 60, 20    # the separate profiled pass
 # the engines phase: fewer requests, so that Istio's per-instance decode
 # launches fit the time limit, and a short profiled pass of each engine
 ENGINE_REQUESTS, ENGINE_WARM, ENGINE_PROFILE = 1024, 8, 4
+# the main path's captured-against-eager A/B: pairs of drains of this many
+# routable requests, and the ticks (from a drain's start) over which a
+# lane is slow in the pair that also commits midway
+AB_PAIRS, AB_REQUESTS, MIDWAY_FAULT = 5, 1024, (8, 40)
 TIE_GAP = 1e-5      # weighted picks may flip between devices below this
 # the model phases: cuts of SHAPES prefill_32k (32 x 32768) and decode_32k
 # (128 x 32768) to one card
@@ -2057,32 +2076,40 @@ def make_request(SL, cfg, ids, i):
                       prompt_token=3 + i % (cfg.vocab - 3))
 
 
-def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
-    """The timed drain of the main path (no profiler), then a separate
-    profiled pass for the device's busy share in steady state."""
-    dev = torch.device(dev)
+def timed_call(torch, events: list, fn):
+    """``fn`` with a pair of CUDA events around each call, kept in
+    ``events``."""
+    def wrapper(*a, **k):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn(*a, **k)
+        e.record()
+        events.append((s, e))
+        return out
+    return wrapper
+
+
+def main_drain(torch, RT, ops, TM, interpose, SL, cfg, params, dev,
+               captured):
+    """The main path's timed drain (no profiler) through ``make_jitted``'s
+    captured tick or through ``eager_step``, then a separate profiled pass
+    for the device's busy share in steady state.  The eager drain also
+    times its parts (admit, decode, complete) by patching their wrappers,
+    which a replay does not call.  Returns (line, profile line, launches,
+    stats)."""
     routing, ids = routing_config(RT, dev)
-    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
-                            torch.float32, dev)
     eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
     # unroutable requests drop after max_retries (64) attempts; the short
     # backoff cap keeps their retry tail near the routable drain
     loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
                         dtype=torch.float32, backoff_cap=4)
-
+    tick_obj = loop.serve_step
+    check(type(tick_obj).__name__ == "StaticTick",
+          f"the main path's tick is {tick_obj!r}, not the captured one")
+    if not captured:
+        loop.serve_step = eng.eager_step
     events = {"admit": [], "decode": [], "complete": [], "tick": []}
-
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*a, **k)
-            e.record()
-            events[name].append((s, e))
-            return out
-        return wrapper
-
     reqs = [make_request(SL, cfg, ids, i) for i in range(N_REQUESTS)]
     n_routable = N_REQUESTS - N_UNROUTABLE
     nxt = 0
@@ -2095,10 +2122,12 @@ def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
         tick()
 
     originals = (ops.admit_commit, ops.complete, TM.decode_step)
-    ops.admit_commit = timed("admit", ops.admit_commit)
-    ops.complete = timed("complete", ops.complete)
-    TM.decode_step = timed("decode", TM.decode_step)
-    timed_tick = timed("tick", loop.tick)
+    if not captured:
+        ops.admit_commit = timed_call(torch, events["admit"],
+                                      ops.admit_commit)
+        ops.complete = timed_call(torch, events["complete"], ops.complete)
+        TM.decode_step = timed_call(torch, events["decode"], TM.decode_step)
+    timed_tick = timed_call(torch, events["tick"], loop.tick)
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     torch.cuda.synchronize()
@@ -2115,6 +2144,7 @@ def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
     finally:
         ops.admit_commit, ops.complete, TM.decode_step = originals
     launches = dict(ops.LAUNCHES)
+    side = "captured" if captured else "eager"
 
     done, dropped = list(loop.done), list(loop.dropped)
     check(len(done) == n_routable,
@@ -2136,19 +2166,30 @@ def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
     check(launches["admit_commit"] > 0 and launches["complete"] > 0
           and launches["decode_attention"] > 0,
           f"kernels not launched on the main path: {launches}")
+    if captured:
+        check(len(tick_obj.graphs) == 2,
+              f"{len(tick_obj.graphs)} graphs captured, not the arrival "
+              "and the decode-only tick")
     med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
            for k, v in events.items() if v}
     lat = loop.latency_samples()
     from repro_torch.kernels import tune
     plan = tune.plan_admit(ADMIT_R, (I_LANES, SLOTS), commit=True,
                            device=dev)[0]
-    line = (f"serve: admission at the tuned block_r={plan}; "
+    parts = ("median ms per tick (events; the parts from the eager tick, "
+             "whose wrappers a replay does not call): " if not captured
+             else "median ms per tick (events around the tick): ")
+    line = (f"serve ({side}): admission at the tuned block_r={plan}; "
             f"{len(done)} requests completed, {len(dropped)} "
             f"unroutable dropped after {attempts} attempts, "
-            f"{loop.ticks} ticks in {total:.3f} s; the last routable one "
-            f"after {wall:.3f} s = {len(done) / wall:.1f} req/s; "
-            f"median ms per tick: "
-            + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
+            f"{loop.ticks} ticks in {total:.3f} s"
+            + (f" (of which {tick_obj.graphs.setup_s:.3f} s the two "
+               "warm-up ticks and captures)" if captured else "")
+            + f"; the last routable one "
+            f"after {wall:.3f} s = {len(done) / wall:.1f} req/s"
+            + (f" ({len(done) / (wall - tick_obj.graphs.setup_s):.1f} "
+               "without the set-up)" if captured else "") + "; "
+            + parts + ", ".join(f"{k} {v:.4f}" for k, v in med.items())
             + f"; admit_to_done median {statistics.median(lat['admit_to_done'])}"
             f" ticks, submit_to_done p99 "
             f"{sorted(lat['submit_to_done'])[int(0.99 * len(done))]} ticks;"
@@ -2165,23 +2206,166 @@ def phase_serve(torch, RT, ops, TM, interpose, SL, cfg, dev="cuda"):
     nxt, t_start = 0, loop.ticks
     while loop.ticks - t_start < PROFILE_FROM:
         step(loop.tick)
+    n0 = dict(ops.LAUNCHES)
+    counts: dict = {}
     wall_us, by_name = device_events(
-        torch, lambda: [step(loop.tick) for _ in range(PROFILE_TICKS)])
+        torch, lambda: [step(loop.tick) for _ in range(PROFILE_TICKS)],
+        counts)
+    window = {k: ops.LAUNCHES[k] - n0[k]
+              for k in ("admit_commit", "complete", "decode_attention")}
+    seen = {k: sum(c for n, c in counts.items() if PROFILER_NAMES[k] in n)
+            for k in window}
+    check(window == seen and min(window.values()) > 0,
+          f"serve ({side}): launches counted {window} in the profiled "
+          f"window, the profiler saw {seen}")
     loop.drain(max_ticks=3000)
     check(len(loop.done) == n_routable + len(reqs),
           "the profiled pass did not complete every request")
     busy_ms = sum(by_name.values()) / 1e3
     window_ms = PROFILE_TICKS * med["tick"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    prof = (f"serve profile (separate pass, steady state): device busy "
-            f"{busy_ms:.3f} ms over {PROFILE_TICKS} ticks = "
+    prof = (f"serve profile ({side}; separate pass, steady state): device "
+            f"busy {busy_ms:.3f} ms over {PROFILE_TICKS} ticks = "
             f"{100 * busy_ms / window_ms:.1f}% of {PROFILE_TICKS} x the "
             f"unprofiled median tick {med['tick']:.4f} ms (idle "
             f"{100 - 100 * busy_ms / window_ms:.1f}%); wall under the "
             f"profiler {wall_us / 1e3:.3f} ms; {len(by_name)} kernel names; "
-            "top: " + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms"
-                                for n, t in top))
-    return line, prof, launches
+            f"launches in the window "
+            + " ".join(f"{k}={v}" for k, v in window.items())
+            + ", equal to the profiler's count of their kernels"
+            + (" (every one from a graph replay)" if captured else "")
+            + "; top: " + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms"
+                                    for n, t in top))
+    stats = {"req_s": len(done) / wall, "tick_ms": med["tick"],
+             "busy_ms": busy_ms / PROFILE_TICKS}
+    return line, prof, launches, stats
+
+
+def ab_drain(torch, SL, cfg, loop, ids, first, midway=None):
+    """AB_REQUESTS routable requests of the main path's traffic (ids from
+    ``first``) through ``loop`` until it is idle, each tick timed with
+    events.  ``midway``: the loop's ControlPlane, which commits at
+    CONTROL_COMMIT_TICK of the drain (drain, remove and add an endpoint
+    of productpage).  Returns (record, req/s, median tick ms)."""
+    reqs = [make_request(SL, cfg, ids, first + i) for i in range(AB_REQUESTS)]
+    events, nxt, t_start = [], 0, loop.ticks
+    tick = timed_call(torch, events, loop.tick)
+    n_done = len(loop.done)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while nxt < len(reqs) or loop.n_queued or loop.inflight:
+        if midway is not None and loop.ticks - t_start == CONTROL_COMMIT_TICK:
+            pp = "productpage"
+            members = [i for _, i in midway.cluster_members(pp)]
+            with midway.transaction():
+                midway.drain_endpoint(pp, members[0])
+                midway.remove_endpoint(pp, members[len(members) // 2])
+                midway.add_endpoint(pp, CONTROL_ADD_LANE)
+        for r in reqs[nxt:nxt + ARRIVALS_PER_TICK]:
+            loop.submit(r)
+        nxt += ARRIVALS_PER_TICK
+        tick()
+        check(loop.ticks - t_start < 2000, "A/B drain: not idle")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = loop.done[n_done:]
+    check(len(done) == AB_REQUESTS and not loop.dropped,
+          f"A/B drain: {len(done)} of {AB_REQUESTS} completed")
+    check(not bool(loop.routing.ep_load.any())
+          and not bool(loop.state.pool.active.any()),
+          "A/B drain: loads or pool not back to zero")
+    lists = lambda t: {f: getattr(t, f).tolist() for f in t._fields}  # noqa
+    record = {
+        "done": [(r.req_id, r.retries, r.submit_tick, r.admit_tick,
+                  r.done_tick) for r in done],
+        "tokens": [r.tokens for r in done], "ticks": loop.ticks,
+        "held_first": loop.held_first, "routing": lists(loop.routing),
+        "metrics": lists(loop.state.metrics),
+        "pool": lists(loop.state.pool)}
+    return (record, AB_REQUESTS / wall,
+            statistics.median(s.elapsed_time(e) for s, e in events))
+
+
+def phase_serve(torch, RT, CT, ops, TM, interpose, SL, cfg, dev="cuda"):
+    """The main path through the captured tick (its drain and profiled
+    pass), the same through the eager tick (with the parts timed); then
+    AB_PAIRS alternating pairs of AB_REQUESTS-request drains, captured
+    against eager, each bit-equal to its counterpart (after one untimed
+    drain a side that captures its graphs), and one pair with a commit
+    and a slow lane midway.  Returns (lines, launches of the captured
+    main path)."""
+    dev = torch.device(dev)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    lines, stats = [], {}
+    for captured in (True, False):
+        line, prof, got, stats[captured] = main_drain(
+            torch, RT, ops, TM, interpose, SL, cfg, params, dev, captured)
+        lines += [line, prof]
+        if captured:
+            launches = got
+
+    def side(captured, midway=False):
+        cp = CT.ControlPlane(*serving_config(RT)) if midway else None
+        routing, ids = (cp, cp.ids) if midway else routing_config(RT, dev)
+        eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
+        fault = SL.FaultInjector([SL.Fault(
+            I_LANES - 1, "slow", factor=4, start=MIDWAY_FAULT[0],
+            end=MIDWAY_FAULT[1])]) if midway else None
+        loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
+                            dtype=torch.float32, backoff_cap=4, fault=fault)
+        if not captured:
+            loop.serve_step = eng.eager_step
+        return loop, ids, cp
+
+    loops = {c: side(c) for c in (True, False)}
+    first = {c: ab_drain(torch, SL, cfg, loops[c][0], loops[c][1],
+                         10 * N_REQUESTS)[0] for c in (True, False)}
+    check(first[True] == first[False], "A/B: the captured warm-up drain "
+          "differs from the eager one")
+    runs = {True: [], False: []}
+    for p in range(AB_PAIRS):
+        order = (True, False) if p % 2 == 0 else (False, True)
+        recs = {}
+        for c in order:
+            recs[c], rps, tick_ms = ab_drain(
+                torch, SL, cfg, loops[c][0], loops[c][1],
+                (11 + p) * N_REQUESTS)
+            runs[c].append((rps, tick_ms))
+        check(recs[True] == recs[False], f"A/B pair {p}: the captured "
+              "drain differs from the eager one")
+    mid = {}
+    for c in (True, False):
+        loop, ids, cp = side(c, midway=True)
+        mid[c] = ab_drain(torch, SL, cfg, loop, ids, N_UNROUTABLE,
+                          midway=cp)[0]
+        check(mid[c]["routing"]["version"] >= 1, "A/B midway: no commit")
+    check(mid[True] == mid[False], "A/B midway: the captured drain with a "
+          "commit and a slow lane differs from the eager one")
+
+    def summary(c):
+        rps = [r for r, _ in runs[c]]
+        ticks = [t for _, t in runs[c]]
+        idle = [100 * (1 - stats[c]["busy_ms"] / t) for t in ticks]
+        return (f"req/s " + " / ".join(f"{r:.1f}" for r in rps)
+                + f" (median {statistics.median(rps):.1f}); median tick ms "
+                + " / ".join(f"{t:.4f}" for t in ticks)
+                + f" (median {statistics.median(ticks):.4f}); device idle "
+                f"{statistics.median(idle):.1f}% (busy "
+                f"{stats[c]['busy_ms']:.4f} ms a tick from its profiled "
+                "pass)")
+    lines.append(
+        f"serve A/B: {AB_PAIRS} alternating pairs of {AB_REQUESTS}-request "
+        f"drains through one captured and one eager loop (after one untimed "
+        f"drain each), each pair bit-equal (every completion, tick, token, "
+        f"routing counter, EWMA, metric and pool cell; loads and pool back "
+        f"to zero); captured: {summary(True)}; eager: {summary(False)}; a "
+        f"drain with a commit at tick {CONTROL_COMMIT_TICK} and lane "
+        f"{I_LANES - 1} 4x slow over ticks {MIDWAY_FAULT[0]}-"
+        f"{MIDWAY_FAULT[1]}: captured equals eager "
+        f"({len(mid[True]['done'])} requests, version "
+        f"{mid[True]['routing']['version']})")
+    return lines, launches
 
 
 # --------------------------------------------------------------------------- #
@@ -2338,6 +2522,11 @@ def phase_engines(torch, RT, TM, B, SL, cfg, dev="cuda"):
               f"{kind}: pool not drained")
         med = statistics.median(tick_ms)
         ticks = loop.ticks
+        graphs = (loop.serve_step.graphs if kind == "xlb"
+                  else eng.decode.graphs)
+        check(len(graphs) == (2 if kind == "xlb" else
+                              I_LANES if kind == "istio" else 1),
+              f"{kind}: {len(graphs)} captured graphs")
 
         # profiled pass: fresh requests at the same rate, ENGINE_WARM
         # ticks, then ENGINE_PROFILE ticks under the profiler
@@ -2350,7 +2539,12 @@ def phase_engines(torch, RT, TM, B, SL, cfg, dev="cuda"):
             torch, lambda: [step() for _ in range(ENGINE_PROFILE)])
         busy = sum(by_name.values()) / 1e3 / ENGINE_PROFILE
         lines.append(
-            f"engine {kind}: {ENGINE_REQUESTS} requests in {ticks} ticks, "
+            f"engine {kind} (captured: {len(graphs)} CUDA graph"
+            f"{'s' if len(graphs) > 1 else ''}, "
+            + ("the arrival and the decode-only tick" if kind == "xlb"
+               else "one decode a KV cache")
+            + f", set-up {graphs.setup_s:.3f} s): "
+            f"{ENGINE_REQUESTS} requests in {ticks} ticks, "
             f"{wall:.3f} s = {ENGINE_REQUESTS / wall:.1f} req/s; median "
             f"tick {med:.4f} ms (host clock); device busy {busy:.4f} ms "
             f"per tick (profiler, {ENGINE_PROFILE} ticks) = "
@@ -2419,7 +2613,13 @@ def phase_control(torch, RT, CT, TM, interpose, SL, ops, cfg, dev="cuda"):
             _, drained = max(members, key=lambda m: int(load[m[0]]))
             _, removed = next(m for m in members[len(members) // 2:]
                               if m[1] != drained)
-            state0 = loop.state
+            # the live state is the captured tick's static buffers, which
+            # the next tick overwrites: the splice's inputs, as they were
+            state0 = loop.state._replace(
+                routing=RT.RoutingState(*[t.clone()
+                                          for t in loop.state.routing]),
+                pool=loop.state.pool._replace(
+                    endpoint=loop.state.pool.endpoint.clone()))
             tc = time.perf_counter()
             with cp.transaction():
                 cp.drain_endpoint(pp, drained)
@@ -2872,16 +3072,19 @@ def phase_sanitize(torch, RT, TM, interpose, SL, INV, policies, ops, cfg,
 
     def run(sanitized):
         routing, ids = routing_config(RT, dev)
-        eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
-        eng.draws = host_draws(torch, policies, dev, 3)
-        loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
-                            dtype=torch.float32, backoff_cap=4)
-        reqs = [make_request(SL, cfg, ids, i)
-                for i in range(SAN_TICKS * ARRIVALS_PER_TICK)]
         ms = []
         old = os.environ.get("XLB_SANITIZE")
         os.environ["XLB_SANITIZE"] = "1" if sanitized else "0"
         try:
+            # make_jitted reads the variable: the sanitized tick is eager
+            eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
+            eng.draws = host_draws(torch, policies, dev, 3)
+            loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
+                                dtype=torch.float32, backoff_cap=4)
+            check((loop.serve_step == eng.eager_step) == sanitized,
+                  f"sanitize: the tick is {loop.serve_step!r}")
+            reqs = [make_request(SL, cfg, ids, i)
+                    for i in range(SAN_TICKS * ARRIVALS_PER_TICK)]
             sync(torch, dev)
             for t in range(SAN_TICKS):
                 for r in reqs[t * ARRIVALS_PER_TICK:
@@ -2939,9 +3142,10 @@ def phase_sanitize(torch, RT, TM, interpose, SL, INV, policies, ops, cfg,
             f"laws on the card, none fired; the same loads, EWMAs and "
             f"completions as the plain run ({len(san.done)} done); the "
             f"planted off-by-one release raised: {planted}; median tick "
-            f"sanitized {statistics.median(san_ms):.4f} ms vs plain "
-            f"{statistics.median(plain_ms):.4f} ms (one host sync per "
-            f"guard); kernels: "
+            f"sanitized {statistics.median(san_ms):.4f} ms (the eager "
+            f"tick: the guards read the card on the host) vs plain "
+            f"{statistics.median(plain_ms):.4f} ms (the captured tick); "
+            f"kernels: "
             + " ".join(f"{k}={v}" for k, v in launches.items()), launches)
 
 
@@ -3011,6 +3215,11 @@ def sharded_drain(torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev,
         ("admit_commit_sharded", "complete_sharded")
     originals = [getattr(ops, n) for n in names]
     tick = loop.tick
+    if timed and shards == 1:
+        # the parts are timed by patching their wrappers, which a replay
+        # does not call: the timed unsharded drain runs the eager tick,
+        # as every sharded one does
+        loop.serve_step = eng.eager_step
     if timed:
         for n, part, fn in zip(names, ("admit", "complete"), originals):
             setattr(ops, n, timed_call(part, fn))
@@ -3194,6 +3403,8 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
     run = lambda d, m, timed=False: sharded_drain(  # noqa: E731
         torch, RT, TM, interpose, SL, MS, policies, ops, cfg, d, m, timed)
     one, t1, _ = run(dev, 1, True)
+    check(run(dev, 1)[0] == one, "sharded drain: shards=1 through the "
+          "captured tick differs from the eager tick")
     four, t4, launches = run(dev, 4, True)
     with cpu_plans():
         four_cpu, _, _ = run(torch.device("cpu"), 4)
@@ -3218,7 +3429,9 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
             f"{med['complete']:.4f} (events); held_first "
             f"{rec['held_first']}")
     lines.append(
-        f"sharded drain: shards=4 equals shards=1 on the card (every count, "
+        f"sharded drain: shards=4 equals shards=1 on the card (the timed "
+        f"M=1 drain through the eager tick, equal to its captured drain; "
+        f"every count, "
         f"tick, token and routing bit) and shards=4 on the CPU; launches "
         f"per arrival tick ({arr} of {four['ticks']}): B3 "
         f"{launches['admit'] / arr:.3f}, B4 {launches['route_match'] / arr:.3f},"
@@ -4643,10 +4856,10 @@ def main() -> int:
     print(f"model: decode on the card vs the CPU max_abs_err={err:.3g} "
           "(rtol=atol=1e-4)")
 
-    line, prof, launches = phase_serve(torch, RT, ops, TM, interpose, SL,
-                                       cfg)
-    print(line)
-    print(prof)
+    lines, launches = phase_serve(torch, RT, CT, ops, TM, interpose, SL,
+                                  cfg)
+    for line in lines:
+        print(line)
     main_launches = {k: launches[k] for k in ("admit_commit", "complete",
                                               "decode_attention")}
     line, staged_launches = phase_staged(torch, RT, ops, B,
@@ -4935,8 +5148,9 @@ def main() -> int:
 def timing_for(src: str) -> int:
     """``python3 chip_smoke.py --timing SRC``: for the port in SRC (this
     checkout's ``src``, or another checkout's, to compare two trees in one
-    call, in turns), the main path's timed drain (``phase_serve``: its
-    "serve:" line) and the one-process sharded admission
+    call, in turns), the main path's drains (``phase_serve``: its
+    "serve" lines, captured and eager) and the one-process sharded
+    admission
     (``ops.admit_commit_sharded`` over ``make_shard_mesh``) at the serving
     shape and block_r 256 at each M of SHARDS: event-timed ms a call, the
     mean of 50 calls."""
@@ -4946,6 +5160,7 @@ def timing_for(src: str) -> int:
     sys.path.insert(0, str(Path(src).resolve()))
     from repro_torch.configs import XLB_SERVICE_MODEL as cfg
     from repro_torch.core import balancer as B
+    from repro_torch.core import control as CT
     from repro_torch.core import interpose
     from repro_torch.core import routing_table as RT
     from repro_torch.kernels import ops
@@ -4955,8 +5170,8 @@ def timing_for(src: str) -> int:
     from repro_torch.runtime import serve_loop as SL
     dev = torch.device("cuda")
     gpu = gpu_line()
-    print(f"timing {src}: " + phase_serve(torch, RT, ops, TM, interpose, SL,
-                                          cfg)[0] + f" on {gpu}")
+    for line in phase_serve(torch, RT, CT, ops, TM, interpose, SL, cfg)[0]:
+        print(f"timing {src}: {line} on {gpu}")
     routing0, _ = routing_config(RT, "cpu")
     routing, reqs, pool, rnd, gum = admit_inputs(
         torch, RT, routing0, ADMIT_R, I_LANES, SLOTS, seed=ADMIT_R, dev=dev)

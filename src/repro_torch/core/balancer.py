@@ -19,6 +19,21 @@ class RequestBatch(NamedTuple):
     token: torch.Tensor      # (R,) int32 first prompt token
     msg_bytes: torch.Tensor  # (R,) int32 payload size (traffic metrics)
 
+    def pack(self, out: torch.Tensor | None = None) -> torch.Tensor:
+        """The five fields as one (R, 4 + F) int32 tensor (into ``out``
+        where given): req_id, svc, token, msg_bytes, then the features;
+        what crosses to the device in one copy."""
+        cols = [c.reshape(c.shape[0], -1).to(torch.int32)
+                for c in (self.req_id, self.svc, self.token, self.msg_bytes,
+                          self.features)]
+        return torch.cat(cols, dim=1, out=out)
+
+    @staticmethod
+    def unpack(d: torch.Tensor) -> "RequestBatch":
+        """The batch ``pack`` laid out in ``d``, as views of it."""
+        return RequestBatch(req_id=d[:, 0], svc=d[:, 1], features=d[:, 4:],
+                            token=d[:, 2], msg_bytes=d[:, 3])
+
 
 class PoolState(NamedTuple):
     """Per-(instance, slot) live-connection state."""
@@ -57,7 +72,10 @@ class Balancer(Protocol):
         ...
 
     def make_jitted(self, donate: bool = True):
-        """Fused ``serve_step(params, state, reqs) -> (state, out)``."""
+        """Fused ``serve_step(params, state, reqs) -> (state, out)``;
+        ``out`` holds the tick's ``emitted``, ``done``, ``req_id`` and
+        ``active``, and ``packed``, the four in one int32 array: what the
+        host reads of a tick."""
         ...
 
     def get_routing(self, state):

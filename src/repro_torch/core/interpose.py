@@ -24,10 +24,14 @@ of a tick (emitted tokens, done flags, serviced ids, the active count)
 from every rank, so each rank's host sees the whole tick.  Routing and
 metrics are replicated, equal on every rank after the psums.
 
-State tensors are replaced, not mutated, except the KV cache, which the
-decode writes in place.  The engine runs on the card unless the caller
-asks for the CPU (``device="cpu"``), where every kernel wrapper runs its
-plain PyTorch version.
+``admit`` and ``step`` replace the state's tensors, never mutate them,
+except the KV cache, which the decode writes in place.  ``make_jitted``'s
+tick of an unsharded engine is the reference's ``jax.jit`` with the
+state donated: on the card it replays captured CUDA graphs, and its state
+lives in static buffers that each tick overwrites
+(``runtime/graphs.py::StaticTick``).  The engine runs on the card unless
+the caller asks for the CPU (``device="cpu"``), where every kernel
+wrapper runs its plain PyTorch version and the tick runs without a graph.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.analysis.invariants import sanitize_enabled
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import control, policies
 from repro_torch.core.balancer import PoolState, RequestBatch
@@ -44,6 +49,7 @@ from repro_torch.core.routing_table import FlowMetrics, RoutingState
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, shard_admit
 from repro_torch.models import model as M
+from repro_torch.runtime.graphs import StaticTick
 
 
 class EngineState(NamedTuple):
@@ -141,21 +147,19 @@ class Engine:
         fields packed into one (R, 4 + F) int32 tensor."""
         if reqs.req_id.device == self.device:
             return reqs
-        cols = [reqs.req_id, reqs.svc, reqs.token, reqs.msg_bytes]
-        packed = torch.cat([c.reshape(-1, 1) for c in cols]
-                           + [reqs.features], dim=1).to(torch.int32)
-        d = packed.to(self.device)
-        return RequestBatch(req_id=d[:, 0], svc=d[:, 1], features=d[:, 4:],
-                            token=d[:, 2], msg_bytes=d[:, 3])
+        return RequestBatch.unpack(reqs.pack().to(self.device))
 
     # ------------------------------------------------------------------ #
     def admit(self, state: EngineState, reqs: RequestBatch,
-              live=None) -> EngineState:
+              live=None, draws=None) -> EngineState:
         """One admission of the whole batch ``reqs``.  ``live`` (sharded
         engines): ``shard_admit.live_shards`` of the batch as the host
-        built it, one entry a shard; None reads it from ``reqs``."""
+        built it, one entry a shard; None reads it from ``reqs``.
+        ``draws``: the batch's (rnd, gumbel), None draws them
+        (``self.draws``)."""
         rstate, metrics = state.routing, state.metrics
-        rnd, gumbel = self.draws(reqs.req_id.shape[0])
+        rnd, gumbel = draws if draws is not None \
+            else self.draws(reqs.req_id.shape[0])
         if self.shards > 1:
             mesh, axis = self.shard_mesh, self.shard_axis
             if self._rank_mesh():        # this rank's rows of the batch
@@ -211,6 +215,11 @@ class Engine:
                "active": res.pool.active.sum()}
         if self.shards > 1 and self._rank_mesh():
             out = self._gather_tick(out)
+        # what the host reads of a tick, in one download: (3 I C + 1,)
+        # int32, emitted | done | req_id | active
+        out["packed"] = torch.cat(
+            [out[k].reshape(-1).to(torch.int32)
+             for k in ("emitted", "done", "req_id", "active")])
         return EngineState(rstate, res.pool, cache, metrics), out
 
     def _gather_tick(self, out: dict) -> dict:
@@ -229,26 +238,41 @@ class Engine:
                 "req_id": cells(2), "active": got[:, 3 * n].sum()}
 
     # ------------------------------------------------------------------ #
+    def eager_step(self, params, state: EngineState, reqs: RequestBatch):
+        """One serving tick, eagerly: admit (on ticks with arrivals) +
+        decode step, each op issued from the host.  The "any arrivals"
+        gate, and on a sharded engine which shards have arrivals, are
+        decided from the batch as the caller built it: give it the host
+        batch (CPU tensors) and they cost no device sync; ``upload`` then
+        copies the batch over once."""
+        # every rank of a rank mesh builds the same batch, so every rank
+        # admits on the same ticks and joins the same collectives
+        if bool((reqs.req_id >= 0).any()):
+            live = (shard_admit.live_shards(reqs.req_id, self.shards)
+                    if self.shards > 1 else None)
+            state = self.admit(state, self.upload(reqs), live)
+        return self.step(params, state)
+
     def make_jitted(self, donate: bool = True):
-        """One serving tick: admit (on ticks with arrivals) + decode step.
+        """One serving tick ``serve_step(params, state, reqs) -> (state,
+        out)``: admit (on ticks with arrivals) + decode step.
 
-        PyTorch runs eagerly, so this is a plain callable.  The "any
-        arrivals" gate, and on a sharded engine which shards have
-        arrivals, are decided from the batch as the caller built it: give
-        it the host batch (CPU tensors) and they cost no device sync;
-        ``upload`` then copies the batch over once.  ``donate`` is
-        accepted for the ``Balancer`` protocol; nothing is donated."""
-
-        def serve_step(params, state: EngineState, reqs: RequestBatch):
-            # every rank of a rank mesh builds the same batch, so every
-            # rank admits on the same ticks and joins the same collectives
-            if bool((reqs.req_id >= 0).any()):
-                live = (shard_admit.live_shards(reqs.req_id, self.shards)
-                        if self.shards > 1 else None)
-                state = self.admit(state, self.upload(reqs), live)
-            return self.step(params, state)
-
-        return serve_step
+        Unsharded and with ``XLB_SANITIZE`` unset, the tick is
+        ``runtime/graphs.py::StaticTick``: on the card two captured CUDA
+        graphs at the engine's fixed shapes (the arrival tick and the
+        decode-only tick, the gate decided on the host from the batch),
+        on the CPU the same body without a graph.  Its state lives in
+        static buffers, and the state it returns is those buffers whatever
+        ``donate`` says, as the reference's donated state is: a state
+        kept across a tick is overwritten by it (the eager tick already
+        writes the KV cache in place); clone what must survive.  A
+        sharded engine runs ``eager_step`` (its collectives are outside a
+        graph), and so does the sanitizer, whose guards read device values
+        on the host (the reference too builds another program under
+        ``XLB_SANITIZE=1``)."""
+        if self.shards > 1 or sanitize_enabled():
+            return self.eager_step
+        return StaticTick(self)
 
     # ------------------------------------------------------------------ #
     # control-plane seam (Balancer protocol)

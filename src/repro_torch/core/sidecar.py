@@ -18,8 +18,12 @@ Routing, balancing, slot allocation and all bookkeeping stay host numpy
 (``HostRouter`` with its own ``np.random.RandomState``): that is what the
 baselines measure, so none of it is moved to the device.  The decode runs
 the port's ``models.decode_step`` on the engine's device (the card unless
-``device="cpu"``).  A control-plane refresh (``apply_refresh``) runs the
-same splice as the XLB engine on CPU tensors over the host tables.
+``device="cpu"``), as the reference jits it: on the card a captured CUDA
+graph a KV cache (one per instance for Istio, one for Cilium's I x C
+lanes; ``runtime/graphs.py::StaticDecode``), the host tokens and lengths
+copied into its static inputs and its argmax copied back.  A
+control-plane refresh (``apply_refresh``) runs the same splice as the XLB
+engine on CPU tensors over the host tables.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch.core.routing_table import (MAX_SERVICES, FlowMetrics,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.completion import RX_BYTES_PER_TOKEN, health_update
 from repro_torch.models import model as M
+from repro_torch.runtime.graphs import StaticDecode
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -145,6 +150,7 @@ class SidecarEngine:
             # the reference decodes in full f32; TF32 would drift the logits
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self.decode = StaticDecode(self.cfg, self.device)
 
     # ------------------------------------------------------------------ #
     def init_state(self, routing: RoutingState, dtype=None) -> SidecarState:
@@ -195,15 +201,6 @@ class SidecarEngine:
         return state
 
     # ------------------------------------------------------------------ #
-    def _decode(self, params, tokens: np.ndarray, lengths: np.ndarray,
-                cache) -> np.ndarray:
-        """One decode launch: the host copy up, the argmax copy back."""
-        dev = self.device
-        logits, _ = M.decode_step(
-            self.cfg, params, torch.tensor(tokens[:, None], device=dev),
-            torch.tensor(lengths, device=dev), cache)
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
-
     def step(self, params, state: SidecarState) -> tuple[SidecarState, dict]:
         """One decode step for all lanes, host-mediated."""
         I, C = self.n_instances, self.slots
@@ -211,12 +208,12 @@ class SidecarEngine:
         if self.mode == "istio":
             nxt = np.zeros((I, C), np.int32)
             for i in range(I):                   # per-instance launch
-                nxt[i] = self._decode(params, pool.token[i], pool.length[i],
-                                      state.caches[i])
+                nxt[i] = self.decode(params, pool.token[i], pool.length[i],
+                                     state.caches[i])
         else:                                    # one global round trip
-            nxt = self._decode(params, pool.token.reshape(-1),
-                               pool.length.reshape(-1),
-                               state.caches).reshape(I, C)
+            nxt = self.decode(params, pool.token.reshape(-1),
+                              pool.length.reshape(-1),
+                              state.caches).reshape(I, C)
 
         # vectorised host bookkeeping: the measured cost is the per-request
         # Python routing and (istio) the per-instance launches
@@ -248,6 +245,9 @@ class SidecarEngine:
         pool.length[done] = 0
         out = {"emitted": nxt, "done": done, "req_id": pre_req,
                "active": int(act.sum() - done.sum())}
+        out["packed"] = np.concatenate(
+            [np.asarray(out[k], np.int32).reshape(-1)
+             for k in ("emitted", "done", "req_id", "active")])
         return state, out
 
     # ------------------------------------------------------------------ #

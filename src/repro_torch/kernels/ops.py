@@ -6,7 +6,11 @@ plain PyTorch version, and on the meta device (the dry run) the plain
 version too, which there computes shapes only.  There is no fallback
 from one to the other.
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
-that its main path went through the kernels.  ``flash_attention`` and
+that its main path went through the kernels.  Under a CUDA graph capture
+a wrapper's count runs but nothing launches: ``capture_launches`` takes
+those counts out of the table, and ``count_replay`` adds them back on each
+replay of the graph (``runtime/graphs.py``), so the table counts the
+launches that ran on the device.  ``flash_attention`` and
 ``ssd_scan`` are differentiable: their kernels run the forward, and the
 backward recomputes the plain function (the reference's gradient is
 JAX's autodiff of its plain functions; there is no backward kernel).
@@ -41,6 +45,7 @@ guard, as the reference's have none.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -61,6 +66,28 @@ from repro_torch.sharding.specs import is_dtensor
 LAUNCHES = {"admit": 0, "admit_commit": 0, "complete": 0, "route_match": 0,
             "relay_slots": 0, "decode_attention": 0, "flash_attention": 0,
             "ssd_scan": 0}
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Around a CUDA graph capture: yields a dict that is filled, on exit,
+    with the launches the captured wrappers counted (what each replay of
+    the graph launches), and puts ``LAUNCHES`` back as it was."""
+    before, delta = dict(LAUNCHES), {}
+    try:
+        yield delta
+    finally:
+        delta.update({k: n - before[k] for k, n in LAUNCHES.items()
+                      if n != before[k]})
+        LAUNCHES.update(before)
+
+
+def count_replay(delta: dict) -> None:
+    """One replay of a captured graph: its launches into ``LAUNCHES``."""
+    for k, n in delta.items():
+        LAUNCHES[k] += n
+
+
 #: the profiler ranges the backward recomputes of B7 and B8 run in
 VJP_RANGES = {"flash_attention": "xlb::flash_attention_vjp",
               "ssd_scan": "xlb::ssd_scan_vjp"}

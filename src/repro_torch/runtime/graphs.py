@@ -1,0 +1,255 @@
+"""Serving ticks as captured programs: the port's counterpart of the
+reference's ``jax.jit`` around ``Engine.make_jitted``'s ``serve_step``
+(``repro/core/interpose.py``) and around the sidecars' decode
+(``repro/core/sidecar.py``).
+
+A body that reads and writes only *static* buffers (tensors allocated
+once, outside any graph, whose addresses never change) runs through
+``Graphs.run``.  On a CUDA device the first call of each key runs the
+body eagerly on a side stream (the warm-up: the kernels' lazy build, the
+autotuner's sweeps and cuBLAS's workspace happen there, and the call is a
+real one), then captures it as a ``torch.cuda.CUDAGraph``; every later
+call of the key replays the graph.  On the CPU the body runs directly:
+that is what the caller asked for, and every CPU test through it runs the
+same static-buffer plumbing.  Nothing falls back: a body that syncs with
+the host or takes a shape from the data fails its capture, and the error
+propagates.
+
+The graphs of one owner share one memory pool.  It holds only the
+bodies' temporaries: each body ends by copying what outlives it into its
+static buffers, and the graphs replay one at a time on one stream.
+
+``ops.LAUNCHES`` counts the launches that ran on the device: a capture
+records the counts its body's wrappers made and restores the table, and
+each replay adds them again (``ops.capture_launches`` /
+``ops.count_replay``).
+
+``StaticTick`` is the XLB engine's tick on static buffers (two programs
+at the engine's fixed shapes: the arrival tick and the decode-only tick);
+``StaticDecode`` the sidecars' decode (one program per KV cache).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.utils import _pytree
+
+from repro_torch.core.balancer import RequestBatch
+from repro_torch.kernels import ops
+from repro_torch.models import model as M
+
+
+def _same_layout(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
+    if dst.shape != src.shape or dst.dtype != src.dtype:
+        raise ValueError(
+            f"{what}: {tuple(src.shape)} {src.dtype} does not fit the "
+            f"static buffer {tuple(dst.shape)} {dst.dtype} (a captured "
+            "program runs at fixed shapes)")
+
+
+class Graphs:
+    """The captured programs of one owner on ``device``: one memory pool,
+    one side stream, the graphs keyed by the caller.  ``keep`` objects are
+    held for as long as the key's graph lives, so that the identity the
+    key names (``id(params)``, ``id(cache)``) cannot be reused."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._graphs: dict = {}
+        self.setup_s = 0.0          # host seconds of warm-ups and captures
+        self._pool = torch.cuda.graph_pool_handle() if self.cuda else None
+        self._stream = torch.cuda.Stream(device) if self.cuda else None
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def run(self, key, body: Callable[[], None], keep=()) -> None:
+        """``body()`` as the key's program: replayed where captured, else
+        warmed up eagerly and captured (CUDA), or run directly (CPU)."""
+        if not self.cuda:
+            body()
+            return
+        hit = self._graphs.get(key)
+        if hit is not None:
+            graph, delta, _ = hit
+            graph.replay()
+            ops.count_replay(delta)
+            return
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            body()                               # the warm-up: a real call
+        cur.wait_stream(self._stream)
+        graph = torch.cuda.CUDAGraph()
+        with ops.capture_launches() as delta:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                body()
+        self._graphs[key] = (graph, delta, keep)
+        self.setup_s += time.perf_counter() - t0
+
+
+class StaticTick:
+    """``Engine.make_jitted``'s tick for an unsharded engine: admission on
+    ticks with arrivals, then the decode step, on static buffers.
+
+    The engine state lives in persistent buffers: the first call clones
+    the state it is handed (the KV cache, which the decode writes in
+    place, is taken as it is) and every call returns that one
+    ``EngineState``.  A state it did not produce (the first one, a
+    control-plane splice, a fault's rollback, any ``_replace``) is copied
+    in field by field, only the fields that are not the static tensors
+    themselves; a state it produced costs nothing.  The shapes and dtypes
+    must stay (``control.apply_plan`` keeps them).  The arrival gate reads
+    the batch as the caller built it: give it host tensors and it costs no
+    device sync; the batch is then packed into a pinned staging buffer
+    and copied into the static request buffer, and the draws
+    (``engine.draws``) into static draw buffers, before the replay.  Two
+    programs a (batch rows R, params) pair: the arrival tick and the
+    decode-only tick.  The params' tensors are read in place: update them
+    in place, or pass another params object (which captures anew).
+
+    The outputs are static too: ``emitted``, ``done``, ``req_id``,
+    ``active`` and ``packed`` are overwritten by the next tick."""
+
+    def __init__(self, engine):
+        self.eng = engine
+        self.device = engine.device
+        self.graphs = Graphs(self.device)
+        self.state = None
+        self.out = None
+        self.copied_in = 0          # fields copied in from foreign states
+        self._reqs: dict = {}       # R -> (R, 4 + F) int32 static batch
+        self._draws: dict = {}      # R -> static (rnd, gumbel)
+        self._staging: dict = {}    # R -> pinned (R, 4 + F) host buffer
+        self._staged = None         # event: the last staging copy is done
+
+    # ------------------------------------------------------------------ #
+    def _adopt(self, state) -> None:
+        """Make ``state`` the static state: clone it on the first call,
+        later copy in each field that is not a static tensor."""
+        if self.state is None:
+            clone = lambda t: t.clone()  # noqa: E731
+            self.state = state._replace(
+                routing=type(state.routing)(*map(clone, state.routing)),
+                pool=type(state.pool)(*map(clone, state.pool)),
+                metrics=type(state.metrics)(*map(clone, state.metrics)))
+            return
+        if state is self.state:
+            return
+        for name in ("routing", "pool", "metrics", "cache"):
+            mine, theirs = getattr(self.state, name), getattr(state, name)
+            if mine is theirs:
+                continue
+            dsts, srcs = (_pytree.tree_leaves(mine),
+                          _pytree.tree_leaves(theirs))
+            if len(dsts) != len(srcs):
+                raise ValueError(f"state.{name}: {len(srcs)} tensors where "
+                                 f"the static state has {len(dsts)}")
+            for i, (dst, src) in enumerate(zip(dsts, srcs)):
+                if dst is not src:
+                    _same_layout(dst, src, f"state.{name} leaf {i}")
+                    dst.copy_(src)
+                    self.copied_in += 1
+
+    def _load(self, reqs: RequestBatch) -> None:
+        """The admission batch and its draws into the static buffers."""
+        R = reqs.req_id.shape[0]
+        if R not in self._reqs:
+            F = reqs.features.shape[1]
+            i32 = dict(dtype=torch.int32)
+            self._reqs[R] = torch.empty((R, 4 + F), device=self.device,
+                                        **i32)
+            if self.device.type == "cuda":
+                self._staging[R] = torch.empty((R, 4 + F), pin_memory=True,
+                                               **i32)
+        rnd, gum = self.eng.draws(R)
+        if R not in self._draws:
+            self._draws[R] = (torch.empty_like(rnd, device=self.device),
+                              torch.empty_like(gum, device=self.device))
+        buf, stage = self._reqs[R], self._staging.get(R)
+        if stage is None or reqs.req_id.device == self.device:
+            buf.copy_(reqs.pack())
+        else:
+            # the host batch through one pinned buffer, its copy queued on
+            # the stream; the buffer is refilled only once that copy ran
+            if self._staged is None:
+                self._staged = torch.cuda.Event()
+            self._staged.synchronize()
+            buf.copy_(reqs.pack(out=stage), non_blocking=True)
+            self._staged.record()
+        for dst, src in zip(self._draws[R], (rnd, gum)):
+            _same_layout(dst, src, "draws")
+            dst.copy_(src)
+
+    def _body(self, params, R: int | None) -> None:
+        """The tick on the static buffers; what outlives it is copied
+        back into them."""
+        state = self.state
+        if R is not None:
+            state = self.eng.admit(state, RequestBatch.unpack(self._reqs[R]),
+                                   draws=self._draws[R])
+        new, out = self.eng.step(params, state)
+        if self.out is None:
+            self.out = {k: torch.empty_like(v) for k, v in out.items()}
+        for k, v in out.items():
+            self.out[k].copy_(v)
+        mine = _pytree.tree_leaves(self.state)
+        static = {t.untyped_storage().data_ptr() for t in mine}
+        for dst, src in zip(mine, _pytree.tree_leaves(new)):
+            if src is dst:
+                continue
+            if src.untyped_storage().data_ptr() in static:
+                raise RuntimeError("the tick returned a view of its static "
+                                   "state; copying it back would race")
+            dst.copy_(src)
+
+    def __call__(self, params, state, reqs: RequestBatch):
+        # the reference's lax.cond on "any arrivals", decided on the host
+        arrivals = bool((reqs.req_id >= 0).any())
+        self._adopt(state)
+        R = reqs.req_id.shape[0] if arrivals else None
+        if arrivals:
+            self._load(reqs)
+        self.graphs.run((R, id(params)), lambda: self._body(params, R),
+                        keep=(params,))
+        return self.state, self.out
+
+
+class StaticDecode:
+    """A sidecar's decode launch on static buffers: host tokens and
+    lengths copied in, one program a KV cache (one per instance for
+    Istio, one for Cilium's I x C lanes; all sharing one pool), the argmax
+    copied back."""
+
+    def __init__(self, cfg, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.graphs = Graphs(device)
+        self._bufs: dict = {}       # id(cache) -> (tokens, lengths, nxt)
+
+    def __call__(self, params, tokens: np.ndarray, lengths: np.ndarray,
+                 cache) -> np.ndarray:
+        key = id(cache)
+        if key not in self._bufs:
+            B = tokens.shape[0]
+            z = lambda *s: torch.zeros(s, dtype=torch.int32,  # noqa: E731
+                                       device=self.device)
+            self._bufs[key] = (z(B, 1), z(B), z(B), cache)
+        tok, lens, nxt, _ = self._bufs[key]
+        tok.copy_(torch.from_numpy(np.ascontiguousarray(tokens, np.int32)
+                                   ).reshape(-1, 1))
+        lens.copy_(torch.from_numpy(np.ascontiguousarray(lengths, np.int32)))
+
+        def body():
+            logits, _ = M.decode_step(self.cfg, params, tok, lens, cache)
+            nxt.copy_(torch.argmax(logits, dim=-1))
+
+        self.graphs.run((key, id(params)), body, keep=(params, cache))
+        return nxt.to("cpu", copy=True).numpy()    # not the static buffer

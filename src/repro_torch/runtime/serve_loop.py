@@ -4,8 +4,9 @@ parsing and continuous batching around a ``Balancer``.
 The host hashes L7 header fields into the fixed int32 feature vector and
 queues requests; routing, balancing, slot allocation and decode run on the
 engine's device.  Per tick the host uploads one admission batch and
-downloads one packed tensor (emitted tokens, done flags, serviced ids and
-the active count); the sidecar baselines hand those back as host numpy.
+downloads the tick's ``packed`` output (emitted tokens, done flags,
+serviced ids and the active count; the captured tick's is a static
+buffer); the sidecar baselines hand it back as host numpy.
 
 A loop built on a ``ControlPlane`` boots from its snapshot, attaches as a
 consumer (every commit is spliced into the live engine state through
@@ -315,13 +316,9 @@ class ServeLoop:
         self.state, out = self.serve_step(self.params, self.state, reqs)
         I, C = out["emitted"].shape
         n = I * C
-        cols = [out[k] for k in ("emitted", "done", "req_id", "active")]
-        if isinstance(cols[0], torch.Tensor):   # one download per tick
-            host = torch.cat([c.reshape(-1).to(torch.int32) for c in cols]
-                             ).cpu().numpy()
-        else:                                   # a sidecar's host outputs
-            host = np.concatenate([np.asarray(c, np.int32).reshape(-1)
-                                   for c in cols])
+        host = out["packed"]                    # one download per tick
+        if isinstance(host, torch.Tensor):      # (a sidecar's is host numpy)
+            host = host.cpu().numpy()
         emitted, done, ids = host[:n], host[n:2 * n], host[2 * n:3 * n]
         serviced = set()
         for cell in np.flatnonzero(ids >= 0):     # row-major (i, s) order

@@ -187,17 +187,13 @@ class Service:
         reqs = self.batch_fn(take, self.admit_batch)   # host tensors: the
         t0 = time.perf_counter()                       # arrival gate is free
         self.state, out = self.serve(self.params, self.state, reqs)
-        done, ids = out["done"], out["req_id"]
-        n = ids.shape[0] * ids.shape[1]
-        if isinstance(ids, torch.Tensor):   # one download of both
-            host = torch.cat([done.reshape(-1).to(torch.int32),
-                              ids.reshape(-1).to(torch.int32)]).cpu().numpy()
-        else:                               # a sidecar's host outputs
-            host = np.concatenate([np.asarray(done, np.int32).reshape(-1),
-                                   np.asarray(ids, np.int32).reshape(-1)])
+        n = out["req_id"].shape[0] * out["req_id"].shape[1]
+        host = out["packed"]                # one download of the tick
+        if isinstance(host, torch.Tensor):  # (a sidecar's is host numpy)
+            host = host.cpu().numpy()
         self.stats.wall_s += time.perf_counter() - t0
         self.stats.ticks += 1
-        done, ids = host[:n] != 0, host[n:]
+        done, ids = host[n:2 * n] != 0, host[2 * n:3 * n]
         finished = [int(x) for x in ids[done & (ids >= 0)]]
         self.stats.completed += len(finished)
         now = self.tick_no - 1                   # tick this step ran at

@@ -1134,3 +1134,166 @@ def test_analysis_kernels_section_exits_zero_on_the_card():
     assert p.returncode == 0, p.stdout[-4000:] + p.stderr[-4000:]
     assert "bounds-checking build" in p.stdout
     assert "verified: all sections clean" in p.stdout
+
+
+# --------------------------------------------------------------------------- #
+# the serving tick and the sidecars' decode as captured CUDA graphs
+# --------------------------------------------------------------------------- #
+
+
+def _serve_record(dev, captured, draws, midway):
+    """64 requests through ServeLoop over the XLB engine (8 x 4 slots,
+    admit 8) on the card, through ``make_jitted``'s captured tick or the
+    eager tick; ``draws``: "engine" (its own generator on the card) or
+    "host" (a seeded CPU generator, copied over without a sync);
+    ``midway``: a commit at tick 4 and lane 1 stalled over ticks 6-9.
+    Returns everything the drain leaves: completions, tokens, ticks,
+    routing, metrics and pool."""
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core import policies
+    from repro_torch.core.interpose import Engine
+    from repro_torch.models import model as M
+    from repro_torch.runtime import graphs
+    from repro_torch.runtime.serve_loop import (Fault, FaultInjector,
+                                                Request, ServeLoop)
+    cp = _control_plane()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, dev)
+    eng = Engine(cfg, 8, 4, 8, device=dev)
+    if draws == "host":
+        gen = torch.Generator().manual_seed(5)
+
+        def host(R):
+            rnd, gum = policies.draws(gen, R)
+            return (rnd.to(dev, non_blocking=True),
+                    gum.to(dev, non_blocking=True))
+        eng.draws = host
+    fault = FaultInjector([Fault(1, "stall", start=6, end=10)]) \
+        if midway else None
+    loop = ServeLoop(eng, params, cp, admit_batch=8, fault=fault)
+    assert isinstance(loop.serve_step, graphs.StaticTick)
+    if not captured:
+        loop.serve_step = eng.eager_step
+    for i in range(64):
+        loop.submit(Request(req_id=i, service=i % 2,
+                            headers={"user": f"u{i % 9}"},
+                            prompt_token=3 + i))
+    while loop.queue or loop._waiting or loop.inflight:
+        if midway and loop.ticks == 4:
+            with cp.transaction():
+                cp.drain_endpoint("pool", 2)
+                cp.remove_endpoint("pool", 0)
+                cp.add_endpoint("pool", instance=7)
+        loop.tick()
+        assert loop.ticks < 400
+    torch.cuda.synchronize()
+    lists = lambda t: {f: getattr(t, f).tolist() for f in t._fields}  # noqa
+    return {"done": [(r.req_id, r.retries, r.admit_tick, r.done_tick)
+                     for r in loop.done],
+            "tokens": [r.tokens for r in loop.done],
+            "ticks": loop.ticks, "routing": lists(loop.routing),
+            "metrics": lists(loop.state.metrics),
+            "pool": lists(loop.state.pool),
+            "graphs": len(loop.serve_step.graphs) if captured else 0}
+
+
+@pytest.mark.parametrize("draws,midway", [("engine", False),
+                                          ("host", False),
+                                          ("engine", True)])
+def test_captured_tick_equals_the_eager_tick_on_the_card(dev, draws,
+                                                         midway):
+    """A drain through the captured tick bit-equal to the same drain
+    through the eager tick: every completion, token, routing counter,
+    EWMA, metric and pool cell; the loads and the pool back to zero."""
+    got = _serve_record(dev, True, draws, midway)
+    want = _serve_record(dev, False, draws, midway)
+    assert got.pop("graphs") == 2            # the arrival and decode-only
+    want.pop("graphs")
+    assert got == want
+    assert len(got["done"]) == 64
+    assert not any(got["routing"]["ep_load"])
+    assert not any(map(any, got["pool"]["active"]))
+    if midway:
+        assert got["routing"]["version"] >= 1
+
+
+@pytest.mark.parametrize("kind", ["istio", "cilium"])
+def test_sidecar_captured_decode_equals_eager_on_the_card(dev, kind):
+    """The sidecar's captured decode (``engine.decode``) against the eager
+    decode step on a copy of its cache: the same argmax and cache on
+    every step; one graph a cache."""
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core.balancer import make_balancer
+    from repro_torch.models import model as M
+    I, C, L = 4, 4, 8
+    eng = make_balancer(kind, cfg, I, C, L, device=dev)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, dev)
+    st = eng.init_state(_control_plane().snapshot())
+    caches = st.caches if kind == "istio" else [st.caches]
+    copies = [_clone(c) for c in caches]
+    rng = np.random.RandomState(1)
+    for step in range(L - 1):
+        for c, e in zip(caches, copies):
+            B = c["blocks"]["self"]["k"].shape[1]
+            tok = rng.randint(3, cfg.vocab, B).astype(np.int32)
+            lens = np.full(B, step, np.int32)
+            got = eng.decode(params, tok, lens, c)
+            logits, _ = M.decode_step(
+                cfg, params, torch.from_numpy(tok[:, None]).to(dev),
+                torch.from_numpy(lens).to(dev), e)
+            want = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+            np.testing.assert_array_equal(got, want, err_msg=f"step {step}")
+    for c, e in zip(caches, copies):
+        for a, b in zip(_leaves(c), _leaves(e)):
+            assert torch.equal(a, b)
+    assert len(eng.decode.graphs) == len(caches)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def test_replayed_launches_equal_the_profiler_counts(dev):
+    """Over a profiled window of captured ticks, ``ops.LAUNCHES`` counts
+    as many B2, B1 and B6 launches as the profiler sees kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core.interpose import Engine
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serve_loop import Request, ServeLoop
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, dev)
+    loop = ServeLoop(Engine(cfg, 8, 4, 8, device=dev), params,
+                     _control_plane(), admit_batch=8)
+    for i in range(200):
+        loop.submit(Request(req_id=i, service=i % 2, headers={},
+                            prompt_token=3 + i))
+    for _ in range(4):                       # warm-up and capture
+        loop.tick()
+    torch.cuda.synchronize()
+    names = {"admit_commit": "admit_kernel", "complete": "complete_kernel",
+             "decode_attention": "decode_kernel"}
+    n0 = {k: ops.LAUNCHES[k] for k in names}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(6):
+            loop.tick()
+        torch.cuda.synchronize()
+    seen = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k, n in names.items():
+                if n in e.name:
+                    seen[k] += 1
+    got = {k: ops.LAUNCHES[k] - n0[k] for k in names}
+    assert got == seen and got["complete"] == 6, (got, seen)
+    assert got["decode_attention"] == 6 * cfg.n_layers

@@ -432,7 +432,11 @@ def test_random_policy_drain_with_faults_against_admit_ref(weights,
 
     def record(reqs, routing, pool, rnd, gumbel, **tuning):
         out = real(reqs, routing, pool, rnd, gumbel, **tuning)
-        seen.append((reqs, routing, pool, rnd, gumbel, out))
+        # the tick's inputs are its static buffers, which the next tick
+        # overwrites: keep copies
+        keep = lambda t: type(t)(*[x.clone() for x in t])  # noqa: E731
+        seen.append((keep(reqs), keep(routing), keep(pool), rnd.clone(),
+                     gumbel.clone(), out))
         return out
 
     monkeypatch.setattr(ops, "admit_commit", record)
