@@ -130,8 +130,15 @@ Phases (each prints one line; any failure exits non-zero):
    inside the profiled prefill, B5 and B6's inside one profiled decode
    step beside the step's device time and its weight-read bound; the MoE
    prefill's ``overflow_frac`` and expert loads at capacity factor 1.25),
-   with finite logits, and decode after a shorter prefill against the
-   last logits of the full prefill: relative error < 1e-3 in f32 (the
+   with finite logits; the launcher's decode is captured
+   (``StaticModelDecode``: one CUDA graph replayed a step), and each arch
+   runs the decode A/B (``decode_ab``): from one prefill, the captured
+   decode against ``decode_eager`` on a copy of the cache, tokens
+   identical, ms a step, tokens/s and peaks of each side, and one
+   profiled captured step's busy share with its B6 and B5 launches
+   equal to the profiler's count; and decode after a shorter prefill
+   against the last logits of the full prefill: relative error < 1e-3 in
+   f32 (the
    weights cast up, where they fit beside the bf16 ones: minitron-4b and
    mamba2-2.7b), and in bf16 under a fixed limit per architecture that a
    planted decode fault must exceed (the MoE archs: drop-free, on 8
@@ -149,16 +156,24 @@ Phases (each prints one line; any failure exits non-zero):
    decode check in f32 (< 1e-3) and bf16 (under WHISPER_REL_TOL_BF16,
    which cross_v zeroed in the cache must exceed); then whisper trained
    at full width and depth (bf16 params, f32 moments, 8 x (448 tokens +
-   1500 frames)) through ``train_loop.run``: 8 steps, a checkpoint every
-   4, a failure injected at step 6 (restored and replayed), B7 in every
-   forward, finite losses falling, ms a step, tokens/s, peak memory, the
-   share of the FLOP bound, and one profiled step's B7 backward
-   recompute as a share of its device time; then the ``RunCtx`` phase:
-   the same training step (the same init and batches) under
-   ``RunCtx(remat="none")`` and ``RunCtx(remat="block")``, CTX_STEPS
-   steps each in this one run (ms a step, peak memory, the first loss,
-   bit-equal between the two; B7 launched once a layer a step, twice
-   under block remat), and a world-size-1 NCCL process group: a (1, 1)
+   1500 frames)) through ``train_loop.run``, whose step is captured
+   (``StaticTrainStep``: one CUDA graph replayed a step): 8 steps, a
+   checkpoint every 4, a failure injected at step 6 (restored into the
+   static state and replayed bit-equal), B7 in every forward, finite
+   losses falling, ms a step, tokens/s, peak memory allocated and
+   reserved, the share of the FLOP bound, one replayed step under the
+   profiler (B7's launches equal to the profiler's count), one eager
+   step's B7 backward recompute as a share of its device time; then the
+   training A/B: the eager step from the same init over the same batches
+   (ms a step, peaks), eager against eager over two steps, the captured
+   losses bit-equal to eager's where eager against eager is, else within
+   TRAIN_AB_RTOL; then the ``RunCtx`` phase: the same training step (the
+   same init and batches) under ``RunCtx(remat="none")`` and
+   ``RunCtx(remat="block")``, captured and eager, CTX_STEPS steps each
+   in this one run (ms a step, peak memory, the losses, the first
+   bit-equal between the two remats and captured against eager as in the
+   A/B; B7 launched once a layer a step, twice under block remat), and a
+   world-size-1 NCCL process group: a (1, 1)
    ``DeviceMesh`` over it, CTX_ARCHS' smoke configs (f32) placed by
    ``MeshSpec`` as DTensors, ``loss_fn`` under ``RunCtx(shard=
    ms.constrain, tp_size=1, ep=(mesh, ("data", "model")))`` against the
@@ -184,7 +199,7 @@ Phases (each prints one line; any failure exits non-zero):
    ``main`` on the card: quickstart (8 requests, a transaction, a 9th;
    no_route 0, routing version 1, commit #1), serve_cluster (bookinfo on
    istio, cilium and xlb, every request completed) and train_moe
-   (deepseek-mini-100m, EXAMPLE_TRAIN_STEPS steps through
+   (deepseek-mini-100m, EXAMPLE_TRAIN_STEPS captured steps through
    ``train_loop.run``: finite losses, falling over the first 100 steps
    (EXAMPLE_FALL_WINDOW), its checkpoints under build/), each one's
    launches of B1, B2, B5, B6 and B7 counted; then the dry run
@@ -202,7 +217,9 @@ Phases (each prints one line; any failure exits non-zero):
    drain (added to those), ``flash_attention``, ``decode_attention``,
    ``ssd_scan`` and ``relay_slots`` (the MoE layers x (1 + steps) of each
    run) in the model phases (summed over the archs), and the same three
-   in the training forwards (whisper's cell and the smoke configs);
+   in the training forwards (whisper's cell and the smoke configs); then
+   of each kernel the launches of the whole run that ran inside CUDA
+   graph replays ("kernels replayed");
 9. ``python -m repro_torch.analysis`` with its kernels section in a
    subprocess: under compute-sanitizer's memcheck and racecheck where
    the sanitizer can attach to the card, else against the kernels'
@@ -457,6 +474,9 @@ DRYRUN_FLOP_RATIO = {"none": (1.02, 1.10), "block": (1.27, 1.33)}
 CTX_STEPS = 4
 CTX_ARCHS = ("deepseek-v2-236b", "arctic-480b")
 CTX_RTOL = 1e-4
+# captured against eager training losses where eager against eager is not
+# bit-equal: the card-against-CPU tolerance
+TRAIN_AB_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -1714,6 +1734,9 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda", full_layers=None):
                      f"{LLM_BATCH * cfg.moe.top_k})")
         del cache
 
+    ab_line, ab = decode_ab(torch, ops, launcher, cfg, params, tokens,
+                            LLM_STEPS)
+
     # consistency, as tests/test_smoke_archs.py checks it (in f32): the
     # full prefill's last logits against a shorter prefill plus
     # teacher-forced decode of the rest (mamba: a prefill that is a
@@ -1824,8 +1847,8 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda", full_layers=None):
             f"{init_s:.2f} s; prefill "
             f"{LLM_BATCH} x {LLM_PROMPT} tokens {1e3 * res['prefill_s']:.3f}"
             f" ms ({LLM_BATCH * LLM_PROMPT / res['prefill_s']:.1f} tokens/s)"
-            f"; {LLM_STEPS} decode steps {1e3 * per_step:.3f} ms per step "
-            f"= {LLM_BATCH / per_step:.1f} tokens/s (host clock, "
+            f"; {LLM_STEPS} decode steps (captured) {1e3 * per_step:.3f} ms"
+            f" per step = {LLM_BATCH / per_step:.1f} tokens/s (host clock, "
             f"synchronised); peak memory {peak / 2**30:.2f} GiB; decode "
             f"after a {split}-token prefill vs the full prefill: rel "
             f"{f32_part}{rel16:.3e} in bf16 (< {tol16}), with planted "
@@ -1835,11 +1858,109 @@ def phase_llm(torch, ops, TM, launcher, cfg, dev="cuda", full_layers=None):
             + ", ".join(f"{label} {name} {us / 1e3:.3f} ms ("
                         f"{us / 1e3 / cnt:.5f} a launch, {cnt} launches)"
                         for name, us, cnt, label in parts)
-            + f"; its largest kernels (ms): {top}" + moe + step)
+            + f"; its largest kernels (ms): {top}" + moe + step
+            + f" (of the captured decode: {1e3 * res['setup_s']:.3f} ms "
+            "warm-up and capture)\n" + ab_line)
     del params, res
     gc.collect()
     torch.cuda.empty_cache()
     return line, launches, kernels, peak
+
+
+def decode_ab(torch, ops, launcher, cfg, params, tokens, steps: int,
+              frames=None) -> tuple:
+    """The launcher's decode captured against eager from one prefill
+    (``launcher.prefill``): ``steps`` greedy steps through ``decode`` (a
+    ``StaticModelDecode``: the first step a warm-up, then its capture,
+    then replays) and through ``decode_eager`` on a copy of the cache,
+    each on the host clock to a synchronise, with its peak memory; the
+    tokens must be identical.  Then the captured step once more, rewound
+    to the last position, under the profiler: the device's busy share of
+    its host-clock window, and the B6 and B5 launches ``ops.LAUNCHES``
+    counts against the profiler's count of their kernels, which must be
+    equal.  Returns (line, {side: measurements})."""
+    from repro_torch.runtime.graphs import StaticModelDecode
+    from repro_torch.tree import map_tree
+    dev = tokens.device
+    B, P = tokens.shape
+    logits, cache, _ = launcher.prefill(cfg, params, tokens, steps, frames)
+    twin = map_tree(torch.clone, cache)
+    dec = StaticModelDecode(cfg, dev)
+    got = {}
+    for side in ("captured", "eager"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if side == "captured":
+            toks, last = launcher.decode(cfg, params, logits, cache, P,
+                                         steps, dec)
+        else:
+            toks, last = launcher.decode_eager(cfg, params, logits, twin, P,
+                                               steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got[side] = {"ms": 1e3 * wall / steps, "tokens": toks, "last": last,
+                     "peak": torch.cuda.max_memory_allocated(dev),
+                     "reserved": torch.cuda.max_memory_reserved(dev)}
+    cap, eag = got["captured"], got["eager"]
+    setup_ms = 1e3 * dec.graphs.setup_s
+    cap["steady_ms"] = (cap["ms"] * steps - setup_ms) / (steps - 1)
+    same = torch.equal(cap["tokens"], eag["tokens"])
+    check(same, f"{cfg.name}: captured decode tokens differ from eager's "
+          f"in {int((cap['tokens'] != eag['tokens']).sum())} of "
+          f"{cap['tokens'].numel()}")
+    logit_err = float((cap["last"] - eag["last"]).abs().max())
+    del twin
+    # one profiled replay at the last position (the cache's contents do
+    # not change its work)
+    dec.load(cache, cap["last"], torch.full((B,), P + steps - 1,
+                                            dtype=torch.int32, device=dev))
+    names = {"decode_attention": "decode_kernel",
+             "relay_slots": "relay_kernel"}
+    before, counts, box = dict(ops.LAUNCHES), {}, []
+
+    def one():
+        t0 = time.perf_counter()
+        dec.step(params, cache)
+        torch.cuda.synchronize()
+        box.append(time.perf_counter() - t0)
+
+    _, by_name = device_events(torch, one, counts)
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in names}
+    seen = {k: sum(c for n, c in counts.items() if v in n)
+            for k, v in names.items()}
+    check(launched == seen, f"{cfg.name}: a captured decode step's "
+          f"launches {launched}, the profiler's {seen}")
+    busy = sum(by_name.values()) / 1e3
+    window = 1e3 * box[0]
+    cap.update(busy_ms=busy, window_ms=window)
+    del dec, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    tps = lambda ms: B / ms * 1e3  # noqa: E731
+    line = (f"decode A/B {cfg.name}: one {B} x {P} prefill, {steps} greedy "
+            f"steps each side; captured {cap['ms']:.3f} ms a step "
+            f"({tps(cap['ms']):.1f} tokens/s; {setup_ms:.3f} ms of warm-up "
+            f"and capture in the first; the {steps - 1} replays "
+            f"{cap['steady_ms']:.3f} ms a step = "
+            f"{tps(cap['steady_ms']):.1f} tokens/s), eager "
+            f"{eag['ms']:.3f} ms a step ({tps(eag['ms']):.1f} tokens/s): "
+            f"{eag['ms'] / cap['ms']:.2f}x (host clock, synchronised); "
+            f"tokens identical ({cap['tokens'].numel()}), last logits "
+            f"max_abs_err {logit_err:.3g}; peak allocated / reserved "
+            f"captured {cap['peak'] / 2**30:.2f} / "
+            f"{cap['reserved'] / 2**30:.2f} GiB, eager "
+            f"{eag['peak'] / 2**30:.2f} / {eag['reserved'] / 2**30:.2f} GiB; "
+            f"one profiled captured step: device busy {busy:.4f} ms of its "
+            f"{window:.4f}-ms window ({100 * busy / window:.1f} %; the "
+            f"profiler stretches a replay: {100 * busy / cap['steady_ms']:.1f}"
+            f" % of the unprofiled replays' ms a step), "
+            "launches " + " ".join(f"{k}={v}" for k, v in launched.items()
+                                   if v)
+            + " = the profiler's " + " ".join(
+                f"{names[k]}={v}" for k, v in seen.items() if v))
+    return line, got
 
 
 def topk_flips(torch, n_moe: int, run):
@@ -4022,6 +4143,8 @@ def phase_whisper(torch, ops, TM, launcher, cfg, dev="cuda"):
     step_busy = sum(step_ev.values()) / 1e3
     del cache
     peak = torch.cuda.max_memory_allocated(dev)
+    ab_line, _ = decode_ab(torch, ops, launcher, cfg, params, tokens, T,
+                           frames)
     # the decode check: f32 (the weights cast up beside the bf16 ones),
     # then bf16 with and without the planted fault
     f16_full, f16_dec = whisper_decode_check(torch, TM, cfg, params, tokens,
@@ -4053,7 +4176,8 @@ def phase_whisper(torch, ops, TM, launcher, cfg, dev="cuda"):
             f"full depth; bf16); prefill {B} x ({cfg.enc_frames} frames + "
             f"{P} tokens) {1e3 * res['prefill_s']:.3f} ms, of which the "
             f"encoder alone {enc_ms:.3f} ms (host clock, median of 3); "
-            f"{T} decode steps {1e3 * per_step:.3f} ms per step = "
+            f"{T} decode steps (captured; {1e3 * res['setup_s']:.3f} ms of "
+            f"warm-up and capture) {1e3 * per_step:.3f} ms per step = "
             f"{B / per_step:.1f} tokens/s; peak memory {peak / 2**30:.2f} "
             f"GiB (init, prefill, decode; {peak_check / 2**30:.2f} GiB "
             f"with the decode check's f32 weights); launches " + " ".join(f"{k}={v}" for k, v in
@@ -4070,7 +4194,8 @@ def phase_whisper(torch, ops, TM, launcher, cfg, dev="cuda"):
             f"f32 (< {LLM_REL_TOL_F32}), {rel16:.3e} in bf16 (< "
             f"{WHISPER_REL_TOL_BF16}), with cross_v zeroed in the cache "
             f"{planted:.3e} (>= {WHISPER_REL_TOL_BF16}); bf16 vs f32 "
-            f"prefill logits {rel_err(f16_full, f32_full):.3e}")
+            f"prefill logits {rel_err(f16_full, f32_full):.3e}\n"
+            + ab_line)
     del params, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -4118,6 +4243,68 @@ def ranged_kernel_ms(events, names) -> tuple:
     return inside / 1e3, total
 
 
+def train_steps(torch, ops, TL, TA, TM, TT, cfg, tcfg, batches, dev,
+                remat="none", captured=False, profile=False) -> dict:
+    """One training step a batch of ``batches`` (host arrays) from the
+    seed-0 init ``train_loop.run`` draws on ``dev``, under
+    ``RunCtx(remat=remat)``: through ``StaticTrainStep`` (``captured``:
+    the first step a warm-up, then its capture, then replays) or the
+    eager step (the batch uploaded inside the step's time, as the static
+    step stages it), each step on the host clock to a synchronise.
+    With ``profile`` one more step on the first batch under the profiler
+    (apart from the timed ones): its B7 launches from ``ops.LAUNCHES``
+    and the profiler's count of B7 kernels (``"b7"``: the pair).
+    Returns {"losses", "norms", "step_ms" (median of steps 2 on),
+    "first_ms", "peak", "reserved", "launches"[, "b7"]} and frees what it
+    built."""
+    from repro_torch.runtime.graphs import StaticTrainStep
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = TM.init_params(cfg, torch.Generator(dev).manual_seed(0), None,
+                            dev)
+    state = (params, TA.init(params),
+             torch.zeros((max(cfg.moe.n_experts, 1),), dtype=torch.float32,
+                         device=dev))
+    del params
+    step = TL.make_train_step(cfg, TT.RunCtx(remat=remat), tcfg)
+    if captured:
+        step = StaticTrainStep(step, dev)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    walls, losses, norms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not captured:
+            b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        *state, m = step(*state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out = {"losses": losses, "norms": norms,
+           "step_ms": statistics.median(walls[1:]) * 1e3,
+           "first_ms": walls[0] * 1e3,
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "reserved": torch.cuda.max_memory_reserved(dev),
+           "launches": {k: v for k, v in ops.LAUNCHES.items() if v}}
+    if profile:
+        before, counts = ops.LAUNCHES["flash_attention"], {}
+        device_events(torch, lambda: step(*state, batches[0]), counts)
+        out["b7"] = (ops.LAUNCHES["flash_attention"] - before,
+                     sum(c for n, c in counts.items() if "flash_kernel" in n))
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def loss_gap(a: list, b: list) -> float:
+    """The largest relative difference of two loss sequences."""
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
 def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
     """whisper-large-v3 trained at full width and depth (bf16 params, f32
     moments) on TRAIN_BATCH x (TRAIN_SEQ tokens + 1500 frames) through
@@ -4126,9 +4313,18 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
     run (restored from the last checkpoint and replayed); B7 counted in
     every forward; finite losses and gradient norms, the last loss below
     the first; ms a step, tokens/s, peak memory, the share of the FLOP
-    bound; then one step under the profiler for the backward recompute's
-    device share.  Returns (lines, launches, the measurements the dryrun
-    phase reads: peak bytes, ``train_flops``, ms a step)."""
+    bound, peak allocated and reserved; one captured step replayed under
+    the profiler (B7's launches from ``ops.LAUNCHES`` against the
+    profiler's count, equal; the device's busy share); then, its graph
+    freed, one eager step under the profiler for the backward
+    recompute's device share; then the A/B: the eager step from the same
+    init over the same TRAIN_STEPS batches (ms a step, peaks), twice over
+    the first two (eager against eager: bit-equal or not), the captured
+    losses against the eager ones (bit-equal where eager against eager
+    is, else within TRAIN_AB_RTOL).  Returns (lines, launches, the
+    measurements the dryrun and ctx phases read: peak bytes,
+    ``train_flops``, ms a step, whether eager against eager was
+    bit-equal)."""
     import shutil
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device(dev)
@@ -4157,6 +4353,7 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
     out = TL.run(cfg, pipe, tcfg, device=dev, fail_injector=fail_once)
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    reserved = torch.cuda.max_memory_reserved(dev)
     hist = out["history"]
     steps = [h["step"] for h in hist]
     want_steps = list(range(TRAIN_FAIL_AT)) + list(
@@ -4188,12 +4385,34 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
     from repro_torch.roofline import analysis as RA
     model_flops = RA.model_flops(cfg, ShapeConfig(
         "train_whisper", TRAIN_SEQ, TRAIN_BATCH, "train"))
-    # one more step under the profiler, on the trained state
-    state = out["state"]
+    # one captured step replayed under the profiler, on the trained state
+    state, static = out["state"], out.pop("train_step")
+    check(len(static.graphs) == 1, f"{cfg.name} training: "
+          f"{len(static.graphs)} graphs, expected 1")
+    before, counts, box = ops.LAUNCHES["flash_attention"], {}, []
+
+    def replayed_step():
+        t1 = time.perf_counter()
+        static(state["params"], state["opt"], state["bias"],
+               pipe.batch_at(TRAIN_STEPS))
+        torch.cuda.synchronize()
+        box.append(time.perf_counter() - t1)
+
+    _, rep_ev = device_events(torch, replayed_step, counts)
+    b7_counted = ops.LAUNCHES["flash_attention"] - before
+    b7_seen = sum(c for n, c in counts.items() if "flash_kernel" in n)
+    check(b7_counted == b7_seen == train_launches(cfg, 1)["flash_attention"],
+          f"{cfg.name}: a replayed training step's B7 launches "
+          f"{b7_counted}, the profiler's {b7_seen}")
+    rep_busy, rep_window = sum(rep_ev.values()) / 1e3, box[0] * 1e3
+    del static
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one eager step under the profiler, on the trained state
     from repro_torch.models.transformer import RunCtx
     step_fn = TL.make_train_step(cfg, RunCtx(), tcfg)
     batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+             for k, v in pipe.batch_at(TRAIN_STEPS + 1).items()}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4232,6 +4451,23 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # the A/B: the eager step from the same init over the same batches,
+    # and eager against eager over the first two
+    from repro_torch.models import model as TM
+    from repro_torch.models import transformer as TT
+    host = [pipe.batch_at(i) for i in range(TRAIN_STEPS)]
+    eager = train_steps(torch, ops, TL, TA, TM, TT, cfg, tcfg, host, dev)
+    again = train_steps(torch, ops, TL, TA, TM, TT, cfg, tcfg, host[:2], dev)
+    deterministic = again["losses"] == eager["losses"][:2]
+    captured = {}
+    for h in hist:
+        captured.setdefault(h["step"], h["loss"])
+    captured = [captured[i] for i in range(TRAIN_STEPS)]
+    gap = loss_gap(captured, eager["losses"])
+    check(captured == eager["losses"] if deterministic
+          else gap <= TRAIN_AB_RTOL, f"{cfg.name} training: captured losses "
+          f"{captured} against eager {eager['losses']} (rel {gap:.3g}; eager "
+          f"against eager bit-equal: {deterministic})")
     lines = [
         f"train {cfg.name}: full width and depth ({cfg.n_enc_layers} + "
         f"{cfg.n_layers} layers), bf16 params and grads, f32 moments; "
@@ -4244,11 +4480,13 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
         + "; grad norms " + " ".join(f"{h['grad_norm']:.3f}" for h in hist)
         + "; replayed steps' loss - first run: "
         + ", ".join(f"step {s} {d:+.3e}" for s, d in replay)
-        + f"; ms a step {step_ms:.2f} (median of steps 2-{len(hist)}, "
-        f"host clock; step 1 {hist[0]['wall_s'] * 1e3:.1f}), "
+        + f"; ms a step {step_ms:.2f} (captured: median of steps "
+        f"2-{len(hist)}, host clock; step 1, the warm-up and capture, "
+        f"{hist[0]['wall_s'] * 1e3:.1f}), "
         f"{tokens / step_ms * 1e3:.1f} decoder tokens/s "
         f"({TRAIN_BATCH * cfg.enc_frames / step_ms * 1e3:.1f} frames/s); "
-        f"peak memory {peak / 2**30:.2f} GiB; FLOP bound {bound:.2f} ms "
+        f"peak memory {peak / 2**30:.2f} GiB allocated, "
+        f"{reserved / 2**30:.2f} reserved; FLOP bound {bound:.2f} ms "
         f"({flops / 1e12:.2f} TFLOP at {BF16_OPS_PS / 1e12:.0f} TFLOP/s): "
         f"{100 * bound / step_ms:.1f} % of the step (roofline.analysis."
         f"model_flops of the shape: {model_flops / 1e12:.2f} TFLOP); "
@@ -4264,18 +4502,41 @@ def phase_train(torch, ops, fa, TL, TP, TA, cfg, dev="cuda"):
            f"step's device time")
         + f"; timed alone (events, one vjp at the encoder's and the "
         f"decoder's shape x the layers) {vjp_ms:.2f} ms = "
-        f"{pct(vjp_ms):.1f} %; largest kernels (ms): {top}"]
+        f"{pct(vjp_ms):.1f} %; largest kernels (ms): {top}",
+        f"train {cfg.name} A/B: the same init and {TRAIN_STEPS} batches; "
+        f"captured (train_loop.run) {step_ms:.2f} ms a step, peak "
+        f"{peak / 2**30:.2f} GiB allocated / {reserved / 2**30:.2f} "
+        f"reserved; eager {eager['step_ms']:.2f} ms a step (step 1 "
+        f"{eager['first_ms']:.1f}), peak {eager['peak'] / 2**30:.2f} / "
+        f"{eager['reserved'] / 2**30:.2f} GiB; eager / captured "
+        f"{eager['step_ms'] / step_ms:.4f}; losses captured "
+        + " ".join(f"{x:.6f}" for x in captured) + ", eager "
+        + " ".join(f"{x:.6f}" for x in eager["losses"])
+        + f": largest relative difference {gap:.3g} ("
+        + ("bit-equal, as eager against eager is over steps 1-2"
+           if deterministic else f"eager against eager differs over steps "
+           f"1-2 by {loss_gap(again['losses'], eager['losses']):.3g}; gate "
+           f"{TRAIN_AB_RTOL}")
+        + f"); one replayed step under the profiler: B7 {b7_counted} "
+        f"launches from ops.LAUNCHES = {b7_seen} kernels the profiler saw, "
+        f"device busy {rep_busy:.2f} ms of its {rep_window:.2f}-ms window "
+        f"({100 * rep_busy / rep_window:.1f} %)"]
     return lines, launches, {"peak": peak, "train_flops": flops,
-                             "step_ms": step_ms}
+                             "step_ms": step_ms,
+                             "deterministic": deterministic}
 
 
-def phase_ctx(torch, ops, TL, TP, TA, TM, SP, MS, EL, TT, cfg, dev="cuda"):
+def phase_ctx(torch, ops, TL, TP, TA, TM, SP, MS, EL, TT, cfg,
+              deterministic: bool, dev="cuda"):
     """The ``RunCtx`` phase.  (1) whisper-large-v3's training step at full
     width and depth (TRAIN_BATCH x (TRAIN_SEQ tokens + frames), the
     seed-0 init on the card, the pipeline's first CTX_STEPS batches) under
-    ``remat="none"`` and ``remat="block"`` in turn: ms a step (median of
-    steps 2 on, host clock to a synchronise), peak memory, the first
-    loss (bit-equal between the two: a checkpoint changes what is kept,
+    ``remat="none"`` and ``remat="block"`` in turn, each captured
+    (``StaticTrainStep``) and eager: ms a step (median of steps 2 on,
+    host clock to a synchronise), peak memory, the losses (captured
+    against eager bit-equal where ``deterministic``, eager against eager
+    in ``phase_train``, else within TRAIN_AB_RTOL; the first loss
+    bit-equal between the two remats: a checkpoint changes what is kept,
     not what is computed), B7's launches (one a layer a step; under block
     remat two: the recompute).  (2) A world-size-1 NCCL process group (a
     ``FileStore`` under build/), ``launch.mesh.make_host_mesh(1, 1)``, and
@@ -4294,44 +4555,50 @@ def phase_ctx(torch, ops, TL, TP, TA, TM, SP, MS, EL, TT, cfg, dev="cuda"):
         enc_frames=cfg.enc_frames, d_model=cfg.d_model))
     tcfg = TL.TrainConfig(steps=TRAIN_STEPS, warmup=2,
                           opt=TA.AdamWConfig(lr=1e-3))
-    batches = [{k: torch.from_numpy(v).to(dev)
-                for k, v in pipe.batch_at(i).items()}
-               for i in range(CTX_STEPS)]
+    batches = [pipe.batch_at(i) for i in range(CTX_STEPS)]
     layers = cfg.n_enc_layers + cfg.n_layers
-    runs, total = {}, {}
+    runs, total, parts = {}, {}, []
     for remat in ("none", "block"):
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-        params = TM.init_params(cfg, torch.Generator(dev).manual_seed(0),
-                                None, dev)
-        opt = TA.init(params)
-        bias = torch.zeros((max(cfg.moe.n_experts, 1),),
-                           dtype=torch.float32, device=dev)
-        step = TL.make_train_step(cfg, TT.RunCtx(remat=remat), tcfg)
-        for k in ops.LAUNCHES:
-            ops.LAUNCHES[k] = 0
-        walls, losses = [], []
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt, bias, m = step(params, opt, bias, b)
-            losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        got = {k: v for k, v in ops.LAUNCHES.items() if v}
         want = {"flash_attention": CTX_STEPS * layers
                 * (2 if remat == "block" else 1)}
-        check(got == want, f"ctx {cfg.name} remat={remat}: launches {got}, "
-              f"expected {want}")
-        check(all(math.isfinite(x) for x in losses), f"ctx {cfg.name} "
-              f"remat={remat}: a non-finite loss {losses}")
-        runs[remat] = {"peak": torch.cuda.max_memory_allocated(dev),
-                       "step_ms": statistics.median(walls[1:]) * 1e3,
-                       "first_ms": walls[0] * 1e3, "losses": losses}
-        for k, v in got.items():
-            total[k] = total.get(k, 0) + v
-        del params, opt, bias, step, m
+        got = {}
+        for captured in (True, False):
+            r = train_steps(torch, ops, TL, TA, TM, TT, cfg, tcfg, batches,
+                            dev, remat=remat, captured=captured,
+                            profile=captured)
+            side = "captured" if captured else "eager"
+            check(r["launches"] == want, f"ctx {cfg.name} remat={remat} "
+                  f"{side}: launches {r['launches']}, expected {want}")
+            check(not captured or r["b7"][0] == r["b7"][1]
+                  == want["flash_attention"] // CTX_STEPS, f"ctx {cfg.name} "
+                  f"remat={remat}: a replayed step's B7 launches and the "
+                  f"profiler's count {r.get('b7')}")
+            check(all(math.isfinite(x) for x in r["losses"]),
+                  f"ctx {cfg.name} remat={remat} {side}: a non-finite loss "
+                  f"{r['losses']}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+            got[side] = r
+        cap, eag = got["captured"], got["eager"]
+        gap = loss_gap(cap["losses"], eag["losses"])
+        check(cap["losses"] == eag["losses"] if deterministic
+              else gap <= TRAIN_AB_RTOL, f"ctx {cfg.name} remat={remat}: "
+              f"captured losses {cap['losses']} against eager "
+              f"{eag['losses']} (rel {gap:.3g})")
+        runs[remat] = eag
+        parts.append(
+            f"remat={remat} eager {eag['step_ms']:.2f} ms a step (first "
+            f"{eag['first_ms']:.1f}), peak {eag['peak'] / 2**30:.2f} GiB "
+            f"allocated / {eag['reserved'] / 2**30:.2f} reserved, losses "
+            + " ".join(f"{x:.6f}" for x in eag["losses"])
+            + f"; captured {cap['step_ms']:.2f} ms a step (first, the "
+            f"warm-up and capture, {cap['first_ms']:.1f}), peak "
+            f"{cap['peak'] / 2**30:.2f} / {cap['reserved'] / 2**30:.2f} GiB"
+            f", eager / captured {eag['step_ms'] / cap['step_ms']:.4f}, "
+            f"one replayed step's B7 {cap['b7'][0]} launches from "
+            f"ops.LAUNCHES = {cap['b7'][1]} kernels the profiler saw, "
+            f"losses largest relative difference {gap:.3g}"
+            + (" (bit-equal)" if cap["losses"] == eag["losses"] else ""))
     a, b = runs["none"], runs["block"]
     check(a["losses"][0] == b["losses"][0], f"ctx {cfg.name}: the first "
           f"loss {a['losses'][0]!r} (remat none) != {b['losses'][0]!r} "
@@ -4339,17 +4606,13 @@ def phase_ctx(torch, ops, TL, TP, TA, TM, SP, MS, EL, TT, cfg, dev="cuda"):
     lines = [
         f"ctx {cfg.name} training step, full width and depth, batch "
         f"{TRAIN_BATCH} x ({TRAIN_SEQ} tokens + {cfg.enc_frames} frames), "
-        f"{CTX_STEPS} steps each from one init: remat=none "
-        f"{a['step_ms']:.2f} ms a step (first {a['first_ms']:.1f}), peak "
-        f"{a['peak'] / 2**30:.2f} GiB, losses "
-        + " ".join(f"{x:.6f}" for x in a["losses"])
-        + f" | remat=block {b['step_ms']:.2f} ms a step (first "
-        f"{b['first_ms']:.1f}), peak {b['peak'] / 2**30:.2f} GiB, losses "
-        + " ".join(f"{x:.6f}" for x in b["losses"])
-        + f" | block / none: step {b['step_ms'] / a['step_ms']:.4f}, peak "
-        f"{b['peak'] / a['peak']:.4f}, the peak {(a['peak'] - b['peak']) / 2**30:.2f}"
-        f" GiB lower; first loss bit-equal; B7 launches {layers} a step "
-        f"without remat, {2 * layers} with (the recompute)"]
+        f"{CTX_STEPS} steps each from one init, eager and captured "
+        "(StaticTrainStep): " + " | ".join(parts)
+        + f" | block / none (eager): step {b['step_ms'] / a['step_ms']:.4f}, "
+        f"peak {b['peak'] / a['peak']:.4f}, the peak "
+        f"{(a['peak'] - b['peak']) / 2**30:.2f} GiB lower; first loss "
+        f"bit-equal; B7 launches {layers} a step without remat, "
+        f"{2 * layers} with (the recompute), on both sides"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4631,7 +4894,8 @@ def phase_examples(torch, ops, dev="cuda"):
                      "steps " + " ".join(f"{losses[i]:.4f}" for i in
                                          range(0, len(losses), 20)) + "; "
                      f"ms a step {statistics.median(walls) * 1e3:.2f} "
-                     f"(median, host clock; step 1 "
+                     f"(captured: StaticTrainStep through train_loop.run; "
+                     f"median, host clock; step 1, the warm-up and capture, "
                      f"{out['out']['history'][0]['wall_s'] * 1e3:.1f}); "
                      f"checkpoints {', '.join(ckpts)} under "
                      "build/example_train_moe")
@@ -4831,6 +5095,16 @@ def main() -> int:
 
     gpu = gpu_line()
     print(gpu)
+    # the launches that ran inside graph replays, over the whole run
+    replayed = dict.fromkeys(ops.LAUNCHES, 0)
+    count_replay = ops.count_replay
+
+    def counted_replay(delta):
+        count_replay(delta)
+        for k, n in delta.items():
+            replayed[k] += n
+
+    ops.count_replay = counted_replay
     t0 = time.perf_counter()
     lib = _build.library(torch.device("cuda"))
     OUT.mkdir(exist_ok=True)
@@ -4918,7 +5192,8 @@ def main() -> int:
     for line in tlines:
         print(line)
     clines, ctx_launches, ctx_runs = phase_ctx(
-        torch, ops, TL, TP, TA, TM, SP, MS, EL, TT, whisper)
+        torch, ops, TL, TP, TA, TM, SP, MS, EL, TT, whisper,
+        train_measured["deterministic"])
     for line in clines:
         print(line)
     for line in phase_smoke_configs(torch, ops, TM, PDL, configs):
@@ -4979,6 +5254,12 @@ def main() -> int:
                                 ("chaos", chaos_launches),
                                 ("sanitizer", sanitize_launches),
                                 ("sharded drain", sharded_launches))))
+    print("kernels replayed: " + " ".join(f"{k}={v}" for k, v in
+                                          replayed.items())
+          + " (the launches of every phase, the main paths' and the "
+          "others', that ran inside CUDA graph replays: the serving ticks, "
+          "the sidecars' and the model launcher's decode steps, the "
+          "training steps)")
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {"admit_commit": (src + "admit.cu",
@@ -5021,7 +5302,8 @@ def main() -> int:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": t.get("library_ms"),
                 "library_device_ms": t.get("library_device_ms"),
-                "launch_floor_ms": t["floor_ms"]})
+                "launch_floor_ms": t["floor_ms"],
+                "launches_replayed_whole_run": replayed[name]})
             if name == "decode_attention":
                 kernels[-1]["kernel"] = t["kernel"]
                 kernels[-1]["launches_xlb_main_path"] = \

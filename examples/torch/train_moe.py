@@ -5,7 +5,9 @@ Exercises the training path: deterministic pipeline → forward / backward
 with the XLB expert relay (token → expert load balancing: the relay
 kernel gives each routed row its slot; attention through the flash
 kernel, whose backward recomputes the plain attention) → AdamW →
-asynchronous checkpoints → restart on failure.
+asynchronous checkpoints → restart on failure.  On the card
+``train_loop.run`` captures the whole step as one CUDA graph at the
+first step and replays it after.
 
 Run:  PYTHONPATH=src python examples/torch/train_moe.py [--steps 300]
       [--device cpu]

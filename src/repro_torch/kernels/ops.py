@@ -9,8 +9,9 @@ from one to the other.
 that its main path went through the kernels.  Under a CUDA graph capture
 a wrapper's count runs but nothing launches: ``capture_launches`` takes
 those counts out of the table, and ``count_replay`` adds them back on each
-replay of the graph (``runtime/graphs.py``), so the table counts the
-launches that ran on the device.  ``flash_attention`` and
+replay of the graph (``runtime/graphs.py``: the serving tick, the
+sidecars' decode, the training step with its backward, the launcher's
+decode step), so the table counts the launches that ran on the device.  ``flash_attention`` and
 ``ssd_scan`` are differentiable: their kernels run the forward, and the
 backward recomputes the plain function (the reference's gradient is
 JAX's autodiff of its plain functions; there is no backward kernel).

@@ -15,8 +15,11 @@ architecture at full width and depth (or its reduced config with
 ``--smoke``) with random weights from ``--seed``, prefills ``--batch``
 random prompts of ``--prompt`` tokens, then runs ``--steps`` decode steps
 on the argmax tokens, and prints the prefill time, the time per decode
-step and the decode tokens/s.  Runs on the card unless ``--device cpu``;
-there the weights are drawn on the card too.
+step and the decode tokens/s.  The prefill is eager (one call a batch);
+the decode step is ``runtime/graphs.py::StaticModelDecode``, on the card
+one CUDA graph captured at the first step and replayed (the reference
+jits ``build_decode_step`` with the cache donated); ``decode_eager`` is
+the same loop op by op.  Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
+from repro_torch.runtime.graphs import StaticModelDecode
 
 
 #: the architectures the launcher builds (the families the port runs)
@@ -42,34 +46,72 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run(cfg, params, tokens, steps: int, enc_frames=None) -> dict:
-    """Prefill ``tokens`` (B, S) into a fresh cache (whisper: after
-    encoding ``enc_frames`` (B, F, D)), then ``steps`` greedy decode
-    steps; returns the generated tokens (B, steps), the last logits, the
-    prefill's merged ``MoEMetrics`` (None without MoE layers) and the
-    host-clock seconds of each part (synchronised on the card)."""
-    device = tokens.device
+def prefill(cfg, params, tokens, steps: int, enc_frames=None) -> tuple:
+    """``tokens`` (B, S) prefilled into a fresh cache of S + ``steps``
+    positions (whisper: after encoding ``enc_frames`` (B, F, D)); returns
+    (the last logits, the cache, the merged ``MoEMetrics`` or None)."""
     batch, prompt = tokens.shape
-    cache = M.init_cache(cfg, batch, prompt + steps,
-                         params["embed"].dtype, device)
-    _sync(device)
-    t0 = time.perf_counter()
-    logits, cache, metrics = M.prefill(cfg, params, tokens, cache,
-                                       enc_frames=enc_frames,
-                                       return_metrics=True)
-    _sync(device)
-    t1 = time.perf_counter()
-    lengths = torch.full((batch,), prompt, dtype=torch.int32, device=device)
+    cache = M.init_cache(cfg, batch, prompt + steps, params["embed"].dtype,
+                         tokens.device)
+    return M.prefill(cfg, params, tokens, cache, enc_frames=enc_frames,
+                     return_metrics=True)
+
+
+def decode(cfg, params, logits, cache, prompt: int, steps: int,
+           decoder: StaticModelDecode | None = None) -> tuple:
+    """``steps`` greedy steps from the prefill's last ``logits``, the
+    first writing at ``prompt``, through ``decoder`` (a new
+    ``StaticModelDecode`` where None): on the card one captured step
+    replayed.  Returns (the tokens (B, steps) int32, the last logits)."""
+    device = logits.device
+    dec = decoder or StaticModelDecode(cfg, device)
+    dec.load(cache, logits, torch.full((logits.shape[0],), prompt,
+                                       dtype=torch.int32, device=device))
+    out = torch.empty((logits.shape[0], steps), dtype=torch.int32,
+                      device=device)
+    for i in range(steps):
+        out[:, i:i + 1].copy_(dec.step(params, cache))
+    return out, dec.logits(cache).clone()
+
+
+def decode_eager(cfg, params, logits, cache, prompt: int,
+                 steps: int) -> tuple:
+    """``decode`` op by op, without a captured program (the A/B's other
+    side)."""
+    lengths = torch.full((logits.shape[0],), prompt, dtype=torch.int32,
+                         device=logits.device)
     out = []
     for _ in range(steps):
         tok = logits.argmax(-1).to(torch.int32)[:, None]
         out.append(tok)
         logits, cache = M.decode_step(cfg, params, tok, lengths, cache)
         lengths = lengths + 1
+    return (torch.cat(out, 1) if out else torch.empty(
+        (logits.shape[0], 0), dtype=torch.int32, device=logits.device),
+        logits)
+
+
+def run(cfg, params, tokens, steps: int, enc_frames=None) -> dict:
+    """``prefill``, then ``steps`` greedy steps through ``decode``;
+    returns the generated tokens (B, steps), the last logits, the
+    prefill's merged ``MoEMetrics`` (None without MoE layers), the
+    host-clock seconds of each part (synchronised on the card) and the
+    decode's warm-up and capture seconds (``setup_s``, inside
+    ``decode_s``)."""
+    device = tokens.device
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache, metrics = prefill(cfg, params, tokens, steps, enc_frames)
+    _sync(device)
+    t1 = time.perf_counter()
+    dec = StaticModelDecode(cfg, device)
+    out, logits = decode(cfg, params, logits, cache, tokens.shape[1], steps,
+                         dec)
     _sync(device)
     t2 = time.perf_counter()
-    return {"logits": logits, "tokens": torch.cat(out, 1) if out else None,
-            "metrics": metrics, "prefill_s": t1 - t0, "decode_s": t2 - t1}
+    return {"logits": logits, "tokens": out, "metrics": metrics,
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "setup_s": dec.graphs.setup_s}
 
 
 def main(argv=None) -> dict:
@@ -103,7 +145,8 @@ def main(argv=None) -> dict:
     per_step = res["decode_s"] / max(args.steps, 1)
     print(f"{cfg.name} [{device}]: prefill {args.batch} x {args.prompt} "
           f"tokens {1e3 * res['prefill_s']:.2f} ms; {args.steps} decode "
-          f"steps {1e3 * per_step:.2f} ms per step, "
+          f"steps {1e3 * per_step:.2f} ms per step (with the "
+          f"{1e3 * res['setup_s']:.2f}-ms warm-up and capture), "
           f"{n / res['decode_s'] if res['decode_s'] else 0.0:.1f} tokens/s; "
           f"logits finite: {bool(torch.isfinite(res['logits']).all())}")
     return res

@@ -9,7 +9,9 @@ parameters, 8 x 448 tokens and 1500 frames) fits one H100.  The batches
 come from the step-indexed synthetic pipeline (whisper's with encoder
 frames), the weights from a seeded init.  A checkpoint already in
 ``--ckpt-dir`` (default: under the temporary directory, one per arch) is
-resumed.  Runs on the card unless ``--device cpu``.
+resumed.  Runs on the card unless ``--device cpu``; there each step after
+the first replays one captured CUDA graph (``train_loop.run``'s
+``StaticTrainStep``).
 """
 
 from __future__ import annotations

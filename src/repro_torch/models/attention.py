@@ -120,12 +120,13 @@ def _cross_sdpa(q, k, v):
     reference's ``sdpa`` without a mask, in plain PyTorch.  Where a
     gradient is wanted (training) it is checkpointed: the backward
     recomputes the (B, H, Sq, F) f32 scores from q, k and v instead of
-    keeping them.  Serving, whose weights take no gradient, calls it
-    plainly."""
+    keeping them (it draws no random numbers: no RNG state is saved,
+    which a captured training step could not read).  Serving, whose
+    weights take no gradient, calls it plainly."""
     if any(t.requires_grad for t in (q, k, v)):
         return torch.utils.checkpoint.checkpoint(
             fa.attention_rows, q, k, v, 0, use_reentrant=False,
-            causal=False)
+            preserve_rng_state=False, causal=False)
     return fa.attention_rows(q, k, v, 0, causal=False)
 
 

@@ -179,6 +179,13 @@ def _logits(cfg: ModelConfig, params: Params, x):
     return (x @ params["head"]).to(torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _sinusoid_on(n_pos: int, d_model: int, device: torch.device):
+    """``sinusoid_positions`` on ``device``, copied there once: a captured
+    training step must not copy from pageable host memory."""
+    return sinusoid_positions(n_pos, d_model).to(device)
+
+
 @_meshed
 def encode(cfg: ModelConfig, params: Params, enc_frames,
            ctx: RunCtx = DEFAULT_CTX):
@@ -188,7 +195,7 @@ def encode(cfg: ModelConfig, params: Params, enc_frames,
     and k as the reference's self-attention applies it) → (B, F, D)."""
     F_, D = enc_frames.shape[1:]
     x = enc_frames.to(params["embed"].dtype)
-    x = x + sinusoid_positions(F_, D)[None].to(x.device, x.dtype)
+    x = x + _sinusoid_on(F_, D, x.device)[None].to(x.dtype)
     x = ctx.shard(x, "resid")
     positions = torch.arange(F_, device=x.device)[None]
     x, _ = tfm.stack_train(cfg, params["enc"]["blocks"], x, positions, ctx,

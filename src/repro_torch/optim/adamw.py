@@ -59,10 +59,10 @@ def apply(params, grads, state: AdamWState, cfg: AdamWConfig,
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     stepf = step.to(torch.float32)
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
-                                       device=stepf.device), stepf)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
-                                       device=stepf.device), stepf)
+    # the bases as scalars: no host tensor is made, so a captured step
+    # records no copy from the host
+    b1c = 1.0 - torch.pow(cfg.b1, stepf)
+    b2c = 1.0 - torch.pow(cfg.b2, stepf)
     lr = cfg.lr * lr_scale
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                           leaves(state.v)):

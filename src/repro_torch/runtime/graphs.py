@@ -1,7 +1,10 @@
-"""Serving ticks as captured programs: the port's counterpart of the
+"""Hot programs as captured CUDA graphs: the port's counterpart of the
 reference's ``jax.jit`` around ``Engine.make_jitted``'s ``serve_step``
-(``repro/core/interpose.py``) and around the sidecars' decode
-(``repro/core/sidecar.py``).
+(``repro/core/interpose.py``), around the sidecars' decode
+(``repro/core/sidecar.py``), around the training step with its state
+donated (``repro/runtime/train_loop.py``) and around the model
+launcher's decode step with its cache donated (``build_decode_step`` in
+``repro/launch/dryrun.py``).
 
 A body that reads and writes only *static* buffers (tensors allocated
 once, outside any graph, whose addresses never change) runs through
@@ -9,11 +12,14 @@ once, outside any graph, whose addresses never change) runs through
 body eagerly on a side stream (the warm-up: the kernels' lazy build, the
 autotuner's sweeps and cuBLAS's workspace happen there, and the call is a
 real one), then captures it as a ``torch.cuda.CUDAGraph``; every later
-call of the key replays the graph.  On the CPU the body runs directly:
+call of the key replays the graph.  Before the capture the warm-up's
+freed blocks go back to the device (``empty_cache``): the capture
+allocates from its own pool, and a training step's temporaries would
+otherwise be held twice.  On the CPU the body runs directly:
 that is what the caller asked for, and every CPU test through it runs the
 same static-buffer plumbing.  Nothing falls back: a body that syncs with
-the host or takes a shape from the data fails its capture, and the error
-propagates.
+the host or takes a shape from the data fails its capture, which raises
+``CaptureError``.
 
 The graphs of one owner share one memory pool.  It holds only the
 bodies' temporaries: each body ends by copying what outlives it into its
@@ -26,7 +32,10 @@ each replay adds them again (``ops.capture_launches`` /
 
 ``StaticTick`` is the XLB engine's tick on static buffers (two programs
 at the engine's fixed shapes: the arrival tick and the decode-only tick);
-``StaticDecode`` the sidecars' decode (one program per KV cache).
+``StaticDecode`` the sidecars' decode (one program per KV cache);
+``StaticTrainStep`` the training step (one program a batch layout);
+``StaticModelDecode`` the launcher's greedy decode step (one program a
+KV cache and params).
 """
 
 from __future__ import annotations
@@ -49,6 +58,43 @@ def _same_layout(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
             f"{what}: {tuple(src.shape)} {src.dtype} does not fit the "
             f"static buffer {tuple(dst.shape)} {dst.dtype} (a captured "
             "program runs at fixed shapes)")
+
+
+def _copy_in(mine, theirs, what: str) -> int:
+    """Copy each leaf of ``theirs`` that is not the matching leaf of
+    ``mine`` into it (shapes and dtypes must match); the leaves copied."""
+    dsts, srcs = _pytree.tree_leaves(mine), _pytree.tree_leaves(theirs)
+    if len(dsts) != len(srcs):
+        raise ValueError(f"{what}: {len(srcs)} tensors where the static "
+                         f"state has {len(dsts)}")
+    n = 0
+    with torch.no_grad():
+        for i, (dst, src) in enumerate(zip(dsts, srcs)):
+            if dst is not src:
+                _same_layout(dst, src, f"{what} leaf {i}")
+                dst.copy_(src)
+                n += 1
+    return n
+
+
+def _write_back(mine, new) -> None:
+    """Inside a body: copy what it returned into the static tensors it
+    did not update in place."""
+    dsts = _pytree.tree_leaves(mine)
+    static = {t.untyped_storage().data_ptr() for t in dsts}
+    for dst, src in zip(dsts, _pytree.tree_leaves(new)):
+        if src is dst:
+            continue
+        if src.untyped_storage().data_ptr() in static:
+            raise RuntimeError("the body returned a view of its static "
+                               "state; copying it back would race")
+        dst.copy_(src)
+
+
+class CaptureError(RuntimeError):
+    """A body that ran eagerly could not be captured (it syncs with the
+    host, copies from pageable host memory, or takes a shape from the
+    data): it fails the same way at every call, so no caller retries it."""
 
 
 class Graphs:
@@ -86,11 +132,17 @@ class Graphs:
         with torch.cuda.stream(self._stream):
             body()                               # the warm-up: a real call
         cur.wait_stream(self._stream)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
-        with ops.capture_launches() as delta:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
-                body()
+        try:
+            with ops.capture_launches() as delta:
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      stream=self._stream):
+                    body()
+        except Exception as e:
+            raise CaptureError(f"the capture failed: {type(e).__name__}: "
+                               f"{e}") from e
         self._graphs[key] = (graph, delta, keep)
         self.setup_s += time.perf_counter() - t0
 
@@ -145,18 +197,8 @@ class StaticTick:
             return
         for name in ("routing", "pool", "metrics", "cache"):
             mine, theirs = getattr(self.state, name), getattr(state, name)
-            if mine is theirs:
-                continue
-            dsts, srcs = (_pytree.tree_leaves(mine),
-                          _pytree.tree_leaves(theirs))
-            if len(dsts) != len(srcs):
-                raise ValueError(f"state.{name}: {len(srcs)} tensors where "
-                                 f"the static state has {len(dsts)}")
-            for i, (dst, src) in enumerate(zip(dsts, srcs)):
-                if dst is not src:
-                    _same_layout(dst, src, f"state.{name} leaf {i}")
-                    dst.copy_(src)
-                    self.copied_in += 1
+            if mine is not theirs:
+                self.copied_in += _copy_in(mine, theirs, f"state.{name}")
 
     def _load(self, reqs: RequestBatch) -> None:
         """The admission batch and its draws into the static buffers."""
@@ -200,15 +242,7 @@ class StaticTick:
             self.out = {k: torch.empty_like(v) for k, v in out.items()}
         for k, v in out.items():
             self.out[k].copy_(v)
-        mine = _pytree.tree_leaves(self.state)
-        static = {t.untyped_storage().data_ptr() for t in mine}
-        for dst, src in zip(mine, _pytree.tree_leaves(new)):
-            if src is dst:
-                continue
-            if src.untyped_storage().data_ptr() in static:
-                raise RuntimeError("the tick returned a view of its static "
-                                   "state; copying it back would race")
-            dst.copy_(src)
+        _write_back(self.state, new)
 
     def __call__(self, params, state, reqs: RequestBatch):
         # the reference's lax.cond on "any arrivals", decided on the host
@@ -253,3 +287,141 @@ class StaticDecode:
 
         self.graphs.run((key, id(params)), body, keep=(params, cache))
         return nxt.to("cpu", copy=True).numpy()    # not the static buffer
+
+
+class StaticTrainStep:
+    """``train_loop.make_train_step``'s step on static buffers, the
+    reference's ``jax.jit(step_fn, donate_argnums=(0, 1, 2))``: called as
+    the step is, ``(params, opt_state, router_bias, batch)`` → (params,
+    opt_state, router_bias, metrics).
+
+    The training state lives in persistent tensors.  The first call takes
+    the parameters and AdamW's moments as it is handed them (the step
+    updates them in place) and clones the step counter and the router
+    bias, which the step returns as new tensors and the body copies back
+    into the static ones.  A state it did not produce (a checkpoint's
+    restore, a fresh init after a failure) is copied in leaf by leaf,
+    only the leaves that are not the static tensors themselves; shapes
+    and dtypes must stay.  The batch, a dict of host arrays or tensors,
+    is copied into static buffers (a host batch through pinned staging
+    buffers, its copies queued on the stream).  One program a batch
+    layout (its keys, shapes and dtypes; the microbatch count is the
+    step's own).  The state and the metrics (``loss``, ``grad_norm``,
+    ``lr``, ``overflow``: static 0-d tensors) it returns are overwritten
+    by the next step."""
+
+    def __init__(self, step_fn: Callable, device: torch.device):
+        self.step_fn = step_fn
+        self.device = device
+        self.graphs = Graphs(device)
+        self.state = None           # (params, AdamWState, router bias)
+        self.metrics = None
+        self.copied_in = 0          # leaves copied in from foreign states
+        self._batches: dict = {}    # layout -> (static batch, pinned)
+        self._staged = None         # event: the last staging copy is done
+
+    def _adopt(self, params, opt_state, router_bias) -> None:
+        if self.state is None:
+            self.state = (params,
+                          opt_state._replace(step=opt_state.step.clone()),
+                          router_bias.clone())
+        else:
+            self.copied_in += _copy_in(
+                self.state, (params, opt_state, router_bias),
+                "training state")
+
+    def _load(self, batch: dict) -> tuple:
+        """The batch into its layout's static buffers; the layout."""
+        src = {k: v if isinstance(v, torch.Tensor)
+               else torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in batch.items()}
+        layout = tuple((k, tuple(t.shape), t.dtype) for k, t in src.items())
+        if layout not in self._batches:
+            empty = lambda t, **kw: torch.empty(  # noqa: E731
+                t.shape, dtype=t.dtype, **kw)
+            self._batches[layout] = (
+                {k: empty(t, device=self.device) for k, t in src.items()},
+                {k: empty(t, pin_memory=True) for k, t in src.items()}
+                if self.device.type == "cuda" else None)
+        static, pinned = self._batches[layout]
+        host = [k for k, t in src.items() if t.device != self.device]
+        if pinned is None or not host:
+            for k, t in src.items():
+                static[k].copy_(t)
+            return layout
+        # host arrays through the pinned buffers, refilled only once their
+        # last copies ran
+        if self._staged is None:
+            self._staged = torch.cuda.Event()
+        self._staged.synchronize()
+        for k, t in src.items():
+            if k in host:
+                pinned[k].copy_(t)
+                static[k].copy_(pinned[k], non_blocking=True)
+            else:
+                static[k].copy_(t)
+        self._staged.record()
+        return layout
+
+    def _body(self, layout) -> None:
+        *new, metrics = self.step_fn(*self.state, self._batches[layout][0])
+        if self.metrics is None:
+            self.metrics = {k: torch.empty_like(v) for k, v in
+                            metrics.items()}
+        for k, v in metrics.items():
+            self.metrics[k].copy_(v)
+        with torch.no_grad():
+            _write_back(self.state, tuple(new))
+
+    def __call__(self, params, opt_state, router_bias, batch: dict):
+        self._adopt(params, opt_state, router_bias)
+        layout = self._load(batch)
+        self.graphs.run(layout, lambda: self._body(layout))
+        return (*self.state, self.metrics)
+
+
+class StaticModelDecode:
+    """The model launcher's greedy decode on static buffers, the
+    reference's ``jax.jit(build_decode_step(...), donate_argnums=(1,))``.
+    A KV cache has static logits (B, Vp) f32, a token (B, 1) and lengths
+    (B,) int32, set by ``load``; ``step`` is the argmax of the logits into
+    the token, ``model.decode_step`` on it (the cache written in place),
+    its logits written back and the lengths advanced by one, and returns
+    the token buffer (overwritten by the next step).  One program a
+    (cache, params) pair."""
+
+    def __init__(self, cfg, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.graphs = Graphs(device)
+        self._bufs: dict = {}       # id(cache) -> (logits, token, lengths)
+
+    def load(self, cache, logits: torch.Tensor, lengths) -> None:
+        """The logits to take the next token from and the position each
+        sequence writes at next, into ``cache``'s static buffers."""
+        key = id(cache)
+        if key not in self._bufs:
+            B = logits.shape[0]
+            i32 = dict(dtype=torch.int32, device=self.device)
+            self._bufs[key] = (torch.empty_like(logits),
+                               torch.zeros((B, 1), **i32),
+                               torch.zeros((B,), **i32))
+        mine, _, lens = self._bufs[key]
+        _same_layout(mine, logits, "logits")
+        mine.copy_(logits)
+        lens.copy_(torch.as_tensor(lengths))
+
+    def logits(self, cache) -> torch.Tensor:
+        return self._bufs[id(cache)][0]
+
+    def step(self, params, cache) -> torch.Tensor:
+        logits, tok, lengths = self._bufs[id(cache)]
+
+        def body():
+            tok.copy_(torch.argmax(logits, dim=-1, keepdim=True))
+            new, _ = M.decode_step(self.cfg, params, tok, lengths, cache)
+            logits.copy_(new)
+            lengths.add_(1)
+
+        self.graphs.run((id(cache), id(params)), body, keep=(params, cache))
+        return tok

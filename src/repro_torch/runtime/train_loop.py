@@ -12,9 +12,16 @@
     pass it to the router, so it does not steer training (ROADMAP.md §3).
   * Optional gradient accumulation over microbatches, into f32.
 
-The forward and backward are eager PyTorch: B7 and B8 (and B5 in the
-MoE dispatch) launch in the forward on the card, and the backward
-recomputes the plain attention and scan (``kernels/ops.py``).
+``run`` steps through ``runtime/graphs.py::StaticTrainStep``, the
+counterpart of the reference's ``jax.jit(step_fn, donate_argnums=(0, 1,
+2))``: on the card the first step runs eagerly (the warm-up), then the
+whole step (forward, backward, clipping, AdamW, the router bias) is
+captured as one CUDA graph and every later step replays it; on the CPU
+the same static-buffer step runs without a graph.  Parameters that are
+DTensors on a mesh take the eager step.  In the forward B7 and B8 (and
+B5 in the MoE dispatch) launch on the card; the backward recomputes the
+plain attention and scan (``kernels/ops.py``).  ``make_train_step``
+returns the eager step.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from repro_torch.models import model as M
 from repro_torch.models.transformer import RunCtx
 from repro_torch.optim import adamw, schedules
 from repro_torch.runtime.checkpoint import Checkpointer
+from repro_torch.runtime.graphs import CaptureError, StaticTrainStep
 from repro_torch.sharding.specs import is_dtensor
 from repro_torch.tree import leaves, map_tree, unflatten
 
@@ -113,14 +121,18 @@ def run(cfg: ModelConfig, pipeline, tcfg: TrainConfig,
         device="cuda",
         fail_injector: Optional[Callable[[int], None]] = None) -> dict:
     """The driver loop with checkpoint / restart and the straggler
-    watchdog, each step under ``ctx`` (``RunCtx()`` where None).
+    watchdog, each step under ``ctx`` (``RunCtx()`` where None), captured
+    (``StaticTrainStep``) unless the parameters are DTensors.
     ``params`` None: the seeded init (a generator on
     ``device`` seeded with ``seed``); a failure before the first
     checkpoint starts over from that init.  A checkpoint already in
     ``tcfg.ckpt_dir`` is restored first.  ``fail_injector(step)`` may
     raise to simulate a node failure (tests use it): the loop restores and
-    replays.  On the card unless ``device="cpu"``.  Returns {"history":
-    one dict a step run (replays included), "state", "restarts"}."""
+    replays; a step that cannot be captured raises ``CaptureError``.  On
+    the card unless ``device="cpu"``.  Returns {"history":
+    one dict a step run (replays included), "state", "restarts",
+    "train_step"}: the state is the static one, overwritten by a further
+    call of ``train_step``."""
     device = resolve_device(device)
 
     def fresh():
@@ -132,6 +144,8 @@ def run(cfg: ModelConfig, pipeline, tcfg: TrainConfig,
                               dtype=torch.float32, device=device)
     ckpt = Checkpointer(tcfg.ckpt_dir)
     train_step = make_train_step(cfg, ctx or RunCtx(), tcfg)
+    if not any(map(is_dtensor, leaves(params))):
+        train_step = StaticTrainStep(train_step, device)
 
     state = {"params": params, "opt": adamw.init(params),
              "bias": router_bias}
@@ -144,7 +158,9 @@ def run(cfg: ModelConfig, pipeline, tcfg: TrainConfig,
     step, restarts = start, 0
     while step < tcfg.steps:
         try:
-            batch = _on(device, pipeline.batch_at(step))
+            batch = pipeline.batch_at(step)
+            if not isinstance(train_step, StaticTrainStep):
+                batch = _on(device, batch)
             t0 = time.perf_counter()
             if fail_injector is not None:
                 fail_injector(step)
@@ -165,7 +181,7 @@ def run(cfg: ModelConfig, pipeline, tcfg: TrainConfig,
             step += 1
             if step % tcfg.ckpt_every == 0 or step == tcfg.steps:
                 ckpt.save(step, state)
-        except KeyboardInterrupt:
+        except (KeyboardInterrupt, CaptureError):
             raise
         except Exception as e:       # a node failure: restore and replay
             restarts += 1
@@ -182,4 +198,5 @@ def run(cfg: ModelConfig, pipeline, tcfg: TrainConfig,
             else:
                 state, step = ckpt.restore(state)
     ckpt.wait()
-    return {"history": history, "state": state, "restarts": restarts}
+    return {"history": history, "state": state, "restarts": restarts,
+            "train_step": train_step}

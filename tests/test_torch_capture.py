@@ -9,8 +9,9 @@ CPU, where the same bodies run without a graph.
   (``_local_scalar_dense``: ``.item()``, ``bool(t)``, ``int(t)``), an op
   whose output shape depends on the data (``nonzero``, ``masked_select``,
   boolean indexing, ``unique``, ...), and ``.cpu()`` / ``.numpy()`` /
-  ``.tolist()``.  The ticks include one after a control-plane splice and
-  one after a fault's rollback.
+  ``.tolist()``, a read of the RNG state and a tensor made from host
+  data.  The ticks include one after a control-plane splice and one
+  after a fault's rollback.
 * The static-state plumbing against the reference: the nine-tick
   sequence of ``test_torch_engine.py`` with the reference's draws fed in,
   a transaction spliced in at tick 3 and a stalled lane rolled back at
@@ -74,6 +75,9 @@ class HostSync(AssertionError):
 _KERNELS = ((ops._rm, "admit_commit"), (ops._cp, "complete"),
             (ops._da, "decode_attention"), (ops._rd, "relay_slots"))
 _inside_kernel = [0]
+# memoised per shape and device: filled by the eager warm-up that runs
+# before every capture, so a capture finds it filled
+_WARMED = ((TM, "_sinusoid_on"),)
 
 
 class _NoSync(TorchDispatchMode):
@@ -94,8 +98,15 @@ class _NoSync(TorchDispatchMode):
 
 @contextlib.contextmanager
 def no_host_sync():
-    """Raise on the host syncs a CUDA graph capture refuses."""
+    """Raise on the host syncs a CUDA graph capture refuses, on a read of
+    the RNG state (``torch.utils.checkpoint`` saves it unless told not
+    to; the CUDA generator's cannot be read during a capture) and on a
+    tensor made from host data (``torch.tensor``, ``torch.from_numpy``:
+    on the card its copy to the device is from pageable memory, which a
+    capture refuses)."""
     saved = {n: getattr(torch.Tensor, n) for n in ("cpu", "numpy", "tolist")}
+    made = {n: getattr(torch, n) for n in ("get_rng_state", "from_numpy",
+                                           "tensor")}
 
     def refuse(name):
         def call(*a, **k):
@@ -104,21 +115,32 @@ def no_host_sync():
             raise HostSync(f"Tensor.{name}() inside a captured body")
         return call
 
+    def refuse_host(name):
+        def call(*a, **k):
+            if _inside_kernel[0]:
+                return made[name](*a, **k)
+            raise HostSync(f"torch.{name}() inside a captured body")
+        return call
+
     for n in saved:
         setattr(torch.Tensor, n, refuse(n))
+    for n in made:
+        setattr(torch, n, refuse_host(n))
     try:
         with _NoSync():
             yield
     finally:
         for n, f in saved.items():
             setattr(torch.Tensor, n, f)
+        for n, f in made.items():
+            setattr(torch, n, f)
 
 
 @pytest.fixture
 def checked_bodies(monkeypatch):
     """Every body ``Graphs.run`` runs, under ``no_host_sync`` (the kernels'
-    plain versions taken as the launches they are on the card); yields
-    the keys it ran."""
+    plain versions taken as the launches they are on the card, and the
+    caches the warm-up fills as filled); yields the keys it ran."""
     keys = []
 
     def kernel(fn):
@@ -130,7 +152,7 @@ def checked_bodies(monkeypatch):
                 _inside_kernel[0] -= 1
         return call
 
-    for mod, name in _KERNELS:
+    for mod, name in _KERNELS + _WARMED:
         monkeypatch.setattr(mod, name, kernel(getattr(mod, name)))
 
     def run(self, key, body, keep=()):
@@ -147,11 +169,14 @@ def test_no_host_sync_catches_what_a_capture_refuses():
     x = torch.arange(4)
     for bad in (lambda: x.sum().item(), lambda: bool(x.any()),
                 lambda: x[x > 1], lambda: torch.nonzero(x), lambda: x.cpu(),
-                lambda: x.unique(), lambda: x.tolist()):
+                lambda: x.unique(), lambda: x.tolist(),
+                lambda: torch.tensor([1.0]), lambda: torch.get_rng_state(),
+                lambda: torch.from_numpy(np.zeros(2))):
         with pytest.raises(HostSync), no_host_sync():
             bad()
+    idx = torch.tensor([1, 2])
     with no_host_sync():
-        x[torch.tensor([1, 2])] = 0
+        x[idx] = 0
         torch.where(x > 1, x, -x).argmax()
 
 

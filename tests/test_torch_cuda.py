@@ -1297,3 +1297,117 @@ def test_replayed_launches_equal_the_profiler_counts(dev):
     got = {k: ops.LAUNCHES[k] - n0[k] for k in names}
     assert got == seen and got["complete"] == 6, (got, seen)
     assert got["decode_attention"] == 6 * cfg.n_layers
+
+
+# --------------------------------------------------------------------------- #
+# the training step and the launcher's decode step as captured CUDA graphs
+# --------------------------------------------------------------------------- #
+
+#: the profiler's names of the kernels each wrapper launches
+_KERNEL_NAMES = {"flash_attention": "flash_kernel", "ssd_scan": "ssd_",
+                 "relay_slots": "relay_kernel",
+                 "decode_attention": "decode_kernel"}
+
+
+def _profiled_launches(fn, names):
+    """(``ops.LAUNCHES`` added by ``fn()``, the profiler's count of each
+    wrapper's kernels; an SSD launch of the bf16 build runs four)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k in names:
+                if _KERNEL_NAMES[k] in e.name:
+                    seen[k] += 1
+    return {k: ops.LAUNCHES[k] - before[k] for k in names}, seen
+
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "jamba-v0.1-52b",
+                                  "arctic-480b", "mamba2-2.7b"])
+def test_captured_training_step_equals_eager_on_the_card(dev, arch, remat):
+    """Three smoke training steps (f32) through ``StaticTrainStep`` (a
+    warm-up, a capture, replays) and through the eager step from the same
+    init and batches: losses and gradient norms within 1e-4; the
+    replay's launches equal to the profiler's count of its kernels."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import RunCtx
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import graphs, train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(get_config(arch))
+    pipe = Pipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=32, global_batch=2,
+        enc_frames=cfg.enc_frames if cfg.is_encdec else 0,
+        d_model=cfg.d_model))
+    tcfg = train_loop.TrainConfig(steps=6, warmup=2,
+                                  opt=adamw.AdamWConfig(lr=1e-2))
+    step_fn = train_loop.make_train_step(cfg, RunCtx(remat=remat), tcfg)
+    runs = {}
+    for captured in (True, False):
+        params = M.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                               torch.float32, dev)
+        state = (params, adamw.init(params),
+                 torch.zeros((max(cfg.moe.n_experts, 1),), device=dev))
+        step = graphs.StaticTrainStep(step_fn, dev) if captured else step_fn
+        hist = []
+        for i in range(3):
+            batch = pipe.batch_at(i)
+            if not captured:
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()}
+            *state, m = step(*state, batch)
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[captured] = hist
+        if captured:
+            assert len(step.graphs) == 1 and int(state[1].step) == 3
+            names = [k for k in _KERNEL_NAMES if k != "decode_attention"]
+            got, seen = _profiled_launches(
+                lambda: step(*state, pipe.batch_at(3)), names)
+            assert got == seen and sum(got.values()) > 0, (got, seen)
+    np.testing.assert_allclose(runs[True], runs[False], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "mamba2-2.7b",
+                                  "arctic-480b", "deepseek-v2-236b",
+                                  "jamba-v0.1-52b", "whisper-large-v3"])
+def test_captured_model_decode_equals_eager_on_the_card(dev, arch):
+    """The launcher's captured decode (smoke config, f32) against
+    ``decode_eager`` from one prefill: the same tokens, the last logits
+    within 1e-4; one graph; the replays' launches equal to the
+    profiler's count of B6 and B5."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import prefill_decode as PDL
+    from repro_torch.models import model as M
+    from repro_torch.runtime import graphs
+    from repro_torch.tree import map_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(get_config(arch))
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           torch.float32, dev)
+    g = torch.Generator(dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=g, device=dev,
+                           dtype=torch.int32)
+    frames = torch.randn((2, cfg.enc_frames, cfg.d_model), generator=g,
+                         device=dev) if cfg.is_encdec else None
+    logits, cache, _ = PDL.prefill(cfg, params, tokens, 9, frames)
+    twin = map_tree(torch.clone, cache)
+    dec = graphs.StaticModelDecode(cfg, dev)
+    got, glog = PDL.decode(cfg, params, logits, cache, 64, 8, dec)
+    want, wlog = PDL.decode_eager(cfg, params, logits, twin, 64, 8)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(glog, wlog, rtol=1e-4, atol=1e-4)
+    assert len(dec.graphs) == 1
+    dec.load(cache, glog, torch.full((2,), 64 + 8, dtype=torch.int32))
+    got_n, seen = _profiled_launches(lambda: dec.step(params, cache),
+                                     ["decode_attention", "relay_slots"])
+    assert got_n == seen, (got_n, seen)
