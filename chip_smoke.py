@@ -87,9 +87,14 @@ Phases (each prints one line; any failure exits non-zero):
    shape (I_LANES lanes, R = 4096 over 4 shards: B3 at W = 1024, where a
    staged mask would not fit a block) bit-exact against the unsharded
    wrapper; then ENGINE_REQUESTS requests through ``ServeLoop`` over
-   ``Engine(shards=4)``, equal to shards=1 on the card and to shards=4 on
-   the CPU in every count, tick and routing bit, timed beside the
-   unsharded drain, with the B1, B3, B4 and B5 launches per tick; then
+   ``Engine(shards=4)`` through the captured sharded tick (one CUDA graph
+   a set of live shards), equal to its eager tick, to shards=1 on the
+   card and to shards=4 on the CPU in every count, tick and routing bit,
+   and at shards=2 equal to shards=1, timed beside the unsharded drain,
+   with the B1, B3, B4 and B5 launches per tick; at M = 2 and 4,
+   SHARD_AB_PAIRS alternating pairs of AB_REQUESTS-request drains,
+   captured against eager, each pair bit-equal, with each side's device
+   idle share and replayed launches against the profiler; then
    the same datapath across processes, one rank a shard: two NCCL ranks
    on this card first (a probe: NCCL refuses two ranks on one device), then
    four spawned ``gloo`` processes on this card (``rank_worker``; a
@@ -378,19 +383,22 @@ DEG_FACTOR, DEG_EPOCH, DEG_SHORT_EPOCH = 10, 36, 6
 CHAOS_SEED, CHAOS_TICKS, CHAOS_MAX_LEN = 23, 170, 3
 # the sanitizer phase: ticks of the main path's traffic, plain and sanitized
 SAN_TICKS = 40
-# the sharded phase: the mesh widths, the seed of its drains' draws
+# the sharded phase: the mesh widths, the seed of its drains' draws; the
+# widths of its captured-against-eager A/B and its alternating pairs; the
+# kernels a sharded drain must launch, here and on each rank of the ranks
+# phase (ops.LAUNCHES key: the profiler's kernel name)
 SHARDS, SHARD_SEED = (1, 2, 4), 11
+SHARD_AB_WIDTHS, SHARD_AB_PAIRS = (2, 4), 3
+SHARD_KERNELS = {"admit": "admit_kernel", "route_match": "route_kernel",
+                 "relay_slots": "relay_kernel", "complete": "complete_kernel",
+                 "decode_attention": "decode_kernel"}
 # the ranks phase: the widths (one spawned process a shard, all on this
 # card; the processes of the widest, the smaller ones over its first
-# ranks), the seconds the processes may take, and the NCCL probe's; its admission cases (label, R, I, C; "idle": shard 1's rows all
-# padding); the kernels each rank's drain must launch (ops.LAUNCHES key:
-# the profiler's kernel name)
+# ranks), the seconds the processes may take, and the NCCL probe's; its
+# admission cases (label, R, I, C; "idle": shard 1's rows all padding)
 RANK_WIDTHS, RANK_TIMEOUT, NCCL_PROBE_TIMEOUT = (2, 4), 240, 60
 RANK_CASES = (("serving", ADMIT_R, I_LANES, SLOTS), ("ragged", 300, 8, 4),
               ("idle", ADMIT_R, I_LANES, SLOTS))
-RANK_KERNELS = {"admit": "admit_kernel", "route_match": "route_kernel",
-                "relay_slots": "relay_kernel", "complete": "complete_kernel",
-                "decode_attention": "decode_kernel"}
 # B3 in the sharded admission with the staged all-free mask, before its
 # all-free mode: device ms per launch at width R/M = 256 / 128 / 64
 # (PERF.md §5, on an NVIDIA H100 80GB HBM3 at 700 W); and F4's
@@ -2318,38 +2326,17 @@ def main_drain(torch, RT, ops, TM, interpose, SL, cfg, params, dev,
             f"max retries of a completed request "
             f"{max(r.retries for r in done)}")
 
-    # profiled pass: fresh routable requests at the same arrival rate; the
-    # pool is full again after PROFILE_FROM ticks, then PROFILE_TICKS
-    # ticks run under the profiler, then the loop drains
-    reqs = [make_request(SL, cfg, ids, N_REQUESTS + i)
-            for i in range((PROFILE_FROM + PROFILE_TICKS)
-                           * ARRIVALS_PER_TICK)]
-    nxt, t_start = 0, loop.ticks
-    while loop.ticks - t_start < PROFILE_FROM:
-        step(loop.tick)
-    n0 = dict(ops.LAUNCHES)
-    counts: dict = {}
-    wall_us, by_name = device_events(
-        torch, lambda: [step(loop.tick) for _ in range(PROFILE_TICKS)],
-        counts)
-    window = {k: ops.LAUNCHES[k] - n0[k]
-              for k in ("admit_commit", "complete", "decode_attention")}
-    seen = {k: sum(c for n, c in counts.items() if PROFILER_NAMES[k] in n)
-            for k in window}
-    check(window == seen and min(window.values()) > 0,
-          f"serve ({side}): launches counted {window} in the profiled "
-          f"window, the profiler saw {seen}")
-    loop.drain(max_ticks=3000)
-    check(len(loop.done) == n_routable + len(reqs),
-          "the profiled pass did not complete every request")
-    busy_ms = sum(by_name.values()) / 1e3
-    window_ms = PROFILE_TICKS * med["tick"]
+    busy, wall_us, by_name, window = profiled_pass(
+        torch, SL, ops, cfg, loop, ids, N_REQUESTS,
+        {k: PROFILER_NAMES[k] for k in ("admit_commit", "complete",
+                                        "decode_attention")},
+        f"serve ({side})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     prof = (f"serve profile ({side}; separate pass, steady state): device "
-            f"busy {busy_ms:.3f} ms over {PROFILE_TICKS} ticks = "
-            f"{100 * busy_ms / window_ms:.1f}% of {PROFILE_TICKS} x the "
+            f"busy {busy * PROFILE_TICKS:.3f} ms over {PROFILE_TICKS} ticks "
+            f"= {100 * busy / med['tick']:.1f}% of {PROFILE_TICKS} x the "
             f"unprofiled median tick {med['tick']:.4f} ms (idle "
-            f"{100 - 100 * busy_ms / window_ms:.1f}%); wall under the "
+            f"{100 - 100 * busy / med['tick']:.1f}%); wall under the "
             f"profiler {wall_us / 1e3:.3f} ms; {len(by_name)} kernel names; "
             f"launches in the window "
             + " ".join(f"{k}={v}" for k, v in window.items())
@@ -2358,8 +2345,50 @@ def main_drain(torch, RT, ops, TM, interpose, SL, cfg, params, dev,
             + "; top: " + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms"
                                     for n, t in top))
     stats = {"req_s": len(done) / wall, "tick_ms": med["tick"],
-             "busy_ms": busy_ms / PROFILE_TICKS}
+             "busy_ms": busy}
     return line, prof, launches, stats
+
+
+def profiled_pass(torch, SL, ops, cfg, loop, ids, first, names: dict,
+                  what: str):
+    """The device's busy share in steady state: fresh routable requests
+    of the main path's traffic (ids from ``first``) at its arrival rate
+    through ``loop``; the pool is full again after PROFILE_FROM ticks,
+    then PROFILE_TICKS ticks run under the profiler, then the loop
+    drains.  ``names``: {``ops.LAUNCHES`` key: the profiler's name of its
+    kernel}; the launches counted in the window must equal the profiler's
+    count of those kernels, each at least one.  Returns (busy device ms a
+    tick, wall us under the profiler, {kernel: us}, the window's
+    launches)."""
+    reqs = [make_request(SL, cfg, ids, first + i)
+            for i in range((PROFILE_FROM + PROFILE_TICKS)
+                           * ARRIVALS_PER_TICK)]
+    nxt, t_start, n_done = 0, loop.ticks, len(loop.done)
+
+    def step():
+        nonlocal nxt
+        for r in reqs[nxt:nxt + ARRIVALS_PER_TICK]:
+            loop.submit(r)
+        nxt += ARRIVALS_PER_TICK
+        loop.tick()
+
+    while loop.ticks - t_start < PROFILE_FROM:
+        step()
+    n0 = dict(ops.LAUNCHES)
+    counts: dict = {}
+    wall_us, by_name = device_events(
+        torch, lambda: [step() for _ in range(PROFILE_TICKS)], counts)
+    window = {k: ops.LAUNCHES[k] - n0[k] for k in names}
+    seen = {k: sum(c for n, c in counts.items() if key in n)
+            for k, key in names.items()}
+    check(window == seen and min(window.values()) > 0,
+          f"{what}: launches counted {window} in the profiled window, the "
+          f"profiler saw {seen}")
+    loop.drain(max_ticks=3000)
+    check(len(loop.done) == n_done + len(reqs),
+          f"{what}: the profiled pass did not complete every request")
+    return (sum(by_name.values()) / 1e3 / PROFILE_TICKS, wall_us, by_name,
+            window)
 
 
 def ab_drain(torch, SL, cfg, loop, ids, first, midway=None):
@@ -2405,6 +2434,21 @@ def ab_drain(torch, SL, cfg, loop, ids, first, midway=None):
         "pool": lists(loop.state.pool)}
     return (record, AB_REQUESTS / wall,
             statistics.median(s.elapsed_time(e) for s, e in events))
+
+
+def ab_summary(runs: list, busy_ms: float) -> str:
+    """One side of an A/B: its drains' (req/s, median tick ms) and the
+    device idle share, each median tick against ``busy_ms``, the busy
+    device ms a tick of the side's profiled pass."""
+    rps = [r for r, _ in runs]
+    ticks = [t for _, t in runs]
+    idle = [100 * (1 - busy_ms / t) for t in ticks]
+    return (f"req/s " + " / ".join(f"{r:.1f}" for r in rps)
+            + f" (median {statistics.median(rps):.1f}); median tick ms "
+            + " / ".join(f"{t:.4f}" for t in ticks)
+            + f" (median {statistics.median(ticks):.4f}); device idle "
+            f"{statistics.median(idle):.1f}% (busy {busy_ms:.4f} ms a tick "
+            "from its profiled pass)")
 
 
 def phase_serve(torch, RT, CT, ops, TM, interpose, SL, cfg, dev="cuda"):
@@ -2464,23 +2508,14 @@ def phase_serve(torch, RT, CT, ops, TM, interpose, SL, cfg, dev="cuda"):
     check(mid[True] == mid[False], "A/B midway: the captured drain with a "
           "commit and a slow lane differs from the eager one")
 
-    def summary(c):
-        rps = [r for r, _ in runs[c]]
-        ticks = [t for _, t in runs[c]]
-        idle = [100 * (1 - stats[c]["busy_ms"] / t) for t in ticks]
-        return (f"req/s " + " / ".join(f"{r:.1f}" for r in rps)
-                + f" (median {statistics.median(rps):.1f}); median tick ms "
-                + " / ".join(f"{t:.4f}" for t in ticks)
-                + f" (median {statistics.median(ticks):.4f}); device idle "
-                f"{statistics.median(idle):.1f}% (busy "
-                f"{stats[c]['busy_ms']:.4f} ms a tick from its profiled "
-                "pass)")
     lines.append(
         f"serve A/B: {AB_PAIRS} alternating pairs of {AB_REQUESTS}-request "
         f"drains through one captured and one eager loop (after one untimed "
         f"drain each), each pair bit-equal (every completion, tick, token, "
         f"routing counter, EWMA, metric and pool cell; loads and pool back "
-        f"to zero); captured: {summary(True)}; eager: {summary(False)}; a "
+        f"to zero); captured: "
+        f"{ab_summary(runs[True], stats[True]['busy_ms'])}; eager: "
+        f"{ab_summary(runs[False], stats[False]['busy_ms'])}; a "
         f"drain with a commit at tick {CONTROL_COMMIT_TICK} and lane "
         f"{I_LANES - 1} 4x slow over ticks {MIDWAY_FAULT[0]}-"
         f"{MIDWAY_FAULT[1]}: captured equals eager "
@@ -3297,15 +3332,20 @@ def to_cpu(out):
 
 
 def sharded_drain(torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev,
-                  shards, timed=False, mesh=None, block_r=None):
+                  shards, timed=False, mesh=None, block_r=None,
+                  captured=True):
     """ENGINE_REQUESTS routable main-path requests through ServeLoop over
     Engine(shards=``shards``) on ``dev`` (eos -1: completion depends only
     on the length, so the card and the CPU finish the same requests on the
-    same ticks), draws from one seeded CPU generator.  ``mesh``: the shard
-    mesh (None: ``make_shard_mesh``); ``block_r``: the admission plan
-    (None: the tuner's).  Returns (the drain's record, its timing, its
-    kernel launches); on a rank mesh the record's pool is the rank's
-    slice."""
+    same ticks), draws from one seeded CPU generator, through
+    ``make_jitted``'s tick (captured, but on a rank mesh) or, with
+    ``captured`` False, ``eager_step``.  ``timed``: each tick timed with
+    events, and on an eager tick its admission and completion too (by
+    patching their wrappers, which a replay does not call).  ``mesh``: the
+    shard mesh (None: ``make_shard_mesh``); ``block_r``: the admission
+    plan (None: the tuner's).  Returns (the drain's record, its timing and
+    the captured programs' count and set-up seconds, its kernel
+    launches); on a rank mesh the record's pool is the rank's slice."""
     routing, ids = routing_config(RT, dev)
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.float32, dev)
@@ -3317,6 +3357,10 @@ def sharded_drain(torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev,
     eng.draws = host_draws(torch, policies, dev, SHARD_SEED)
     loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
                         dtype=torch.float32, backoff_cap=4)
+    if not captured:
+        loop.serve_step = eng.eager_step
+    static = loop.serve_step if type(loop.serve_step).__name__ \
+        == "StaticTick" else None
     reqs = [make_request(SL, cfg, ids, N_UNROUTABLE + i)
             for i in range(ENGINE_REQUESTS)]
     events = {"admit": [], "complete": [], "tick": []}
@@ -3336,14 +3380,10 @@ def sharded_drain(torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev,
         ("admit_commit_sharded", "complete_sharded")
     originals = [getattr(ops, n) for n in names]
     tick = loop.tick
-    if timed and shards == 1:
-        # the parts are timed by patching their wrappers, which a replay
-        # does not call: the timed unsharded drain runs the eager tick,
-        # as every sharded one does
-        loop.serve_step = eng.eager_step
-    if timed:
+    if timed and static is None:
         for n, part, fn in zip(names, ("admit", "complete"), originals):
             setattr(ops, n, timed_call(part, fn))
+    if timed:
         tick = timed_call("tick", loop.tick)
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
@@ -3384,21 +3424,94 @@ def sharded_drain(torch, RT, TM, interpose, SL, MS, policies, ops, cfg, dev,
                  if f != "token"}}
     med = {k: statistics.median(s.elapsed_time(e) for s, e in v)
            for k, v in events.items() if v}
-    return record, dict(wall=wall, med=med, arrival_ticks=len(
-        events["admit"])), launches
+    return record, dict(
+        wall=wall, med=med, arrival_ticks=len(events["admit"]),
+        graphs=len(static.graphs) if static is not None else 0,
+        setup_s=static.graphs.setup_s if static is not None else 0.0), \
+        launches
+
+
+def sharded_ab(torch, RT, SL, MS, ops, interpose, cfg, params, dev, M: int,
+               gpu: str) -> str:
+    """The sharded tick on a one-process M-way mesh, captured against
+    eager: two ServeLoops over Engine(shards=M) at the main path's shape,
+    one through ``make_jitted``'s captured tick and one through
+    ``eager_step``; one untimed AB_REQUESTS-request drain each (the
+    captured side captures its programs there), then SHARD_AB_PAIRS
+    alternating pairs, each pair bit-equal (``ab_drain``); then one
+    profiled pass a side (``profiled_pass``: its launches equal to the
+    profiler's count of SHARD_KERNELS, its busy device ms a tick).
+    Returns the line."""
+    def side(captured):
+        routing, ids = routing_config(RT, dev)
+        eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev,
+                               shards=M,
+                               shard_mesh=MS.make_shard_mesh(M, device=dev))
+        loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
+                            dtype=torch.float32, backoff_cap=4)
+        static = loop.serve_step
+        check(type(static).__name__ == "StaticTick",
+              f"sharded A/B M={M}: make_jitted gave {static!r}, not the "
+              "captured tick")
+        if not captured:
+            loop.serve_step = eng.eager_step
+        return loop, ids, static
+
+    loops = {c: side(c) for c in (True, False)}
+    first = {c: ab_drain(torch, SL, cfg, loops[c][0], loops[c][1],
+                         10 * N_REQUESTS)[0] for c in (True, False)}
+    check(first[True] == first[False], f"sharded A/B M={M}: the captured "
+          "warm-up drain differs from the eager one")
+    runs = {True: [], False: []}
+    for p in range(SHARD_AB_PAIRS):
+        recs = {}
+        for c in ((True, False) if p % 2 == 0 else (False, True)):
+            recs[c], rps, tick_ms = ab_drain(
+                torch, SL, cfg, loops[c][0], loops[c][1],
+                (11 + p) * N_REQUESTS)
+            runs[c].append((rps, tick_ms))
+        check(recs[True] == recs[False], f"sharded A/B M={M} pair {p}: the "
+              "captured drain differs from the eager one")
+    busy, window = {}, {}
+    for c in (True, False):
+        busy[c], _, _, window[c] = profiled_pass(
+            torch, SL, ops, cfg, loops[c][0], loops[c][1],
+            (11 + SHARD_AB_PAIRS) * N_REQUESTS, SHARD_KERNELS,
+            f"sharded A/B M={M} ({'captured' if c else 'eager'})")
+    static = loops[True][2]
+    check(len(static.graphs) <= M + 1, f"sharded A/B M={M}: "
+          f"{len(static.graphs)} programs captured, more than M + 1")
+    return (
+        f"sharded A/B M={M} on {gpu}: {SHARD_AB_PAIRS} alternating pairs "
+        f"of {AB_REQUESTS}-request drains through ServeLoop over "
+        f"Engine(shards={M}) on a one-process mesh, one captured and one "
+        f"eager loop (after one untimed drain each), each pair bit-equal "
+        f"(every completion, tick, token, routing counter, EWMA, metric "
+        f"and pool cell); captured: {ab_summary(runs[True], busy[True])}; "
+        f"eager: {ab_summary(runs[False], busy[False])}; the captured "
+        f"loop holds {len(static.graphs)} programs (set-up "
+        f"{static.graphs.setup_s:.3f} s); launches in the captured "
+        f"profiled window "
+        + " ".join(f"{k}={v}" for k, v in window[True].items())
+        + ", the eager window's "
+        + " ".join(f"{k}={v}" for k, v in window[False].items())
+        + ", each equal to the profiler's count of its kernels")
 
 
 def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
-                  cfg, b3_ms, dev="cuda"):
+                  cfg, b3_ms, dev="cuda", gpu=""):
     """Sharded admission and completion (``kernels/shard_admit.py``) on the
     card at each M of SHARDS: ``ops.admit_commit_sharded`` at the serving
     shape, a ragged batch and with an idle ingress host (a quarter of
     padding rows), and ``ops.complete_sharded`` at the serving shape, each
     bit-exact against the unsharded wrapper on the same card tensors and
-    against the sharded plain versions on the CPU, timed; then a drain of
-    ENGINE_REQUESTS requests through ServeLoop over Engine(shards=4) on
-    the card against shards=1 on the card and shards=4 on the CPU (every
-    count, tick and routing bit; the tokens too between the card runs)."""
+    against the sharded plain versions on the CPU, timed; then drains of
+    ENGINE_REQUESTS requests through ServeLoop over Engine(shards=M) on a
+    one-process mesh: at M 4 through the captured tick against its eager
+    tick, shards=1 on the card and shards=4 on the CPU, at M 2 captured
+    against shards=1 (every count, tick and routing bit; the tokens too
+    between the card runs); then ``sharded_ab`` at each M of
+    SHARD_AB_WIDTHS.  ``gpu``: the card's name and power limit."""
     dev = torch.device(dev)
     routing0, _ = routing_config(RT, "cpu")
     lines, timing = [], {}
@@ -3521,43 +3634,72 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
             f"{t['call_ms']:.4f}, B1 device ms per launch at "
             f"({I_LANES // M}, {SLOTS}): {t['b1_ms']:.5f}")
 
-    run = lambda d, m, timed=False: sharded_drain(  # noqa: E731
-        torch, RT, TM, interpose, SL, MS, policies, ops, cfg, d, m, timed)
-    one, t1, _ = run(dev, 1, True)
+    run = lambda d, m, **kw: sharded_drain(  # noqa: E731
+        torch, RT, TM, interpose, SL, MS, policies, ops, cfg, d, m, **kw)
+    one, t1, _ = run(dev, 1, timed=True, captured=False)
     check(run(dev, 1)[0] == one, "sharded drain: shards=1 through the "
           "captured tick differs from the eager tick")
-    four, t4, launches = run(dev, 4, True)
+    four_eager, t4, eager_launches = run(dev, 4, timed=True, captured=False)
+    four, t4c, launches = run(dev, 4, timed=True)
+    two, t2c, _ = run(dev, 2, timed=True)
     with cpu_plans():
         four_cpu, _, _ = run(torch.device("cpu"), 4)
+    check(four == four_eager, "sharded drain: shards=4 through the captured "
+          "tick differs from shards=4 through the eager tick")
     check(four == one, "sharded drain: shards=4 on the card differs from "
           "shards=1 on the card")
+    check(two == one, "sharded drain: shards=2 through the captured tick "
+          "differs from shards=1 on the card")
     untok = lambda r: {k: v for k, v in r.items() if k != "tokens"}  # noqa
     check(untok(four) == untok(four_cpu), "sharded drain: shards=4 on the "
           "card differs from shards=4 on the CPU")
+    check(launches == eager_launches,
+          f"sharded drain: the captured M=4 drain launched {launches}, the "
+          f"eager one {eager_launches}")
     check(min(launches[k] for k in ("admit", "complete", "route_match",
                                     "relay_slots")) > 0
           and launches["admit_commit"] == 0,
           f"sharded drain: kernels not launched as the sharded path does: "
           f"{launches}")
+    for M, t in ((2, t2c), (4, t4c)):
+        check(2 <= t["graphs"] <= M + 1,
+              f"sharded drain M={M}: {t['graphs']} programs captured, not "
+              f"the decode-only tick and at most M arrival ticks")
     arr = t4["arrival_ticks"]
     n_req = ENGINE_REQUESTS
-    for M, rec, t in ((1, one, t1), (4, four, t4)):
+    for M, rec, t in ((1, one, t1), (4, four_eager, t4)):
         med = t["med"]
         lines.append(
-            f"sharded drain M={M}: {n_req} requests in {rec['ticks']} ticks, "
-            f"{t['wall']:.3f} s = {n_req / t['wall']:.1f} req/s; median ms "
-            f"per tick {med['tick']:.4f}, admit {med['admit']:.4f}, complete "
+            f"sharded drain M={M} (eager): {n_req} requests in "
+            f"{rec['ticks']} ticks, {t['wall']:.3f} s = "
+            f"{n_req / t['wall']:.1f} req/s; median ms per tick "
+            f"{med['tick']:.4f}, admit {med['admit']:.4f}, complete "
             f"{med['complete']:.4f} (events); held_first "
             f"{rec['held_first']}")
+    for M, rec, t in ((2, two, t2c), (4, four, t4c)):
+        lines.append(
+            f"sharded drain M={M} (captured) on {gpu}: {n_req} requests in "
+            f"{rec['ticks']} ticks, {t['wall']:.3f} s = "
+            f"{n_req / t['wall']:.1f} req/s (of which {t['setup_s']:.3f} s "
+            f"the warm-ups and captures of {t['graphs']} programs: the "
+            f"decode-only tick and {t['graphs'] - 1} live-shard sets); "
+            f"median ms per tick {t['med']['tick']:.4f} (events)")
     lines.append(
-        f"sharded drain: shards=4 equals shards=1 on the card (the timed "
-        f"M=1 drain through the eager tick, equal to its captured drain; "
-        f"every count, "
-        f"tick, token and routing bit) and shards=4 on the CPU; launches "
-        f"per arrival tick ({arr} of {four['ticks']}): B3 "
+        f"sharded drain: shards=4 through the captured tick equals its "
+        f"eager tick, shards=1 on the card (the timed M=1 drain through "
+        f"the eager tick, equal to its captured drain) and shards=4 on the "
+        f"CPU (every count, tick and routing bit; every token too on the "
+        f"card); shards=2 through the captured tick equals shards=1; the "
+        f"captured M=4 drain launched what the eager one did; launches per "
+        f"arrival tick ({arr} of {four['ticks']}): B3 "
         f"{launches['admit'] / arr:.3f}, B4 {launches['route_match'] / arr:.3f},"
         f" B5 {launches['relay_slots'] / arr:.3f}; B1 per tick {launches['complete'] / four['ticks']:.3f}; B3 at the "
         f"serving shape unsharded (width C = {SLOTS}): {b3_ms}")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32, dev)
+    for M in SHARD_AB_WIDTHS:
+        lines.append(sharded_ab(torch, RT, SL, MS, ops, interpose, cfg,
+                                params, dev, M, gpu))
     return lines, timing, {k: launches[k] for k in ("admit", "complete",
                                                     "route_match",
                                                     "relay_slots")}
@@ -3627,7 +3769,7 @@ def rank_run(torch, dist, MS, rank: int, world: int, dev: str,
                 probe[op] = f"refuses ({type(e).__name__}: {str(e)[:160]})"
     mesh = MS.make_shard_mesh(world, device=dev, group=group)
     out = {"probe": probe, "mesh": type(mesh).__name__, "admit": {}}
-    calls = dict.fromkeys(RANK_KERNELS, 0)   # the first call of each case
+    calls = dict.fromkeys(SHARD_KERNELS, 0)   # the first call of each case
     rows = lambda t, fill=0: SA.held_rows(t, mesh, "shard", fill)  # noqa
     routing0, _ = routing_config(RT, "cpu")
     for label, R, I, C in RANK_CASES:
@@ -3644,7 +3786,7 @@ def rank_run(torch, dist, MS, rank: int, world: int, dev: str,
         n0 = dict(ops.LAUNCHES)
         got = call()
         torch.cuda.synchronize()
-        launched = {k: ops.LAUNCHES[k] - n0[k] for k in RANK_KERNELS}
+        launched = {k: ops.LAUNCHES[k] - n0[k] for k in SHARD_KERNELS}
         for k, v in launched.items():
             calls[k] += v
         out["admit"][label] = (cpu_fields(got), launched, live,
@@ -3667,7 +3809,7 @@ def rank_run(torch, dist, MS, rank: int, world: int, dev: str,
     counts: dict = {}
     device_events(torch, lambda: drain(False), counts)
     out["profiled"] = {k: sum(c for name, c in counts.items() if key in name)
-                       for k, key in RANK_KERNELS.items()}
+                       for k, key in SHARD_KERNELS.items()}
     out["calls"] = calls
     return out
 
@@ -3886,10 +4028,10 @@ def phase_ranks(torch, RT, B, ops, interpose, SL, TM, MS, policies, rm, cfg,
         launches[M] = []
         for r, g in enumerate(got):
             n, prof, t = g["launches"], g["profiled"], g["timing"]
-            total = {k: n[k] + g["calls"][k] for k in RANK_KERNELS}
+            total = {k: n[k] + g["calls"][k] for k in SHARD_KERNELS}
             launches[M].append(total)
-            check(all(total[k] > 0 for k in RANK_KERNELS)
-                  and all(prof[k] > 0 for k in RANK_KERNELS if n[k]),
+            check(all(total[k] > 0 for k in SHARD_KERNELS)
+                  and all(prof[k] > 0 for k in SHARD_KERNELS if n[k]),
                   f"ranks M={M} rank {r}: launches {total} (drain {n}), "
                   f"profiler {prof}")
             lines.append(
@@ -5159,7 +5301,7 @@ def main() -> int:
     print(line)
     slines, stiming, sharded_launches = phase_sharded(
         torch, RT, B, ops, interpose, SL, TM, MS, SA, policies, cfg,
-        timing["admit"]["ms"])
+        timing["admit"]["ms"], gpu=gpu)
     for line in slines:
         print(line)
     rlines, rank_launches = phase_ranks(torch, RT, B, ops, interpose, SL, TM,
@@ -5231,7 +5373,7 @@ def main() -> int:
           + " (admit_commit, complete and decode_attention[xlb] on the main "
           "path; route_match, relay_slots and admit in the staged phase, "
           "and admit, complete, route_match and relay_slots in the sharded "
-          "drain too; "
+          "drain (through the captured sharded tick) too; "
           "flash_attention and decode_attention in the model phase's "
           "minitron-4b, " + ", ".join(DENSE_ARCHS) + ", arctic-480b and "
           "jamba-v0.1-52b, ssd_scan in mamba2-2.7b's and jamba's, and "
@@ -5258,8 +5400,8 @@ def main() -> int:
                                           replayed.items())
           + " (the launches of every phase, the main paths' and the "
           "others', that ran inside CUDA graph replays: the serving ticks, "
-          "the sidecars' and the model launcher's decode steps, the "
-          "training steps)")
+          "unsharded and sharded, the sidecars' and the model launcher's "
+          "decode steps, the training steps)")
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {"admit_commit": (src + "admit.cu",
@@ -5322,7 +5464,7 @@ def main() -> int:
                 key, part = sharded_ms[name]
                 kernels[-1]["sharded_ms"] = {
                     str(M): stiming[key.format(M)][part] for M in SHARDS}
-            if name in RANK_KERNELS:           # each rank's, in its drain
+            if name in SHARD_KERNELS:           # each rank's, in its drain
                 kernels[-1]["launches_ranks"] = {
                     str(M): [n[name] for n in per]
                     for M, per in rank_launches.items()}

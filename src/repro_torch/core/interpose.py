@@ -26,8 +26,9 @@ metrics are replicated, equal on every rank after the psums.
 
 ``admit`` and ``step`` replace the state's tensors, never mutate them,
 except the KV cache, which the decode writes in place.  ``make_jitted``'s
-tick of an unsharded engine is the reference's ``jax.jit`` with the
-state donated: on the card it replays captured CUDA graphs, and its state
+tick of an unsharded engine, or of one on a one-process mesh, is the
+reference's ``jax.jit`` with the state donated (around its ``shard_map``
+when sharded): on the card it replays captured CUDA graphs, and its state
 lives in static buffers that each tick overwrites
 (``runtime/graphs.py::StaticTick``).  The engine runs on the card unless
 the caller asks for the CPU (``device="cpu"``), where every kernel
@@ -154,7 +155,8 @@ class Engine:
               live=None, draws=None) -> EngineState:
         """One admission of the whole batch ``reqs``.  ``live`` (sharded
         engines): ``shard_admit.live_shards`` of the batch as the host
-        built it, one entry a shard; None reads it from ``reqs``.
+        built it, one entry a shard (``arrivals``); None reads it from
+        ``reqs``.
         ``draws``: the batch's (rnd, gumbel), None draws them
         (``self.draws``)."""
         rstate, metrics = state.routing, state.metrics
@@ -238,18 +240,27 @@ class Engine:
                 "req_id": cells(2), "active": got[:, 3 * n].sum()}
 
     # ------------------------------------------------------------------ #
+    def arrivals(self, reqs: RequestBatch) -> tuple | None:
+        """A tick's gates, decided from the batch as the caller built it
+        (give it the host batch, CPU tensors, and they cost no device
+        sync): None where no row is valid (the reference's ``lax.cond``
+        on "any arrivals": the tick does not admit), else the live shards,
+        whether each shard's rows hold a valid one (its per-shard
+        ``lax.cond``; ``()`` unsharded)."""
+        if not bool((reqs.req_id >= 0).any()):
+            return None
+        if self.shards == 1:
+            return ()
+        return tuple(shard_admit.live_shards(reqs.req_id, self.shards))
+
     def eager_step(self, params, state: EngineState, reqs: RequestBatch):
         """One serving tick, eagerly: admit (on ticks with arrivals) +
-        decode step, each op issued from the host.  The "any arrivals"
-        gate, and on a sharded engine which shards have arrivals, are
-        decided from the batch as the caller built it: give it the host
-        batch (CPU tensors) and they cost no device sync; ``upload`` then
-        copies the batch over once."""
+        decode step, each op issued from the host; the gates from
+        ``arrivals``, and ``upload`` then copies the batch over once."""
         # every rank of a rank mesh builds the same batch, so every rank
         # admits on the same ticks and joins the same collectives
-        if bool((reqs.req_id >= 0).any()):
-            live = (shard_admit.live_shards(reqs.req_id, self.shards)
-                    if self.shards > 1 else None)
+        live = self.arrivals(reqs)
+        if live is not None:
             state = self.admit(state, self.upload(reqs), live)
         return self.step(params, state)
 
@@ -257,20 +268,22 @@ class Engine:
         """One serving tick ``serve_step(params, state, reqs) -> (state,
         out)``: admit (on ticks with arrivals) + decode step.
 
-        Unsharded and with ``XLB_SANITIZE`` unset, the tick is
-        ``runtime/graphs.py::StaticTick``: on the card two captured CUDA
-        graphs at the engine's fixed shapes (the arrival tick and the
-        decode-only tick, the gate decided on the host from the batch),
-        on the CPU the same body without a graph.  Its state lives in
-        static buffers, and the state it returns is those buffers whatever
-        ``donate`` says, as the reference's donated state is: a state
-        kept across a tick is overwritten by it (the eager tick already
-        writes the KV cache in place); clone what must survive.  A
-        sharded engine runs ``eager_step`` (its collectives are outside a
-        graph), and so does the sanitizer, whose guards read device values
-        on the host (the reference too builds another program under
-        ``XLB_SANITIZE=1``)."""
-        if self.shards > 1 or sanitize_enabled():
+        Unsharded or sharded over a one-process ``ShardMesh``, and with
+        ``XLB_SANITIZE`` unset, the tick is
+        ``runtime/graphs.py::StaticTick``: on the card captured CUDA
+        graphs at the engine's fixed shapes (the decode-only tick and the
+        arrival tick, and sharded one arrival tick a set of live shards:
+        the gates decided on the host from the batch, as ``eager_step``
+        decides them), on the CPU the same body without a graph.  Its
+        state lives in static buffers, and the state it returns is those
+        buffers whatever ``donate`` says, as the reference's donated state
+        is: a state kept across a tick is overwritten by it (the eager
+        tick already writes the KV cache in place); clone what must
+        survive.  An engine on a rank mesh runs ``eager_step`` (its
+        process group's collectives are outside a graph), and so does the
+        sanitizer, whose guards read device values on the host (the
+        reference too builds another program under ``XLB_SANITIZE=1``)."""
+        if (self.shards > 1 and self._rank_mesh()) or sanitize_enabled():
             return self.eager_step
         return StaticTick(self)
 

@@ -41,7 +41,11 @@ search of phase 2 and the pool commits' sort.  The admission kernel runs
 once per held shard that holds a valid row; an all-padding shard launches
 nothing (the reference's ``lax.cond`` skip) but joins every collective.
 Which shards hold one is read from the host batch (``live_shards``), so
-the choice costs no device sync.
+the choice costs no device sync; a captured tick
+(``runtime/graphs.py::StaticTick``) keys its programs by that set.
+Everything else the body decides on the host comes from shapes (the
+water-fill's ``k_max``, the tiles) or from caches the first, eager call
+fills (the admission plan of ``kernels/tune.py``), so the body captures.
 
 Completion: B1 (``csrc/complete.cu``) on each ``(I/M, C)`` pool slice with
 zero bases, so its counts are the shard's deltas; a ``psum`` of the
@@ -139,7 +143,12 @@ def live_shards(req_id, shards: int) -> list[bool]:
     """Per shard of an ``shards``-way split of the batch (padded to a
     multiple of ``shards``), whether it holds a valid row (req_id >= 0).
     Give it the batch as the host built it; a batch on the card costs one
-    copy to the host."""
+    copy to the host, and inside a CUDA graph capture raises (a captured
+    tick takes its live set from the host batch and passes it in)."""
+    if req_id.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("live_shards: a batch on the card inside a CUDA "
+                           "graph capture; pass live, read from the batch "
+                           "as the host built it")
     valid = (req_id.cpu() >= 0).tolist()
     R_loc = -(-len(valid) // shards)
     return [any(valid[m * R_loc:(m + 1) * R_loc]) for m in range(shards)]
@@ -230,7 +239,8 @@ def admit_commit_sharded(req_id, svc, features, msg_bytes, token, state,
     instances, the routing counters and metrics replicated.  A ragged
     batch pads to a multiple of the held shards with inert ``req_id = -1``
     rows.  ``live``: ``live_shards`` of the held rows as the host built
-    them, one entry a held shard (None computes it here).  Each shard's
+    them, one entry a held shard (None computes it here, which a CUDA
+    graph capture refuses).  Each shard's
     kernel walks tiles of ``min(block_r, R/M)`` rows, as the reference's
     does.  Requires ``I % M == 0`` and every tensor on the mesh's device.
 

@@ -30,8 +30,9 @@ records the counts its body's wrappers made and restores the table, and
 each replay adds them again (``ops.capture_launches`` /
 ``ops.count_replay``).
 
-``StaticTick`` is the XLB engine's tick on static buffers (two programs
-at the engine's fixed shapes: the arrival tick and the decode-only tick);
+``StaticTick`` is the XLB engine's tick on static buffers (at the
+engine's fixed shapes, the arrival tick and the decode-only tick, and on
+a one-process sharded engine one arrival tick a set of live shards);
 ``StaticDecode`` the sidecars' decode (one program per KV cache);
 ``StaticTrainStep`` the training step (one program a batch layout);
 ``StaticModelDecode`` the launcher's greedy decode step (one program a
@@ -148,8 +149,11 @@ class Graphs:
 
 
 class StaticTick:
-    """``Engine.make_jitted``'s tick for an unsharded engine: admission on
-    ticks with arrivals, then the decode step, on static buffers.
+    """``Engine.make_jitted``'s tick: admission on ticks with arrivals,
+    then the decode step, on static buffers, for an unsharded engine or
+    one sharded over a one-process ``ShardMesh`` (a rank mesh's
+    collectives stay outside a graph: ``make_jitted`` gives it the eager
+    tick).
 
     The engine state lives in persistent buffers: the first call clones
     the state it is handed (the KV cache, which the decode writes in
@@ -158,19 +162,30 @@ class StaticTick:
     control-plane splice, a fault's rollback, any ``_replace``) is copied
     in field by field, only the fields that are not the static tensors
     themselves; a state it produced costs nothing.  The shapes and dtypes
-    must stay (``control.apply_plan`` keeps them).  The arrival gate reads
-    the batch as the caller built it: give it host tensors and it costs no
-    device sync; the batch is then packed into a pinned staging buffer
-    and copied into the static request buffer, and the draws
-    (``engine.draws``) into static draw buffers, before the replay.  Two
-    programs a (batch rows R, params) pair: the arrival tick and the
-    decode-only tick.  The params' tensors are read in place: update them
-    in place, or pass another params object (which captures anew).
+    must stay (``control.apply_plan`` keeps them; a one-process sharded
+    engine holds the whole pool, so its state has the unsharded shapes).
+    The gates (``engine.arrivals``) read the batch as the caller built
+    it: give it host tensors and they cost no device sync.  Whether the
+    tick admits at all is the reference's ``lax.cond`` on "any arrivals";
+    on a sharded engine which shards hold a valid row is its per-shard
+    ``lax.cond``, and the set is part of the program's key: a shard
+    without arrivals launches no admission kernel, as in the eager tick.
+    The batch is then packed into a pinned staging buffer and copied into
+    the static request buffer, and the draws (``engine.draws``) into
+    static draw buffers, before the replay.  Programs a (batch rows R,
+    params) pair: the decode-only tick and the arrival tick, one a live
+    set on a sharded engine (at most 2^M - 1; a batch filled from the
+    front, as ``ServeLoop`` fills it, makes at most M).  The params'
+    tensors are read in place: update them in place, or pass another
+    params object (which captures anew).
 
     The outputs are static too: ``emitted``, ``done``, ``req_id``,
     ``active`` and ``packed`` are overwritten by the next tick."""
 
     def __init__(self, engine):
+        if engine.shards > 1 and engine._rank_mesh():
+            raise ValueError("a rank shard mesh's collectives cannot be "
+                             "captured: its tick is engine.eager_step")
         self.eng = engine
         self.device = engine.device
         self.graphs = Graphs(self.device)
@@ -230,13 +245,13 @@ class StaticTick:
             _same_layout(dst, src, "draws")
             dst.copy_(src)
 
-    def _body(self, params, R: int | None) -> None:
+    def _body(self, params, R: int | None, live) -> None:
         """The tick on the static buffers; what outlives it is copied
         back into them."""
         state = self.state
         if R is not None:
             state = self.eng.admit(state, RequestBatch.unpack(self._reqs[R]),
-                                   draws=self._draws[R])
+                                   live=live, draws=self._draws[R])
         new, out = self.eng.step(params, state)
         if self.out is None:
             self.out = {k: torch.empty_like(v) for k, v in out.items()}
@@ -245,14 +260,13 @@ class StaticTick:
         _write_back(self.state, new)
 
     def __call__(self, params, state, reqs: RequestBatch):
-        # the reference's lax.cond on "any arrivals", decided on the host
-        arrivals = bool((reqs.req_id >= 0).any())
+        live = self.eng.arrivals(reqs)      # decided on the host
+        R = None if live is None else reqs.req_id.shape[0]
         self._adopt(state)
-        R = reqs.req_id.shape[0] if arrivals else None
-        if arrivals:
+        if R is not None:
             self._load(reqs)
-        self.graphs.run((R, id(params)), lambda: self._body(params, R),
-                        keep=(params,))
+        self.graphs.run((R, live, id(params)),
+                        lambda: self._body(params, R, live), keep=(params,))
         return self.state, self.out
 
 

@@ -18,9 +18,16 @@ CPU, where the same bodies run without a graph.
   ticks 5-6, every field bit-exact against ``repro.core.interpose.Engine``
   on every tick; a state the tick produced passes through with no copy, a
   foreign one is copied in field by field, one of another shape raises.
+* The sharded tick on a one-process ``ShardMesh`` (M = 2, 4): its
+  decode-only body and its arrival bodies, one a set of live shards
+  (an idle shard among them), under the same dispatch mode; the same
+  splice-and-rollback sequence tick for tick against the reference's
+  jitted engine on the one device this process has (the sharded datapath
+  is bit-exact against it, as ``test_torch_shard.py`` holds it), every
+  arrival through the sharded admission.
 * ``ops.capture_launches`` / ``count_replay`` and which tick
-  ``make_jitted`` returns (captured, or eager under the sanitizer and for
-  sharded engines).
+  ``make_jitted`` returns (captured, or eager under the sanitizer and on
+  a rank shard mesh).
 
 Tolerance: bit-exact (integers and f32), as in ``test_torch_engine.py``.
 """
@@ -46,6 +53,7 @@ from repro_torch.core import routing_table as TR
 from repro_torch.core.balancer import RequestBatch, make_balancer
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import RankShardMesh, make_shard_mesh
 from repro_torch.models import model as TM
 from repro_torch.runtime import graphs
 from repro_torch.runtime import serve_loop as TS
@@ -72,7 +80,8 @@ class HostSync(AssertionError):
 
 # the plain versions the kernel wrappers run on the CPU: on the card each is
 # one kernel launch, so what they do inside is not checked
-_KERNELS = ((ops._rm, "admit_commit"), (ops._cp, "complete"),
+_KERNELS = ((ops._rm, "admit_commit"), (ops._rm, "admit"),
+            (ops._rm, "route_match"), (ops._cp, "complete"),
             (ops._da, "decode_attention"), (ops._rd, "relay_slots"))
 _inside_kernel = [0]
 # memoised per shape and device: filled by the eager warm-up that runs
@@ -210,12 +219,15 @@ def _commit(cp):
 SPLICE_AT, STALL = 3, (5, 7)      # the tick before which each happens
 
 
-def _drive(tp, on_tick, jp=None):
-    """The port's engine through ``make_jitted`` over nine ticks of
-    ``_ticks``; with ``jp`` the reference's beside it.  ``on_tick(t,
-    tstate, tout, jstate, jout, tick)`` after each."""
+def _drive(tp, on_tick, jp=None, shards=1):
+    """The port's engine (``shards``-way on a one-process mesh) through
+    ``make_jitted`` over nine ticks of ``_ticks``; with ``jp`` the
+    reference's unsharded engine beside it.  ``on_tick(t, tstate, tout,
+    jstate, jout, tick)`` after each."""
     jcp, tcp = _control_planes()
-    teng = TI.Engine(TCFG, I, C, MAX_LEN, eos=-1, device="cpu")
+    kw = {} if shards == 1 else dict(
+        shards=shards, shard_mesh=make_shard_mesh(shards, device="cpu"))
+    teng = TI.Engine(TCFG, I, C, MAX_LEN, eos=-1, device="cpu", **kw)
     teng.draws = ReplayDraws()
     tick = teng.make_jitted()
     ts = teng.init_state(tcp.snapshot(), dtype=torch.float32)
@@ -245,14 +257,14 @@ def _drive(tp, on_tick, jp=None):
 def test_engine_tick_bodies_issue_no_host_sync(weights, checked_bodies):
     _, tp = weights
     _drive(tp, lambda *a: None)
-    kinds = {r for r, _ in checked_bodies}
+    kinds = {r for r, *_ in checked_bodies}
     assert R in kinds and None in kinds       # arrival and decode-only
     assert len(checked_bodies) == 9
 
 
-def test_static_state_matches_reference_through_splice_and_rollback(
-        weights):
-    jp, tp = weights
+def _follow_reference(jp, tp, shards=1):
+    """``_drive`` with the reference beside it: every field of the state
+    and every output bit-exact on every tick; the per-tick summaries."""
     seen = {}
 
     def on_tick(t, ts, tout, js, jout, tick):
@@ -272,9 +284,16 @@ def test_static_state_matches_reference_through_splice_and_rollback(
         seen[t] = (int(ts.routing.version), int(tout["active"]),
                    int(ts.pool.length.sum()))
 
-    _drive(tp, on_tick, jp)
+    _drive(tp, on_tick, jp, shards)
     assert seen[SPLICE_AT][0] == 1 and seen[0][0] == 0
     assert max(a for _, a, _ in seen.values()) > 0
+    return seen
+
+
+def test_static_state_matches_reference_through_splice_and_rollback(
+        weights):
+    jp, tp = weights
+    _follow_reference(jp, tp)
 
 
 def test_produced_state_passes_through_and_foreign_state_is_copied_in(
@@ -305,6 +324,51 @@ def test_produced_state_passes_through_and_foreign_state_is_copied_in(
         tick(tp, st._replace(pool=st.pool._replace(
             length=torch.zeros((I + 1, C), dtype=torch.int32))),
             RequestBatch(*map(torch.from_numpy, _ticks(1, 6)[0])))
+
+
+# --------------------------------------------------------------------------- #
+# the sharded tick on a one-process mesh
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_sharded_tick_bodies_issue_no_host_sync(weights, checked_bodies, M):
+    """The decode-only body and an arrival body a set of live shards, the
+    splice and the rollback on the way, then a batch whose shard 1 is all
+    padding (an idle ingress host between live ones)."""
+    _, tp = weights
+    tick = _drive(tp, lambda *a: None, shards=M)
+    _, *rest = _ticks(1, 6, seed=4)[0]
+    rid = np.arange(R, dtype=np.int32)
+    rid[R // M:2 * R // M] = -1
+    tick(tp, tick.state, RequestBatch(*map(torch.from_numpy, (rid, *rest))))
+    assert len(checked_bodies) == 10
+    arrivals = {live for r, live, _ in checked_bodies if r is not None}
+    assert (None, None) in {(r, live) for r, live, _ in checked_bodies}
+    assert all(len(live) == M for live in arrivals) and len(arrivals) >= 2
+    idle = (True, False) + (True,) * (M - 2)
+    assert idle in arrivals
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_sharded_static_tick_matches_reference_through_splice_and_rollback(
+        weights, monkeypatch, M):
+    """The sharded captured tick through the same nine ticks, a splice and
+    a rollback: tick for tick equal to the reference, each arrival tick
+    through ``ops.admit_commit_sharded`` with the live set the host read."""
+    jp, tp = weights
+    calls = []
+    sharded = ops.admit_commit_sharded
+
+    def counted(*a, **k):
+        calls.append(k["live"])
+        return sharded(*a, **k)
+
+    monkeypatch.setattr(ops, "admit_commit_sharded", counted)
+    _follow_reference(jp, tp, shards=M)
+    n_arrivals = sum((b[0] >= 0).any() for b in _ticks(9, 6))
+    assert len(calls) == n_arrivals
+    assert all(live is not None and len(live) == M for live in calls)
 
 
 # --------------------------------------------------------------------------- #
@@ -365,7 +429,7 @@ def test_arch_tick_bodies_issue_no_host_sync(checked_bodies, arch):
                             torch.float32, "cpu")
     eng = TI.Engine(cfg, 2, 2, 6, device="cpu")
     _, outs = _serve_ticks(eng, params, cfg.vocab, n_ticks=3)
-    assert [k for k, _ in checked_bodies] == [R, R, None]
+    assert [k for k, *_ in checked_bodies] == [R, R, None]
     assert int(outs[-1]["active"]) > 0
 
 
@@ -389,13 +453,19 @@ def test_capture_launches_moves_a_capture_counts_to_its_replays():
     ops.LAUNCHES.update(before)
 
 
-def test_make_jitted_is_captured_unless_sanitized_or_sharded(monkeypatch):
+def test_make_jitted_is_captured_unless_sanitized_or_on_a_rank_mesh(
+        monkeypatch):
     eng = TI.Engine(TCFG, I, C, MAX_LEN, device="cpu")
     assert isinstance(eng.make_jitted(), graphs.StaticTick)
-    monkeypatch.setenv("XLB_SANITIZE", "1")
-    assert eng.make_jitted() == eng.eager_step
-    monkeypatch.delenv("XLB_SANITIZE")
-    from repro_torch.launch.mesh import make_shard_mesh
     sharded = TI.Engine(TCFG, I, C, MAX_LEN, device="cpu", shards=2,
                         shard_mesh=make_shard_mesh(2, device="cpu"))
+    assert isinstance(sharded.make_jitted(), graphs.StaticTick)
+    ranked = TI.Engine(TCFG, I, C, MAX_LEN, device="cpu", shards=2,
+                       shard_mesh=RankShardMesh({"shard": 2},
+                                                torch.device("cpu"), 0))
+    assert ranked.make_jitted() == ranked.eager_step
+    with pytest.raises(ValueError, match="rank shard mesh"):
+        graphs.StaticTick(ranked)
+    monkeypatch.setenv("XLB_SANITIZE", "1")
+    assert eng.make_jitted() == eng.eager_step
     assert sharded.make_jitted() == sharded.eager_step

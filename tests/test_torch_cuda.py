@@ -1141,17 +1141,18 @@ def test_analysis_kernels_section_exits_zero_on_the_card():
 # --------------------------------------------------------------------------- #
 
 
-def _serve_record(dev, captured, draws, midway):
+def _serve_record(dev, captured, draws, midway, shards=1):
     """64 requests through ServeLoop over the XLB engine (8 x 4 slots,
-    admit 8) on the card, through ``make_jitted``'s captured tick or the
-    eager tick; ``draws``: "engine" (its own generator on the card) or
-    "host" (a seeded CPU generator, copied over without a sync);
-    ``midway``: a commit at tick 4 and lane 1 stalled over ticks 6-9.
-    Returns everything the drain leaves: completions, tokens, ticks,
-    routing, metrics and pool."""
+    admit 8; ``shards``-way on a one-process mesh) on the card, through
+    ``make_jitted``'s captured tick or the eager tick; ``draws``:
+    "engine" (its own generator on the card) or "host" (a seeded CPU
+    generator, copied over without a sync); ``midway``: a commit at tick
+    4 and lane 1 stalled over ticks 6-9.  Returns everything the drain
+    leaves: completions, tokens, ticks, routing, metrics and pool."""
     from repro_torch.configs import XLB_SERVICE_MODEL as cfg
     from repro_torch.core import policies
     from repro_torch.core.interpose import Engine
+    from repro_torch.launch.mesh import make_shard_mesh
     from repro_torch.models import model as M
     from repro_torch.runtime import graphs
     from repro_torch.runtime.serve_loop import (Fault, FaultInjector,
@@ -1159,7 +1160,9 @@ def _serve_record(dev, captured, draws, midway):
     cp = _control_plane()
     params = M.init_params(cfg, torch.Generator().manual_seed(0),
                            torch.float32, dev)
-    eng = Engine(cfg, 8, 4, 8, device=dev)
+    kw = {} if shards == 1 else dict(
+        shards=shards, shard_mesh=make_shard_mesh(shards, device=dev))
+    eng = Engine(cfg, 8, 4, 8, device=dev, **kw)
     if draws == "host":
         gen = torch.Generator().manual_seed(5)
 
@@ -1215,6 +1218,87 @@ def test_captured_tick_equals_the_eager_tick_on_the_card(dev, draws,
     assert not any(map(any, got["pool"]["active"]))
     if midway:
         assert got["routing"]["version"] >= 1
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("draws,midway", [("engine", False),
+                                          ("host", True)])
+def test_sharded_captured_tick_equals_the_eager_tick_on_the_card(
+        dev, draws, midway, M):
+    """The sharded tick on a one-process mesh: the captured drain
+    bit-equal to the eager sharded drain and to the unsharded one; at
+    most M + 1 programs (the batch is filled from the front)."""
+    got = _serve_record(dev, True, draws, midway, shards=M)
+    want = _serve_record(dev, False, draws, midway, shards=M)
+    flat = _serve_record(dev, True, draws, midway)
+    assert 2 <= got.pop("graphs") <= M + 1
+    want.pop("graphs")
+    flat.pop("graphs")
+    assert got == want
+    assert got == flat
+    assert len(got["done"]) == 64
+
+
+def test_sharded_replayed_arrival_tick_launches_equal_the_profiler(dev):
+    """One replayed arrival tick of the sharded tick (M = 4, shard 1
+    idle): ``ops.LAUNCHES`` counts as many B3, B4, B5, B1 and B6 launches
+    as the profiler sees kernels, B3 once a live shard."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core.interpose import Engine
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.models import model as M
+    from repro_torch.runtime import graphs
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, dev)
+    eng = Engine(cfg, 8, 4, 8, device=dev, shards=4,
+                 shard_mesh=make_shard_mesh(4, device=dev))
+    tick = eng.make_jitted()
+    assert isinstance(tick, graphs.StaticTick)
+    state = eng.init_state(_control_plane().snapshot(), dtype=torch.float32)
+
+    def batch(t):
+        b, _, _ = _batch(16, t, "cpu")
+        rid = torch.arange(16 * t, 16 * t + 16, dtype=torch.int32)
+        rid[4:8] = -1                       # shard 1 of 4: padding only
+        return b._replace(req_id=rid, svc=b.svc % 2)
+
+    for t in range(2):                       # warm-up and capture, replay
+        state, _ = tick(params, state, batch(t))
+    assert len(tick.graphs) == 1
+    names = {"admit": "admit_kernel", "route_match": "route_kernel",
+             "relay_slots": "relay_kernel", "complete": "complete_kernel",
+             "decode_attention": "decode_kernel"}
+    torch.cuda.synchronize()
+    n0 = {k: ops.LAUNCHES[k] for k in names}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = tick(params, state, batch(2))
+        torch.cuda.synchronize()
+    assert len(tick.graphs) == 1             # a replay
+    seen = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for k, n in names.items():
+                if n in e.name:
+                    seen[k] += 1
+    got = {k: ops.LAUNCHES[k] - n0[k] for k in names}
+    assert got == seen, (got, seen)
+    assert got == {"admit": 3, "route_match": 1, "relay_slots": 1,
+                   "complete": 4, "decode_attention": cfg.n_layers}
+
+
+def test_live_shards_of_a_card_batch_inside_a_capture_raises(dev):
+    """The captured tick reads its live set from the host batch; a body
+    that reads it from a batch on the card fails its capture loudly."""
+    from repro_torch.kernels import shard_admit
+    from repro_torch.runtime import graphs
+    rid = torch.arange(8, dtype=torch.int32, device=dev)
+    g = graphs.Graphs(dev)
+    with pytest.raises(graphs.CaptureError, match="live_shards"):
+        g.run("live", lambda: shard_admit.live_shards(rid, 2))
+    assert len(g) == 0
+    assert shard_admit.live_shards(rid, 2) == [True, True]   # outside one
 
 
 @pytest.mark.parametrize("kind", ["istio", "cilium"])

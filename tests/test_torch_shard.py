@@ -18,7 +18,10 @@ kernel versions.
 * ``sharded_apply`` at M = 4 against the reference's einsum oracle.
 * ``Engine`` and mesh validation, with the reference's messages.
 * ``ServeLoop`` over ``Engine(shards=2)`` and ``(shards=4)``: the same
-  drain as the unsharded port and the unsharded reference.
+  drain as the unsharded port and the unsharded reference, through
+  ``make_jitted``'s captured tick; a drain's batch is filled from the
+  front, so its programs (the decode-only tick and an arrival tick a
+  set of live shards) number at most M + 1.
 * A mid-serve ``ControlPlane`` transaction and the transport crash and
   rejoin (the reference's subprocess scenarios) on a sharded port loop.
 * ``serve --shards 2 --device cpu`` and its refusals.
@@ -57,6 +60,7 @@ from repro_torch.kernels import route_match as rm
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.models import model as TM
+from repro_torch.runtime import graphs
 from repro_torch.runtime import serve_loop as TS
 from repro_torch.runtime import transport as TT
 
@@ -481,6 +485,27 @@ def test_serve_loop_sharded_matches_unsharded_and_reference(
     assert len(done) == 48 and not (dropped or queued or inflight)
     assert held_first > 0                          # the pool filled up
     assert got["metrics"]["overflow"] > 0
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_prefix_filled_drain_captures_at_most_m_plus_one_programs(
+        weights, reference_drain, monkeypatch, shards):
+    keys = []
+    run = graphs.Graphs.run
+
+    def record(self, key, body, keep=()):
+        keys.append(key)
+        return run(self, key, body, keep)
+
+    monkeypatch.setattr(graphs.Graphs, "run", record)
+    assert _port_drain(weights, shards) == reference_drain
+    distinct = set(keys)
+    lives = [live for r, live, _ in distinct if r is not None]
+    assert (None, None) in {(r, live) for r, live, _ in distinct}
+    assert len(distinct) <= shards + 1 and len(lives) >= 2
+    for live in lives:                          # a prefix of live shards
+        n = sum(live)
+        assert live == (True,) * n + (False,) * (shards - n)
 
 
 # --------------------------------------------------------------------------- #
