@@ -72,11 +72,17 @@ Phases (each prints one line; any failure exits non-zero):
      operator's canary / drain / set_weight / canary / undrain and a slow
      lane; the consumers converge, the replica resyncs once, every request
      completes; the same channel stats, histories and chaos row on the CPU;
-   - sanitizer: the main path's traffic with ``XLB_SANITIZE=1`` (every
-     admit and complete guard and the loop law on the card; the eager
-     tick, as the guards read the card on the host), no law fires and the
-     state equals the plain (captured) run's; a planted off-by-one
-     release must raise naming its law;
+   - sanitizer: the main path's traffic with ``XLB_SANITIZE=1`` through
+     the sanitizing captured tick (the admit and complete laws inside the
+     graphs, one read of their verdicts a tick, the loop law on the
+     host), unsharded and at 4 shards of a one-process mesh: no law
+     fires and each run equals its plain captured run; a planted
+     off-by-one release through the eager guard and a leak planted in
+     the admission's output that fires only from a replay must each
+     raise naming its law, the leak leaving the loop's state as it was;
+     3 alternating pairs of 1024-request drains, the captured sanitized
+     tick against the eager one, bit-equal to each other and to the
+     plain captured tick's drain, with one profiled pass a side;
    then sharded admission and completion (``kernels/shard_admit.py``) at
    M = 1, 2 and 4 shards of one card: ``ops.admit_commit_sharded`` at the
    serving shape, a ragged batch and with an idle ingress host (a shard
@@ -294,6 +300,9 @@ MEM_BPS = OPS_PS = BF16_OPS_PS = None
 I_LANES, SLOTS, ADMIT_R, MAX_LEN = 64, 16, 256, 32
 N_REQUESTS, N_UNROUTABLE, ARRIVALS_PER_TICK = 4096, 64, 34
 PROFILE_FROM, PROFILE_TICKS = 60, 20    # the separate profiled pass
+PROFILE_WINDOWS = 5                     # profiler windows a measure may take
+PASS_WINDOWS = 3                        # and a profiled pass (its ids fit
+                                        # in N_REQUESTS)
 # the engines phase: fewer requests, so that Istio's per-instance decode
 # launches fit the time limit, and a short profiled pass of each engine
 ENGINE_REQUESTS, ENGINE_WARM, ENGINE_PROFILE = 1024, 8, 4
@@ -381,8 +390,11 @@ DEG_FACTOR, DEG_EPOCH, DEG_SHORT_EPOCH = 10, 36, 6
 # schedule, with its two tokens a request (max_len 3), so that its
 # windows (healthy before tick 20, recovered from 110) hold completions
 CHAOS_SEED, CHAOS_TICKS, CHAOS_MAX_LEN = 23, 170, 3
-# the sanitizer phase: ticks of the main path's traffic, plain and sanitized
-SAN_TICKS = 40
+# the sanitizer phase: ticks of the main path's traffic, plain and
+# sanitized, also at SAN_SHARDS shards; the admission launch from which
+# the planted leak fires (the second replay of the arrival graph); the
+# sanitized tick's captured-against-eager A/B pairs
+SAN_TICKS, SAN_SHARDS, SAN_LEAK_AT, SAN_AB_PAIRS = 40, 4, 3, 3
 # the sharded phase: the mesh widths, the seed of its drains' draws; the
 # widths of its captured-against-eager A/B and its alternating pairs; the
 # kernels a sharded drain must launch, here and on each rank of the ranks
@@ -546,26 +558,33 @@ def device_events(torch, fn, counts: dict | None = None):
     return wall, by_name
 
 
-def profile_calls(torch, fn, reps: int = 20) -> dict:
+def profile_calls(torch, fn, reps: int = 20, expect: tuple = ()) -> dict:
     """{device event name: ms per call} over ``reps`` calls of ``fn``
     (profiler), after one call outside the window.  A window in which a
     name shows no whole number of events per call (the profiler once lost
     about half of a library call's events on an H100) is taken again, up
-    to 3 times; the last one is kept with a note on stderr."""
+    to 3 times, and one in which no event name contains one of the keys
+    in ``expect`` (the profiler on an H100 once saw none of the 20
+    launches of a kernel that ``ops.LAUNCHES`` counted in its window) up
+    to PROFILE_WINDOWS times; the last one is kept, with a note on stderr
+    where it is not whole or lacks a key."""
     fn()
 
     def run():
         for _ in range(reps):
             fn()
 
-    for _ in range(3):
+    for i in range(PROFILE_WINDOWS):
         counts: dict = {}
         _, by_name = device_events(torch, run, counts)
-        if all(c % reps == 0 for c in counts.values()):
+        whole = all(c % reps == 0 for c in counts.values())
+        missing = [k for k in expect if not any(k in n for n in counts)]
+        if not missing and (whole or i >= 2):
             break
-    else:
-        print(f"chip_smoke: note: events per call not whole in 3 profiler "
-              f"windows of {reps} calls: {counts}", file=sys.stderr)
+    if missing or not whole:
+        print(f"chip_smoke: note: profiler window {i + 1} of {reps} calls: "
+              f"events per call {'' if whole else 'not '}whole, none of "
+              f"{missing}: {counts}", file=sys.stderr)
     return {n: us / 1e3 / reps for n, us in by_name.items()}
 
 
@@ -579,10 +598,16 @@ def kernel_time(prof: dict, key) -> tuple:
             " + ".join(sorted(kernel_name(n) for n in hit)))
 
 
-def kernel_ms(torch, fn, key, reps: int = 20):
+def profile_kernel(torch, fn, key: str, reps: int = 20) -> tuple:
+    """``kernel_time`` of ``key`` over a profiler window of ``reps`` calls
+    of ``fn`` in which the profiler saw the kernel (``profile_calls``)."""
+    return kernel_time(profile_calls(torch, fn, reps, expect=(key,)), key)
+
+
+def kernel_ms(torch, fn, key: str, reps: int = 20):
     """Device ms per call of the kernels whose name contains ``key``
     (profiler), or None where the profiler sees none."""
-    return kernel_time(profile_calls(torch, fn, reps), key)[0]
+    return profile_kernel(torch, fn, key, reps)[0]
 
 
 def library_device_ms(torch, fn, reps: int = 20) -> float:
@@ -1321,7 +1346,7 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
                     f"max_abs_err={err}, in f32 {err32} (sdpa vs plain "
                     f"{lib_err:.3g})")
         nb, nops = decode_work(q, kc, lens)
-        ms, names = kernel_time(profile_calls(torch, call), "decode_")
+        ms, names = profile_kernel(torch, call, "decode_")
         timing[key] = dict(
             ms=ms, kernel=names,
             call_ms=cuda_ms(torch, call),
@@ -1341,7 +1366,7 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
         key = "decode_attention[G48]" + ("" if dtype == bf16 else "[f32]")
         err = float_err(torch, key, call(), plain())
         nb, nops = decode_work(q, kc, lens)
-        ms, names = kernel_time(profile_calls(torch, call), "decode_")
+        ms, names = profile_kernel(torch, call, "decode_")
         rows.append(f"{key}[B={shape[0]} S={shape[1]} H=48 K=1 hd=128 "
                     f"{dtype}] max_abs_err={err} ({names})")
         timing[key] = dict(
@@ -1400,8 +1425,7 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
     rows.append(f"flash_attention[B={B} S={S} H={H} K={K} hd={hd} causal "
                 f"bf16] max_abs_err={err}, in f32 {err32} (sdpa vs plain "
                 f"{lib_err:.3g})")
-    ms, names = kernel_time(profile_calls(torch, call, reps=5),
-                            "flash_kernel")
+    ms, names = profile_kernel(torch, call, "flash_kernel", reps=5)
     timing["flash_attention"] = dict(
         ms=ms, kernel=names,
         call_ms=cuda_ms(torch, call, reps=5, warm=1),
@@ -1471,7 +1495,7 @@ def phase_float_kernels(torch, ops, da, fa, ssd, dev="cuda"):
         torch, lambda *t: ops.ssd_scan(*t, chunk=Q, return_state=True),
         lambda *t: ssd.ssd_scan(*t, Q), "ssd_scan[jamba]", x.float(), a,
         Bg.float().expand(-1, -1, nh, -1), Cg.float().expand(-1, -1, nh, -1))
-    ms, names = kernel_time(profile_calls(torch, call, reps=3), SSD_PREFIX)
+    ms, names = profile_kernel(torch, call, SSD_PREFIX, reps=3)
     check(names.split("<", 1)[0] == "ssd_kernel", f"ssd_scan at jamba's "
           f"shape ran {names!r}, not the FMA ssd_kernel")
     rows.append(f"ssd_scan[jamba: B={B} S={S} nh={nh} hd={hd} N={N} bf16] "
@@ -1514,8 +1538,7 @@ def whisper_attention(torch, ops, da, fa, rows, timing, dev):
     lib = lambda: sdpa(qt, kt, vt)
     lib_err = float((lib().transpose(1, 2).float() - plain().float())
                     .abs().max())
-    ms, names = kernel_time(profile_calls(torch, call, reps=5),
-                            "flash_kernel")
+    ms, names = profile_kernel(torch, call, "flash_kernel", reps=5)
     check(names == "flash_kernel_wgmma<64>", f"B7 at the encoder's shape "
           f"ran {names!r}, not the tensor-core kernel")
     rows.append(f"flash_attention[enc: B={B} S={S} H={H} K={H} hd={hd} "
@@ -1548,7 +1571,7 @@ def whisper_attention(torch, ops, da, fa, rows, timing, dev):
                     vc.float(), lens)
     q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
     lib = lambda: sdpa(q4, k4, v4)
-    ms, names = kernel_time(profile_calls(torch, call), "decode_")
+    ms, names = profile_kernel(torch, call, "decode_")
     nb, nops = decode_work(q, kc, lens)
     rows.append(f"decode_attention[cross: B={B} F={S} H={H} K={H} hd={hd} "
                 f"bf16, lengths F - 1] max_abs_err={err}, in f32 {err32} "
@@ -1582,7 +1605,7 @@ def moe_attention(torch, ops, da, fa, rows, timing, dev):
             plain = lambda: da.decode_attention(q, kc, vc, lens)
             err = float_err(torch, "decode_attention" + tag, call(), plain())
             nb, nops = decode_work(q, kc, lens)
-            ms, names = kernel_time(profile_calls(torch, call), "decode_")
+            ms, names = profile_kernel(torch, call, "decode_")
             rows.append(f"decode_attention{tag}[B={B} S={last + 1} H={H} "
                         f"K={K} hd={hd} {dtype}] max_abs_err={err} ({names})")
             timing["decode_attention" + tag] = dict(
@@ -1596,8 +1619,7 @@ def moe_attention(torch, ops, da, fa, rows, timing, dev):
             call = lambda: ops.flash_attention(q, k, v, causal=True)
             plain = lambda: fa.flash_attention(q, k, v, causal=True)
             err = float_err(torch, "flash_attention" + tag, call(), plain())
-            ms, names = kernel_time(profile_calls(torch, call, reps=5),
-                                    "flash_kernel")
+            ms, names = profile_kernel(torch, call, "flash_kernel", reps=5)
             rows.append(f"flash_attention{tag}[B={B} S={S} H={H} K={K} "
                         f"hd={hd} causal {dtype}] max_abs_err={err} "
                         f"({names})")
@@ -2357,13 +2379,17 @@ def profiled_pass(torch, SL, ops, cfg, loop, ids, first, names: dict,
     then PROFILE_TICKS ticks run under the profiler, then the loop
     drains.  ``names``: {``ops.LAUNCHES`` key: the profiler's name of its
     kernel}; the launches counted in the window must equal the profiler's
-    count of those kernels, each at least one.  Returns (busy device ms a
-    tick, wall us under the profiler, {kernel: us}, the window's
-    launches)."""
-    reqs = [make_request(SL, cfg, ids, first + i)
-            for i in range((PROFILE_FROM + PROFILE_TICKS)
-                           * ARRIVALS_PER_TICK)]
-    nxt, t_start, n_done = 0, loop.ticks, len(loop.done)
+    count of those kernels, each at least one.  A window in which the
+    profiler saw fewer is taken again after it, up to PASS_WINDOWS
+    windows (the profiler on an H100 once lost every event of one kernel
+    in a window), with a note on stderr.  Returns (busy device ms a tick,
+    wall us under the profiler, {kernel: us}, the window's launches)."""
+    reqs, nxt, t_start, n_done = [], 0, loop.ticks, len(loop.done)
+
+    def more(ticks):
+        n = len(reqs)
+        reqs.extend(make_request(SL, cfg, ids, first + i)
+                    for i in range(n, n + ticks * ARRIVALS_PER_TICK))
 
     def step():
         nonlocal nxt
@@ -2372,15 +2398,23 @@ def profiled_pass(torch, SL, ops, cfg, loop, ids, first, names: dict,
         nxt += ARRIVALS_PER_TICK
         loop.tick()
 
+    more(PROFILE_FROM)
     while loop.ticks - t_start < PROFILE_FROM:
         step()
-    n0 = dict(ops.LAUNCHES)
-    counts: dict = {}
-    wall_us, by_name = device_events(
-        torch, lambda: [step() for _ in range(PROFILE_TICKS)], counts)
-    window = {k: ops.LAUNCHES[k] - n0[k] for k in names}
-    seen = {k: sum(c for n, c in counts.items() if key in n)
-            for k, key in names.items()}
+    for _ in range(PASS_WINDOWS):
+        more(PROFILE_TICKS)
+        n0 = dict(ops.LAUNCHES)
+        counts: dict = {}
+        wall_us, by_name = device_events(
+            torch, lambda: [step() for _ in range(PROFILE_TICKS)], counts)
+        window = {k: ops.LAUNCHES[k] - n0[k] for k in names}
+        seen = {k: sum(c for n, c in counts.items() if key in n)
+                for k, key in names.items()}
+        if all(seen[k] >= window[k] for k in names):
+            break
+        print(f"chip_smoke: note: {what}: the profiler saw {seen} of the "
+              f"launches {window} in a window",
+              file=sys.stderr)
     check(window == seen and min(window.values()) > 0,
           f"{what}: launches counted {window} in the profiled window, the "
           f"profiler saw {seen}")
@@ -3203,45 +3237,115 @@ def phase_chaos(torch, RT, CT, TM, interpose, SL, TR, W, policies, ops, cfg,
             f"{statistics.median(reads):.4f}", card["launches"])
 
 
-def phase_sanitize(torch, RT, TM, interpose, SL, INV, policies, ops, cfg,
-                   dev="cuda"):
-    """The main path's traffic for SAN_TICKS ticks, plain and then with
-    XLB_SANITIZE=1 (every admit and complete guard and the loop law on the
-    card): no law fires, both runs end in the same state; then a planted
-    violation (a completion ctx whose load_after is off by one) must
-    raise naming release-conservation."""
-    import os
+@contextlib.contextmanager
+def sanitizer(on: bool):
+    """``XLB_SANITIZE`` set to 1 or 0 inside, put back after: a loop's
+    ``make_jitted`` reads it when the loop is built, the eager guards and
+    the loop law at every tick."""
+    old = os.environ.get("XLB_SANITIZE")
+    os.environ["XLB_SANITIZE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["XLB_SANITIZE"]
+        else:
+            os.environ["XLB_SANITIZE"] = old
+
+
+def loop_record(loop) -> dict:
+    """Everything a drain leaves: completions, tokens, ticks, routing,
+    metrics and pool."""
+    lists = lambda t: {f: getattr(t, f).tolist() for f in t._fields}  # noqa
+    return {"done": [(r.req_id, r.retries, r.submit_tick, r.admit_tick,
+                      r.done_tick) for r in loop.done],
+            "tokens": [r.tokens for r in loop.done], "ticks": loop.ticks,
+            "held_first": loop.held_first, "routing": lists(loop.routing),
+            "metrics": lists(loop.state.metrics),
+            "pool": lists(loop.state.pool)}
+
+
+def state_fields(loop) -> dict:
+    """A copy of the loop state's routing, pool and metrics tensors."""
+    return {f"{n}.{g}": getattr(getattr(loop.state, n), g).clone()
+            for n in ("routing", "pool", "metrics")
+            for g in getattr(loop.state, n)._fields}
+
+
+def san_loop(torch, RT, interpose, SL, MS, cfg, params, dev, sanitized,
+             shards=1, draws=None):
+    """A ServeLoop over the main path's engine (``shards``-way on a
+    one-process mesh) built with XLB_SANITIZE set or not; (loop, ids,
+    its make_jitted tick, a StaticTick)."""
+    routing, ids = routing_config(RT, dev)
+    kw = {} if shards == 1 else dict(
+        shards=shards, shard_mesh=MS.make_shard_mesh(shards, device=dev))
+    with sanitizer(sanitized):
+        eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev,
+                               **kw)
+        if draws is not None:
+            eng.draws = draws
+        loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
+                            dtype=torch.float32, backoff_cap=4)
+    tick = loop.serve_step
+    check(type(tick).__name__ == "StaticTick" and tick.sanitize == sanitized,
+          f"sanitize: make_jitted (XLB_SANITIZE={int(sanitized)}, M "
+          f"{shards}) gave {tick!r}, not the {'sanitizing ' * sanitized}"
+          "captured tick")
+    return loop, ids, tick
+
+
+def phase_sanitize(torch, RT, TM, interpose, SL, MS, INV, policies, ops,
+                   cfg, dev="cuda", gpu=""):
+    """The sanitized tick (XLB_SANITIZE=1), ``make_jitted``'s sanitizing
+    ``StaticTick`` (the reference's ``jit(checkify(serve_step))``):
+
+    * the main path's traffic for SAN_TICKS ticks, plain and sanitized,
+      both captured: every sanitized tick reads its verdicts once (the
+      admit and complete laws checked inside the graphs) and runs the
+      loop law on the host, none fires, and the two runs end bit-equal;
+      the same at M SAN_SHARDS on a one-process mesh (whose body calls no
+      guard); a planted off-by-one release through the eager
+      ``INV.guard`` must raise naming its law;
+    * a leak planted in the admission's output from its SAN_LEAK_AT-th
+      launch (a device counter the wrapper increments, recorded in the
+      arrival graph at its capture) must raise from a replay naming
+      load-delta-conservation, and leave the loop's state as it was;
+    * SAN_AB_PAIRS alternating pairs of AB_REQUESTS-request drains, the
+      captured sanitized tick against ``eager_step`` under the sanitizer,
+      each pair bit-equal and bit-equal to the plain captured drain (after
+      one untimed drain each); one profiled pass a side, whose launches
+      must equal the profiler's count of their kernels.
+
+    Returns (lines, the 40-tick runs' launches)."""
     dev = torch.device(dev)
     params = TM.init_params(cfg, torch.Generator().manual_seed(0),
                             torch.float32, dev)
     calls, last = {"admit": 0, "complete": 0, "loop": 0}, {}
     guard, assert_host = ops.guard, SL.assert_host
+    capturing = lambda: dev.type == "cuda" and \
+        torch.cuda.is_current_stream_capturing()  # noqa: E731
 
     def counted_guard(scope, ctx):
         calls[scope] += 1
-        last[scope] = ctx
+        if not capturing():         # the warm-up's values, kept
+            last[scope] = {k: torch.as_tensor(v).clone()
+                           for k, v in ctx.items()}
         guard(scope, ctx)
 
     def counted_host(scope, ctx):
         calls[scope] += 1
         assert_host(scope, ctx)
 
-    def run(sanitized):
-        routing, ids = routing_config(RT, dev)
+    def run(sanitized, shards=1):
+        loop, ids, tick = san_loop(torch, RT, interpose, SL, MS, cfg,
+                                   params, dev, sanitized, shards,
+                                   host_draws(torch, policies, dev, 3))
+        reqs = [make_request(SL, cfg, ids, i)
+                for i in range(SAN_TICKS * ARRIVALS_PER_TICK)]
         ms = []
-        old = os.environ.get("XLB_SANITIZE")
-        os.environ["XLB_SANITIZE"] = "1" if sanitized else "0"
-        try:
-            # make_jitted reads the variable: the sanitized tick is eager
-            eng = interpose.Engine(cfg, I_LANES, SLOTS, MAX_LEN, device=dev)
-            eng.draws = host_draws(torch, policies, dev, 3)
-            loop = SL.ServeLoop(eng, params, routing, admit_batch=ADMIT_R,
-                                dtype=torch.float32, backoff_cap=4)
-            check((loop.serve_step == eng.eager_step) == sanitized,
-                  f"sanitize: the tick is {loop.serve_step!r}")
-            reqs = [make_request(SL, cfg, ids, i)
-                    for i in range(SAN_TICKS * ARRIVALS_PER_TICK)]
-            sync(torch, dev)
+        sync(torch, dev)
+        with sanitizer(sanitized):
             for t in range(SAN_TICKS):
                 for r in reqs[t * ARRIVALS_PER_TICK:
                               (t + 1) * ARRIVALS_PER_TICK]:
@@ -3249,38 +3353,39 @@ def phase_sanitize(torch, RT, TM, interpose, SL, INV, policies, ops, cfg,
                 t0 = time.perf_counter()
                 loop.tick()
                 ms.append((time.perf_counter() - t0) * 1e3)
-        finally:
-            if old is None:
-                del os.environ["XLB_SANITIZE"]
-            else:
-                os.environ["XLB_SANITIZE"] = old
         sync(torch, dev)
-        return loop, ms
+        return loop, tick, ms
 
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
-    plain, plain_ms = run(False)
+    plain, _, plain_ms = run(False)
     ops.guard, SL.assert_host = counted_guard, counted_host
     try:
         check(calls == {"admit": 0, "complete": 0, "loop": 0},
               "sanitize: a guard ran with XLB_SANITIZE=0")
-        san, san_ms = run(True)
+        san, san_tick, san_ms = run(True)
     finally:
         ops.guard, SL.assert_host = guard, assert_host
     launches = {k: ops.LAUNCHES[k] for k in ("admit_commit", "complete",
                                              "decode_attention")}
-    check(calls["complete"] == calls["loop"] == SAN_TICKS
-          and calls["admit"] > 0,
-          f"sanitize: guards ran {calls} in {SAN_TICKS} ticks")
-    for f in ("ep_load", "ep_inflight_ewma", "ep_tput_ewma"):
-        check(torch.equal(getattr(san.routing, f), getattr(plain.routing, f)),
-              f"sanitize: {f} differs from the plain run")
-    check(len(san.done) == len(plain.done)
-          and san.latency_samples()["req_id"].tolist()
-          == plain.latency_samples()["req_id"].tolist(),
-          "sanitize: the sanitized run completed other requests")
+    per_tick = len(INV.laws("admit")) + len(INV.laws("complete"))
+    check(san_tick.verdict_reads == calls["loop"] == SAN_TICKS
+          and san_tick.laws_checked == SAN_TICKS * per_tick,
+          f"sanitize: {san_tick.verdict_reads} verdict reads and "
+          f"{san_tick.laws_checked} device laws checked, {calls['loop']} "
+          f"loop laws, in {SAN_TICKS} arrival ticks")
+    check(loop_record(san) == loop_record(plain),
+          "sanitize: the sanitized run differs from the plain one")
     check(min(launches.values()) > 0,
           f"sanitize: kernels not launched: {launches}")
+    plain4, _, plain4_ms = run(False, SAN_SHARDS)
+    san4, san4_tick, san4_ms = run(True, SAN_SHARDS)
+    check(loop_record(san4) == loop_record(plain4),
+          f"sanitize: the sanitized run at M {SAN_SHARDS} differs from the "
+          "plain one")
+    check(san4_tick.verdict_reads == 0,
+          f"sanitize: the sharded tick read verdicts "
+          f"{san4_tick.verdict_reads} times, though its body has no guard")
     ctx = dict(last["complete"])
     bad = ctx["load_after"].clone()
     bad[0] += 1
@@ -3292,17 +3397,143 @@ def phase_sanitize(torch, RT, TM, interpose, SL, INV, policies, ops, cfg,
         planted = None
     check(planted is not None and "release-conservation" in planted,
           f"sanitize: the planted violation did not raise: {planted!r}")
-    return (f"sanitize: the main path's traffic for {SAN_TICKS} ticks with "
-            f"XLB_SANITIZE=1: {calls['admit']} admit guards, "
-            f"{calls['complete']} complete guards and {calls['loop']} loop "
-            f"laws on the card, none fired; the same loads, EWMAs and "
-            f"completions as the plain run ({len(san.done)} done); the "
-            f"planted off-by-one release raised: {planted}; median tick "
-            f"sanitized {statistics.median(san_ms):.4f} ms (the eager "
-            f"tick: the guards read the card on the host) vs plain "
-            f"{statistics.median(plain_ms):.4f} ms (the captured tick); "
-            f"kernels: "
-            + " ".join(f"{k}={v}" for k, v in launches.items()), launches)
+    lines = [
+        f"sanitize: the main path's traffic for {SAN_TICKS} ticks through "
+        f"the sanitizing captured tick (XLB_SANITIZE=1, "
+        f"{len(san_tick.graphs)} programs; the guards traced "
+        f"{calls['admit']} admit / {calls['complete']} complete times, in "
+        f"warm-ups and captures): {san_tick.verdict_reads} verdict reads, "
+        f"one a tick, {san_tick.laws_checked} device laws checked inside "
+        f"the graphs and {calls['loop']} loop laws on the host, none fired;"
+        f" bit-equal to the plain captured run ({len(san.done)} done, every "
+        f"tick, token, routing counter, EWMA, metric and pool cell); at M "
+        f"{SAN_SHARDS} on a one-process mesh the same, bit-equal to the "
+        f"plain M {SAN_SHARDS} run, {san4_tick.verdict_reads} verdict reads "
+        f"(its body calls no guard); the planted off-by-one release raised:"
+        f" {planted}; median tick (host clock) sanitized "
+        f"{statistics.median(san_ms):.4f} ms vs plain "
+        f"{statistics.median(plain_ms):.4f} ms, at M {SAN_SHARDS} "
+        f"{statistics.median(san4_ms):.4f} vs "
+        f"{statistics.median(plain4_ms):.4f} ms, on {gpu}; kernels: "
+        + " ".join(f"{k}={v}" for k, v in launches.items())]
+
+    # a leak that only a replay sets off: the wrapper's counter reaches
+    # SAN_LEAK_AT at the second replay of the arrival graph
+    trigger = torch.zeros((), dtype=torch.int32, device=dev)
+    name = "admit_cuda" if dev.type == "cuda" else "admit_commit"
+    real = getattr(ops._rm, name)
+
+    def leaky(*a, **k):
+        res = real(*a, **k)
+        trigger.add_(1)
+        return res._replace(ep_load=res.ep_load + (
+            trigger >= SAN_LEAK_AT).to(torch.int32))
+
+    loop, ids, tick = san_loop(torch, RT, interpose, SL, MS, cfg, params,
+                               dev, True)
+    raised = None
+    setattr(ops._rm, name, leaky)
+    try:
+        with sanitizer(True):
+            for t in range(2 * SAN_LEAK_AT):
+                for i in range(ARRIVALS_PER_TICK):
+                    loop.submit(make_request(
+                        SL, cfg, ids, N_UNROUTABLE + t * ARRIVALS_PER_TICK
+                        + i))
+                before, n_graphs = state_fields(loop), \
+                    len(tick.graphs)
+                try:
+                    loop.tick()
+                except AssertionError as e:
+                    raised = (t, str(e))
+                    break
+    finally:
+        setattr(ops._rm, name, real)
+    check(raised is not None and raised[0] == SAN_LEAK_AT - 1
+          and "XLB_SANITIZE[admit/load-delta-conservation]" in raised[1],
+          f"sanitize: the leak planted in a replay raised {raised}")
+    kept = state_fields(loop)
+    check(loop.ticks == raised[0] and int(trigger) == SAN_LEAK_AT
+          and len(tick.graphs) == n_graphs
+          and all(torch.equal(kept[k], v) for k, v in before.items()),
+          f"sanitize: after the leak's tick: {loop.ticks} ticks, counter "
+          f"{int(trigger)}, {len(tick.graphs)} programs (before "
+          f"{n_graphs}), the state "
+          + ("kept" if all(torch.equal(kept[k], v) for k, v in
+                           before.items()) else "changed"))
+    lines.append(
+        f"sanitize leak: a load leak planted in the admission kernel's "
+        f"output from its launch {SAN_LEAK_AT} on (a device counter the "
+        f"wrapper increments, recorded in the arrival graph at its capture)"
+        f" raised on tick {raised[0]}, a replay of a graph captured before "
+        f"it ({n_graphs} programs, none new): {raised[1]}; the loop's tick "
+        f"count, routing (ep_load {int(before['routing.ep_load'].sum())} "
+        f"outstanding), pool and metrics as before that tick")
+
+    # the A/B: the captured sanitized tick against the eager one, each
+    # pair against the plain captured tick too
+    kinds = ("captured", "eager", "plain")
+    loops = {k: san_loop(torch, RT, interpose, SL, MS, cfg, params, dev,
+                         k != "plain") for k in kinds}
+    loops["eager"][0].serve_step = loops["eager"][0].balancer.eager_step
+    first = {}
+    for k in kinds:
+        with sanitizer(k != "plain"):
+            first[k] = ab_drain(torch, SL, cfg, loops[k][0], loops[k][1],
+                                10 * N_REQUESTS)[0]
+    check(first["captured"] == first["eager"] == first["plain"],
+          "sanitize A/B: the untimed drains differ")
+    runs = {k: [] for k in kinds}
+    for p in range(SAN_AB_PAIRS):
+        recs = {}
+        order = ("captured", "eager") if p % 2 == 0 else ("eager",
+                                                          "captured")
+        for k in order + ("plain",):
+            with sanitizer(k != "plain"):
+                recs[k], rps, tick_ms = ab_drain(
+                    torch, SL, cfg, loops[k][0], loops[k][1],
+                    (11 + p) * N_REQUESTS)
+            runs[k].append((rps, tick_ms))
+        check(recs["captured"] == recs["eager"] == recs["plain"],
+              f"sanitize A/B pair {p}: the captured sanitized, eager "
+              "sanitized and plain captured drains differ")
+    static = loops["captured"][2]
+    check(static.verdict_reads == loops["captured"][0].ticks,
+          f"sanitize A/B: {static.verdict_reads} verdict reads in "
+          f"{loops['captured'][0].ticks} ticks")
+    n_graphs = len(static.graphs)
+    busy, window = {}, {}
+    for k in ("captured", "eager"):
+        with sanitizer(True):
+            busy[k], _, _, window[k] = profiled_pass(
+                torch, SL, ops, cfg, loops[k][0], loops[k][1],
+                (11 + SAN_AB_PAIRS) * N_REQUESTS,
+                {n: PROFILER_NAMES[n] for n in ("admit_commit", "complete",
+                                                "decode_attention")},
+                f"sanitize A/B ({k})")
+    check(len(static.graphs) == n_graphs,
+          "sanitize A/B: the profiled pass captured a program anew")
+    lines.append(
+        f"sanitize A/B on {gpu}: {SAN_AB_PAIRS} alternating pairs of "
+        f"{AB_REQUESTS}-request drains, the sanitizing captured tick "
+        f"against eager_step under XLB_SANITIZE=1 (after one untimed drain "
+        f"each), each pair bit-equal and bit-equal to the plain captured "
+        f"tick's drain (every completion, tick, token, routing counter, "
+        f"EWMA, metric and pool cell); captured: "
+        f"{ab_summary(runs['captured'], busy['captured'])}; eager: "
+        f"{ab_summary(runs['eager'], busy['eager'])}; plain captured "
+        f"(after each pair, not alternated): median tick ms "
+        + " / ".join(f"{t:.4f}" for _, t in runs["plain"])
+        + ", req/s " + " / ".join(f"{r:.1f}" for r, _ in runs["plain"])
+        + f"; {static.verdict_reads} verdict reads in "
+        f"{loops['captured'][0].ticks} ticks; launches in the captured "
+        f"profiled window (every one from a replay of the "
+        f"{n_graphs} programs) "
+        + " ".join(f"{k}={v}" for k, v in window["captured"].items())
+        + ", the eager window's "
+        + " ".join(f"{k}={v}" for k, v in window["eager"].items())
+        + ", each equal to the profiler's count of its kernels")
+    return lines, launches
 
 
 # --------------------------------------------------------------------------- #
@@ -3558,7 +3789,8 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
                     f"{n['relay_slots']}; ok={int(got.ok.sum())}"
                     f" held={int(got.held)} no_route={int(got.no_route)}")
             if label != "idle":
-                prof = profile_calls(torch, call)
+                prof = profile_calls(
+                    torch, call, expect=("admit_kernel", "route_kernel"))
                 b3 = kernel_time(prof, "admit_kernel")[0]
                 b4 = kernel_time(prof, "route_kernel")[0]
                 check(b3 is not None and b4 is not None,
@@ -3594,7 +3826,7 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
     check(n["admit"] == F4_M, f"sharded F4: launches {n}")
     err = max_abs_err(torch, out_pairs(
         got, ops.admit_commit(batch, routing, pstate, rnd, gum)))
-    b3 = kernel_time(profile_calls(torch, call), "admit_kernel")[0]
+    b3 = profile_kernel(torch, call, "admit_kernel")[0]
     check(b3 is not None, "sharded F4: the profiler saw no admission kernel")
     timing["admit[F4]"] = dict(call_ms=cuda_ms(torch, call), b3_ms=b3 / F4_M)
     lines.append(
@@ -3623,7 +3855,7 @@ def phase_sharded(torch, RT, B, ops, interpose, SL, TM, MS, SA, policies,
             B.PoolState(*cpu_args[:6]), *cpu_args[6:],
             mesh=MS.make_shard_mesh(M, device="cpu"), eos=1, max_len=MAX_LEN)
         err_cpu = max_abs_err(torch, out_pairs(to_cpu(got), cpu))
-        b1 = kernel_time(profile_calls(torch, call), "complete_kernel")[0]
+        b1 = profile_kernel(torch, call, "complete_kernel")[0]
         check(b1 is not None, f"sharded complete M={M}: no kernel seen")
         t = dict(call_ms=cuda_ms(torch, call), b1_ms=b1 / M)
         timing[f"complete[M={M}]"] = t
@@ -5296,9 +5528,10 @@ def main() -> int:
         control_tick_ms)
     print(line)
     print(xtiming)
-    line, sanitize_launches = phase_sanitize(torch, RT, TM, interpose, SL,
-                                             INV, policies, ops, cfg)
-    print(line)
+    lines, sanitize_launches = phase_sanitize(
+        torch, RT, TM, interpose, SL, MS, INV, policies, ops, cfg, gpu=gpu)
+    for line in lines:
+        print(line)
     slines, stiming, sharded_launches = phase_sharded(
         torch, RT, B, ops, interpose, SL, TM, MS, SA, policies, cfg,
         timing["admit"]["ms"], gpu=gpu)

@@ -11,20 +11,28 @@ conservation laws, table-value bounds and row schemas, written once.
     (``kernels/ops.py``) run :func:`guard` on their outputs and
     ``ServeLoop`` runs :func:`assert_host` after every tick.  The device
     laws are functions on tensors: ``guard`` evaluates them on the
-    tensors' own device, stacks the verdicts and reads them back with one
-    ``.cpu()``, and raises ``AssertionError`` naming the first law that
-    failed.  The engine's tick is eager, so a failing guard raises on the
-    tick itself; the reference's ``checkify`` machinery (traced checks
-    discharged by a wrapped ``make_jitted``) has no counterpart here.
+    tensors' own device and stacks the verdicts.  Called eagerly it reads
+    them back with one ``.cpu()`` and raises ``AssertionError`` naming
+    the first law that failed.  Inside :func:`deferred` (the engine's
+    captured tick, ``runtime/graphs.py::StaticTick``, opens it around its
+    body) it reads nothing: it records the scope, the laws and the
+    verdict tensor, the body writes the verdicts into a static device
+    buffer, and after the call (a replay on the card, the body itself on
+    the CPU) the tick reads that buffer once and :func:`raise_first`
+    raises the same text.  That is the reference's ``checkify`` program
+    (checks functionalized inside one jitted program, one ``err.throw()``
+    on the host after it).
   * **Row schemas** of the scenario and chaos trend rows
     (``workload/slo.py`` builds and validates rows with them).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import os
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -267,23 +275,57 @@ def sanitize_enabled() -> bool:
     return os.environ.get("XLB_SANITIZE", "0") not in ("", "0")
 
 
+#: the sink of the enclosing :func:`deferred`, None outside one
+_DEFERRED: contextvars.ContextVar = contextvars.ContextVar(
+    "xlb_sanitize_deferred", default=None)
+
+
+@contextlib.contextmanager
+def deferred() -> Iterator[list]:
+    """Inside: :func:`guard` reads nothing back; it appends ``(scope,
+    laws, verdicts)`` to the list this yields, ``verdicts`` a bool tensor
+    on the laws' device, one entry a law, in the guards' call order."""
+    sink: list = []
+    token = _DEFERRED.set(sink)
+    try:
+        yield sink
+    finally:
+        _DEFERRED.reset(token)
+
+
+def raise_first(verdicts, recorded) -> None:
+    """Raise ``AssertionError`` naming the first violated law: ``recorded``
+    is ``[(scope, laws), ...]`` in the guards' call order, ``verdicts``
+    the host booleans of those laws, flattened in the same order (by
+    guard call, then by law within a call: the eager order, and
+    ``checkify``'s)."""
+    flat = [(scope, law) for scope, active in recorded for law in active]
+    if len(flat) != len(verdicts):
+        raise ValueError(f"{len(verdicts)} verdicts for {len(flat)} laws")
+    for (scope, law), ok in zip(flat, verdicts):
+        if not ok:
+            raise AssertionError(
+                f"XLB_SANITIZE[{scope}/{law.name}]: {law.doc}")
+
+
 def guard(scope: str, ctx: dict) -> None:
     """Run every device law of ``scope`` whose ctx keys are present and
     raise ``AssertionError`` naming the first violated law.  The laws run
     where the tensors lie; their verdicts come back to the host in one
-    ``.cpu()`` (one sync per call).  Callers gate on
-    :func:`sanitize_enabled`: this is the opt-in sanitizer, not a
-    hot-path check."""
-    active = [l for l in laws(scope)
-              if l.traced and set(l.requires) <= set(ctx)]
+    ``.cpu()`` (one sync per call), or, inside :func:`deferred`, not at
+    all: they go to its sink.  Callers gate on :func:`sanitize_enabled`:
+    this is the opt-in sanitizer, not a hot-path check."""
+    active = tuple(l for l in laws(scope)
+                   if l.traced and set(l.requires) <= set(ctx))
     if not active:
         return
     ctx = {k: torch.as_tensor(v) for k, v in ctx.items()}
     verdicts = torch.stack([law.check(ctx).reshape(()) for law in active])
-    for law, ok in zip(active, verdicts.cpu().tolist()):
-        if not ok:
-            raise AssertionError(
-                f"XLB_SANITIZE[{scope}/{law.name}]: {law.doc}")
+    sink = _DEFERRED.get()
+    if sink is not None:
+        sink.append((scope, active, verdicts))
+        return
+    raise_first(verdicts.cpu().tolist(), [(scope, active)])
 
 
 def assert_host(scope: str, ctx: dict) -> None:

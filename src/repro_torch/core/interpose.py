@@ -28,11 +28,12 @@ metrics are replicated, equal on every rank after the psums.
 except the KV cache, which the decode writes in place.  ``make_jitted``'s
 tick of an unsharded engine, or of one on a one-process mesh, is the
 reference's ``jax.jit`` with the state donated (around its ``shard_map``
-when sharded): on the card it replays captured CUDA graphs, and its state
-lives in static buffers that each tick overwrites
-(``runtime/graphs.py::StaticTick``).  The engine runs on the card unless
-the caller asks for the CPU (``device="cpu"``), where every kernel
-wrapper runs its plain PyTorch version and the tick runs without a graph.
+when sharded; around ``checkify`` under ``XLB_SANITIZE=1``): on the card
+it replays captured CUDA graphs, and its state lives in static buffers
+that each tick overwrites (``runtime/graphs.py::StaticTick``).  The
+engine runs on the card unless the caller asks for the CPU
+(``device="cpu"``), where every kernel wrapper runs its plain PyTorch
+version and the tick runs without a graph.
 """
 
 from __future__ import annotations
@@ -268,9 +269,8 @@ class Engine:
         """One serving tick ``serve_step(params, state, reqs) -> (state,
         out)``: admit (on ticks with arrivals) + decode step.
 
-        Unsharded or sharded over a one-process ``ShardMesh``, and with
-        ``XLB_SANITIZE`` unset, the tick is
-        ``runtime/graphs.py::StaticTick``: on the card captured CUDA
+        Unsharded or sharded over a one-process ``ShardMesh``, the tick
+        is ``runtime/graphs.py::StaticTick``: on the card captured CUDA
         graphs at the engine's fixed shapes (the decode-only tick and the
         arrival tick, and sharded one arrival tick a set of live shards:
         the gates decided on the host from the batch, as ``eager_step``
@@ -279,13 +279,18 @@ class Engine:
         buffers whatever ``donate`` says, as the reference's donated state
         is: a state kept across a tick is overwritten by it (the eager
         tick already writes the KV cache in place); clone what must
-        survive.  An engine on a rank mesh runs ``eager_step`` (its
-        process group's collectives are outside a graph), and so does the
-        sanitizer, whose guards read device values on the host (the
-        reference too builds another program under ``XLB_SANITIZE=1``)."""
-        if (self.shards > 1 and self._rank_mesh()) or sanitize_enabled():
+        survive.  Under ``XLB_SANITIZE=1`` (read here, as the reference
+        reads it when it builds its program) it is the sanitizing
+        ``StaticTick``, the reference's ``jax.jit(checkify.checkify(
+        serve_step))``: the guards' verdicts stay on the device inside
+        the program, the tick reads them once after it and raises on the
+        first violated law, and a violated tick leaves the routing, pool
+        and metrics as they were.  An engine on a rank mesh runs
+        ``eager_step``, sanitized or not (its process group's collectives
+        are outside a graph)."""
+        if self.shards > 1 and self._rank_mesh():
             return self.eager_step
-        return StaticTick(self)
+        return StaticTick(self, sanitize=sanitize_enabled())
 
     # ------------------------------------------------------------------ #
     # control-plane seam (Balancer protocol)

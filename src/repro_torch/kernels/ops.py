@@ -38,10 +38,11 @@ of a shape on the tensors' device).
 
 Under ``XLB_SANITIZE=1`` ``admit``, ``admit_commit`` and ``complete`` run
 the conservation laws of ``analysis/invariants.py`` on their outputs
-(``guard``: the laws on the tensors' device, one host sync per call) and
-raise on the first violation, on the tick that broke it.  With the
-variable unset they add no op and no sync.  The sharded wrappers have no
-guard, as the reference's have none.
+(``guard``: the laws on the tensors' device, one host sync per call; in
+the captured tick's body none, the tick reads its verdicts once after
+the call) and raise on the first violation, on the tick that broke it.
+With the variable unset they add no op and no sync.  The sharded
+wrappers have no guard, as the reference's have none.
 """
 
 from __future__ import annotations

@@ -32,7 +32,9 @@ each replay adds them again (``ops.capture_launches`` /
 
 ``StaticTick`` is the XLB engine's tick on static buffers (at the
 engine's fixed shapes, the arrival tick and the decode-only tick, and on
-a one-process sharded engine one arrival tick a set of live shards);
+a one-process sharded engine one arrival tick a set of live shards;
+under ``XLB_SANITIZE=1`` the same programs with the guards' verdicts in
+static buffers, read once after each call);
 ``StaticDecode`` the sidecars' decode (one program per KV cache);
 ``StaticTrainStep`` the training step (one program a batch layout);
 ``StaticModelDecode`` the launcher's greedy decode step (one program a
@@ -41,6 +43,7 @@ KV cache and params).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree
 
+from repro_torch.analysis import invariants as INV
 from repro_torch.core.balancer import RequestBatch
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
@@ -78,9 +82,10 @@ def _copy_in(mine, theirs, what: str) -> int:
     return n
 
 
-def _write_back(mine, new) -> None:
+def _write_back(mine, new, held=None) -> None:
     """Inside a body: copy what it returned into the static tensors it
-    did not update in place."""
+    did not update in place.  ``held``: a 0-d bool on the device; where
+    it is false each of those tensors keeps its value."""
     dsts = _pytree.tree_leaves(mine)
     static = {t.untyped_storage().data_ptr() for t in dsts}
     for dst, src in zip(dsts, _pytree.tree_leaves(new)):
@@ -89,7 +94,7 @@ def _write_back(mine, new) -> None:
         if src.untyped_storage().data_ptr() in static:
             raise RuntimeError("the body returned a view of its static "
                                "state; copying it back would race")
-        dst.copy_(src)
+        dst.copy_(src if held is None else torch.where(held, src, dst))
 
 
 class CaptureError(RuntimeError):
@@ -179,23 +184,45 @@ class StaticTick:
     tensors are read in place: update them in place, or pass another
     params object (which captures anew).
 
+    ``sanitize`` (``make_jitted`` under ``XLB_SANITIZE=1``) is the
+    reference's ``jax.jit(checkify.checkify(serve_step))``: the body runs
+    under ``invariants.deferred``, so the guards the kernel wrappers call
+    read nothing on the host; their verdicts go into a static bool buffer
+    a program (its laws recorded at the program's first body), and the
+    write-back of every state field the tick replaced is gated on "every
+    law held" on the device, so a violated tick leaves ``routing``,
+    ``pool`` and ``metrics`` as they were before it, as the reference's
+    undonated checkified program leaves the caller's state (the KV cache,
+    which the decode writes in place, stays as the eager tick leaves it).
+    After each call, the warm-up or a replay on the card, the body itself
+    on the CPU, the tick reads the buffer once (``verdict_reads``) and
+    raises ``AssertionError`` naming the first violated law, in the
+    guards' order, with the eager guard's text.  A program whose body
+    calls no guard (the sharded wrappers have none, as the reference's)
+    has an empty buffer and reads nothing.
+
     The outputs are static too: ``emitted``, ``done``, ``req_id``,
     ``active`` and ``packed`` are overwritten by the next tick."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, sanitize: bool = False):
         if engine.shards > 1 and engine._rank_mesh():
             raise ValueError("a rank shard mesh's collectives cannot be "
                              "captured: its tick is engine.eager_step")
         self.eng = engine
         self.device = engine.device
+        self.sanitize = sanitize
         self.graphs = Graphs(self.device)
         self.state = None
         self.out = None
         self.copied_in = 0          # fields copied in from foreign states
+        self.verdict_reads = 0      # host reads of a verdict buffer
+        self.laws_checked = 0       # the verdicts those reads brought back
         self._reqs: dict = {}       # R -> (R, 4 + F) int32 static batch
         self._draws: dict = {}      # R -> static (rnd, gumbel)
         self._staging: dict = {}    # R -> pinned (R, 4 + F) host buffer
         self._staged = None         # event: the last staging copy is done
+        self._laws: dict = {}       # key -> [(scope, laws)] of its guards
+        self._verdicts: dict = {}   # key -> static (n laws,) bool buffer
 
     # ------------------------------------------------------------------ #
     def _adopt(self, state) -> None:
@@ -245,19 +272,53 @@ class StaticTick:
             _same_layout(dst, src, "draws")
             dst.copy_(src)
 
-    def _body(self, params, R: int | None, live) -> None:
+    def _held(self, key, sink: list):
+        """Inside a sanitized body: its guards' verdicts into the key's
+        static buffer; "every law held" as a 0-d bool on the device, None
+        where the body called no guard."""
+        laws = [(scope, active) for scope, active, _ in sink]
+        if key not in self._laws:
+            self._laws[key] = laws
+            self._verdicts[key] = torch.empty(
+                (sum(len(a) for _, a in laws),), dtype=torch.bool,
+                device=self.device)
+        elif laws != self._laws[key]:
+            raise RuntimeError("a program's body called other guards than "
+                               "at its first call")
+        if not laws:
+            return None
+        buf = self._verdicts[key]
+        buf.copy_(torch.cat([v for *_, v in sink]))
+        return buf.all()
+
+    def _body(self, params, R: int | None, live, key) -> None:
         """The tick on the static buffers; what outlives it is copied
-        back into them."""
+        back into them (sanitized: only where every law held)."""
         state = self.state
-        if R is not None:
-            state = self.eng.admit(state, RequestBatch.unpack(self._reqs[R]),
-                                   live=live, draws=self._draws[R])
-        new, out = self.eng.step(params, state)
+        with (INV.deferred() if self.sanitize
+              else contextlib.nullcontext()) as sink:
+            if R is not None:
+                state = self.eng.admit(
+                    state, RequestBatch.unpack(self._reqs[R]), live=live,
+                    draws=self._draws[R])
+            new, out = self.eng.step(params, state)
+        held = self._held(key, sink) if self.sanitize else None
         if self.out is None:
             self.out = {k: torch.empty_like(v) for k, v in out.items()}
         for k, v in out.items():
             self.out[k].copy_(v)
-        _write_back(self.state, new)
+        _write_back(self.state, new, held)
+
+    def _check(self, key) -> None:
+        """After a sanitized call: the key's verdicts read once; raise on
+        the first violated law."""
+        laws = self._laws[key]
+        if not laws:
+            return
+        got = self._verdicts[key].tolist()
+        self.verdict_reads += 1
+        self.laws_checked += len(got)
+        INV.raise_first(got, laws)
 
     def __call__(self, params, state, reqs: RequestBatch):
         live = self.eng.arrivals(reqs)      # decided on the host
@@ -265,8 +326,11 @@ class StaticTick:
         self._adopt(state)
         if R is not None:
             self._load(reqs)
-        self.graphs.run((R, live, id(params)),
-                        lambda: self._body(params, R, live), keep=(params,))
+        key = (R, live, id(params))
+        self.graphs.run(key, lambda: self._body(params, R, live, key),
+                        keep=(params,))
+        if self.sanitize:
+            self._check(key)
         return self.state, self.out
 
 

@@ -25,9 +25,13 @@ CPU, where the same bodies run without a graph.
   jitted engine on the one device this process has (the sharded datapath
   is bit-exact against it, as ``test_torch_shard.py`` holds it), every
   arrival through the sharded admission.
+* The sanitized tick (``XLB_SANITIZE=1``), unsharded and at M 2 / 4:
+  its bodies under the same dispatch mode (the guards' verdicts stay on
+  the device, one read after each unsharded call, none sharded), and the
+  same nine ticks against the reference's ``jit(checkify(serve_step))``.
 * ``ops.capture_launches`` / ``count_replay`` and which tick
-  ``make_jitted`` returns (captured, or eager under the sanitizer and on
-  a rank shard mesh).
+  ``make_jitted`` returns (captured, sanitizing under the sanitizer,
+  eager on a rank shard mesh).
 
 Tolerance: bit-exact (integers and f32), as in ``test_torch_engine.py``.
 """
@@ -284,10 +288,10 @@ def _follow_reference(jp, tp, shards=1):
         seen[t] = (int(ts.routing.version), int(tout["active"]),
                    int(ts.pool.length.sum()))
 
-    _drive(tp, on_tick, jp, shards)
+    tick = _drive(tp, on_tick, jp, shards)
     assert seen[SPLICE_AT][0] == 1 and seen[0][0] == 0
     assert max(a for _, a, _ in seen.values()) > 0
-    return seen
+    return seen, tick
 
 
 def test_static_state_matches_reference_through_splice_and_rollback(
@@ -372,6 +376,50 @@ def test_sharded_static_tick_matches_reference_through_splice_and_rollback(
 
 
 # --------------------------------------------------------------------------- #
+# the sanitized tick (XLB_SANITIZE=1): the reference's checkified program
+# --------------------------------------------------------------------------- #
+
+N_ARRIVALS = sum(bool((b[0] >= 0).any()) for b in _ticks(9, 6))
+# the laws each guard checks: admit's four, complete's three
+ADMIT_LAWS, COMPLETE_LAWS = 4, 3
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_sanitized_tick_bodies_issue_no_host_sync(weights, checked_bodies,
+                                                  monkeypatch, M):
+    """The sanitized tick's decode-only and arrival bodies (unsharded and
+    one a live set at M 2 / 4), a splice and a rollback on the way: the
+    guards' verdicts stay on the device; the tick reads them once after
+    each call, and a sharded body, which calls no guard, reads nothing."""
+    _, tp = weights
+    monkeypatch.setenv("XLB_SANITIZE", "1")
+    tick = _drive(tp, lambda *a: None, shards=M)
+    assert tick.sanitize and len(checked_bodies) == 9
+    kinds = {r for r, *_ in checked_bodies}
+    assert R in kinds and None in kinds
+    if M == 1:
+        assert tick.verdict_reads == 9
+        assert tick.laws_checked == 9 * COMPLETE_LAWS \
+            + N_ARRIVALS * ADMIT_LAWS
+    else:
+        assert tick.verdict_reads == tick.laws_checked == 0
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_sanitized_static_tick_matches_reference_through_splice_and_rollback(
+        weights, monkeypatch, M):
+    """Under XLB_SANITIZE=1 both ``make_jitted``s sanitize: the port's
+    captured tick (``M``-way on a one-process mesh) tick for tick equal
+    to the reference's ``jit(checkify(serve_step))`` through the same
+    nine ticks, a splice and a rollback, no law firing on either."""
+    jp, tp = weights
+    monkeypatch.setenv("XLB_SANITIZE", "1")
+    _, tick = _follow_reference(jp, tp, shards=M)
+    assert tick.sanitize
+    assert tick.verdict_reads == (9 if M == 1 else 0)
+
+
+# --------------------------------------------------------------------------- #
 # the sidecars' decode and the other archs' ticks
 # --------------------------------------------------------------------------- #
 
@@ -453,19 +501,21 @@ def test_capture_launches_moves_a_capture_counts_to_its_replays():
     ops.LAUNCHES.update(before)
 
 
-def test_make_jitted_is_captured_unless_sanitized_or_on_a_rank_mesh(
-        monkeypatch):
+def test_make_jitted_is_captured_unless_on_a_rank_mesh(monkeypatch):
     eng = TI.Engine(TCFG, I, C, MAX_LEN, device="cpu")
-    assert isinstance(eng.make_jitted(), graphs.StaticTick)
     sharded = TI.Engine(TCFG, I, C, MAX_LEN, device="cpu", shards=2,
                         shard_mesh=make_shard_mesh(2, device="cpu"))
-    assert isinstance(sharded.make_jitted(), graphs.StaticTick)
     ranked = TI.Engine(TCFG, I, C, MAX_LEN, device="cpu", shards=2,
                        shard_mesh=RankShardMesh({"shard": 2},
                                                 torch.device("cpu"), 0))
+    for e in (eng, sharded):
+        tick = e.make_jitted()
+        assert isinstance(tick, graphs.StaticTick) and not tick.sanitize
     assert ranked.make_jitted() == ranked.eager_step
     with pytest.raises(ValueError, match="rank shard mesh"):
         graphs.StaticTick(ranked)
     monkeypatch.setenv("XLB_SANITIZE", "1")
-    assert eng.make_jitted() == eng.eager_step
-    assert sharded.make_jitted() == sharded.eager_step
+    for e in (eng, sharded):
+        tick = e.make_jitted()
+        assert isinstance(tick, graphs.StaticTick) and tick.sanitize
+    assert ranked.make_jitted() == ranked.eager_step

@@ -1197,7 +1197,8 @@ def _serve_record(dev, captured, draws, midway, shards=1):
             "ticks": loop.ticks, "routing": lists(loop.routing),
             "metrics": lists(loop.state.metrics),
             "pool": lists(loop.state.pool),
-            "graphs": len(loop.serve_step.graphs) if captured else 0}
+            "graphs": len(loop.serve_step.graphs) if captured else 0,
+            "reads": loop.serve_step.verdict_reads if captured else 0}
 
 
 @pytest.mark.parametrize("draws,midway", [("engine", False),
@@ -1212,6 +1213,7 @@ def test_captured_tick_equals_the_eager_tick_on_the_card(dev, draws,
     want = _serve_record(dev, False, draws, midway)
     assert got.pop("graphs") == 2            # the arrival and decode-only
     want.pop("graphs")
+    assert got.pop("reads") == want.pop("reads") == 0
     assert got == want
     assert len(got["done"]) == 64
     assert not any(got["routing"]["ep_load"])
@@ -1232,11 +1234,85 @@ def test_sharded_captured_tick_equals_the_eager_tick_on_the_card(
     want = _serve_record(dev, False, draws, midway, shards=M)
     flat = _serve_record(dev, True, draws, midway)
     assert 2 <= got.pop("graphs") <= M + 1
+    for r in (got, want, flat):
+        r.pop("reads")
     want.pop("graphs")
     flat.pop("graphs")
     assert got == want
     assert got == flat
     assert len(got["done"]) == 64
+
+
+@pytest.mark.parametrize("M", [1, 2, 4])
+def test_sanitized_captured_tick_equals_eager_and_plain_on_the_card(
+        dev, monkeypatch, M):
+    """Under XLB_SANITIZE=1 the captured tick (M-way on a one-process
+    mesh) drains bit-equal to the sanitized eager tick and to the plain
+    captured tick, with a commit and a stalled lane midway; unsharded it
+    reads its verdicts once a tick, sharded (no guard) never."""
+    monkeypatch.setenv("XLB_SANITIZE", "1")
+    got = _serve_record(dev, True, "host", True, shards=M)
+    want = _serve_record(dev, False, "host", True, shards=M)
+    monkeypatch.delenv("XLB_SANITIZE")
+    plain = _serve_record(dev, True, "host", True, shards=M)
+    assert got.pop("reads") == (got["ticks"] if M == 1 else 0)
+    assert plain.pop("reads") == want.pop("reads") == 0
+    assert got.pop("graphs") == plain.pop("graphs")
+    want.pop("graphs")
+    assert got == want
+    assert got == plain
+    assert len(got["done"]) == 64 and got["routing"]["version"] >= 1
+
+
+def test_sanitized_leak_from_a_replay_raises_and_keeps_the_state(
+        dev, monkeypatch):
+    """A leak recorded in the arrival graph that fires from its second
+    replay on (a device counter the body increments): that tick raises
+    naming load-delta-conservation, no graph is captured anew, and the
+    loop's tick count, routing, pool and metrics are as before it."""
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core.interpose import Engine
+    from repro_torch.models import model as M
+    from repro_torch.runtime.serve_loop import Request, ServeLoop
+    trigger = torch.zeros((), dtype=torch.int32, device=dev)
+    real = route_match.admit_cuda
+
+    def leaky(*a, **k):
+        res = real(*a, **k)
+        trigger.add_(1)
+        return res._replace(ep_load=res.ep_load
+                            + (trigger >= 3).to(torch.int32))
+
+    monkeypatch.setattr(route_match, "admit_cuda", leaky)
+    monkeypatch.setenv("XLB_SANITIZE", "1")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, dev)
+    loop = ServeLoop(Engine(cfg, 8, 4, 8, device=dev), params,
+                     _control_plane(), admit_batch=8)
+    tick = loop.serve_step
+    assert tick.sanitize
+    for i in range(200):
+        loop.submit(Request(req_id=i, service=i % 2, headers={},
+                            prompt_token=3 + i))
+    fields = lambda: {f"{n}.{g}": getattr(getattr(loop.state, n), g)  # noqa
+                      .clone() for n in ("routing", "pool", "metrics")
+                      for g in getattr(loop.state, n)._fields}
+    for t in range(20):
+        before, graphs_before = fields(), len(tick.graphs)
+        try:
+            loop.tick()
+        except AssertionError as e:
+            assert "XLB_SANITIZE[admit/load-delta-conservation]" in str(e)
+            break
+        assert int(trigger) < 3, f"tick {t}: the leak did not raise"
+    else:
+        pytest.fail("no tick raised")
+    assert int(trigger) == 3 and len(tick.graphs) == graphs_before
+    assert graphs_before >= 1 and loop.ticks == t
+    after = fields()
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
+    assert tick.verdict_reads == t + 1
 
 
 def test_sharded_replayed_arrival_tick_launches_equal_the_profiler(dev):
@@ -1349,6 +1425,22 @@ def _leaves(tree):
 def test_replayed_launches_equal_the_profiler_counts(dev):
     """Over a profiled window of captured ticks, ``ops.LAUNCHES`` counts
     as many B2, B1 and B6 launches as the profiler sees kernels."""
+    _replayed_window(dev)
+
+
+def test_sanitized_replayed_launches_equal_the_profiler_counts(
+        dev, monkeypatch):
+    """The same window through the sanitized captured tick: the laws run
+    inside the graphs, the counts still equal the profiler's, one verdict
+    read a tick."""
+    monkeypatch.setenv("XLB_SANITIZE", "1")
+    tick = _replayed_window(dev)
+    assert tick.sanitize and tick.verdict_reads == 10
+
+
+def _replayed_window(dev):
+    """Four ticks (warm-up and capture), then six profiled replays of a
+    ServeLoop over an 8 x 4 engine; the tick."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import XLB_SERVICE_MODEL as cfg
@@ -1381,6 +1473,7 @@ def test_replayed_launches_equal_the_profiler_counts(dev):
     got = {k: ops.LAUNCHES[k] - n0[k] for k in names}
     assert got == seen and got["complete"] == 6, (got, seen)
     assert got["decode_attention"] == 6 * cfg.n_layers
+    return loop.serve_step
 
 
 # --------------------------------------------------------------------------- #

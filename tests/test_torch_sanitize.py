@@ -11,9 +11,19 @@ the JAX reference's, on the CPU.
   drain report; a planted off-by-one load in the admission kernel's
   output raises on the tick that made it.
 * With the variable unset the guards add no op to the tick.
+* Each device law planted inside the captured tick's body (a kernel
+  output altered on both packages): the port's sanitized ``StaticTick``
+  raises the reference's ``jit(checkify(serve_step))`` text on the same
+  tick, and leaves ``routing``, ``pool`` and ``metrics`` as they were
+  before that tick, equal to the reference's caller state.  The
+  deferred verdicts raise in the eager guards' order; a ``ServeLoop``
+  built under the sanitizer keeps its tick count and state on a raising
+  captured tick.
 
 Tolerance: exact (integers and message text).
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -26,7 +36,9 @@ from repro.analysis import invariants as JInv
 from repro.configs.xlb_microbench import XLB_SERVICE_MODEL as JCFG
 from repro.core import control as JCtl
 from repro.core import interpose as JI
+from repro.core.balancer import RequestBatch as JBatch
 from repro.core.routing_table import POLICY_RR as J_RR
+from repro.kernels import ops as JOps
 from repro.models import model as JM
 from repro.runtime import serve_loop as JS
 from repro_torch import convert
@@ -34,8 +46,13 @@ from repro_torch.analysis import invariants as TInv
 from repro_torch.configs import XLB_SERVICE_MODEL as TCFG
 from repro_torch.core import control as TCtl
 from repro_torch.core import interpose as TI
+from repro_torch.core.balancer import RequestBatch
 from repro_torch.kernels import ops
+from repro_torch.runtime import graphs
 from repro_torch.runtime import serve_loop as TS
+from test_torch_engine import (C, MAX_LEN, ReplayDraws, _assert_state_equal,
+                               _routing, _ticks)
+from test_torch_engine import I as LANES
 
 CPU = torch.device("cpu")
 
@@ -186,11 +203,40 @@ def test_sanitized_loop_raises_on_the_tick_of_a_planted_leak(weights,
     assert tloop.ticks == 0
 
 
+def test_sanitized_loop_keeps_its_state_on_a_raising_captured_tick(
+        weights, monkeypatch):
+    """A loop built under XLB_SANITIZE=1 ticks through the sanitizing
+    captured tick; a leak planted after two lawful ticks raises on the
+    third, and the loop's tick count, routing, pool and metrics are what
+    they were before it."""
+    monkeypatch.setenv("XLB_SANITIZE", "1")
+    _, tloop = _loops(weights)
+    assert isinstance(tloop.serve_step, graphs.StaticTick)
+    assert tloop.serve_step.sanitize
+    tloop.tick()
+    tloop.tick()
+    assert tloop.serve_step.verdict_reads == 2
+    before = _fields(tloop.state)
+    real = ops._rm.admit_commit
+
+    def leaky(*a, **k):
+        res = real(*a, **k)
+        return res._replace(ep_load=res.ep_load + 1)
+
+    monkeypatch.setattr(ops._rm, "admit_commit", leaky)
+    with pytest.raises(AssertionError,
+                       match=r"XLB_SANITIZE\[admit/load-delta-conservation\]"):
+        tloop.tick()
+    assert tloop.ticks == 2
+    after = _fields(tloop.state)
+    for k, v in before.items():
+        assert torch.equal(after[k], v), k
+
+
 def test_sanitizer_unset_adds_no_op_to_the_tick(weights, monkeypatch):
     """The same two ticks with the variable unset run the same ATen ops
     as with the guards stubbed out; set, they run more.  The counts are
-    of the eager tick, the one ``make_jitted`` returns under the
-    sanitizer; its captured tick runs no guard either."""
+    of the eager tick; the captured tick, unset, runs no guard either."""
 
     class Count(TorchDispatchMode):
         def __init__(self):
@@ -218,3 +264,153 @@ def test_sanitizer_unset_adds_no_op_to_the_tick(weights, monkeypatch):
     monkeypatch.undo()
     monkeypatch.setenv("XLB_SANITIZE", "1")
     assert ops_of_two_ticks() > plain
+
+
+# --------------------------------------------------------------------------- #
+# laws planted inside the sanitized captured tick
+# --------------------------------------------------------------------------- #
+
+
+def _shift(x, xp):
+    """A load moved from the last endpoint to the first, past zero: the
+    sum is kept, the last counter reads -1."""
+    d = np.zeros(x.shape, np.int32)
+    d[0], d[-1] = 1, -1
+    return x + (x[-1] + 1) * xp.asarray(d)
+
+
+# per law of VIOLATIONS: the kernel output each package's wrapper gets
+# altered, as {field: f(fields, xp)}; the fields are named as in
+# AdmitCommitResult / CompleteResult (the reference's pool.* likewise)
+PLANTS = {
+    ("admit", "load-delta-conservation"):
+        {"ep_load": lambda f, xp: f["ep_load"] + 1},
+    ("admit", "load-nonnegative"):
+        {"ep_load": lambda f, xp: _shift(f["ep_load"], xp)},
+    ("admit", "held-accounting"):
+        {"held": lambda f, xp: f["held"] + 1},
+    ("admit", "admit-commit-visible"):
+        {"pool_req_id": lambda f, xp: xp.where(
+            f["pool_req_id"] >= 0, f["pool_req_id"] + 1000,
+            f["pool_req_id"])},
+    ("complete", "release-conservation"):
+        {"ep_load": lambda f, xp: f["ep_load"] + 1},
+    ("complete", "load-nonnegative"):
+        {"ep_load": lambda f, xp: _shift(f["ep_load"], xp)},
+    ("complete", "done-frees-slot"):
+        {"active": lambda f, xp: f["active"] | f["done"]},
+}
+
+
+def _plant_port(monkeypatch, scope, change):
+    mod, name = (ops._rm, "admit_commit") if scope == "admit" \
+        else (ops._cp, "complete")
+    real = getattr(mod, name)
+
+    def planted(*a, **k):
+        res = real(*a, **k)
+        fields = res._asdict()
+        return res._replace(**{f: fn(fields, torch)
+                               for f, fn in change.items()})
+
+    monkeypatch.setattr(mod, name, planted)
+
+
+def _plant_reference(monkeypatch, scope, change):
+    name = "_admit_commit" if scope == "admit" else "_complete"
+    real = getattr(JOps, name)
+
+    def planted(*a, **k):
+        res = real(*a, **k)
+        fields = dict(res._asdict(), **{f"pool_{g}": getattr(res.pool, g)
+                                        for g in res.pool._fields})
+        if scope == "complete":
+            fields["active"] = res.pool.active
+        new = {f: fn(fields, jnp) for f, fn in change.items()}
+        pool = {g: new.pop(f"pool_{g}") for g in res.pool._fields
+                if f"pool_{g}" in new}
+        if "active" in new:
+            pool["active"] = new.pop("active")
+        return res._replace(pool=res.pool._replace(**pool), **new)
+
+    monkeypatch.setattr(JOps, name, planted)
+
+
+def _fields(state):
+    return {f"{n}.{g}": getattr(getattr(state, n), g).clone()
+            for n in ("routing", "pool", "metrics")
+            for g in getattr(state, n)._fields}
+
+
+@pytest.mark.parametrize("scope,law,change", VIOLATIONS,
+                         ids=[f"{s}/{l}" for s, l, _ in VIOLATIONS])
+def test_planted_law_raises_from_the_captured_tick_as_the_reference(
+        weights, monkeypatch, scope, law, change):
+    """The law broken inside both ticks' bodies from the start: both
+    raise on the first tick that breaks it, with the same text; the
+    port's state is what it was before that tick, field by field, and
+    equal to the reference's caller state, which its checkified program
+    (not donated) left as it was."""
+    from jax._src.checkify import JaxRuntimeError
+    jp, tp = weights
+    monkeypatch.setenv("XLB_SANITIZE", "1")
+    _plant_port(monkeypatch, scope, PLANTS[scope, law])
+    _plant_reference(monkeypatch, scope, PLANTS[scope, law])
+    jroute, troute = _routing(list(range(6)))
+    jeng = JI.Engine(JCFG, LANES, C, MAX_LEN, eos=-1)
+    teng = TI.Engine(TCFG, LANES, C, MAX_LEN, eos=-1, device="cpu")
+    teng.draws = ReplayDraws()
+    jstep, tick = jeng.make_jitted(donate=False), teng.make_jitted()
+    assert isinstance(tick, graphs.StaticTick) and tick.sanitize
+    js = jeng.init_state(jroute, dtype=jnp.float32)
+    ts = teng.init_state(troute, dtype=torch.float32)
+    doc = next(l.doc for l in TInv.laws(scope) if l.name == law)
+    text = f"XLB_SANITIZE[{scope}/{law}]: {doc}"
+    for t, batch in enumerate(_ticks(12, 6)):
+        before = _fields(tick.state) if tick.state is not None \
+            else _fields(ts)
+        try:
+            jnext, _ = jstep(jp, js, JBatch(*map(jnp.asarray, batch)))
+        except JaxRuntimeError as e:
+            jerr = str(e)
+        else:
+            jerr = None
+        with pytest.raises(AssertionError) if jerr else \
+                contextlib.nullcontext() as terr:
+            ts, _ = tick(tp, ts, RequestBatch(*map(torch.from_numpy,
+                                                   batch)))
+        if jerr is None:
+            js = jnext
+            continue
+        assert text in jerr and str(terr.value) == text, (jerr, terr)
+        after = _fields(tick.state)
+        for k, v in before.items():
+            assert torch.equal(after[k], v), f"tick {t}: {k} changed"
+        _assert_state_equal(tick.state, js, t)
+        assert tick.verdict_reads == t + 1
+        return
+    pytest.fail(f"{scope}/{law}: no tick raised")
+
+
+def test_raise_first_keeps_the_guards_order():
+    """Deferred guards raise as eager ones would: the first guard call's
+    violated law before a later call's, the first law within a call."""
+    j_ok, t_ok = _ctx("admit")
+    _, t_bad = _ctx("complete", **VIOLATIONS[4][2])
+    _, t_two = _ctx("admit", load_after=[2, 1, 0, -1], held=1)
+    with TInv.deferred() as sink:
+        TInv.guard("admit", t_ok)
+        TInv.guard("complete", t_bad)
+        TInv.guard("admit", t_two)
+    assert [s for s, *_ in sink] == ["admit", "complete", "admit"]
+    verdicts = torch.cat([v for *_, v in sink]).tolist()
+    recorded = [(s, laws) for s, laws, _ in sink]
+    with pytest.raises(AssertionError) as err:
+        TInv.raise_first(verdicts, recorded)
+    assert "[complete/release-conservation]" in str(err.value)
+    with pytest.raises(AssertionError) as err:
+        TInv.raise_first(verdicts, recorded[2:] + recorded[:2])
+    assert "[admit/load-delta-conservation]" in str(err.value)
+    TInv.raise_first(verdicts[:4], recorded[:1])
+    with pytest.raises(ValueError, match="verdicts"):
+        TInv.raise_first(verdicts[:3], recorded[:1])
