@@ -1,0 +1,7 @@
+"""The same reading as ``decode_device_ms_per_tick``, in the Bookinfo mesh, whose
+metrics move its device cost a request (``device_ms_per_req``), not the
+gateway's rate."""
+
+from xlbench.metrics import reader
+
+read = reader("decode_device_ms_per_tick")

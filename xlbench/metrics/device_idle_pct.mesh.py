@@ -1,0 +1,7 @@
+"""The same reading as ``device_idle_pct``, in the Bookinfo mesh, whose
+metrics move its device cost a request (``device_ms_per_req``), not the
+gateway's rate."""
+
+from xlbench.metrics import reader
+
+read = reader("device_idle_pct")
