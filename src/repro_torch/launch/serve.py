@@ -3,7 +3,7 @@ xlb-service-model|minitron-4b|mamba2-2.7b|granite-20b|internlm2-20b|
 yi-34b|chameleon-34b|arctic-480b|deepseek-v2-236b|jamba-v0.1-52b
 [--smoke] --engine xlb|istio|cilium --policy
 least_request --instances 4 --slots 4 --requests 32 --max-len 24
-[--shards M] [--device cuda|cpu]``, or one rank a shard:
+[--shards M] [--device cuda|cpu] [--trace]``, or one rank a shard:
 ``torchrun --nproc-per-node M -m repro_torch.launch.serve --shards M``.
 
 Boots the chosen engine (XLB or one of the sidecar baselines) with the
@@ -24,7 +24,11 @@ given.  An
 encoder-decoder arch (whisper) is refused as the reference refuses it.
 The serving weights are f32, so the 20-34 B dense archs and the moe and
 hybrid ones fit one card only with ``--smoke`` (granite-20b alone is
-about 113 GB in f32).
+about 113 GB in f32).  ``--trace`` keeps the loop's spans and counters
+(``runtime/trace.py``) and prints, after the drain, host ms a tick of
+each span, each counter a tick, the requests' queue wait (``t_admit -
+t_submit``) p50 and p99, and the captured tick's first calls split into
+warm-up, sync and capture seconds.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import init_shard_group, make_shard_mesh
 from repro_torch.models import model as M
 from repro_torch.runtime.serve_loop import Request, ServeLoop
+from repro_torch.runtime.trace import Tracer, table
 
 
 def arch_config(arch: str, smoke: bool):
@@ -76,6 +81,9 @@ def main(argv=None) -> int:
                     help="shard the admission batch + pool over an M-way "
                     "shard mesh (xlb engine only), every shard on --device")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--trace", action="store_true",
+                    help="time the loop's phases and print them after the "
+                    "drain")
     args = ap.parse_args(argv)
 
     cfg = arch_config(args.arch, args.smoke)
@@ -149,6 +157,8 @@ def _serve(args, cfg, device, kw) -> int:
     eng = make_balancer(args.engine, cfg, args.instances, args.slots,
                         args.max_len, device=device, **kw)
     loop = ServeLoop(eng, params, cp, admit_batch=8, dtype=torch.float32)
+    if args.trace:
+        loop.tracer = Tracer()
 
     t0 = time.perf_counter()
     for i in range(args.requests):
@@ -174,6 +184,18 @@ def _serve(args, cfg, device, kw) -> int:
     m = loop.state.metrics
     print(f"metrics: tx={int(m.tx_bytes.sum())}B rx={int(m.rx_bytes.sum())}B "
           f"no_route={int(m.no_route_match)} overflow={int(m.overflow)}")
+    if loop.tracer is not None:
+        print(f"host spans over {loop.ticks} ticks:")
+        print(table(loop.tracer.totals(), loop.ticks))
+        wait = [r.t_admit - r.t_submit for r in rep.done] or [float("nan")]
+        print(f"queue wait (submit to the launch of the admitting tick): "
+              f"p50 {1e3*np.percentile(wait, 50):.3f} ms, p99 "
+              f"{1e3*np.percentile(wait, 99):.3f} ms")
+        g = getattr(loop.serve_step, "graphs", None)
+        if g is not None and len(g):
+            print(f"captured programs {len(g)}: set-up {g.setup_s:.4f} s = "
+                  f"warm-up {g.warmup_s:.4f} + sync {g.sync_s:.4f} + "
+                  f"capture {g.capture_s:.4f}")
     return len(rep.done)
 
 

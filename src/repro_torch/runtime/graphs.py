@@ -25,6 +25,11 @@ The graphs of one owner share one memory pool.  It holds only the
 bodies' temporaries: each body ends by copying what outlives it into its
 static buffers, and the graphs replay one at a time on one stream.
 
+A key's first call is timed in three parts, kept over every key (host
+seconds, ``setup_s`` their sum): ``warmup_s`` the eager call's launch,
+``sync_s`` the wait for it to finish and the ``empty_cache``, and
+``capture_s`` the capture.
+
 ``ops.LAUNCHES`` counts the launches that ran on the device: a capture
 records the counts its body's wrappers made and restores the table, and
 each replay adds them again (``ops.capture_launches`` /
@@ -114,11 +119,16 @@ class Graphs:
         self.cuda = device.type == "cuda"
         self._graphs: dict = {}
         self.setup_s = 0.0          # host seconds of warm-ups and captures
+        self.warmup_s = self.sync_s = self.capture_s = 0.0     # its parts
         self._pool = torch.cuda.graph_pool_handle() if self.cuda else None
         self._stream = torch.cuda.Stream(device) if self.cuda else None
 
     def __len__(self) -> int:
         return len(self._graphs)
+
+    def __contains__(self, key) -> bool:
+        """Whether ``key``'s program is captured (its next call replays)."""
+        return key in self._graphs
 
     def run(self, key, body: Callable[[], None], keep=()) -> None:
         """``body()`` as the key's program: replayed where captured, else
@@ -138,8 +148,10 @@ class Graphs:
         with torch.cuda.stream(self._stream):
             body()                               # the warm-up: a real call
         cur.wait_stream(self._stream)
+        t1 = time.perf_counter()
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
+        t2 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         try:
             with ops.capture_launches() as delta:
@@ -150,7 +162,11 @@ class Graphs:
             raise CaptureError(f"the capture failed: {type(e).__name__}: "
                                f"{e}") from e
         self._graphs[key] = (graph, delta, keep)
-        self.setup_s += time.perf_counter() - t0
+        t3 = time.perf_counter()
+        self.warmup_s += t1 - t0
+        self.sync_s += t2 - t1
+        self.capture_s += t3 - t2
+        self.setup_s += t3 - t0
 
 
 class StaticTick:
@@ -202,7 +218,14 @@ class StaticTick:
     has an empty buffer and reads nothing.
 
     The outputs are static too: ``emitted``, ``done``, ``req_id``,
-    ``active`` and ``packed`` are overwritten by the next tick."""
+    ``active`` and ``packed`` are overwritten by the next tick.
+
+    ``tracer`` (a ``runtime/trace.py::Tracer``, set through
+    ``ServeLoop.tracer``; None: nothing timed) times each call's host
+    phases before and after the program: ``static_tick.gate``,
+    ``adopt``, ``draws``, ``stage`` (the wait on the last staging copy
+    included), then ``replay``, or ``capture`` at a key's first call on
+    the card, and sanitized ``verdict``."""
 
     def __init__(self, engine, sanitize: bool = False):
         if engine.shards > 1 and engine._rank_mesh():
@@ -217,6 +240,7 @@ class StaticTick:
         self.copied_in = 0          # fields copied in from foreign states
         self.verdict_reads = 0      # host reads of a verdict buffer
         self.laws_checked = 0       # the verdicts those reads brought back
+        self.tracer = None
         self._reqs: dict = {}       # R -> (R, 4 + F) int32 static batch
         self._draws: dict = {}      # R -> static (rnd, gumbel)
         self._staging: dict = {}    # R -> pinned (R, 4 + F) host buffer
@@ -242,9 +266,18 @@ class StaticTick:
             if mine is not theirs:
                 self.copied_in += _copy_in(mine, theirs, f"state.{name}")
 
-    def _load(self, reqs: RequestBatch) -> None:
-        """The admission batch and its draws into the static buffers."""
-        R = reqs.req_id.shape[0]
+    def _draw(self, R: int) -> None:
+        """The admission's draws into their static buffers."""
+        rnd, gum = self.eng.draws(R)
+        if R not in self._draws:
+            self._draws[R] = (torch.empty_like(rnd, device=self.device),
+                              torch.empty_like(gum, device=self.device))
+        for dst, src in zip(self._draws[R], (rnd, gum)):
+            _same_layout(dst, src, "draws")
+            dst.copy_(src)
+
+    def _stage(self, reqs: RequestBatch, R: int) -> None:
+        """The admission batch into its static buffer."""
         if R not in self._reqs:
             F = reqs.features.shape[1]
             i32 = dict(dtype=torch.int32)
@@ -253,10 +286,6 @@ class StaticTick:
             if self.device.type == "cuda":
                 self._staging[R] = torch.empty((R, 4 + F), pin_memory=True,
                                                **i32)
-        rnd, gum = self.eng.draws(R)
-        if R not in self._draws:
-            self._draws[R] = (torch.empty_like(rnd, device=self.device),
-                              torch.empty_like(gum, device=self.device))
         buf, stage = self._reqs[R], self._staging.get(R)
         if stage is None or reqs.req_id.device == self.device:
             buf.copy_(reqs.pack())
@@ -268,9 +297,6 @@ class StaticTick:
             self._staged.synchronize()
             buf.copy_(reqs.pack(out=stage), non_blocking=True)
             self._staged.record()
-        for dst, src in zip(self._draws[R], (rnd, gum)):
-            _same_layout(dst, src, "draws")
-            dst.copy_(src)
 
     def _held(self, key, sink: list):
         """Inside a sanitized body: its guards' verdicts into the key's
@@ -321,16 +347,33 @@ class StaticTick:
         INV.raise_first(got, laws)
 
     def __call__(self, params, state, reqs: RequestBatch):
+        tr = self.tracer
+        if tr is not None:
+            tr.open("static_tick.gate")
         live = self.eng.arrivals(reqs)      # decided on the host
         R = None if live is None else reqs.req_id.shape[0]
+        if tr is not None:
+            tr.next("static_tick.adopt")
         self._adopt(state)
         if R is not None:
-            self._load(reqs)
+            if tr is not None:
+                tr.next("static_tick.draws")
+            self._draw(R)
+            if tr is not None:
+                tr.next("static_tick.stage")
+            self._stage(reqs, R)
         key = (R, live, id(params))
+        if tr is not None:
+            tr.next("static_tick.capture" if self.graphs.cuda
+                    and key not in self.graphs else "static_tick.replay")
         self.graphs.run(key, lambda: self._body(params, R, live, key),
                         keep=(params,))
         if self.sanitize:
+            if tr is not None:
+                tr.next("static_tick.verdict")
             self._check(key)
+        if tr is not None:
+            tr.close()
         return self.state, self.out
 
 

@@ -23,6 +23,11 @@ tick and keeps the same host state.
 A ``FaultInjector`` rolls back the progress of held instances before the
 step (the degraded-backend model the health daemon must detect), and
 under ``XLB_SANITIZE=1`` every tick ends with the queue-conservation law.
+
+A ``runtime/trace.py::Tracer`` set on ``ServeLoop.tracer`` (none by
+default) times each phase of a tick and counts its rows: taken, held
+(first holds among them), dropped, released from backoff and completed;
+the loop hands it to its captured tick, which times its own phases.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from repro_torch.core.balancer import Balancer, RequestBatch
 from repro_torch.core.routing_table import N_FEATURES, RoutingState, fnv1a
 from repro_torch.device import resolve_device
 from repro_torch.runtime import transport
+from repro_torch.runtime.trace import Tracer
 
 
 @dataclasses.dataclass
@@ -59,6 +65,7 @@ class Request:
     submit_tick: int = -1       # loop tick the request entered the ingress
     admit_tick: int = -1        # first tick it actually held a pool slot
     done_tick: int = -1         # tick its final token completed
+    t_admit: float = 0.0        # host clock at the launch of admit_tick
 
 
 class DrainReport(NamedTuple):
@@ -198,7 +205,10 @@ class ServeLoop:
             rc.bind(self)
             self.remote = rc
         self.state = balancer.init_state(routing, dtype=dtype)
-        self.serve_step = balancer.make_jitted(donate=False)
+        # ``_step``: the tick built here, which the tracer setter reaches
+        # even after a caller wraps ``serve_step``
+        self.serve_step = self._step = balancer.make_jitted(donate=False)
+        self._tracer = None
         self.queue: collections.deque[Request] = collections.deque()
         self.inflight: dict[int, Request] = {}
         self.done: list[Request] = []
@@ -230,6 +240,21 @@ class ServeLoop:
         self.state = self.balancer.apply_refresh(self.state, plan)
 
     # ------------------------------------------------------------------ #
+    @property
+    def tracer(self) -> Tracer | None:
+        """The tick's spans and counters (None: not kept)."""
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer: Tracer | None) -> None:
+        """Also hands ``tracer`` to the tick built at construction (a
+        captured tick times its own phases).  A tick a caller later puts
+        in ``serve_step`` in its place is timed only as a whole
+        (``serve_loop.step``)."""
+        self._tracer = tracer
+        if hasattr(self._step, "tracer"):       # the captured tick's own
+            self._step.tracer = tracer
+
     @property
     def n_queued(self) -> int:
         """Everything still at the ingress: ready queue + backoff set.
@@ -270,12 +295,14 @@ class ServeLoop:
                        (self.ticks + delay, self._wseq, req))
         self._wseq += 1
 
-    def _release_matured(self) -> None:
-        """Move matured backoff entries to the FRONT of the ready queue."""
+    def _release_matured(self) -> int:
+        """Move matured backoff entries to the FRONT of the ready queue;
+        how many."""
         batch = []
         while self._waiting and self._waiting[0][0] <= self.ticks:
             batch.append(heapq.heappop(self._waiting)[2])
         self.queue.extendleft(reversed(batch))
+        return len(batch)
 
     def _next_admission(self) -> tuple[RequestBatch, list]:
         """The next admission batch as host (CPU) tensors."""
@@ -301,24 +328,42 @@ class ServeLoop:
 
     def tick(self) -> dict:
         """One engine step: admit waiting requests + decode every lane."""
+        tr = self._tracer
+        if tr is not None:
+            tr.root("serve_loop.tick")
+            tr.open("serve_loop.control")
+            before = (len(self.done), len(self.dropped), self.held_first)
         if self.cp is not None:
             self.cp.heartbeat(self)          # liveness lease
         elif self.remote is not None:        # transport-attached: plans in,
             self.remote.pump(self.ticks)     # heartbeat + load report out
+        if tr is not None:
+            tr.next("serve_loop.fault")
         if self.fault is not None:           # roll progress back BEFORE
             pool = self.fault.apply(                             # the step
                 self.state.pool, self.ticks,
                 getattr(self.balancer, "first_instance", 0))
             if pool is not self.state.pool:
                 self.state = self.state._replace(pool=pool)
-        self._release_matured()
+        if tr is not None:
+            tr.next("serve_loop.release")
+        released = self._release_matured()
+        if tr is not None:
+            tr.next("serve_loop.ingress")
         reqs, taken = self._next_admission()
+        if tr is not None:
+            tr.next("serve_loop.step")
+        t_launch = time.perf_counter()
         self.state, out = self.serve_step(self.params, self.state, reqs)
+        if tr is not None:
+            tr.next("serve_loop.download")
         I, C = out["emitted"].shape
         n = I * C
         host = out["packed"]                    # one download per tick
         if isinstance(host, torch.Tensor):      # (a sidecar's is host numpy)
             host = host.cpu().numpy()
+        if tr is not None:
+            tr.next("serve_loop.complete")
         emitted, done, ids = host[:n], host[n:2 * n], host[2 * n:3 * n]
         serviced = set()
         for cell in np.flatnonzero(ids >= 0):     # row-major (i, s) order
@@ -328,26 +373,42 @@ class ServeLoop:
                 req = self.inflight[rid]
                 if req.admit_tick < 0:            # first tick holding a slot
                     req.admit_tick = self.ticks
+                    req.t_admit = t_launch
                 req.tokens.append(int(emitted[cell]))
                 if done[cell]:
                     r = self.inflight.pop(rid)
                     r.t_done = time.perf_counter()
                     r.done_tick = self.ticks
                     self.done.append(r)
+        if tr is not None:
+            tr.next("serve_loop.requeue")
         # held requests (pool exhausted / unroutable this tick) re-queue
-        for r in taken:
-            if r.req_id not in serviced and r.req_id in self.inflight:
-                self.inflight.pop(r.req_id)
-                if r.retries == 0:          # first hold: count the REQUEST
-                    self.held_first += 1
-                r.retries += 1
-                self._backoff(r)
+        held = [r for r in taken
+                if r.req_id not in serviced and r.req_id in self.inflight]
+        for r in held:
+            self.inflight.pop(r.req_id)
+            if r.retries == 0:              # first hold: count the REQUEST
+                self.held_first += 1
+            r.retries += 1
+            self._backoff(r)
+        if tr is not None:
+            tr.close()
+            for name, k in (
+                    ("serve_loop.taken", len(taken)),
+                    ("serve_loop.held", len(held)),
+                    ("serve_loop.first_holds", self.held_first - before[2]),
+                    ("serve_loop.dropped", len(self.dropped) - before[1]),
+                    ("serve_loop.released", released),
+                    ("serve_loop.completed", len(self.done) - before[0])):
+                tr.count(name, k)
         self.ticks += 1
         if sanitize_enabled():
             assert_host("loop", dict(
                 submitted=self.submitted, done=len(self.done),
                 dropped=len(self.dropped), queued=self.n_queued,
                 inflight=len(self.inflight)))
+        if tr is not None:
+            tr.close()
         return {"active": int(host[3 * n]), "queued": self.n_queued,
                 "done": len(self.done), "dropped": len(self.dropped)}
 

@@ -27,8 +27,7 @@ from repro_torch.workload.generators import (BurstyArrivals, DiurnalArrivals,
                                              PoissonArrivals,
                                              ServiceTimeShaper, Workload)
 from repro_torch.workload.scenarios import Op, ScenarioDriver, rolling_restart
-from repro_torch.workload.slo import (append_scenario_row, chaos_row,
-                                      percentiles, scenario_row,
+from repro_torch.workload.slo import (chaos_row, percentiles, scenario_row,
                                       validate_chaos_row,
                                       validate_scenario_row)
 
@@ -37,6 +36,6 @@ __all__ = [
     "LognormalServiceTimes", "ParetoServiceTimes", "FixedServiceTimes",
     "ServiceTimeShaper", "Workload", "ChainRunner", "ChainResult",
     "Op", "ScenarioDriver", "rolling_restart", "percentiles",
-    "scenario_row", "append_scenario_row", "validate_scenario_row",
+    "scenario_row", "validate_scenario_row",
     "chaos_row", "validate_chaos_row",
 ]

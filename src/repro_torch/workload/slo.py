@@ -9,23 +9,16 @@ numbers never enter a row.
 ``scenario_row`` and ``chaos_row`` build rows that validate against the
 schemas of :mod:`repro_torch.analysis.invariants`; a malformed row fails
 the run that produced it.  ``format_slo_table`` prints scenario rows
-as a Markdown table.  ``append_scenario_row`` stamps a row and
-appends it to a JSON-lines file, by default the port's own
-``BENCH_TREND_torch.jsonl`` in the working directory.
+as a Markdown table.
 """
 
 from __future__ import annotations
-
-import json
-import subprocess
-import time
 
 import numpy as np
 
 from repro_torch.analysis.invariants import validate_row
 
 PCTS = (50.0, 99.0, 99.9)
-TREND_FILE = "BENCH_TREND_torch.jsonl"
 
 
 def percentiles(samples) -> dict:
@@ -77,35 +70,6 @@ def validate_chaos_row(row: dict) -> None:
     """Raise ValueError on any chaos-row schema violation.  A
     non-converged run still validates: the row records the truth."""
     validate_row(row, "chaos")
-
-
-_VALIDATORS = {"scenario": validate_scenario_row,
-               "chaos": validate_chaos_row}
-
-
-def _git_commit() -> str:
-    try:
-        return subprocess.run(["git", "rev-parse", "--short", "HEAD"],
-                              capture_output=True, text=True,
-                              timeout=10).stdout.strip() or "unknown"
-    except (OSError, subprocess.SubprocessError):
-        return "unknown"
-
-
-def append_scenario_row(row: dict, path: str = TREND_FILE) -> dict:
-    """Validate, stamp (ts, commit), and append one row (scenario or
-    chaos — dispatched on ``bench``) to ``path``.  Returns the stamped
-    row."""
-    validator = _VALIDATORS.get(row.get("bench"))
-    if validator is None:
-        raise ValueError(f"no validator for bench {row.get('bench')!r}")
-    validator(row)
-    stamped = {"ts": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
-               "commit": _git_commit()}
-    stamped.update(row)
-    with open(path, "a") as f:
-        f.write(json.dumps(stamped) + "\n")
-    return stamped
 
 
 def format_slo_table(rows: list[dict]) -> str:

@@ -1141,14 +1141,16 @@ def test_analysis_kernels_section_exits_zero_on_the_card():
 # --------------------------------------------------------------------------- #
 
 
-def _serve_record(dev, captured, draws, midway, shards=1):
+def _serve_record(dev, captured, draws, midway, shards=1, tracer=False):
     """64 requests through ServeLoop over the XLB engine (8 x 4 slots,
     admit 8; ``shards``-way on a one-process mesh) on the card, through
     ``make_jitted``'s captured tick or the eager tick; ``draws``:
     "engine" (its own generator on the card) or "host" (a seeded CPU
     generator, copied over without a sync); ``midway``: a commit at tick
-    4 and lane 1 stalled over ticks 6-9.  Returns everything the drain
-    leaves: completions, tokens, ticks, routing, metrics and pool."""
+    4 and lane 1 stalled over ticks 6-9; ``tracer``: a ``Tracer`` on the
+    loop.  Returns everything the drain leaves: completions, tokens,
+    ticks, routing, metrics and pool (with ``tracer`` also the spans and
+    the captures' set-up split)."""
     from repro_torch.configs import XLB_SERVICE_MODEL as cfg
     from repro_torch.core import policies
     from repro_torch.core.interpose import Engine
@@ -1157,6 +1159,7 @@ def _serve_record(dev, captured, draws, midway, shards=1):
     from repro_torch.runtime import graphs
     from repro_torch.runtime.serve_loop import (Fault, FaultInjector,
                                                 Request, ServeLoop)
+    from repro_torch.runtime.trace import Tracer
     cp = _control_plane()
     params = M.init_params(cfg, torch.Generator().manual_seed(0),
                            torch.float32, dev)
@@ -1177,6 +1180,8 @@ def _serve_record(dev, captured, draws, midway, shards=1):
     assert isinstance(loop.serve_step, graphs.StaticTick)
     if not captured:
         loop.serve_step = eng.eager_step
+    if tracer:
+        loop.tracer = Tracer()
     for i in range(64):
         loop.submit(Request(req_id=i, service=i % 2,
                             headers={"user": f"u{i % 9}"},
@@ -1191,7 +1196,13 @@ def _serve_record(dev, captured, draws, midway, shards=1):
         assert loop.ticks < 400
     torch.cuda.synchronize()
     lists = lambda t: {f: getattr(t, f).tolist() for f in t._fields}  # noqa
-    return {"done": [(r.req_id, r.retries, r.admit_tick, r.done_tick)
+    extra = {}
+    if tracer:
+        g = loop.serve_step.graphs
+        extra = {"spans": loop.tracer.totals()["spans"],
+                 "split": (g.warmup_s, g.sync_s, g.capture_s, g.setup_s)}
+    return {**extra,
+            "done": [(r.req_id, r.retries, r.admit_tick, r.done_tick)
                      for r in loop.done],
             "tokens": [r.tokens for r in loop.done],
             "ticks": loop.ticks, "routing": lists(loop.routing),
@@ -1220,6 +1231,23 @@ def test_captured_tick_equals_the_eager_tick_on_the_card(dev, draws,
     assert not any(map(any, got["pool"]["active"]))
     if midway:
         assert got["routing"]["version"] >= 1
+
+
+def test_traced_captured_tick_equals_untraced_and_splits_its_set_up(dev):
+    """The captured drain with a ``Tracer`` on the loop bit-equal to the
+    same drain without one; each program's first call timed as its
+    capture, every later call as a replay; the captures' set-up split
+    into warm-up, sync and capture seconds that sum to ``setup_s``."""
+    got = _serve_record(dev, True, "engine", True, tracer=True)
+    want = _serve_record(dev, True, "engine", True)
+    spans, split = got.pop("spans"), got.pop("split")
+    assert got == want and got["graphs"] == 2
+    assert spans["static_tick.capture"][0] == 2
+    assert spans["static_tick.replay"][0] == got["ticks"] - 2
+    assert spans["serve_loop.tick"][0] == got["ticks"]
+    warm, sync, cap, setup = split
+    assert min(warm, sync, cap) > 0
+    assert abs(warm + sync + cap - setup) < 1e-9
 
 
 @pytest.mark.parametrize("M", [2, 4])

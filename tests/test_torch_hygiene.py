@@ -51,6 +51,7 @@ def test_port_never_imports_jax_or_the_reference():
             "configs/minitron_4b.py", "configs/mamba2_2_7b.py",
             "launch/prefill_decode.py", "convert.py", "core/health.py",
             "runtime/transport.py", "runtime/elastic.py",
+            "runtime/trace.py",
             "workload/generators.py", "workload/scenarios.py",
             "workload/slo.py", "analysis/invariants.py",
             "workload/hops.py", "workload/chain.py", "analysis/lint.py",

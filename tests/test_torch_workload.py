@@ -10,8 +10,7 @@
   driver logs, transaction counts and refusals.
 * ``percentiles``, ``scenario_row``, ``chaos_row`` and their validators:
   rows equal under ``json.dumps``, the same ``ValueError`` text for a
-  malformed row; ``append_scenario_row`` equal once the time stamp and
-  commit are dropped.
+  malformed row.
 
 Tolerance: exact.
 """
@@ -325,19 +324,3 @@ def test_format_slo_table_matches_reference():
 
     out = _both(run)
     assert "| 37/40 |" in out and "nan" in out and len(out.splitlines()) == 5
-
-
-def test_append_scenario_row_matches_reference(tmp_path):
-    def run(p):
-        path = tmp_path / f"{id(p)}.jsonl"
-        stamped = p.w.append_scenario_row(_row(p), path=str(path))
-        back = [json.loads(x) for x in path.read_text().splitlines()]
-        assert {"ts", "commit"} <= set(stamped) and len(back) == 1
-        return {k: v for k, v in back[0].items() if k not in ("ts",
-                                                                "commit")}
-
-    _both(run)
-    assert "no validator" in _raises(
-        lambda p: p.w.append_scenario_row({"bench": "perf"},
-                                          path=str(tmp_path / "x")))
-    assert TW.slo.TREND_FILE != "BENCH_TREND.jsonl"
