@@ -269,6 +269,17 @@ Then one JSON line of per-kernel numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA device; exits non-zero
 without one, or without the port's sources beside this file.
 
+Phase 2 ends with the nine-product f32 product (``ops.dense`` through
+``csrc/dense_x9.cu``) at the gateway decode's shapes, 128 rows against
+Minitron-4B's wq, wk, wv, wo, w_in, w_out and the head (``X9_SITES``):
+its largest absolute error against float64 at most twice that of
+``torch.matmul`` in f32 (TF32 off), two launches and a captured replay
+bitwise equal to the eager call, its device and call ms beside its bound,
+the plain version's ms and ``torch.matmul``'s (``library_ms``), and a
+tick's products (32 layers and the head) summed.  Phase 8's full-width
+``serve --arch`` runs count the kernel's launches inside their captured
+serving ticks (minitron-4b: 32 x 7 + 1 a tick), beside phase 2's.
+
 ``python3 chip_smoke.py --timing SRC`` times only the main path's drain
 and the one-process sharded admission of the port in SRC
 (``timing_for``): run it for two checkouts in one call, in turns, to
@@ -1230,6 +1241,107 @@ def phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib, dev="cuda",
     for t in timing.values():
         t["floor_ms"], t["issue_ms"] = floor, issue
     return rows, timing
+
+
+#: the gateway decode's products: x (X9_ROWS, K), its 128 lanes, against
+#: Minitron-4B's (K, N) of each site; X9_LAYERS layers of all but the head
+X9_ROWS, X9_LAYERS = 128, 32
+X9_SITES = {"wq": (3072, 3072), "wk": (3072, 1024), "wv": (3072, 1024),
+            "wo": (3072, 3072), "w_in": (3072, 9216), "w_out": (9216, 3072),
+            "head": (3072, 256000)}
+
+
+def phase_dense_x9(torch, ops, x9, gpu, dev="cuda"):
+    """``ops.dense`` through ``csrc/dense_x9.cu`` at each of ``X9_SITES``
+    (shapes shared by two sites measured once): the error against float64
+    beside ``torch.matmul``'s in f32, two launches and a captured replay
+    bitwise equal to the eager call, device ms (both kernels, profiler),
+    call ms, the bound (9 x 2 M K N operations at the bf16 peak, or the
+    planes, x and y at 3.35 TB/s), the plain version's ms and
+    ``torch.matmul``'s.  Returns (lines, {site: timing})."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(36)
+    lines, timing, done = [], {}, {}
+    for site, (K, N) in X9_SITES.items():
+        if (K, N) in done:
+            timing[site] = timing[done[K, N]]
+            continue
+        done[K, N] = site
+        x = torch.randn((X9_ROWS, K), generator=gen, device=dev)
+        w = torch.randn((K, N), generator=gen, device=dev) / K ** 0.5
+        h = x9.X9Weight(w, x9.split_planes(w))
+        n0 = ops.LAUNCHES["dense_x9"]
+        got = ops.dense(x, h)
+        again = ops.dense(x, h)
+        check(ops.LAUNCHES["dense_x9"] == n0 + 2,
+              f"dense_x9[{site}]: {ops.LAUNCHES['dense_x9'] - n0} launches "
+              "counted for 2 calls")
+        check(torch.equal(got, again), f"dense_x9[{site}]: two launches "
+              "differ")
+        graph, xs = torch.cuda.CUDAGraph(), x.clone()
+        with ops.capture_launches() as delta, torch.cuda.graph(graph):
+            ys = ops.dense(xs, h)
+        graph.replay()
+        ops.count_replay(delta)
+        torch.cuda.synchronize()
+        check(torch.equal(ys, got), f"dense_x9[{site}]: the captured "
+              "replay differs from the eager call")
+        check(delta == {"dense_x9": 1}
+              and ops.LAUNCHES["dense_x9"] == n0 + 3,
+              f"dense_x9[{site}]: the capture counted {delta}, the table "
+              f"{ops.LAUNCHES['dense_x9'] - n0} for 2 calls and a replay")
+        del graph, ys
+        want = x.double() @ w.double()
+        lib = torch.matmul(x, w)
+        err = float((got.double() - want).abs().max())
+        lib_err = float((lib.double() - want).abs().max())
+        plain_err = float((x9.dense_x9(x, h.planes).double() - want)
+                          .abs().max())
+        del want, lib
+        check(err <= 2 * lib_err, f"dense_x9[{site}]: max abs err {err:.3e}"
+              f" against float64 above twice torch.matmul's {lib_err:.3e}")
+        prof = profile_calls(torch, lambda: ops.dense(x, h),
+                             expect=("dense_x9_kernel",))
+        ms, kernel = kernel_time(prof, "dense_x9")
+        t = {"ms": ms, "kernel": kernel,
+             "reduce_ms": kernel_time(prof, "dense_x9_reduce")[0] or 0.0,
+             "call_ms": cuda_ms(torch, lambda: ops.dense(x, h)),
+             "plain_ms": cuda_ms(torch, lambda: x9.dense_x9(x, h.planes),
+                                 reps=3, warm=1),
+             "library_ms": cuda_ms(torch, lambda: torch.matmul(x, w)),
+             "library_device_ms": library_device_ms(
+                 torch, lambda: torch.matmul(x, w)),
+             "ops": 9 * 2 * X9_ROWS * K * N, "peak": BF16_OPS_PS,
+             "bytes": nbytes(h.planes, x) + 4 * X9_ROWS * N,
+             "err": err, "library_err": lib_err, "plain_err": plain_err}
+        timing[site] = t
+        lines.append(
+            f"dense_x9[{site}] (M {X9_ROWS}, K {K}, N {N}): device ms "
+            f"{t['ms']:.5f} ({kernel}; the reduce {t['reduce_ms']:.5f}), "
+            f"call ms {t['call_ms']:.5f}, bound ms "
+            f"{bound_ms(t)[0]:.5f}, plain ms {t['plain_ms']:.5f}, library ms "
+            f"{t['library_ms']:.5f} (device {t['library_device_ms']:.5f}); "
+            f"max abs err against float64 {err:.3e}, torch.matmul f32's "
+            f"{lib_err:.3e} (ratio {err / lib_err:.3f}), the plain "
+            f"version's {plain_err:.3e}; launches bitwise equal, the "
+            f"captured replay equal to the eager call; on {gpu}")
+        del x, w, h, got, again
+        torch.cuda.empty_cache()
+    tick = {k: sum(timing[s][k] * (1 if s == "head" else X9_LAYERS)
+                   for s in X9_SITES)
+            for k in ("ms", "reduce_ms", "library_device_ms", "ops")}
+    bound = sum(bound_ms(timing[s])[0] * (1 if s == "head" else X9_LAYERS)
+                for s in X9_SITES)
+    lines.append(
+        f"dense_x9 tick: {X9_LAYERS} x (wq, wk, wv, wo, w_in, w_out) + head "
+        f"= {len(X9_SITES) * X9_LAYERS - X9_LAYERS + 1} launches, device ms "
+        f"{tick['ms']:.3f} (the reduces {tick['reduce_ms']:.3f}) against "
+        f"torch.matmul f32's "
+        f"{tick['library_device_ms']:.3f}, bound ms {bound:.3f}; "
+        f"{tick['ops'] / tick['ms'] / 1e9:.1f} TFLOP/s of bf16 products = "
+        f"{100 * tick['ops'] / tick['ms'] * 1e3 / BF16_OPS_PS:.1f}% of the "
+        f"dense peak; on {gpu}")
+    return lines, timing
 
 
 def phase_model(torch, cfg, TM):
@@ -5132,33 +5244,61 @@ def phase_train_smoke(torch, ops, TM, train, configs, dev="cuda"):
 # --------------------------------------------------------------------------- #
 
 
-def phase_serve_arch(torch, serve):
+def phase_serve_arch(torch, ops, serve, get_config):
     """``serve.main(["--arch", a, "--device", "cuda"])`` for each arch of
     SERVE_ARCHS at full width (free the earlier phases' models first:
-    minitron-4b in f32 is about 16 GB) and of SERVE_SMOKE_ARCHS with
-    ``--smoke`` (the reduced config the reference's serve runs: their f32
-    weights pass one card); ``serve`` refuses whisper-large-v3 (an
-    encoder-decoder: the serving loop has no prompt audio to give it) as
-    the reference does."""
+    minitron-4b in f32 is about 20 GB, its bf16 planes 26 GB more) and of
+    SERVE_SMOKE_ARCHS with ``--smoke`` (the reduced config the reference's
+    serve runs: their f32 weights pass one card); ``serve`` refuses
+    whisper-large-v3 (an encoder-decoder: the serving loop has no prompt
+    audio to give it) as the reference does.  Each run counts the
+    ``dense_x9`` launches of its captured ticks' replays: minitron-4b's
+    tick holds one a projection (wq, wk, wv, wo, w_in, w_gate, w_out) of
+    each layer and the head, the service model's none (under the size
+    gate).  Returns (lines, {run: dense_x9 launches})."""
     import contextlib
     import io
-    lines = []
+    lines, x9 = [], {}
+    inner = ops.count_replay
     for arch, extra in ([(a, []) for a in SERVE_ARCHS]
                         + [(a, ["--smoke"]) for a in SERVE_SMOKE_ARCHS]):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
+        n0, per_tick = ops.LAUNCHES["dense_x9"], set()
+
+        def seen(delta):
+            inner(delta)
+            per_tick.add(delta.get("dense_x9", 0))
+
+        ops.count_replay = seen
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            n = serve.main(["--arch", arch, "--device", "cuda", *extra])
+        try:
+            with contextlib.redirect_stdout(buf):
+                n = serve.main(["--arch", arch, "--device", "cuda", *extra])
+        finally:
+            ops.count_replay = inner
         wall = time.perf_counter() - t0
         check(n == 32, f"serve --arch {arch} {extra}: {n} of 32 requests")
+        run = arch + " --smoke" * bool(extra)
+        x9[run] = ops.LAUNCHES["dense_x9"] - n0
+        if arch == "minitron-4b":
+            c = get_config(arch)
+            want = c.n_layers * (6 + (c.ffn_act == "swiglu")) + 1
+            check(per_tick == {want}, f"serve --arch {arch}: dense_x9 "
+                  f"launches a replayed tick {sorted(per_tick)}, not {want}")
+        if arch == "xlb-service-model":
+            check(x9[run] == 0, f"serve --arch {arch}: {x9[run]} dense_x9 "
+                  "launches under the size gate")
         first = buf.getvalue().splitlines()[0]
-        lines.append(f"serve --arch {arch}{' --smoke' * bool(extra)}: "
+        lines.append(f"serve --arch {run}: "
                      f"{first}; main() {wall:.2f} s with the weights' init; "
                      "peak memory "
-                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                     f"dense_x9 launches {x9[run]} "
+                     f"({'/'.join(map(str, sorted(per_tick)))} a replayed "
+                     "tick)")
     try:
         serve.main(["--arch", "whisper-large-v3", "--smoke", "--device",
                     "cuda"])
@@ -5169,7 +5309,7 @@ def phase_serve_arch(torch, serve):
         fail("serve --arch whisper-large-v3 did not exit")
     gc.collect()
     torch.cuda.empty_cache()
-    return lines
+    return lines, x9
 
 
 # --------------------------------------------------------------------------- #
@@ -5434,6 +5574,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import completion as cp
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import dense_x9 as x9
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import relay_dispatch as rs
     from repro_torch.kernels import route_match as rm
@@ -5494,6 +5635,11 @@ def main() -> int:
     rows, timing = phase_kernels(torch, RT, PD, ops, rm, rs, cp, B, lib,
                                  moe_shapes=moe_shapes)
     frows, ftiming = phase_float_kernels(torch, ops, da, fa, ssd)
+    n_x9 = ops.LAUNCHES["dense_x9"]
+    xrows, xtiming = phase_dense_x9(torch, ops, x9, gpu)
+    x9_launches = ops.LAUNCHES["dense_x9"] - n_x9
+    frows += xrows
+    ftiming["dense_x9"] = xtiming["w_in"]
     for t in ftiming.values():
         t["floor_ms"], t["issue_ms"] = timing["complete"]["floor_ms"], \
             timing["complete"]["issue_ms"]
@@ -5579,7 +5725,8 @@ def main() -> int:
     train_total = dict(train_whisper)
     for k, v in train_smoke.items():
         train_total[k] = train_total.get(k, 0) + v
-    for line in phase_serve_arch(torch, serve):
+    slines, serve_x9 = phase_serve_arch(torch, ops, serve, get_config)
+    for line in slines:
         print(line)
     elines, example_launches = phase_examples(torch, ops)
     for line in elines:
@@ -5600,9 +5747,14 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     for k, v in ctx_launches.items():           # the RunCtx phase's
         launches[k] = launches.get(k, 0) + v
+    # phase 2's isolated calls and the serving ticks of phase 8
+    launches["dense_x9"] = x9_launches + sum(serve_x9.values())
     print("kernels: " + " ".join(
         f"{k}={v}" for k, v in {**launches, "decode_attention[xlb]":
-                                main_launches["decode_attention"]}.items())
+                                main_launches["decode_attention"],
+                                "dense_x9[phase2]": x9_launches,
+                                "dense_x9[serve]":
+                                sum(serve_x9.values())}.items())
           + " (admit_commit, complete and decode_attention[xlb] on the main "
           "path; route_match, relay_slots and admit in the staged phase, "
           "and admit, complete, route_match and relay_slots in the sharded "
@@ -5613,7 +5765,10 @@ def main() -> int:
           f"relay_slots in {llm_launches['relay_slots']} launches of the "
           "MoE dispatch in " + ", ".join(MOE_ARCHS) + "; whisper-large-"
           "v3's serving cell: flash_attention in its encoder, not causal, "
-          "and decoder, decode_attention self and cross; the training "
+          "and decoder, decode_attention self and cross; dense_x9 in "
+          "phase 2's calls and the full-width serve runs' ticks ("
+          + " ".join(f"{k.replace(' ', '')}={v}" for k, v in serve_x9.items())
+          + "); the training "
           "forwards: " + " ".join(f"{k}={v}" for k, v in train_total.items())
           + " (whisper-large-v3 at full width "
           + " ".join(f"{k}={v}" for k, v in train_whisper.items())
@@ -5652,7 +5807,8 @@ def main() -> int:
             "flash_attention": (src + "flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:34"),
             "ssd_scan": (src + "ssd_scan.cu",
-                         "src/repro/kernels/ssd_scan.py:28")}
+                         "src/repro/kernels/ssd_scan.py:28"),
+            "dense_x9": (src + "dense_x9.cu", "none (XLA's x @ W)")}
     kernels = []
     for name, t in timing.items():
         bound, t_bytes, t_ops = bound_ms(t)
@@ -5687,6 +5843,8 @@ def main() -> int:
                 kernels[-1]["xlb_shape"] = {
                     k: xlb[k] for k in ("ms", "kernel", "library_ms",
                                         "library_device_ms")}
+            if name == "dense_x9":
+                kernels[-1]["launches_serve"] = serve_x9
             if name in sharded_launches:       # and in the sharded drain
                 kernels[-1]["launches_sharded_drain"] = \
                     sharded_launches[name]

@@ -6,7 +6,7 @@ Sections (any finding fails the process with exit code 1):
   1. ``registry``  — every PolicyDef carries its lowering hooks
      (``kernel_offset``, ``staged_offset``, ``host_pick``), a valid
      shard-merge rule, and a unique enum.
-  2. ``kernels``   — the eight CUDA kernels at the serving and model
+  2. ``kernels``   — the CUDA kernels at the serving and model
      paths' shapes and edges, bounds-checked on the card
      (``analysis/kernel_sweep.py``); it takes the place of the reference's
      jaxpr sweep.  ``--kernel-build bounds`` (the default) runs the

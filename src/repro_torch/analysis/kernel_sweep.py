@@ -1,4 +1,4 @@
-"""The ``kernels`` section of ``python -m repro_torch.analysis``: the eight
+"""The ``kernels`` section of ``python -m repro_torch.analysis``: the nine
 CUDA kernels, each through ``kernels/ops.py``, at the serving and model
 paths' shapes and their edges, bounds-checked.
 
@@ -9,7 +9,8 @@ stale Maglev entries, NaN Gumbel rows, held rows, ragged batches, the
 admission kernel at each tile it is built for (64, 256 and 1024 rows), the
 sharded widths (B3's all-free mode at W = 1024, past what a staged mask
 fits), B5's thread-block cluster, B6 at G = 48 and hd 16, B7 and B8 at
-hd 16.  What checks the bounds is the build (``_build.use_bounds_check``:
+hd 16, the nine-product f32 product off its tiles and with split
+tiles.  What checks the bounds is the build (``_build.use_bounds_check``:
 every computed index of global and shared memory asserted on the device,
 ``csrc/bounds.cuh``) or, where it can attach to the card, the sanitizer's
 memcheck around the normal build.  On top of that each result is held
@@ -29,7 +30,7 @@ import torch
 from repro_torch.analysis.lint import Finding
 from repro_torch.core import routing_table as RT
 from repro_torch.core.balancer import PoolState, RequestBatch
-from repro_torch.kernels import (completion, decode_attention,
+from repro_torch.kernels import (completion, decode_attention, dense_x9,
                                  flash_attention, ops, relay_dispatch,
                                  route_match, ssd_scan)
 
@@ -367,6 +368,29 @@ def _sweep_float(sw, dev, small):
                tol=tol)
 
 
+def _sweep_dense(sw, dev, small):
+    """The nine-product f32 product at the gateway's wk shape (split
+    tiles and their reduce), two row blocks with a ragged last column
+    tile, rows, columns and depth off the tiles, one block a stage, and a
+    single row at w_out's depth; against the plain nine-product version
+    within 1e-5 of the largest output (the two sum in other orders)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    shapes = [("wk", (128, 3072, 1024)),
+              ("two row blocks", (256, 1024, 1032)),
+              ("ragged", (7, 100, 136)), ("two blocks", (64, 36, 8)),
+              ("one row", (1, 9216, 3072))]
+    if small:
+        shapes = [(n, (M, min(K, 256), min(N, 256)))
+                  for n, (M, K, N) in shapes]
+    for name, (M, K, N) in shapes:
+        x = torch.randn((M, K), generator=g, device=dev)
+        w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
+        h = dense_x9.X9Weight(w, dense_x9.split_planes(w))
+        sw.run(f"dense_x9[{name}]", lambda: ops.dense(x, h),
+               lambda: dense_x9.dense_x9(x, h.planes),
+               tol=lambda want: (1e-5, 1e-5 * float(want.abs().max())))
+
+
 def kernel_findings(device="cuda") -> tuple[list[Finding], dict]:
     """Run the sweep on ``device``; returns (findings, info) with info
     ``{"cases", "launches", "build"}``."""
@@ -379,6 +403,7 @@ def kernel_findings(device="cuda") -> tuple[list[Finding], dict]:
     _sweep_completion(sw, dev)
     _sweep_relay(sw, dev, small)
     _sweep_float(sw, dev, small)
+    _sweep_dense(sw, dev, small)
     if dev.type == "cuda":
         missing = [k for k, v in sw.launches.items() if v == 0]
         if missing:

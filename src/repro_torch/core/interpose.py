@@ -49,6 +49,7 @@ from repro_torch.core import control, policies
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.core.routing_table import FlowMetrics, RoutingState
 from repro_torch.device import resolve_device
+from repro_torch.kernels import dense_x9 as x9
 from repro_torch.kernels import ops, shard_admit
 from repro_torch.models import model as M
 from repro_torch.runtime.graphs import StaticTick
@@ -114,6 +115,32 @@ class Engine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
         self.draws = lambda R: policies.draws(gen, R)
+        # id(params) -> (params, their serving tree, planes): one entry a
+        # params object, kept as long as the engine, as the captured
+        # programs that read its planes are
+        self._planed: dict = {}
+        self.plane_weights = 0      # weights (leaves) with planes
+        self.plane_bytes = 0        # bytes of those planes
+
+    def serving_params(self, params):
+        """The params the decode reads: on the card, ``params`` with bf16
+        planes beside each weight that ``kernels/dense_x9.py::
+        with_planes`` picks (made at a params object's first call, before
+        any capture, kept for that object, and split again in place where
+        a weight was updated in place since), so that ``ops.dense`` can
+        run its products on the tensor cores; elsewhere ``params``
+        itself.  The f32 weights stay the parameters."""
+        if self.device.type != "cuda":
+            return params
+        hit = self._planed.get(id(params))
+        if hit is None:
+            planed, roots = x9.with_planes(params)
+            hit = self._planed[id(params)] = (params, planed, roots)
+            self.plane_weights += len(roots)
+            self.plane_bytes += sum(r.planes.nbytes for r in roots)
+        for r in hit[2]:
+            r.refresh()
+        return hit[1]
 
     # ------------------------------------------------------------------ #
     @property
@@ -195,7 +222,7 @@ class Engine:
         pool = state.pool
         I, C = pool.req_id.shape
         B = I * C
-        logits, cache = M.decode_step(self.cfg, params,
+        logits, cache = M.decode_step(self.cfg, self.serving_params(params),
                                       pool.token.reshape(B, 1),
                                       pool.length.reshape(B), state.cache)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32).reshape(I, C)

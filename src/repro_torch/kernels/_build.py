@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("admit.cu", "complete.cu", "route.cu", "relay.cu",
            "decode_attention.cu", "flash_attention.cu", "ssd_scan.cu",
-           "launch_floor.cu")
+           "dense_x9.cu", "launch_floor.cu")
 HEADERS = ("match.cuh", "float_io.cuh",   # included; part of the hash
            "hopper.cuh", "bounds.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -95,6 +95,9 @@ SIGNATURES = {
                                                 # scratch
                     + [_I] * 6                  # B, S, nh, hd, N, dtype
                     + [_L] * 12                 # x, a, B, C strides
+                    + [_P],                     # stream
+    "xlb_dense_x9": [_P] * 4                    # x, planes, y, workspace
+                    + [_I] * 4                  # M, K, N, grid
                     + [_P],                     # stream
     "xlb_empty_launches": [_I, _P],
     "xlb_error_string": [_I],

@@ -558,29 +558,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// CUDA's tensor-map encoder, looked up through the runtime (no -lcuda).
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 4-D map over a bf16 (B, S, heads, hd) tensor with element strides
 // (sb, ss, sh, 1), as (hd, heads, S, B), boxes of (PW, 1, rows, 1).  A dim
 // of size 1 is never stepped, so its stride is replaced by a valid one.
 int encode(CUtensorMap* map, const void* base, int B, int S, int heads,
            int hd, long long sb, long long ss, long long sh, int rows,
            int pw, int sw) {
-  EncodeTiled fn = encoder();
+  xlb::EncodeTiled fn = xlb::tensor_map_encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   if (heads == 1) sh = hd;
   if (S == 1) ss = sh * heads;

@@ -12,9 +12,28 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 namespace xlb {
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// CUDA's tensor-map encoder, looked up through the runtime (no -lcuda);
+// null where the driver has none.
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -211,10 +230,12 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (m64n128, f32) += A (registers, bf16) * B (smem, MN-major: transposed)
+// D (m64n128, f32) (+)= A (registers, bf16) * B (smem, MN-major:
+// transposed); D is overwritten where `accumulate` is 0
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
                                                    const uint32_t (&a)[4],
-                                                   uint64_t db) {
+                                                   uint64_t db,
+                                                   int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
@@ -244,7 +265,8 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
 }
 
 // ---- warp-level MMA (mma.sync) ---------------------------------------------

@@ -26,6 +26,11 @@ K/V heads divide it (else replicated over ``model``); the relay rank
 takes its ids replicated, as it ranks over all of them.  Plain tensors
 among a DTensor call's arguments count as replicated.
 
+``dense`` is the models' projection product ``x @ W``: where the engine
+gave the weight bf16 planes (``kernels/dense_x9.py``) and the call is a
+decode's (f32 on the card, few rows, no gradient) it launches the
+nine-product kernel, else it is ``x @ W`` itself.
+
 The sharded wrappers (``admit_commit_sharded``, ``complete_sharded``)
 count the launches of the kernels they run per shard (and the route and
 relay kernels they run once a call) under those kernels' names.
@@ -56,6 +61,7 @@ from repro_torch.analysis.invariants import guard, sanitize_enabled
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.kernels import completion as _cp
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import dense_x9 as _x9
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import relay_dispatch as _rd
 from repro_torch.kernels import route_match as _rm
@@ -67,7 +73,7 @@ from repro_torch.sharding.specs import is_dtensor
 #: kernel launches per wrapper (incremented only where a kernel launches)
 LAUNCHES = {"admit": 0, "admit_commit": 0, "complete": 0, "route_match": 0,
             "relay_slots": 0, "decode_attention": 0, "flash_attention": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "dense_x9": 0}
 
 
 @contextlib.contextmanager
@@ -420,6 +426,36 @@ def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
         LAUNCHES["decode_attention"] += 1
         return res
     return _da.decode_attention(q, k_cache, v_cache, lengths)
+
+
+def takes_x9(x, w) -> bool:
+    """Whether ``dense(x, w)`` launches the nine-product kernel: ``w`` an
+    ``X9Weight`` of one matrix, ``x`` an f32 tensor on the card with at
+    most ``MAX_ROWS`` rows (a decode's lanes), no gradient recorded, and
+    neither a DTensor."""
+    if not isinstance(w, _x9.X9Weight) or is_dtensor(x) \
+            or is_dtensor(w.w) or w.planes.dim() != 3:
+        return False
+    if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() == 0:
+        return False
+    if torch.is_grad_enabled() and (x.requires_grad or w.w.requires_grad):
+        return False
+    return x.numel() <= _x9.MAX_ROWS * x.shape[-1]
+
+
+def dense(x, w):
+    """``x @ w``: through ``csrc/dense_x9.cu`` (nine exact bf16 products
+    on the tensor cores, f32 sums) where ``takes_x9``, else ``x @`` the
+    weight as PyTorch computes it (the CPU, gradients, bf16 weights,
+    prefill and training, DTensors, weights without planes: bitwise the
+    plain product)."""
+    if isinstance(w, _x9.X9Weight):
+        if takes_x9(x, w):
+            res = _x9.dense_x9_cuda(x, w.planes)
+            LAUNCHES["dense_x9"] += 1
+            return res
+        w = w.w
+    return x @ w
 
 
 class _FlashAttention(torch.autograd.Function):

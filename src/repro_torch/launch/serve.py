@@ -27,8 +27,9 @@ hybrid ones fit one card only with ``--smoke`` (granite-20b alone is
 about 113 GB in f32).  ``--trace`` keeps the loop's spans and counters
 (``runtime/trace.py``) and prints, after the drain, host ms a tick of
 each span, each counter a tick, the requests' queue wait (``t_admit -
-t_submit``) p50 and p99, and the captured tick's first calls split into
-warm-up, sync and capture seconds.
+t_submit``) p50 and p99, the XLB engine's weights with bf16 planes (the
+nine-product decode) and their bytes, and the captured tick's first calls
+split into warm-up, sync and capture seconds.
 """
 
 from __future__ import annotations
@@ -191,6 +192,9 @@ def _serve(args, cfg, device, kw) -> int:
         print(f"queue wait (submit to the launch of the admitting tick): "
               f"p50 {1e3*np.percentile(wait, 50):.3f} ms, p99 "
               f"{1e3*np.percentile(wait, 99):.3f} ms")
+        if hasattr(eng, "plane_weights"):
+            print(f"weights with bf16 planes (the nine-product decode): "
+                  f"{eng.plane_weights}, {eng.plane_bytes} B")
         g = getattr(loop.serve_step, "graphs", None)
         if g is not None and len(g):
             print(f"captured programs {len(g)}: set-up {g.setup_s:.4f} s = "

@@ -106,9 +106,9 @@ def _qkv(cfg: ModelConfig, p: Params, x, positions, kv_x=None):
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
     Skv = src.shape[1]
-    q = reshape(x @ p["wq"], B, Sq, H, hd)
-    k = reshape(src @ p["wk"], B, Skv, K, hd)
-    v = reshape(src @ p["wv"], B, Skv, K, hd)
+    q = reshape(ops.dense(x, p["wq"]), B, Sq, H, hd)
+    k = reshape(ops.dense(src, p["wk"]), B, Skv, K, hd)
+    v = reshape(ops.dense(src, p["wv"]), B, Skv, K, hd)
     if kv_x is not None:
         return q, k, v
     return (apply_rope(q, positions, cfg.rope_theta),
@@ -179,7 +179,7 @@ def gqa_full(cfg: ModelConfig, p: Params, x, positions, *,
     if cache is not None and n <= cache["k"].shape[1]:
         write_prefix(cache["k"], k)
         write_prefix(cache["v"], v)
-    return reshape(out, B, S, -1) @ p["wo"], cache
+    return ops.dense(reshape(out, B, S, -1), p["wo"]), cache
 
 
 def gqa_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
@@ -194,7 +194,7 @@ def gqa_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
     write_rows(cache["k"], lengths, k[:, 0])
     write_rows(cache["v"], lengths, v[:, 0])
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
-    return reshape(out, B, 1, -1) @ p["wo"], cache
+    return ops.dense(reshape(out, B, 1, -1), p["wo"]), cache
 
 
 def gqa_cross_decode(cfg: ModelConfig, p: Params, x, cross_k, cross_v):
@@ -302,7 +302,7 @@ def mla_full(cfg: ModelConfig, p: Params, x, positions, *,
     v = reshape(ckv @ p["w_uv"], B, S, H, m.v_head_dim)
     out = _mla_sdpa(q_nope, q_rope, k_nope, k_rope, v, _mla_scale(cfg),
                     q_chunk, shard)
-    out = reshape(out, B, S, H * m.v_head_dim) @ p["wo"]
+    out = ops.dense(reshape(out, B, S, H * m.v_head_dim), p["wo"])
     if cache is not None:
         write_prefix(cache["ckv"], ckv)
         write_prefix(cache["krope"], k_rope)
@@ -333,7 +333,7 @@ def mla_decode(cfg: ModelConfig, p: Params, x, lengths, cache: Params):
     out_lat = torch.einsum("bhqs,bsr->bqhr", w.to(ckv.dtype), ckv)
     w_uv = reshape(p["w_uv"], m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bqhr,rhd->bqhd", out_lat, w_uv)
-    return reshape(out, B, 1, H * m.v_head_dim) @ p["wo"], cache
+    return ops.dense(reshape(out, B, 1, H * m.v_head_dim), p["wo"]), cache
 
 
 # --------------------------------------------------------------------------- #

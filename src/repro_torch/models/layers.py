@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.sharding.specs import is_dtensor
 
 Params = dict
@@ -289,11 +290,11 @@ def init_ffn(draw: Draw, d_model: int, d_ff: int, act: str) -> Params:
 
 
 def ffn(params: Params, x, act: str):
-    h = x @ params["w_in"]
+    h = ops.dense(x, params["w_in"])
     if act == "swiglu":
-        h = torch.nn.functional.silu(x @ params["w_gate"]) * h
+        h = torch.nn.functional.silu(ops.dense(x, params["w_gate"])) * h
     elif act == "gelu":         # jax.nn.gelu's default: the tanh form
         h = torch.nn.functional.gelu(h, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act!r}")
-    return h @ params["w_out"]
+    return ops.dense(h, params["w_out"])

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -176,7 +177,7 @@ def _blocks(cfg: ModelConfig, cache):
 def _logits(cfg: ModelConfig, params: Params, x):
     """fp32 logits (B, Vp) of the last position of x (B, S, D)."""
     x = rms_norm(x[:, -1], params["norm_f"], cfg.norm_eps)
-    return (x @ params["head"]).to(torch.float32)
+    return ops.dense(x, params["head"]).to(torch.float32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -130,6 +130,12 @@ class Graphs:
         """Whether ``key``'s program is captured (its next call replays)."""
         return key in self._graphs
 
+    def launches(self, key) -> dict:
+        """The kernel launches each replay of ``key``'s program makes, by
+        ``ops.LAUNCHES`` name (empty where nothing is captured)."""
+        hit = self._graphs.get(key)
+        return hit[1] if hit is not None else {}
+
     def run(self, key, body: Callable[[], None], keep=()) -> None:
         """``body()`` as the key's program: replayed where captured, else
         warmed up eagerly and captured (CUDA), or run directly (CPU)."""
@@ -198,7 +204,10 @@ class StaticTick:
     set on a sharded engine (at most 2^M - 1; a batch filled from the
     front, as ``ServeLoop`` fills it, makes at most M).  The params'
     tensors are read in place: update them in place, or pass another
-    params object (which captures anew).
+    params object (which captures anew).  The weights' bf16 planes
+    (``Engine.serving_params``) are made at a params object's first call,
+    before its capture, and split again before a call where a weight was
+    updated in place; the programs keep them alive.
 
     ``sanitize`` (``make_jitted`` under ``XLB_SANITIZE=1``) is the
     reference's ``jax.jit(checkify.checkify(serve_step))``: the body runs
@@ -225,7 +234,9 @@ class StaticTick:
     phases before and after the program: ``static_tick.gate``,
     ``adopt``, ``draws``, ``stage`` (the wait on the last staging copy
     included), then ``replay``, or ``capture`` at a key's first call on
-    the card, and sanitized ``verdict``."""
+    the card, and sanitized ``verdict``; on the card it also counts in
+    ``static_tick.dense_x9`` the nine-product kernel's launches that the
+    call's program holds (``Graphs.launches``)."""
 
     def __init__(self, engine, sanitize: bool = False):
         if engine.shards > 1 and engine._rank_mesh():
@@ -363,11 +374,17 @@ class StaticTick:
                 tr.next("static_tick.stage")
             self._stage(reqs, R)
         key = (R, live, id(params))
+        # the weights' planes, made or refreshed before any capture, live
+        # as long as the program that reads them
+        planed = self.eng.serving_params(params)
         if tr is not None:
             tr.next("static_tick.capture" if self.graphs.cuda
                     and key not in self.graphs else "static_tick.replay")
         self.graphs.run(key, lambda: self._body(params, R, live, key),
-                        keep=(params,))
+                        keep=(params, planed))
+        if tr is not None and self.graphs.cuda:
+            tr.count("static_tick.dense_x9",
+                     self.graphs.launches(key).get("dense_x9", 0))
         if self.sanitize:
             if tr is not None:
                 tr.next("static_tick.verdict")

@@ -3,7 +3,8 @@ card: admission, completion, the route match and the relay slot
 assignment bit-exact on every integer output and both f32 EWMAs; decode
 attention, flash attention and the SSD scan within the tolerances of
 ``tests/test_kernels.py`` (f32 2e-5, the SSD's f32 recurrence 2e-4; bf16
-rtol 2e-2 with atol 2e-2 times the output's RMS).  Needs a CUDA device and nvcc: ``PYTHONPATH=src python -m pytest
+rtol 2e-2 with atol 2e-2 times the output's RMS); the nine-product f32
+product within twice ``torch.matmul``'s f32 error against float64.  Needs a CUDA device and nvcc: ``PYTHONPATH=src python -m pytest
 -q -m gpu tests/test_torch_cuda.py``; skipped without a card."""
 
 import numpy as np
@@ -13,8 +14,8 @@ import torch
 from repro_torch.core import routing_table as RT
 from repro_torch.core.balancer import PoolState, RequestBatch
 from repro_torch.kernels import (_build, completion, decode_attention,
-                                 flash_attention, ops, relay_dispatch,
-                                 route_match, ssd_scan)
+                                 dense_x9, flash_attention, ops,
+                                 relay_dispatch, route_match, ssd_scan)
 
 pytestmark = pytest.mark.gpu
 
@@ -1616,3 +1617,122 @@ def test_captured_model_decode_equals_eager_on_the_card(dev, arch):
     got_n, seen = _profiled_launches(lambda: dec.step(params, cache),
                                      ["decode_attention", "relay_slots"])
     assert got_n == seen, (got_n, seen)
+
+
+#: Minitron-4B's (K, N) at the gateway's decode: wq and wo, wk and wv,
+#: w_in, w_out, the head
+X9_SHAPES = [(3072, 3072), (3072, 1024), (3072, 9216), (9216, 3072),
+             (3072, 256000)]
+
+
+def _x9_inputs(dev, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M * 7 + K + N)
+    x = torch.randn((M, K), generator=g, device=dev)
+    w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
+    return x, w, dense_x9.X9Weight(w, dense_x9.split_planes(w))
+
+
+@pytest.mark.parametrize("K,N", X9_SHAPES)
+def test_dense_x9_error_at_most_twice_torch_matmul_f32(dev, K, N):
+    """At 128 rows: the kernel's largest absolute error against float64 is
+    at most twice that of ``torch.matmul`` in f32 (TF32 off); two launches
+    are bitwise equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w, h = _x9_inputs(dev, 128, K, N)
+    assert ops.takes_x9(x, h)
+    n0 = ops.LAUNCHES["dense_x9"]
+    got = ops.dense(x, h)
+    assert ops.LAUNCHES["dense_x9"] == n0 + 1
+    want = x.double() @ w.double()
+    err = float((got.double() - want).abs().max())
+    lib = float(((x @ w).double() - want).abs().max())
+    assert err <= 2 * lib, (err, lib)
+    assert torch.equal(ops.dense(x, h), got)
+
+
+def test_dense_x9_captured_replay_equals_the_eager_call(dev):
+    x, _, h = _x9_inputs(dev, 128, 3072, 1024)
+    want = ops.dense(x, h)
+    graph, xs = torch.cuda.CUDAGraph(), x.clone()
+    with torch.cuda.graph(graph):
+        ys = ops.dense(xs, h)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(ys, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 3072, 1024), (7, 100, 136),
+                                   (200, 1024, 2048), (256, 4096, 1032),
+                                   (64, 36, 8)])
+def test_dense_x9_ragged_shapes_within_f32_accumulation(dev, M, K, N):
+    """Rows, columns and depth off the tiles (zero-filled by TMA, masked
+    at the store; one block a stage or one an SM): within the bound of
+    f32 accumulation of the exact product, as the plain version."""
+    x, w, h = _x9_inputs(dev, M, K, N)
+    got = ops.dense(x, h)
+    want = x.double() @ w.double()
+    bound = 1.01 * (K + 9) * 2.0 ** -24 * (x.double().abs()
+                                          @ w.double().abs())
+    assert got.shape == (M, N)
+    assert bool(((got.double() - want).abs() <= bound).all())
+    plain = dense_x9.dense_x9(x, h.planes)
+    assert bool(((plain.double() - want).abs() <= bound).all())
+
+
+def test_dense_gate_keeps_the_plain_product_on_the_card(dev):
+    """More than MAX_ROWS rows, a recorded gradient and a weight without
+    planes take ``x @ W`` as PyTorch computes it, bitwise."""
+    x, w, h = _x9_inputs(dev, 300, 1024, 1024)
+    n0 = ops.LAUNCHES["dense_x9"]
+    assert torch.equal(ops.dense(x, h), x @ w)
+    xg = x[:8].clone().requires_grad_()
+    assert torch.equal(ops.dense(xg, h), xg @ w)
+    assert torch.equal(ops.dense(x[:8], w), x[:8] @ w)
+    assert ops.LAUNCHES["dense_x9"] == n0
+
+
+def test_captured_tick_keeps_each_params_planes_across_a_switch(
+        dev, monkeypatch):
+    """Params A, then B, then A again after an in-place update of A, on
+    the service model with planes on every projection (the size gate
+    lifted): each tick of the captured tick bit-equal to the eager
+    tick's, pool and KV cache, so A's replay reads A's planes split again
+    from the update; one set of planes a params object."""
+    from repro_torch.configs import XLB_SERVICE_MODEL as cfg
+    from repro_torch.core.interpose import Engine
+    from repro_torch.models import model as M
+    monkeypatch.setattr(dense_x9, "MIN_ELEMS", 1)
+    A, B = (M.init_params(cfg, torch.Generator().manual_seed(s),
+                          torch.float32, dev) for s in (0, 1))
+    snap = _control_plane().snapshot()
+    engs = [Engine(cfg, 8, 4, 8, device=dev) for _ in range(2)]
+    steps = [engs[0].make_jitted(), engs[1].eager_step]
+    states = [e.init_state(snap, dtype=torch.float32) for e in engs]
+
+    def batch(t):
+        b, _, _ = _batch(8, t, "cpu")
+        rid = torch.arange(8 * t, 8 * t + 8, dtype=torch.int32)
+        return b._replace(req_id=rid, svc=b.svc % 2)
+
+    n0 = ops.LAUNCHES["dense_x9"]
+    for t, (params, update) in enumerate([(A, False), (A, False),
+                                          (B, False), (A, True),
+                                          (A, False)]):
+        if update:
+            with torch.no_grad():
+                A["head"].copy_(B["head"])
+                A["blocks"]["attn"]["wk"].mul_(1.5)
+        for i in range(2):
+            states[i], _ = steps[i](params, states[i], batch(t))
+        torch.cuda.synchronize()
+        _equal_fields(states[0].pool, states[1].pool, f"tick {t}")
+        for g, w in zip(torch.utils._pytree.tree_leaves(states[0].cache),
+                        torch.utils._pytree.tree_leaves(states[1].cache)):
+            assert torch.equal(g, w), f"tick {t} cache"
+    assert len(steps[0].graphs) == 2         # A's and B's
+    per_set = sum(3 * 2 * t.numel() for t in
+                  [*A["blocks"]["attn"].values(),
+                   *A["blocks"]["ffn"].values(), A["head"]])
+    for e in engs:
+        assert len(e._planed) == 2 and e.plane_bytes == 2 * per_set
+    assert ops.LAUNCHES["dense_x9"] > n0

@@ -192,7 +192,7 @@ def test_wrappers_raise_without_a_built_library(fake_cuda, no_gpu):
     assert ops.LAUNCHES == {"admit": 0, "admit_commit": 0, "complete": 0,
                             "route_match": 0, "relay_slots": 0,
                             "decode_attention": 0, "flash_attention": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0, "dense_x9": 0}
 
 
 def test_wrappers_on_meta_tensors_take_the_plain_versions(monkeypatch):

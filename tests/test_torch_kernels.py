@@ -214,7 +214,7 @@ def test_admit_empty_batch_passes_state_through():
     assert ops.LAUNCHES == {"admit": 0, "admit_commit": 0, "complete": 0,
                             "route_match": 0, "relay_slots": 0,
                             "decode_attention": 0, "flash_attention": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0, "dense_x9": 0}
 
 
 def test_admit_integer_free_mask_and_rogue_svc():
